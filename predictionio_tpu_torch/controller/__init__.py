@@ -1,0 +1,22 @@
+"""The DASE controller API the port's templates program against."""
+
+from predictionio_tpu_torch.controller.base import params_from_json, params_to_json
+from predictionio_tpu_torch.controller.components import (
+    Algorithm,
+    DataSource,
+    FirstServing,
+    IdentityPreparator,
+    Preparator,
+    Serving,
+)
+from predictionio_tpu_torch.controller.engine import (
+    Engine,
+    EngineFactory,
+    EngineParams,
+)
+
+__all__ = [
+    "params_from_json", "params_to_json", "DataSource",
+    "Preparator", "IdentityPreparator", "Algorithm", "Serving",
+    "FirstServing", "Engine", "EngineFactory", "EngineParams",
+]

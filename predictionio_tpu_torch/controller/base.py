@@ -1,0 +1,67 @@
+"""Params plumbing.
+
+Template parameter classes are plain dataclasses; :func:`params_from_json`
+builds one from an ``engine.json`` params block, accepting both
+snake_case and the reference's camelCase key spellings (and ``lambda``
+for ``lambda_``, since the reference's ALS template uses the raw word) —
+the same resolution as the JAX package, so a variant stored by one
+package's train rebuilds the same params in the other's deploy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from dataclasses import is_dataclass
+from typing import Any, Dict, Optional, Type, TypeVar
+
+
+P = TypeVar("P")
+
+_CAMEL_RE = re.compile(r"(?<!^)(?=[A-Z])")
+
+
+def _snake(name: str) -> str:
+    return _CAMEL_RE.sub("_", name).lower()
+
+
+def params_from_json(cls: Type[P], obj: Optional[Dict[str, Any]]) -> P:
+    """Instantiate a params dataclass from a JSON dict.
+
+    Key resolution order: exact field name → camelCase→snake_case
+    normalization → trailing-underscore escape for Python keywords
+    (``lambda`` → ``lambda_``). Unknown keys raise.
+    """
+    obj = obj or {}
+    if not is_dataclass(cls):
+        if cls in (dict, Dict):  # type: ignore[comparison-overlap]
+            return dict(obj)  # type: ignore[return-value]
+        return cls(**obj)  # type: ignore[call-arg]
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs: Dict[str, Any] = {}
+    for key, value in obj.items():
+        cand = None
+        if key in fields:
+            cand = key
+        else:
+            sk = _snake(key)
+            if sk in fields:
+                cand = sk
+            elif sk + "_" in fields:  # e.g. lambda -> lambda_
+                cand = sk + "_"
+        if cand is None:
+            raise ValueError(
+                f"unknown parameter {key!r} for {cls.__name__}; "
+                f"known: {sorted(fields)}")
+        kwargs[cand] = value
+    return cls(**kwargs)  # type: ignore[call-arg]
+
+
+def params_to_json(params: Any) -> Dict[str, Any]:
+    if params is None:
+        return {}
+    if is_dataclass(params) and not isinstance(params, type):
+        return dataclasses.asdict(params)
+    if isinstance(params, dict):
+        return dict(params)
+    raise TypeError(f"cannot serialize params of type {type(params).__name__}")

@@ -1,0 +1,157 @@
+"""Deploy workflow: load a trained engine instance for serving.
+
+Equivalent of the reference's ``CreateServer.prepareDeploy`` (SURVEY.md
+§3.2) and of the JAX package's ``core/workflow.prepare_deploy``: load
+the latest COMPLETED instance for (engine factory, variant) — or a given
+one — rebuild its params from the recorded JSON, and restore each
+algorithm's model onto the serving device.
+
+Engine factories resolve through an explicit table. An instance trained
+by the JAX package records the JAX template's factory; importing it
+would import the JAX package, so the table maps each supported factory
+to the port's own template, and any other factory raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+from dataclasses import dataclass
+from typing import Any, List, Optional, Sequence, Tuple
+
+from predictionio_tpu_torch.controller.engine import (
+    Engine,
+    EngineFactory,
+    EngineParams,
+)
+from predictionio_tpu_torch.storage.meta import EngineInstance
+from predictionio_tpu_torch.storage.registry import Storage, get_storage
+from predictionio_tpu_torch.utils.device import resolve_device
+
+RECOMMENDATION_FACTORY = "predictionio_tpu_torch.templates.recommendation.engine:engine_factory"
+
+#: engine factory recorded in an instance → the port's factory serving it
+FACTORIES = {
+    "predictionio_tpu.templates.recommendation.engine:engine_factory":
+        RECOMMENDATION_FACTORY,
+    RECOMMENDATION_FACTORY: RECOMMENDATION_FACTORY,
+}
+
+
+def port_factory(engine_factory: str) -> str:
+    """The port's factory for ``engine_factory``; raises for a factory
+    the port does not serve yet."""
+    try:
+        return FACTORIES[engine_factory]
+    except KeyError:
+        raise ValueError(
+            f"engine factory {engine_factory!r} has no counterpart in "
+            f"predictionio_tpu_torch; it serves: {sorted(FACTORIES)}") from None
+
+
+@dataclass
+class DeployedEngine:
+    """A trained engine loaded for serving: the resident-model bundle."""
+
+    engine: Engine
+    engine_params: EngineParams
+    algorithms: List[Tuple[str, Any]]  # (name, Algorithm instance)
+    models: List[Any]
+    serving: Any
+    instance: EngineInstance
+
+    def query(self, query: Any) -> Any:
+        q = self.serving.supplement(query)
+        preds = [algo.predict(model, q)
+                 for (_, algo), model in zip(self.algorithms, self.models)]
+        return self.serving.serve(q, preds)
+
+    def batch_query(self, queries: Sequence[Any]) -> List[Any]:
+        """Answer a batch; AOT-bucket ``PAD`` sentinels pass through
+        untouched: pad slots are never supplemented or served and come
+        back as PAD so the batcher can slice them off. Algorithms that
+        batch onto the device (``accepts_padding``) see the padded list
+        inline; per-query algorithms only ever see real queries."""
+        from predictionio_tpu_torch.server.aot import PAD, is_pad
+
+        qs = [q if is_pad(q) else self.serving.supplement(q)
+              for q in queries]
+        real = [q for q in qs if not is_pad(q)]
+        per_algo = []
+        for (_, algo), model in zip(self.algorithms, self.models):
+            if getattr(algo, "accepts_padding", False) or len(real) == len(qs):
+                per_algo.append(algo.batch_predict(model, qs))
+            else:
+                preds = algo.batch_predict(model, real)
+                it = iter(preds)
+                per_algo.append(
+                    [None if is_pad(q) else next(it) for q in qs])
+        return [
+            PAD if is_pad(q)
+            else self.serving.serve(q, [preds[i] for preds in per_algo])
+            for i, q in enumerate(qs)
+        ]
+
+
+def _latest_completed(storage: Storage, engine_factory: str,
+                      variant_id: str) -> Optional[EngineInstance]:
+    """Newest COMPLETED instance among every factory the same port
+    template serves (an instance either package trained)."""
+    target = port_factory(engine_factory)
+    found = [storage.meta.get_latest_completed_engine_instance(f, variant_id)
+             for f, port in FACTORIES.items() if port == target]
+    found = [ei for ei in found if ei is not None]
+    return max(found, key=lambda ei: ei.start_time) if found else None
+
+
+def prepare_deploy(
+    engine_factory: Optional[str] = None,
+    instance_id: Optional[str] = None,
+    storage: Optional[Storage] = None,
+    variant_id: str = "",
+    device=None,
+) -> DeployedEngine:
+    """Load the latest COMPLETED instance (or a specific one) for serving
+    on ``device`` (CUDA unless the caller passes ``"cpu"``; raises when
+    there is no card and no CPU request)."""
+    device = resolve_device(device)
+    storage = storage or get_storage()
+    if instance_id is not None:
+        ei = storage.meta.get_engine_instance(instance_id)
+        if ei is None:
+            raise ValueError(f"engine instance {instance_id!r} not found")
+    else:
+        if engine_factory is None:
+            raise ValueError("need engine_factory or instance_id")
+        ei = _latest_completed(storage, engine_factory, variant_id)
+        if ei is None:
+            raise ValueError(
+                f"no COMPLETED engine instance for {engine_factory!r}; "
+                "run `pio train` first")
+
+    engine = EngineFactory.create(port_factory(ei.engine_factory))
+    # Rebuild EngineParams from the instance's recorded JSON
+    variant = {
+        "datasource": {"params": json.loads(ei.data_source_params)},
+        "preparator": {"params": json.loads(ei.preparator_params)},
+        "algorithms": json.loads(ei.algorithms_params),
+        "serving": {"params": json.loads(ei.serving_params)},
+    }
+    engine_params = engine.params_from_variant(variant)
+    algorithms = engine.make_algorithms(engine_params)
+
+    raw = storage.models.get(ei.id)
+    if raw is None:
+        raise ValueError(f"no model blob for instance {ei.id}")
+    blobs: List[Optional[bytes]] = pickle.loads(raw)
+    instance_dir = storage.models.model_dir(ei.id)
+    models = []
+    for (name, algo), blob in zip(algorithms, blobs):
+        algo_dir = os.path.join(instance_dir, name) if instance_dir else None
+        algo.set_serving_context(storage, device)
+        models.append(algo.load_model(blob, algo_dir))
+    serving = engine.serving_cls(engine_params.serving_params)
+    return DeployedEngine(
+        engine=engine, engine_params=engine_params, algorithms=algorithms,
+        models=models, serving=serving, instance=ei)

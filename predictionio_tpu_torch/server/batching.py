@@ -1,0 +1,257 @@
+"""Continuous micro-batching for the query hot path.
+
+The reference serves one query per request thread (akka-http →
+``predictBase`` — SURVEY.md §3.2); on the card the score program wants
+batched queries (one kernel launch amortizes the dispatch and the fixed
+device↔host round trip across the whole batch). This layer sits in
+front of ``DeployedEngine.batch_query``: each dispatch takes
+EVERYTHING queued at that moment (up to ``max_batch``), scores it as
+ONE device call, and fans the results back out — continuous batching
+at the request level.
+
+Batches form naturally from service time: while a dispatch runs, new
+arrivals queue; the next collect drains them all. There is no timed
+wait on the hot path: a fixed collect window would add its whole length
+to every batch whenever the clients cannot fill ``max_batch``.
+``max_wait_ms > 0`` remains as an opt-in batch-formation floor for
+sparse traffic where trading latency for bigger batches is worth it.
+
+Latency math: a lone query pays ~0 extra; under load per-query cost
+approaches dispatch/B. Enable with ``deploy --batching`` (or
+``EngineServer(batching=True)``).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import inspect
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+from predictionio_tpu_torch.server.aot import PAD, BucketLadder
+from predictionio_tpu_torch.utils.metrics import REGISTRY
+
+_BATCHES = REGISTRY.counter(
+    "pio_batcher_batches_total", "Micro-batch dispatches issued")
+_SUBMITTED = REGISTRY.counter(
+    "pio_batcher_submitted_total", "Queries accepted by the micro-batcher")
+_ISOLATIONS = REGISTRY.counter(
+    "pio_batcher_isolations_total",
+    "Failed batches re-run query-by-query")
+_BATCH_SIZE = REGISTRY.histogram(
+    "pio_batcher_batch_size", "Real (pre-padding) queries per dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+_BUCKET_DISPATCH = REGISTRY.counter(
+    "pio_batcher_bucket_dispatch_total",
+    "Dispatches per padded AOT bucket size", labelnames=("bucket",))
+
+
+class MicroBatcher:
+    """Order-preserving async micro-batcher around a sync batch fn.
+
+    With a ``BucketLadder`` attached, every collected batch is snapped UP
+    to the nearest ladder bucket and padded with ``PAD`` sentinels before
+    dispatch, so the device program always runs at a shape the AOT warmup
+    already warmed — no cold program on the hot path. The pad slots are
+    sliced off before results fan back out to callers.
+
+    With multi-model serving each submit carries a
+    ``group`` — the serving variant — and one collect dispatches ONE
+    padded batch PER GROUP: a padded batch never mixes two variants'
+    weights. A group may register its own ladder
+    (:meth:`set_group_ladder`); ``stop()`` drops that per-group ladder
+    state along with the worker, so a stop/serve-again cycle can never
+    dispatch against a stale ladder from the previous variant set.
+    """
+
+    def __init__(self, fn_batch: Callable[[Sequence[Any]], List[Any]],
+                 max_batch: int = 64, max_wait_ms: float = 0.0,
+                 ladder: Optional[BucketLadder] = None) -> None:
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self.fn_batch = fn_batch
+        # a batch fn may take (queries) or (queries, group); detect once
+        # so single-model servers (and their tests) are untouched
+        try:
+            self._fn_takes_group = (
+                len(inspect.signature(fn_batch).parameters) >= 2)
+        except (TypeError, ValueError):
+            self._fn_takes_group = False
+        self.max_batch = max_batch
+        self.max_wait = max_wait_ms / 1e3
+        self.ladder = ladder
+        self._group_ladders: Dict[Any, BucketLadder] = {}
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._worker: Optional[asyncio.Task] = None
+        self._executor: Optional[
+            concurrent.futures.ThreadPoolExecutor] = None
+        self.batches = 0      # observability: dispatches issued
+        self.submitted = 0    # queries accepted
+        self.isolations = 0   # failed batches re-run query-by-query
+
+    def _get_executor(self) -> concurrent.futures.ThreadPoolExecutor:
+        # dedicated executor: the shared to_thread pool can be saturated
+        # by blocked request handlers, which would deadlock the very
+        # dispatch those handlers are waiting on. Created lazily (and
+        # re-created after stop()) so a server that shuts down and
+        # serves again — supervisor restart, repeated run() — gets a
+        # live pool instead of 500ing every batched query.
+        if self._executor is None:
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="pio-batcher")
+        return self._executor
+
+    def _ensure_worker(self) -> None:
+        if self._worker is None or self._worker.done():
+            self._worker = asyncio.get_running_loop().create_task(self._run())
+
+    def set_group_ladder(self, group: Any,
+                         ladder: Optional[BucketLadder]) -> None:
+        """Attach (or with ``None``, detach) a per-group bucket ladder —
+        one serving variant's padded-shape set."""
+        if ladder is None:
+            self._group_ladders.pop(group, None)
+        else:
+            self._group_ladders[group] = ladder
+
+    async def submit(self, query: Any, group: Any = None) -> Any:
+        """Enqueue one query; resolves to its prediction (or raises).
+        ``group`` keys the dispatch batch (the serving variant): queries
+        from different groups never share a padded batch."""
+        self._ensure_worker()
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self.submitted += 1
+        _SUBMITTED.inc()
+        await self._queue.put((query, fut, group))
+        return await fut
+
+    def _pad_to_bucket(self, queries: List[Any],
+                       group: Any = None) -> List[Any]:
+        """Snap the batch up to the nearest ladder bucket with PAD
+        sentinels (no-op without a ladder, or when the batch already
+        sits on a bucket)."""
+        ladder = self._group_ladders.get(group, self.ladder)
+        if ladder is None:
+            return queries
+        bucket = ladder.snap(len(queries))
+        if bucket <= len(queries):  # snap() floors at the top bucket
+            return queries
+        return queries + [PAD] * (bucket - len(queries))
+
+    def _dispatch(self, queries: List[Any], group: Any = None) -> List[Any]:
+        """Synchronous dispatch (runs on the batcher executor): pad to
+        the bucket, call the batch fn, arity-check at the PADDED length,
+        slice the pad slots back off."""
+        n = len(queries)
+        padded = self._pad_to_bucket(queries, group)
+        _BATCH_SIZE.observe(n)
+        _BUCKET_DISPATCH.inc(labels=(str(len(padded)),))
+        if self._fn_takes_group:
+            results = self.fn_batch(padded, group)
+        else:
+            results = self.fn_batch(padded)
+        if len(results) != len(padded):
+            raise RuntimeError(
+                f"batch fn returned {len(results)} results for "
+                f"{len(padded)} queries")
+        return results[:n]
+
+    async def _collect(self) -> List[tuple]:
+        """One batch: block for the first item, then take everything
+        already queued (one cooperative yield first, so request
+        handlers that are ready-to-run get to enqueue). A timed fill
+        window runs only when ``max_wait_ms > 0`` was requested."""
+        first = await self._queue.get()
+        items = [first]
+        if self.max_batch == 1:
+            return items
+        await asyncio.sleep(0)  # let ready handlers enqueue
+        while len(items) < self.max_batch:
+            try:
+                items.append(self._queue.get_nowait())
+            except asyncio.QueueEmpty:
+                break
+        if self.max_wait <= 0:
+            return items
+        deadline = asyncio.get_running_loop().time() + self.max_wait
+        while len(items) < self.max_batch:
+            timeout = deadline - asyncio.get_running_loop().time()
+            if timeout <= 0:
+                break
+            try:
+                items.append(await asyncio.wait_for(self._queue.get(),
+                                                    timeout))
+            except asyncio.TimeoutError:
+                break
+        return items
+
+    async def _run(self) -> None:
+        while True:
+            collected = await self._collect()
+            # split per group, arrival order preserved within each: a
+            # padded batch must never mix two variants' weights
+            grouped: Dict[Any, List[tuple]] = {}
+            for item in collected:
+                grouped.setdefault(item[2], []).append(item)
+            for group, items in grouped.items():
+                await self._run_group(group, items)
+
+    async def _run_group(self, group: Any, items: List[tuple]) -> None:
+        queries = [q for q, _, _ in items]
+        self.batches += 1
+        _BATCHES.inc()
+        loop = asyncio.get_running_loop()
+        try:
+            results = await loop.run_in_executor(
+                self._get_executor(), self._dispatch, queries, group)
+        except Exception as e:
+            if len(items) == 1:
+                if not items[0][1].done():
+                    items[0][1].set_exception(e)
+                return
+            # One bad query must not poison its batch siblings — and
+            # each caller must see their OWN error (a sibling getting
+            # the offender's ValueError would read as 400 for a fine
+            # query). Isolate by re-running every query alone.
+            self.isolations += 1
+            _ISOLATIONS.inc()
+            for q, fut, _ in items:
+                if fut.done():  # caller gone — don't burn a dispatch
+                    continue
+                try:
+                    r = await loop.run_in_executor(
+                        self._get_executor(), self._dispatch, [q], group)
+                except Exception as single_e:
+                    if not fut.done():
+                        fut.set_exception(single_e)
+                else:
+                    if not fut.done():
+                        fut.set_result(r[0])
+            return
+        for (_, fut, _), r in zip(items, results):
+            if not fut.done():
+                fut.set_result(r)
+
+    def stop(self) -> None:
+        """Cancel the collector and release the executor. The batcher
+        stays usable: the next submit() restarts both. Queries still
+        queued (never dispatched) are failed immediately so their
+        callers don't hang awaiting a worker that no longer exists.
+        Per-group (variant) ladder state is dropped too: the next serve
+        cycle may host a different variant set, and padding against the
+        previous set's ladders would dispatch uncompiled shapes."""
+        if self._worker is not None:
+            self._worker.cancel()
+            self._worker = None
+        if self._executor is not None:
+            self._executor.shutdown(wait=False, cancel_futures=True)
+            self._executor = None
+        self._group_ladders.clear()
+        while True:
+            try:
+                _, fut, _ = self._queue.get_nowait()
+            except asyncio.QueueEmpty:
+                break
+            if not fut.done():
+                fut.set_exception(
+                    RuntimeError("micro-batcher stopped before dispatch"))

@@ -1,0 +1,178 @@
+"""Meta-data store: the engine-instance records deploy reads.
+
+The port's copy of the engine-instance part of the JAX package's
+``storage/meta.py``, on the same SQLite schema and time format, so an
+instance one package's train wrote into a ``PIO_HOME`` is found by the
+other's deploy. Serving loads the latest COMPLETED instance for
+(engine factory, variant) — the reference's
+``EngineInstances.getLatestCompleted``.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import json
+import secrets
+import sqlite3
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+
+def utcnow() -> _dt.datetime:
+    return _dt.datetime.now(_dt.timezone.utc)
+
+
+def format_time(dt: _dt.datetime) -> str:
+    """ISO-8601 with milliseconds, e.g. ``2026-07-29T12:34:56.789+00:00``."""
+    if dt.tzinfo is None:
+        dt = dt.replace(tzinfo=_dt.timezone.utc)
+    return dt.isoformat(timespec="milliseconds")
+
+
+def parse_time(value: str) -> _dt.datetime:
+    s = value.strip()
+    if s.endswith("Z"):
+        s = s[:-1] + "+00:00"
+    dt = _dt.datetime.fromisoformat(s)
+    if dt.tzinfo is None:
+        dt = dt.replace(tzinfo=_dt.timezone.utc)
+    return dt
+
+
+@dataclass
+class EngineInstance:
+    """One train run's record; serving loads the latest COMPLETED one."""
+
+    id: str
+    status: str  # INIT | TRAINING | COMPLETED | FAILED
+    start_time: _dt.datetime
+    end_time: Optional[_dt.datetime]
+    engine_factory: str  # "module.path:factory_callable"
+    engine_variant: str
+    batch: str
+    env: Dict[str, str]
+    mesh_conf: Dict[str, Any]
+    data_source_params: str
+    preparator_params: str
+    algorithms_params: str
+    serving_params: str
+
+
+_SCHEMA = """CREATE TABLE IF NOT EXISTS engine_instances (
+    id TEXT PRIMARY KEY,
+    status TEXT NOT NULL,
+    startTime TEXT NOT NULL,
+    endTime TEXT,
+    engineFactory TEXT NOT NULL,
+    engineVariant TEXT NOT NULL,
+    batch TEXT NOT NULL,
+    env TEXT NOT NULL,
+    meshConf TEXT NOT NULL,
+    dataSourceParams TEXT NOT NULL,
+    preparatorParams TEXT NOT NULL,
+    algorithmsParams TEXT NOT NULL,
+    servingParams TEXT NOT NULL
+)"""
+
+_EI_COLS = ("id", "status", "startTime", "endTime", "engineFactory",
+            "engineVariant", "batch", "env", "meshConf", "dataSourceParams",
+            "preparatorParams", "algorithmsParams", "servingParams")
+
+
+class MetaStore:
+    """SQLite-backed engine-instance store (``':memory:'`` for tests).
+    File databases get one connection per thread in WAL mode; an
+    in-memory database exists per connection, so all threads share one."""
+
+    def __init__(self, path: str = ":memory:") -> None:
+        self._path = path
+        self._lock = threading.RLock()
+        self._local = threading.local()
+        self._shared = self._connect() if path == ":memory:" else None
+        self._x(_SCHEMA)
+
+    def _connect(self) -> sqlite3.Connection:
+        conn = sqlite3.connect(self._path, timeout=30.0,
+                               check_same_thread=self._path != ":memory:")
+        if self._path != ":memory:":
+            conn.execute("PRAGMA journal_mode=WAL")
+            conn.execute("PRAGMA synchronous=NORMAL")
+        return conn
+
+    def _conn(self) -> sqlite3.Connection:
+        if self._shared is not None:
+            return self._shared
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._local.conn = self._connect()
+        return conn
+
+    def _q1(self, q: str, args: tuple = ()) -> Optional[tuple]:
+        with self._lock:
+            c = self._conn()
+            try:
+                rows = c.execute(q, args).fetchall()
+                c.commit()
+            except Exception:
+                c.rollback()
+                raise
+        return rows[0] if rows else None
+
+    def _x(self, q: str, args: tuple = ()) -> None:
+        with self._lock:
+            c = self._conn()
+            try:
+                c.execute(q, args)
+                c.commit()
+            except Exception:
+                c.rollback()
+                raise
+
+    def insert_engine_instance(self, ei: EngineInstance) -> None:
+        self._x(
+            f"INSERT OR REPLACE INTO engine_instances ({','.join(_EI_COLS)}) "
+            f"VALUES ({','.join('?' * len(_EI_COLS))})",
+            (
+                ei.id, ei.status, format_time(ei.start_time),
+                format_time(ei.end_time) if ei.end_time else None,
+                ei.engine_factory, ei.engine_variant, ei.batch,
+                json.dumps(ei.env), json.dumps(ei.mesh_conf),
+                ei.data_source_params, ei.preparator_params,
+                ei.algorithms_params, ei.serving_params,
+            ),
+        )
+
+    @staticmethod
+    def _ei_from_row(r) -> EngineInstance:
+        return EngineInstance(
+            id=r[0], status=r[1],
+            start_time=parse_time(r[2]),
+            end_time=parse_time(r[3]) if r[3] else None,
+            engine_factory=r[4], engine_variant=r[5], batch=r[6],
+            env=json.loads(r[7]), mesh_conf=json.loads(r[8]),
+            data_source_params=r[9], preparator_params=r[10],
+            algorithms_params=r[11], serving_params=r[12],
+        )
+
+    def get_engine_instance(self, instance_id: str) -> Optional[EngineInstance]:
+        row = self._q1(
+            f"SELECT {','.join(_EI_COLS)} FROM engine_instances WHERE id=?",
+            (instance_id,))
+        return self._ei_from_row(row) if row else None
+
+    def get_latest_completed_engine_instance(
+        self, engine_factory: str, engine_variant: str = ""
+    ) -> Optional[EngineInstance]:
+        q = (f"SELECT {','.join(_EI_COLS)} FROM engine_instances "
+             "WHERE status='COMPLETED' AND engineFactory=?")
+        args: List[Any] = [engine_factory]
+        if engine_variant:
+            q += " AND engineVariant=?"
+            args.append(engine_variant)
+        q += " ORDER BY startTime DESC LIMIT 1"
+        row = self._q1(q, tuple(args))
+        return self._ei_from_row(row) if row else None
+
+    def new_instance_id(self) -> str:
+        return utcnow().strftime("%Y%m%d%H%M%S") + "-" + secrets.token_hex(4)
