@@ -1,6 +1,10 @@
 """The DASE controller API the port's templates program against."""
 
-from predictionio_tpu_torch.controller.base import params_from_json, params_to_json
+from predictionio_tpu_torch.controller.base import (
+    WorkflowContext,
+    params_from_json,
+    params_to_json,
+)
 from predictionio_tpu_torch.controller.components import (
     Algorithm,
     DataSource,
@@ -16,7 +20,7 @@ from predictionio_tpu_torch.controller.engine import (
 )
 
 __all__ = [
-    "params_from_json", "params_to_json", "DataSource",
+    "params_from_json", "params_to_json", "WorkflowContext", "DataSource",
     "Preparator", "IdentityPreparator", "Algorithm", "Serving",
     "FirstServing", "Engine", "EngineFactory", "EngineParams",
 ]

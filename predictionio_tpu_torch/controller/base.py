@@ -1,4 +1,4 @@
-"""Params plumbing.
+"""Params plumbing and the workflow context.
 
 Template parameter classes are plain dataclasses; :func:`params_from_json`
 builds one from an ``engine.json`` params block, accepting both
@@ -12,8 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from dataclasses import is_dataclass
+from dataclasses import dataclass, field, is_dataclass
 from typing import Any, Dict, Optional, Type, TypeVar
+
+import torch
+
+from predictionio_tpu_torch.storage.registry import Storage, get_storage
 
 
 P = TypeVar("P")
@@ -65,3 +69,28 @@ def params_to_json(params: Any) -> Dict[str, Any]:
     if isinstance(params, dict):
         return dict(params)
     raise TypeError(f"cannot serialize params of type {type(params).__name__}")
+
+
+@dataclass
+class WorkflowContext:
+    """Carried through every DASE stage of a train run.
+
+    ``storage`` gives data sources the event and meta repositories;
+    ``device`` is the torch device the algorithms train on (None: CUDA,
+    raising when there is no card, ``utils/device.resolve_device``);
+    per-phase wall-clock seconds land in ``timings``."""
+
+    storage: Storage = field(default_factory=get_storage)
+    device: Optional[torch.device] = None
+    verbose: int = 0
+    timings: Dict[str, float] = field(default_factory=dict)
+    instance_id: str = ""
+
+    def log(self, msg: str) -> None:
+        if self.verbose:
+            print(f"[workflow {self.instance_id or '-'}] {msg}", flush=True)
+
+    def checkpointer(self, name: str) -> None:
+        """Mid-train checkpoints are not ported yet: always None, so an
+        algorithm's ``checkpoint_every`` parses but does nothing."""
+        return None

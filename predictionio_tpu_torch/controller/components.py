@@ -1,5 +1,4 @@
-"""The DASE roles the serving path needs: DataSource and Preparator (for
-their params), Algorithm, Serving.
+"""The DASE roles: DataSource, Preparator, Algorithm, Serving.
 
 Model persistence contract, as in the JAX package: by default a trained
 model is pickled into the model blob store; an Algorithm may override
@@ -52,8 +51,9 @@ class Algorithm(ABC, Generic[PD, M, Q, PR]):
 
     def __init__(self, params: Any = None) -> None:
         self.params = params
-        #: set by prepare_deploy: the Storage and the torch device this
-        #: serving process uses; None during training
+        #: the torch device this algorithm trains on (set by Engine.train)
+        #: or serves on (set by prepare_deploy); set_serving_context also
+        #: gives it the serving process's Storage
         self.serving_storage: Any = None
         self.device: Any = None
 
@@ -89,6 +89,10 @@ class Algorithm(ABC, Generic[PD, M, Q, PR]):
         (× each top-k width in ``ks``). Return ``{"targets", "compiled",
         "cached"}`` counts, or None. Default: nothing to warm."""
         return None
+
+    def sanity_check(self, data: Any) -> None:
+        """Hook mirroring the reference's SanityCheck trait: raise if the
+        training data is degenerate (empty training set etc.)."""
 
     def save_model(self, model: M, instance_dir: Optional[str]) -> Optional[bytes]:
         return pickle.dumps(model)

@@ -4,10 +4,11 @@
 from __future__ import annotations
 
 import importlib
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Tuple, Type
 
-from predictionio_tpu_torch.controller.base import params_from_json
+from predictionio_tpu_torch.controller.base import WorkflowContext, params_from_json
 from predictionio_tpu_torch.controller.components import (
     Algorithm,
     DataSource,
@@ -84,6 +85,36 @@ class Engine:
             (name, self.algorithm_cls_map[name](params))
             for name, params in engine_params.algorithms_params
         ]
+
+    def train(self, ctx: WorkflowContext, engine_params: EngineParams) -> List[Any]:
+        """readTraining → prepare → sanity check → each algorithm's train
+        (reference: Engine.train). Returns models in algorithms order;
+        per-phase wall-clock lands in ``ctx.timings``."""
+        from predictionio_tpu_torch.utils import tracing
+
+        t0 = time.perf_counter()
+        with tracing.span("train.read"):
+            ds = self.data_source_cls(engine_params.data_source_params)
+            td = ds.read_training(ctx)
+        ctx.timings["read_training"] = time.perf_counter() - t0
+        ctx.log("read_training done")
+        t0 = time.perf_counter()
+        with tracing.span("train.prepare"):
+            prep = self.preparator_cls(engine_params.preparator_params)
+            pd = prep.prepare(ctx, td)
+        ctx.timings["prepare"] = time.perf_counter() - t0
+        ctx.log("prepare done")
+        models = []
+        for name, algo in self.make_algorithms(engine_params):
+            algo.device = ctx.device
+            algo.sanity_check(pd)
+            ctx.log(f"training algorithm {name!r}")
+            t0 = time.perf_counter()
+            with tracing.span("train.fit", algorithm=name):
+                models.append(algo.train(ctx, pd))
+            ctx.timings[f"train:{name}"] = time.perf_counter() - t0
+            ctx.log(f"algorithm {name!r} trained")
+        return models
 
 
 class EngineFactory:

@@ -1,15 +1,21 @@
-"""Deploy workflow: load a trained engine instance for serving.
+"""Train and deploy workflows.
 
-Equivalent of the reference's ``CreateServer.prepareDeploy`` (SURVEY.md
-§3.2) and of the JAX package's ``core/workflow.prepare_deploy``: load
-the latest COMPLETED instance for (engine factory, variant) — or a given
-one — rebuild its params from the recorded JSON, and restore each
-algorithm's model onto the serving device.
+Equivalent of the reference's ``CoreWorkflow`` / ``CreateServer.prepareDeploy``
+(SURVEY.md §3.1–3.2) and of the JAX package's ``core/workflow``:
+
+- :func:`run_train` — INIT row → TRAINING → ``Engine.train`` on the
+  device → persist the per-algorithm model blobs → COMPLETED (or FAILED);
+- :func:`prepare_deploy` — load the latest COMPLETED instance for (engine
+  factory, variant), or a given one, rebuild its params from the
+  recorded JSON, and restore each algorithm's model onto the serving
+  device.
 
 Engine factories resolve through an explicit table. An instance trained
 by the JAX package records the JAX template's factory; importing it
 would import the JAX package, so the table maps each supported factory
-to the port's own template, and any other factory raises.
+to the port's own template, and any other factory raises. An instance
+the port trains records the JAX package's name of its template, so
+either package's deploy finds it under the factory it knows.
 """
 
 from __future__ import annotations
@@ -17,26 +23,34 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import traceback
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineFactory,
     EngineParams,
 )
-from predictionio_tpu_torch.storage.meta import EngineInstance
+from predictionio_tpu_torch.controller.base import WorkflowContext, params_to_json
+from predictionio_tpu_torch.storage.meta import EngineInstance, utcnow
 from predictionio_tpu_torch.storage.registry import Storage, get_storage
 from predictionio_tpu_torch.utils.device import resolve_device
 
 RECOMMENDATION_FACTORY = "predictionio_tpu_torch.templates.recommendation.engine:engine_factory"
+JAX_RECOMMENDATION_FACTORY = "predictionio_tpu.templates.recommendation.engine:engine_factory"
 
 #: engine factory recorded in an instance → the port's factory serving it
 FACTORIES = {
-    "predictionio_tpu.templates.recommendation.engine:engine_factory":
-        RECOMMENDATION_FACTORY,
+    JAX_RECOMMENDATION_FACTORY: RECOMMENDATION_FACTORY,
     RECOMMENDATION_FACTORY: RECOMMENDATION_FACTORY,
 }
+
+def recorded_factory(port: str) -> str:
+    """The factory an instance the port trains records: the JAX
+    package's name of the same template, so both packages deploy it."""
+    return next((f for f, p in FACTORIES.items() if p == port and f != port),
+                port)
 
 
 def port_factory(engine_factory: str) -> str:
@@ -48,6 +62,92 @@ def port_factory(engine_factory: str) -> str:
         raise ValueError(
             f"engine factory {engine_factory!r} has no counterpart in "
             f"predictionio_tpu_torch; it serves: {sorted(FACTORIES)}") from None
+
+
+def run_train(
+    engine_factory: str,
+    variant: Optional[Dict[str, Any]] = None,
+    variant_path: Optional[str] = None,
+    engine_params: Optional[EngineParams] = None,
+    storage: Optional[Storage] = None,
+    verbose: int = 0,
+    batch: str = "",
+    device=None,
+) -> str:
+    """Train and persist one engine instance on ``device`` (CUDA unless
+    the caller passes ``"cpu"``; raises when there is no card and no CPU
+    request); returns its id.
+
+    Exactly one of ``variant`` / ``variant_path`` / ``engine_params``
+    supplies the parameters (variant = parsed engine.json dict). The
+    instance row, the params JSON and the model blob (a pickle of the
+    per-algorithm blobs) are the JAX package's, so its deploy serves
+    what this wrote."""
+    from predictionio_tpu_torch.utils import tracing
+
+    device = resolve_device(device)
+    storage = storage or get_storage()
+    port = port_factory(engine_factory)
+    engine = EngineFactory.create(port)
+    if variant_path is not None:
+        with open(variant_path, "r", encoding="utf-8") as f:
+            variant = json.load(f)
+    variant = variant or {}
+    if engine_params is None:
+        engine_params = engine.params_from_variant(variant)
+
+    instance_id = storage.meta.new_instance_id()
+    ei = EngineInstance(
+        id=instance_id,
+        status="INIT",
+        start_time=utcnow(),
+        end_time=None,
+        engine_factory=recorded_factory(port),
+        engine_variant=str(variant.get("id", "")),
+        batch=batch or str(variant.get("description", "")),
+        env={},
+        mesh_conf=variant.get("meshConf") or variant.get("sparkConf") or {},
+        data_source_params=json.dumps(params_to_json(engine_params.data_source_params)),
+        preparator_params=json.dumps(params_to_json(engine_params.preparator_params)),
+        algorithms_params=json.dumps([
+            {"name": n, "params": params_to_json(p)}
+            for n, p in engine_params.algorithms_params]),
+        serving_params=json.dumps(params_to_json(engine_params.serving_params)),
+    )
+    storage.meta.insert_engine_instance(ei)
+    ctx = WorkflowContext(storage=storage, device=device, verbose=verbose,
+                          instance_id=instance_id)
+    try:
+        with tracing.root_span("train.run", engine_factory=engine_factory,
+                               instance_id=instance_id):
+            ei.status = "TRAINING"
+            storage.meta.update_engine_instance(ei)
+            models = engine.train(ctx, engine_params)
+            if ctx.timings:
+                ctx.log("train phases: " + ", ".join(
+                    f"{k}={v:.3f}s" for k, v in ctx.timings.items()))
+            with tracing.span("train.save", instance_id=instance_id,
+                              algorithms=len(models)):
+                instance_dir = storage.models.model_dir(instance_id)
+                blobs: List[Optional[bytes]] = []
+                for (name, algo), model in zip(
+                        engine.make_algorithms(engine_params), models):
+                    algo_dir = None
+                    if instance_dir is not None:
+                        algo_dir = os.path.join(instance_dir, name)
+                        os.makedirs(algo_dir, exist_ok=True)
+                    blobs.append(algo.save_model(model, algo_dir))
+                storage.models.put(instance_id, pickle.dumps(blobs))
+            ei.status = "COMPLETED"
+            ei.end_time = utcnow()
+            storage.meta.update_engine_instance(ei)
+            return instance_id
+    except Exception:
+        ei.status = "FAILED"
+        ei.end_time = utcnow()
+        storage.meta.update_engine_instance(ei)
+        traceback.print_exc()
+        raise
 
 
 @dataclass

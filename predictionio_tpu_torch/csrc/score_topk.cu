@@ -333,9 +333,6 @@ int chunk_width(int kp) { return kp > MIN_CHUNK ? kp : MIN_CHUNK; }
 
 extern "C" {
 
-// Largest k the kernel takes (KP must fit in one sorted chunk).
-int pio_score_topk_max_k() { return MAX_CHUNK; }
-
 // Number of 64-bit scratch keys one launch needs.
 long long pio_score_topk_scratch_elems(int B, int np, int k) {
     const int kp = next_pow2(k);

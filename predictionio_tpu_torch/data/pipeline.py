@@ -1,0 +1,141 @@
+"""Streaming training read: event store → columnar host arrays.
+
+The port's copy of the generic path of the JAX package's
+``data/pipeline.py``:
+
+- :func:`iter_columnar` — stream the store's ``find()`` iterator into
+  fixed-size columnar chunks (ids + values), never holding more than
+  ``chunk_size`` Event objects;
+- :func:`read_interactions` — the two-pass reader for (user, item[,
+  rating]) training data: pass 1 builds the id vocabularies in first-seen
+  order, pass 2 re-streams yielding index-mapped chunks
+  (:class:`InteractionData`).
+
+The native columnar scan, its snapshot cache and the device prefetcher
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from predictionio_tpu_torch.utils.bimap import BiMap
+
+
+def iter_columnar(
+    events: Iterator,
+    chunk_size: int = 65536,
+    value_fn: Optional[Callable[[Any], Optional[float]]] = None,
+) -> Iterator[Tuple[List[str], List[str], np.ndarray]]:
+    """Group an event iterator into columnar chunks.
+
+    Yields ``(entity_ids, target_ids, values)`` with lists of length ≤
+    ``chunk_size``; events without a target entity are skipped, and
+    ``value_fn`` returning None drops the event (malformed rating).
+    """
+    ents: List[str] = []
+    tgts: List[str] = []
+    vals: List[float] = []
+    for e in events:
+        # falsy (None or "") — the columnar scans treat an empty-string
+        # target as no target, and the paths must agree
+        if not e.target_entity_id:
+            continue
+        v = 1.0
+        if value_fn is not None:
+            maybe = value_fn(e)
+            if maybe is None:
+                continue
+            v = maybe
+        ents.append(e.entity_id)
+        tgts.append(e.target_entity_id)
+        vals.append(v)
+        if len(ents) == chunk_size:
+            yield ents, tgts, np.asarray(vals, np.float32)
+            ents, tgts, vals = [], [], []
+    if ents:
+        yield ents, tgts, np.asarray(vals, np.float32)
+
+
+class InteractionData:
+    """Index-mapped interaction data with its vocabularies.
+
+    ``chunks()`` re-streams the store in columnar chunks (beyond-RAM
+    path); ``arrays()`` concatenates them (fits-in-RAM path).
+    """
+
+    def __init__(self, user_ids: BiMap, item_ids: BiMap,
+                 chunk_factory: Callable[[], Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]],
+                 n_events: int) -> None:
+        self.user_ids = user_ids
+        self.item_ids = item_ids
+        self._chunk_factory = chunk_factory
+        self.n_events = n_events
+
+    def chunks(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Yield (user_idx, item_idx, value) int32/int32/f32 chunks."""
+        return self._chunk_factory()
+
+    def arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        us, is_, vs = [], [], []
+        for u, i, v in self.chunks():
+            us.append(u)
+            is_.append(i)
+            vs.append(v)
+        if not us:
+            return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                    np.zeros(0, np.float32))
+        return np.concatenate(us), np.concatenate(is_), np.concatenate(vs)
+
+
+def _vocab_add(vocab: Dict[str, int], keys) -> None:
+    """First-seen dense index assignment (shared vocabulary pass)."""
+    for k in keys:
+        if k not in vocab:
+            vocab[k] = len(vocab)
+
+
+def _map_chunk(users: Dict[str, int], items: Dict[str, int],
+               ents, tgts) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Map one chunk's string ids through the vocabularies. Events
+    ingested AFTER the vocabulary pass may carry unknown ids (training
+    against a live store re-runs find() per pass); they are skipped,
+    not crashed on — the next train picks them up. Returns
+    ``(user_idx, item_idx, keep_mask)`` so callers can mask parallel
+    value columns."""
+    u = np.asarray([users.get(x, -1) for x in ents], np.int32)
+    i = np.asarray([items.get(x, -1) for x in tgts], np.int32)
+    keep = (u >= 0) & (i >= 0)
+    return u[keep], i[keep], keep
+
+
+def read_interactions(
+    find: Callable[[], Iterator],
+    chunk_size: int = 65536,
+    value_fn: Optional[Callable[[Any], Optional[float]]] = None,
+) -> InteractionData:
+    """Two-pass streaming read of (user, item[, value]) interactions.
+
+    ``find`` is a zero-argument callable returning a FRESH event
+    iterator (it runs twice: vocabulary pass + data pass), e.g.
+    ``lambda: event_store.find(app_name, ...)``. Memory is O(chunk +
+    vocabulary) regardless of event-log size.
+    """
+    users: Dict[str, int] = {}
+    items: Dict[str, int] = {}
+    n_events = 0
+    for ents, tgts, _vals in iter_columnar(find(), chunk_size, value_fn):
+        _vocab_add(users, ents)
+        _vocab_add(items, tgts)
+        n_events += len(ents)
+    user_ids = BiMap(users)
+    item_ids = BiMap(items)
+
+    def chunk_factory():
+        for ents, tgts, vals in iter_columnar(find(), chunk_size, value_fn):
+            u, i, keep = _map_chunk(users, items, ents, tgts)
+            yield u, i, vals[keep]
+
+    return InteractionData(user_ids, item_ids, chunk_factory, n_events)

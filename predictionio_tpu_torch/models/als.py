@@ -1,13 +1,21 @@
-"""Alternating Least Squares: the serving half.
+"""Alternating Least Squares: training and serving.
 
-Recommendation serving keeps the factor matrices resident on the card
-and answers each micro-batch with one gather → score → top-k launch of
-the hand-written ``score_topk`` kernel (``ops/topk.py``). Training (the
-fused gather→Gram and batched Cholesky kernels) is the next slice of the
-port; this module holds what deploy needs:
+Training (``pio train``) builds the JAX package's bucketed layout on the
+host (:func:`als_prepare`, copied so both packages give bitwise-equal
+arrays) and runs the half-steps on the card: every bucket's normal
+equations come from ONE launch of the hand-written ``gather_gram``
+kernel (``ops/gram.py``), every part's systems are solved by ONE launch
+of the ``chol_solve`` kernel (``ops/cholesky.py``), and the heaviest
+entities (the dense head) are two plain matmuls. Serving keeps the
+factor matrices resident on the card and answers each micro-batch with
+one gather → score → top-k launch of the ``score_topk`` kernel
+(``ops/topk.py``).
 
 - :func:`init_factors` — the deterministic host-side factor init shared
   with the JAX package (same numpy draws, so seeded factors agree);
+- :class:`RatingsCOO`, :class:`ALSParams`, :func:`als_prepare` — ratings,
+  parameters and the host layout, copied from the JAX package;
+- :func:`als_train`, :func:`als_train_prepared` — training on a device;
 - :func:`predict_ratings`, :func:`recommend` — host numpy scoring for
   small catalogs;
 - :class:`ResidentScorer` — U and tile-padded V resident on the device,
@@ -18,10 +26,12 @@ port; this module holds what deploy needs:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
 import weakref
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,6 +45,508 @@ def init_factors(n: int, rank: int, seed: int) -> np.ndarray:
     """Deterministic host-side factor init (the JAX package's draws)."""
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((n, rank)) / np.sqrt(rank)).astype(np.float32)
+
+
+@dataclass
+class RatingsCOO:
+    """Host-side ratings in COO form with dense entity indices."""
+
+    user_idx: np.ndarray  # int32 [nnz]
+    item_idx: np.ndarray  # int32 [nnz]
+    rating: np.ndarray    # float32 [nnz]
+    n_users: int
+    n_items: int
+
+    @property
+    def nnz(self) -> int:
+        return int(self.user_idx.shape[0])
+
+
+@dataclass
+class ALSParams:
+    rank: int = 10
+    iterations: int = 10
+    reg: float = 0.01          # MLlib's `lambda`
+    implicit: bool = False     # MLlib trainImplicit
+    alpha: float = 1.0         # implicit confidence scale
+    weighted_reg: bool = True  # ALS-WR: λ·n_e scaling (MLlib behavior)
+    seed: int = 0
+    # opt-in: gather factors in bfloat16 (half the bytes of the bucket
+    # gathers; rows are widened to f32 before the Gram accumulates).
+    # Off by default for reference-grade numerics.
+    bf16_gather: bool = False
+
+
+# -- bucketed layout ----------------------------------------------------------
+#
+# The JAX package's host layout, copied so that both packages build the
+# same arrays bit for bit (with its default constants; the port has no
+# environment overrides and no sharded path). Entities are sorted by rating count and padded to a ladder
+# of widths, so each entity's normal equations are ONE row of a dense
+# batched weighted Gram (no scatter); entities live in count-descending
+# permuted order during training and factors are un-permuted once at the
+# end. The reasons for each constant, and the TPU v5e measurements that
+# chose them, are the JAX package's (its models/als.py).
+
+# slab_entities × width bound of one slab (the seg bucket's aggregation
+# unit)
+_SLAB_ELEMS = 1 << 20
+
+# Allowed padded widths: a ×4 ladder capped at 8 K; entities heavier than
+# the cap are segmented across rows (the seg bucket, see _bucket_side).
+_LADDER = (8, 32, 128, 512, 2048, 8192)
+_C_MAX = _LADDER[-1]
+
+# Dense-head crossover: entities with a count of at least n_other/14
+# (and at least _DENSE_MIN_COUNT, which keeps small problems on the bucket
+# path) skip the gather; their normal equations are two matmuls of dense
+# per-entity (multiplicity, rating-sum) rows over the whole other side.
+_DENSE_RATIO = 1.0 / 14.0
+_DENSE_MIN_COUNT = 256
+# Cap on the dense head's weight-row bytes (8 bytes per (entity, other)
+# cell, on the host and the device); entities over it spill to the
+# bucket path, which is always correct.
+_DENSE_HEAD_MB = 2048
+
+
+@dataclass
+class _Bucket:
+    """Entities sharing one padded width C, sliced into slabs.
+
+    Two row↔entity regimes:
+    - ``seg is None``: one row per entity (``counts`` is per-row,
+      shaped (n_slabs, slab)).
+    - ``seg`` set (the single heavy bucket, entities with more than
+      ``_C_MAX`` ratings): each entity spans several width-C rows.
+      Rows are entity-sorted, so a slab of S rows touches ≤ S
+      CONSECUTIVE entities; ``seg`` is the (n_slabs, slab, slab)
+      SLAB-LOCAL one-hot row→entity matrix (entity index relative to
+      ``seg_off`` for that slab) that aggregates per-row partial Grams
+      into per-entity normal equations with ONE batched matmul per slab
+      (no scatter). Slab-local keeps ``seg`` at R×slab floats
+      — a dense (R, nb) matrix would grow quadratically with the number
+      of heavy entities. ``counts`` is per-entity, shaped (nb,).
+    """
+
+    C: int
+    nb: int        # real entity count
+    slab: int
+    n_slabs: int
+    other_idx: np.ndarray  # (n_slabs, slab, C) int32 — PERMUTED other pos
+    vals: np.ndarray       # (n_slabs, slab, C) f32
+    mask: np.ndarray       # (n_slabs, slab, C) f32
+    counts: np.ndarray     # see class docstring
+    seg: Optional[np.ndarray] = None
+    seg_off: Optional[np.ndarray] = None  # (n_slabs,) int32 first entity
+
+    @property
+    def geometry(self) -> Tuple[int, int, int, int, bool]:
+        return (self.C, self.nb, self.slab, self.n_slabs,
+                self.seg is not None)
+
+
+@dataclass
+class _DenseHead:
+    """The heaviest entities (see ``_DENSE_RATIO``): per-entity dense
+    weight rows over the FULL other side. ``w_cnt[e, o]`` is the
+    multiplicity of the (e, o) pair (0 almost everywhere), ``w_val``
+    the rating sum — together they express exactly the same normal
+    equations as the bucketed slots, as two GEMMs with no gather."""
+
+    nb: int
+    n_other: int
+    w_cnt: np.ndarray   # (nb, n_other) f32
+    w_val: np.ndarray   # (nb, n_other) f32
+    counts: np.ndarray  # (nb,) f32 — rating count (ridge weighting)
+
+    @property
+    def geometry(self) -> Tuple[int, int]:
+        return (self.nb, self.n_other)
+
+
+@dataclass
+class _BucketSide:
+    """One half-step orientation: self entities bucketed, other side
+    referenced by permuted position. ``dense`` (optional) covers the
+    heaviest entities — permuted positions [0, dense.nb) — with the
+    remaining entities in ``buckets``."""
+
+    n: int
+    perm: np.ndarray       # position p → original entity id
+    inv_perm: np.ndarray   # original entity id → position
+    buckets: list
+    dense: Optional[_DenseHead] = None
+
+    @property
+    def geometry(self):
+        return (self.n,
+                self.dense.geometry if self.dense is not None else None,
+                tuple(b.geometry for b in self.buckets))
+
+
+def _perm_by_count_desc(counts: np.ndarray):
+    perm = np.argsort(-counts, kind="stable").astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm), dtype=np.int32)
+    return perm, inv
+
+
+def _bucket_bounds(counts_sorted: np.ndarray, n_other: int) -> tuple:
+    """Bucket boundaries of one count-desc-sorted count vector:
+    ``(nb_dense, (nb_seg, seg_rows), ((width, nb), … desc))``."""
+    thresh = max(_DENSE_MIN_COUNT, int(_DENSE_RATIO * n_other))
+    nb_dense = int((counts_sorted >= thresh).sum())
+    # byte-cap the head (see _DENSE_HEAD_MB): counts are sorted
+    # descending, so truncating keeps the heaviest — highest-payoff —
+    # entities and spills the rest to the buckets below
+    nb_dense = min(nb_dense, (_DENSE_HEAD_MB << 20) // max(1, 8 * n_other))
+    nb_seg = int((counts_sorted[nb_dense:] > _C_MAX).sum())
+    seg_c = counts_sorted[nb_dense:nb_dense + nb_seg]
+    seg_rows = int(((seg_c + _C_MAX - 1) // _C_MAX).sum())
+    rest = counts_sorted[nb_dense + nb_seg:]
+    rest = rest[rest > 0]
+    ladder = np.asarray(_LADDER, np.int64)
+    w, n = np.unique(ladder[np.searchsorted(ladder, rest)], return_counts=True)
+    regs = tuple(sorted(((int(wi), int(ni)) for wi, ni in zip(w, n)),
+                        reverse=True))
+    return (nb_dense, (nb_seg, seg_rows), regs)
+
+
+def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
+                 perm, inv_perm, n_other) -> _BucketSide:
+    """Bucket one orientation. ``idx_other_pos`` must already be mapped
+    to the other side's factor-row positions; ``counts/perm/inv_perm``
+    come from :func:`_perm_by_count_desc` on this side's counts;
+    ``n_other`` is the other side's factor-row count (the width of
+    dense-head weight rows — the gathered factor matrix height)."""
+    nnz = idx_self.shape[0]
+    pos = inv_perm[idx_self]
+    order = np.argsort(pos, kind="stable")
+    ps, o, v = pos[order], idx_other_pos[order], vals[order]
+    counts_perm = counts[perm].astype(np.int64)
+    starts = np.zeros(n_self + 1, np.int64)
+    np.cumsum(counts_perm, out=starts[1:])
+    within = (np.arange(nnz, dtype=np.int64) - starts[ps]).astype(np.int64)
+    nb_dense, (nb_seg, n_rows), regs = _bucket_bounds(counts_perm, n_other)
+
+    # dense head: heaviest entities (permuted positions [0, nb_dense))
+    # as dense weight rows — see _DENSE_RATIO
+    dense = None
+    if nb_dense:
+        hi = int(starts[nb_dense])
+        # bincount over linearized (entity, other) indices: np.add.at
+        # is an unbuffered scalar scatter, ~50-100× slower over the
+        # millions of nnz the dense head holds
+        lin = ps[:hi].astype(np.int64) * n_other + o[:hi]
+        size = nb_dense * n_other
+        w_cnt = np.bincount(lin, minlength=size).astype(
+            np.float32).reshape(nb_dense, n_other)
+        w_val = np.bincount(lin, weights=v[:hi], minlength=size).astype(
+            np.float32).reshape(nb_dense, n_other)
+        cnts = counts_perm[:nb_dense].astype(np.float32)
+        dense = _DenseHead(nb_dense, n_other, w_cnt, w_val, cnts)
+        # rebase the remainder so the seg/ladder code below sees a
+        # self-contained problem over positions [nb_dense, n_self)
+        ps = ps[hi:] - nb_dense
+        o, v, within = o[hi:], v[hi:], within[hi:]
+        counts_perm = counts_perm[nb_dense:]
+        starts = starts[nb_dense:] - hi
+    buckets = []
+
+    # heavy entities (count > _C_MAX): one SEGMENTED bucket — each
+    # entity spans ceil(count/C) rows of width C; the one-hot ``seg``
+    # matrix aggregates row partials per entity on the device. Entities
+    # are count-descending, so these are the first positions after the
+    # dense head and the output concatenation order is preserved.
+    if nb_seg:
+        C = _C_MAX
+        cnts = counts_perm[:nb_seg]
+        rows_per = (cnts + C - 1) // C
+        row_starts = np.zeros(nb_seg + 1, np.int64)
+        np.cumsum(rows_per, out=row_starts[1:])
+        # slab capped at the row count: padding a small bucket to a full
+        # slab made every tiny block solve tens of thousands of identity
+        # systems
+        slab = max(1, min(_SLAB_ELEMS // C, n_rows))
+        n_slabs = -(-n_rows // slab)
+        R = n_slabs * slab
+        oi = np.zeros((R, C), np.int32)
+        vv = np.zeros((R, C), np.float32)
+        mm = np.zeros((R, C), np.float32)
+        hi = int(starts[nb_seg])
+        row = row_starts[ps[:hi]] + within[:hi] // C
+        col = within[:hi] % C
+        oi[row, col] = o[:hi]
+        vv[row, col] = v[:hi]
+        mm[row, col] = 1.0
+        row_ent = np.repeat(np.arange(nb_seg), rows_per)
+        # slab-local one-hot: entity index relative to the slab's first
+        # entity (rows are entity-sorted → ≤ slab consecutive entities)
+        seg_off = row_ent[np.minimum(np.arange(n_slabs) * slab,
+                                     n_rows - 1)].astype(np.int32)
+        local = row_ent - seg_off[np.arange(n_rows) // slab]
+        seg = np.zeros((R, slab), np.float32)
+        seg[np.arange(n_rows), local] = 1.0  # pad rows stay all-zero
+        buckets.append(_Bucket(
+            C, nb_seg, slab, n_slabs,
+            oi.reshape(n_slabs, slab, C),
+            vv.reshape(n_slabs, slab, C),
+            mm.reshape(n_slabs, slab, C),
+            cnts.astype(np.float32),
+            seg=seg.reshape(n_slabs, slab, slab),
+            seg_off=seg_off))
+
+    # the rest: one row per entity, padded to the bucket width
+    e = nb_seg
+    for C, nb in regs:
+        slab = max(1, min(_SLAB_ELEMS // C, nb))
+        n_slabs = -(-nb // slab)
+        nb_pad = n_slabs * slab
+        oi = np.zeros((nb_pad, C), np.int32)
+        vv = np.zeros((nb_pad, C), np.float32)
+        mm = np.zeros((nb_pad, C), np.float32)
+        lo, hi = int(starts[e]), int(starts[e + nb])
+        row = (ps[lo:hi] - e).astype(np.int64)
+        col = within[lo:hi]
+        oi[row, col] = o[lo:hi]
+        vv[row, col] = v[lo:hi]
+        mm[row, col] = 1.0
+        cnt = np.zeros(nb_pad, np.float32)
+        cnt[:nb] = counts_perm[e:e + nb]
+        buckets.append(_Bucket(
+            C, nb, slab, n_slabs,
+            oi.reshape(n_slabs, slab, C),
+            vv.reshape(n_slabs, slab, C),
+            mm.reshape(n_slabs, slab, C),
+            cnt.reshape(n_slabs, slab)))
+        e += nb
+    return _BucketSide(n_self, perm, inv_perm, buckets, dense=dense)
+
+
+@dataclass
+class ALSPrepared:
+    """Host-side prepared training layout (the analogue of MLlib ALS's
+    InBlock construction — built once per dataset, reused across train
+    calls; `bench.py` times training only, per BASELINE.md's
+    "excluding data prep" protocol)."""
+
+    n_users: int
+    n_items: int
+    nnz: int
+    u_side: _BucketSide
+    i_side: _BucketSide
+    _device_bufs: Optional[tuple] = None  # (device, both sides' buffers)
+
+    @property
+    def geometry(self):
+        return (self.u_side.geometry, self.i_side.geometry)
+
+
+
+def als_prepare(coo: RatingsCOO) -> ALSPrepared:
+    """Build the bucketed layout for single-device training."""
+    cnt_u = np.bincount(coo.user_idx, minlength=coo.n_users)
+    cnt_i = np.bincount(coo.item_idx, minlength=coo.n_items)
+    perm_u, inv_u = _perm_by_count_desc(cnt_u)
+    perm_i, inv_i = _perm_by_count_desc(cnt_i)
+    u_side = _bucket_side(coo.user_idx, inv_i[coo.item_idx], coo.rating,
+                          coo.n_users, cnt_u, perm_u, inv_u,
+                          n_other=coo.n_items)
+    i_side = _bucket_side(coo.item_idx, inv_u[coo.user_idx], coo.rating,
+                          coo.n_items, cnt_i, perm_i, inv_i,
+                          n_other=coo.n_users)
+    return ALSPrepared(coo.n_users, coo.n_items, coo.nnz, u_side, i_side)
+
+
+# -- training: the bucketed half-step on the device ----------------------------
+#
+# The reference's fused mode (gram_mode="pallas"): every bucket's rows go
+# through ONE gather_gram launch, the seg bucket aggregates its row
+# partials with one batched matmul against its slab-local one-hot and one
+# index_add_, and the dense head is two plain matmuls. Each part (dense
+# head, seg bucket, each regular bucket) is solved by ONE chol_solve launch
+# as it is emitted, which gives the reference's materialized solve buffer's
+# result without holding every side's k x k systems at once. The training
+# loop is a plain Python loop over device tensors: no host sync inside.
+
+
+def _side_buffers(side: _BucketSide, device: torch.device) -> tuple:
+    """One side's layout on ``device``: ``(dense, buckets)`` with dense
+    ``(w_cnt, w_val, counts)`` or None, and per bucket ``(other_idx, vals,
+    mask, counts)`` flattened to its R = n_slabs · slab rows, plus, for the
+    seg bucket, its ``(n_slabs, slab, slab)`` one-hot and the entity slot
+    of each of its slab-local columns (``seg_off + arange(slab)``)."""
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+    dense = None
+    if side.dense is not None:
+        d = side.dense
+        dense = (put(d.w_cnt), put(d.w_val), put(d.counts))
+    buckets = []
+    for bk in side.buckets:
+        R = bk.n_slabs * bk.slab
+        bufs = (put(bk.other_idx.reshape(R, bk.C)), put(bk.vals.reshape(R, bk.C)),
+                put(bk.mask.reshape(R, bk.C)), put(bk.counts.reshape(-1)))
+        if bk.seg is not None:
+            slots = (bk.seg_off.astype(np.int64)[:, None]
+                     + np.arange(bk.slab, dtype=np.int64)).reshape(-1)
+            bufs += (put(bk.seg), put(slots))
+        buckets.append(bufs)
+    return dense, tuple(buckets)
+
+
+def _device_buffers(prep: ALSPrepared, device: torch.device) -> tuple:
+    """Both sides' layout on ``device``, cached on ``prep`` so a reused
+    layout uploads once (a call on another device replaces the cache)."""
+    if prep._device_bufs is None or prep._device_bufs[0] != device:
+        prep._device_bufs = (device, (_side_buffers(prep.u_side, device),
+                                      _side_buffers(prep.i_side, device)))
+    return prep._device_bufs[1]
+
+
+def _make_half(k: int, implicit: bool, weighted_reg: bool,
+               bf16_gather: bool = False):
+    """``half(F_other, side, bufs, reg, alpha)``: one full re-solve of one
+    side's factors (permuted order) from the other side's, the reference's
+    ``_make_half`` in its fused mode."""
+
+    def weights(v, m, alpha):
+        if implicit:
+            return (alpha * v) * m, (1.0 + alpha * v) * m
+        return m, v * m
+
+    def ridge(A, cnt, G, reg):
+        # in place on the freshly computed A: adding lam to the diagonal
+        # equals A + lam * I exactly, without a second (R, k, k) buffer
+        if G is not None:
+            A.add_(G)
+        lam = reg * cnt if weighted_reg else torch.full_like(cnt, reg)
+        lam = torch.where(cnt > 0, lam.clamp_min(1e-8), torch.ones_like(cnt))
+        A.diagonal(dim1=1, dim2=2).add_(lam[:, None])
+        return A
+
+    def dense_equations(F, dense, G, reg, alpha):
+        """The heaviest entities: two matmuls over the whole other side."""
+        w_cnt, w_val, cnt = dense
+        if implicit:
+            wo_m, wb_m = alpha * w_val, w_cnt + alpha * w_val
+        else:
+            wo_m, wb_m = w_cnt, w_val
+        n_other = F.shape[0]
+        FF = (F[:, :, None] * F[:, None, :]).reshape(n_other, k * k)
+        A = torch.matmul(wo_m, FF).reshape(-1, k, k)
+        b = torch.matmul(wb_m, F)
+        return ridge(A, cnt, G, reg), b
+
+    def seg_equations(F_g, bufs, nb, slab, G, reg, alpha):
+        """Entities over the width cap span several rows: one gather_gram
+        launch over all rows, one batched matmul with the slab-local
+        one-hot, one index_add_ of the slab blocks at their entities."""
+        oi, vv, mm, cnt, seg, slots = bufs
+        wo, wb = weights(vv, mm, alpha)
+        A_r, b_r = ops.gather_gram(F_g, oi, wo, wb)
+        n_slabs = oi.shape[0] // slab
+        Ab_r = torch.cat([A_r, b_r[:, :, None]], dim=-1)
+        Ab_l = torch.einsum("nre,nrkm->nekm", seg,
+                            Ab_r.reshape(n_slabs, slab, k, k + 1))
+        Ab_e = torch.zeros((nb + slab, k, k + 1), dtype=torch.float32,
+                           device=F_g.device)
+        Ab_e.index_add_(0, slots, Ab_l.reshape(-1, k, k + 1))
+        A = ridge(Ab_e[:nb, :, :k].contiguous(), cnt, G, reg)
+        return A, Ab_e[:nb, :, k].contiguous()
+
+    def half(F_other: torch.Tensor, side: _BucketSide, bufs: tuple,
+             reg: float, alpha: float) -> torch.Tensor:
+        dense, buckets = bufs
+        # bf16 gather mode: ONE cast per half-step; the buckets gather the
+        # cast copy (the dense head and the implicit Gram stay f32)
+        F_g = F_other.to(torch.bfloat16) if bf16_gather else F_other
+        G = F_other.T @ F_other if implicit else None
+        outs, total = [], 0
+        if dense is not None:
+            A, b = dense_equations(F_other, dense, G, reg, alpha)
+            outs.append(ops.chol_solve(A, b))
+            total += side.dense.nb
+        for bk, bb in zip(side.buckets, buckets):
+            if bk.seg is not None:
+                A, b = seg_equations(F_g, bb, bk.nb, bk.slab, G, reg, alpha)
+                x = ops.chol_solve(A, b)
+            else:
+                oi, vv, mm, cnt = bb
+                wo, wb = weights(vv, mm, alpha)
+                A, b = ops.gather_gram(F_g, oi, wo, wb)
+                x = ops.chol_solve(ridge(A, cnt, G, reg), b)[:bk.nb]
+            outs.append(x)
+            total += bk.nb
+        if total < side.n:  # zero-rating tail entities → zero factors
+            outs.append(torch.zeros((side.n - total, k), dtype=torch.float32,
+                                    device=F_other.device))
+        out = torch.cat(outs) if len(outs) > 1 else outs[0]
+        return out[:side.n] if total > side.n else out
+
+    return half
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """f32 matrix products at full precision (no TF32) for the duration:
+    the dense head's normal equations must not lose ten mantissa bits."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _train_permuted(prep: ALSPrepared, p: ALSParams, bufs: tuple,
+                    V0p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The iteration loop on permuted device factors, from V0p."""
+    half = _make_half(p.rank, bool(p.implicit), bool(p.weighted_reg),
+                      bool(p.bf16_gather))
+    u_bufs, i_bufs = bufs
+    # the reference passes reg and alpha as f32 scalars
+    reg, alpha = float(np.float32(p.reg)), float(np.float32(p.alpha))
+    if p.iterations == 0:
+        # U-recovery: U from already-converged V
+        return half(V0p, prep.u_side, u_bufs, reg, alpha), V0p
+    U = torch.zeros((prep.n_users, p.rank), dtype=torch.float32,
+                    device=V0p.device)
+    V = V0p
+    for _ in range(p.iterations):
+        U = half(V, prep.u_side, u_bufs, reg, alpha)
+        V = half(U, prep.i_side, i_bufs, reg, alpha)
+    return U, V
+
+
+def als_train_prepared(prep: ALSPrepared, p: ALSParams, device=None,
+                       V0: Optional[np.ndarray] = None,
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Train from a prepared layout on ``device`` (CUDA unless the caller
+    passes ``"cpu"``); returns (U, V) in ORIGINAL entity order as numpy
+    arrays. Training starts from ``init_factors(n_items, rank, seed)``, or
+    from ``V0`` (original order) when given — with ``iterations=0`` that
+    recovers U from converged item factors."""
+    device = resolve_device(device)
+    if V0 is None:
+        V0 = init_factors(prep.n_items, p.rank, p.seed)
+    V0p = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(V0, np.float32)[prep.i_side.perm])).to(device)
+    with _full_f32():
+        U, V = _train_permuted(prep, p, _device_buffers(prep, device), V0p)
+    # un-permute on the device and fetch U and V as one packed array
+    inv_u = torch.as_tensor(prep.u_side.inv_perm.astype(np.int64)).to(device)
+    inv_v = torch.as_tensor(prep.i_side.inv_perm.astype(np.int64)).to(device)
+    packed = torch.cat([U.index_select(0, inv_u),
+                        V.index_select(0, inv_v)]).cpu().numpy()
+    return packed[:prep.n_users], packed[prep.n_users:]
+
+
+def als_train(coo: RatingsCOO, params: ALSParams, device=None,
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Train ALS on ``device``; returns (U [n_users, k], V [n_items, k])."""
+    return als_train_prepared(als_prepare(coo), params, device=device)
 
 
 # -- scoring ------------------------------------------------------------------

@@ -24,7 +24,8 @@ import torch
 
 _NEG = -3.0e38  # finite "-inf", the JAX package's mask value
 
-#: the largest k the kernel takes (its sorted chunk width)
+#: the largest k the kernel takes (its sorted chunk width, MAX_CHUNK in
+#: csrc/score_topk.cu, which refuses a larger k)
 MAX_K = 1024
 
 _count_lock = threading.Lock()
@@ -66,9 +67,6 @@ def _bind():
         lib.pio_score_topk.restype = ctypes.c_int
         lib.pio_score_topk_scratch_elems.argtypes = [i, i, i]
         lib.pio_score_topk_scratch_elems.restype = ctypes.c_longlong
-        lib.pio_score_topk_max_k.restype = ctypes.c_int
-        if lib.pio_score_topk_max_k() != MAX_K:
-            raise RuntimeError("csrc/score_topk.cu and ops/topk.py disagree on MAX_K")
         lib._pio_bound = True
     return lib
 

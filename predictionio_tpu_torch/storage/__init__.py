@@ -1,5 +1,5 @@
-"""Storage the port's deploy reads: engine-instance records and model
-blobs, on the JAX package's on-disk layout."""
+"""Storage the port's training and deploy read: apps, engine-instance
+records, events and model blobs, on the JAX package's on-disk layout."""
 
 from predictionio_tpu_torch.storage.meta import EngineInstance, MetaStore
 from predictionio_tpu_torch.storage.models import (

@@ -1,11 +1,11 @@
-"""Meta-data store: the engine-instance records deploy reads.
+"""Meta-data store: apps, access keys, channels and engine instances.
 
-The port's copy of the engine-instance part of the JAX package's
-``storage/meta.py``, on the same SQLite schema and time format, so an
-instance one package's train wrote into a ``PIO_HOME`` is found by the
-other's deploy. Serving loads the latest COMPLETED instance for
-(engine factory, variant) — the reference's
-``EngineInstances.getLatestCompleted``.
+The port's copy of the JAX package's ``storage/meta.py`` for what
+training and deploy read, on the same SQLite schema and time format, so
+an app created or an instance trained by one package in a ``PIO_HOME``
+is found by the other. Training resolves the app (and channel) named in
+the variant; serving loads the latest COMPLETED instance for (engine
+factory, variant) — the reference's ``EngineInstances.getLatestCompleted``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import json
 import secrets
 import sqlite3
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 
@@ -41,6 +41,27 @@ def parse_time(value: str) -> _dt.datetime:
 
 
 @dataclass
+class App:
+    id: int
+    name: str
+    description: str = ""
+
+
+@dataclass
+class AccessKey:
+    key: str
+    app_id: int
+    events: List[str] = field(default_factory=list)  # empty = all events permitted
+
+
+@dataclass
+class Channel:
+    id: int
+    name: str
+    app_id: int
+
+
+@dataclass
 class EngineInstance:
     """One train run's record; serving loads the latest COMPLETED one."""
 
@@ -59,7 +80,24 @@ class EngineInstance:
     serving_params: str
 
 
-_SCHEMA = """CREATE TABLE IF NOT EXISTS engine_instances (
+_SCHEMA = (
+    """CREATE TABLE IF NOT EXISTS apps (
+    id INTEGER PRIMARY KEY AUTOINCREMENT,
+    name TEXT UNIQUE NOT NULL,
+    description TEXT NOT NULL
+)""",
+    """CREATE TABLE IF NOT EXISTS access_keys (
+    accesskey TEXT PRIMARY KEY,
+    appid INTEGER NOT NULL,
+    events TEXT NOT NULL
+)""",
+    """CREATE TABLE IF NOT EXISTS channels (
+    id INTEGER PRIMARY KEY AUTOINCREMENT,
+    name TEXT NOT NULL,
+    appid INTEGER NOT NULL,
+    UNIQUE(name, appid)
+)""",
+    """CREATE TABLE IF NOT EXISTS engine_instances (
     id TEXT PRIMARY KEY,
     status TEXT NOT NULL,
     startTime TEXT NOT NULL,
@@ -73,7 +111,8 @@ _SCHEMA = """CREATE TABLE IF NOT EXISTS engine_instances (
     preparatorParams TEXT NOT NULL,
     algorithmsParams TEXT NOT NULL,
     servingParams TEXT NOT NULL
-)"""
+)""",
+)
 
 _EI_COLS = ("id", "status", "startTime", "endTime", "engineFactory",
             "engineVariant", "batch", "env", "meshConf", "dataSourceParams",
@@ -90,7 +129,8 @@ class MetaStore:
         self._lock = threading.RLock()
         self._local = threading.local()
         self._shared = self._connect() if path == ":memory:" else None
-        self._x(_SCHEMA)
+        for stmt in _SCHEMA:
+            self._x(stmt)
 
     def _connect(self) -> sqlite3.Connection:
         conn = sqlite3.connect(self._path, timeout=30.0,
@@ -108,7 +148,7 @@ class MetaStore:
             conn = self._local.conn = self._connect()
         return conn
 
-    def _q1(self, q: str, args: tuple = ()) -> Optional[tuple]:
+    def _q(self, q: str, args: tuple = ()) -> List[tuple]:
         with self._lock:
             c = self._conn()
             try:
@@ -117,17 +157,48 @@ class MetaStore:
             except Exception:
                 c.rollback()
                 raise
+        return rows
+
+    def _q1(self, q: str, args: tuple = ()) -> Optional[tuple]:
+        rows = self._q(q, args)
         return rows[0] if rows else None
 
-    def _x(self, q: str, args: tuple = ()) -> None:
+    def _x(self, q: str, args: tuple = ()) -> int:
+        """Run one write; returns the new row's id (autoincrement tables)."""
         with self._lock:
             c = self._conn()
             try:
-                c.execute(q, args)
+                cur = c.execute(q, args)
                 c.commit()
             except Exception:
                 c.rollback()
                 raise
+        return cur.lastrowid
+
+    # -- apps, access keys, channels -------------------------------------------
+
+    def create_app(self, name: str, description: str = "") -> App:
+        rid = self._x("INSERT INTO apps(name, description) VALUES (?,?)",
+                      (name, description))
+        return App(id=rid, name=name, description=description)
+
+    def get_app_by_name(self, name: str) -> Optional[App]:
+        row = self._q1("SELECT id,name,description FROM apps WHERE name=?", (name,))
+        return App(*row) if row else None
+
+    def create_access_key(self, app_id: int, events: Optional[List[str]] = None,
+                          key: Optional[str] = None) -> AccessKey:
+        key = key or secrets.token_urlsafe(48)
+        self._x("INSERT INTO access_keys(accesskey, appid, events) VALUES (?,?,?)",
+                (key, app_id, json.dumps(events or [])))
+        return AccessKey(key=key, app_id=app_id, events=events or [])
+
+    def get_channel_by_name(self, app_id: int, name: str) -> Optional[Channel]:
+        row = self._q1("SELECT id,name,appid FROM channels WHERE appid=? AND name=?",
+                       (app_id, name))
+        return Channel(*row) if row else None
+
+    # -- engine instances --------------------------------------------------------
 
     def insert_engine_instance(self, ei: EngineInstance) -> None:
         self._x(
@@ -142,6 +213,9 @@ class MetaStore:
                 ei.algorithms_params, ei.serving_params,
             ),
         )
+
+    def update_engine_instance(self, ei: EngineInstance) -> None:
+        self.insert_engine_instance(ei)
 
     @staticmethod
     def _ei_from_row(r) -> EngineInstance:

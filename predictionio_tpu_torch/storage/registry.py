@@ -1,8 +1,9 @@
-"""Backend registry: env-driven selection of the meta and model stores.
+"""Backend registry: env-driven selection of the meta, event and model stores.
 
 The port's copy of the JAX package's ``storage/registry.py``, limited to
-what deploy reads: the meta repository (SQLITE or MEMORY) and the model
-repository (LOCALFS or MEMORY). It honours the same
+what training and deploy read: the meta repository (SQLITE or MEMORY),
+the event repository (SQLITE or MEMORY) and the model repository
+(LOCALFS or MEMORY). It honours the same
 ``PIO_STORAGE_REPOSITORIES_*`` / ``PIO_STORAGE_SOURCES_*`` variables and
 the same defaults — everything under ``$PIO_HOME or ~/.pio_store`` — so
 the two packages share one storage home.
@@ -15,6 +16,11 @@ import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
+from predictionio_tpu_torch.data.events import (
+    EventStore,
+    MemoryEventStore,
+    SqliteEventStore,
+)
 from predictionio_tpu_torch.storage.meta import MetaStore
 from predictionio_tpu_torch.storage.models import (
     LocalFSModelStore,
@@ -33,8 +39,10 @@ class StorageConfig:
     """Resolved storage configuration (one 'source' per repository)."""
 
     metadata_type: str = "SQLITE"
+    eventdata_type: str = "SQLITE"
     modeldata_type: str = "LOCALFS"
     metadata_source: str = ""
+    eventdata_source: str = ""
     modeldata_source: str = ""
     sources: Dict[str, Dict[str, str]] = field(default_factory=dict)
     home: str = field(default_factory=pio_home)
@@ -51,7 +59,7 @@ class StorageConfig:
         # prefixing it.
         prefix = "PIO_STORAGE_SOURCES_"
         rests = [k[len(prefix):] for k in e if k.startswith(prefix)]
-        names = {repo_source(r) for r in ("METADATA", "MODELDATA")}
+        names = {repo_source(r) for r in ("METADATA", "EVENTDATA", "MODELDATA")}
         names |= {r[: -len("_TYPE")] for r in rests if r.endswith("_TYPE")}
         names.discard("")
         sources: Dict[str, Dict[str, str]] = {}
@@ -70,8 +78,10 @@ class StorageConfig:
 
         return cls(
             metadata_type=source_type("METADATA", "SQLITE"),
+            eventdata_type=source_type("EVENTDATA", "SQLITE"),
             modeldata_type=source_type("MODELDATA", "LOCALFS"),
             metadata_source=repo_source("METADATA"),
+            eventdata_source=repo_source("EVENTDATA"),
             modeldata_source=repo_source("MODELDATA"),
             sources=sources,
             home=e.get("PIO_HOME", pio_home()),
@@ -83,6 +93,11 @@ def _ensure(home: str) -> str:
     return home
 
 
+_EVENT_BACKENDS: Dict[str, Callable[[StorageConfig], EventStore]] = {
+    "MEMORY": lambda cfg: MemoryEventStore(),
+    "SQLITE": lambda cfg: SqliteEventStore(
+        os.path.join(_ensure(cfg.home), "events.db")),
+}
 _MODEL_BACKENDS: Dict[str, Callable[[StorageConfig], ModelStore]] = {
     "MEMORY": lambda cfg: MemoryModelStore(),
     "LOCALFS": lambda cfg: LocalFSModelStore(
@@ -95,12 +110,13 @@ _META_BACKENDS: Dict[str, Callable[[StorageConfig], MetaStore]] = {
 
 
 class Storage:
-    """Handle on the meta and model repositories (lazy singletons)."""
+    """Handle on the meta, event and model repositories (lazy singletons)."""
 
     def __init__(self, config: Optional[StorageConfig] = None) -> None:
         self.config = config or StorageConfig.from_env()
         self._lock = threading.Lock()
         self._meta: Optional[MetaStore] = None
+        self._events: Optional[EventStore] = None
         self._models: Optional[ModelStore] = None
 
     @property
@@ -115,6 +131,19 @@ class Storage:
                         f"the port has: {sorted(_META_BACKENDS)}") from None
                 self._meta = factory(self.config)
             return self._meta
+
+    @property
+    def events(self) -> EventStore:
+        with self._lock:
+            if self._events is None:
+                try:
+                    factory = _EVENT_BACKENDS[self.config.eventdata_type]
+                except KeyError:
+                    raise KeyError(
+                        f"unknown EVENTDATA backend {self.config.eventdata_type!r}; "
+                        f"the port has: {sorted(_EVENT_BACKENDS)}") from None
+                self._events = factory(self.config)
+            return self._events
 
     @property
     def models(self) -> ModelStore:

@@ -1,16 +1,19 @@
-"""Recommendation template: ALS collaborative filtering, served on the card.
+"""Recommendation template: ALS collaborative filtering on the card.
 
 Behavioral equivalent of the JAX package's template of the same path
-(reference: [U] examples/scala-parallel-recommendation/, SURVEY.md §2c),
-with the same query/response wire shapes:
+(reference: [U] examples/scala-parallel-recommendation/, SURVEY.md §2c):
+the data source reads "rate"/"buy" events into columnar ratings, the
+algorithm trains explicit (or implicit) ALS through the ``gather_gram``
+and ``chol_solve`` kernels, serving is first. The query/response wire
+shapes are the reference's:
 
     POST /queries.json  {"user": "1", "num": 4}
     → {"itemScores": [{"item": "22", "score": 4.5}, ...]}
 
-and the same model blob (a pickle holding an npz of U and V and the two
-id maps), so an instance trained by either package deploys in the
-other. This slice of the port serves; ``ALSAlgorithm.train`` is the next
-slice (ROADMAP.md, queue 1, slice 2).
+and the model blob is the JAX package's (a pickle holding an npz of U and
+V and the two id maps), so an instance trained by either package deploys
+in the other. Evaluation (``read_eval``, ``train_many``, sweeps) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,37 +30,116 @@ from predictionio_tpu_torch.controller import (
     DataSource,
     Engine,
     FirstServing,
-    IdentityPreparator,
+    Preparator,
+    WorkflowContext,
 )
-from predictionio_tpu_torch.models.als import recommend
+from predictionio_tpu_torch.data.cleaning import SelfCleaningDataSource
+from predictionio_tpu_torch.models.als import (
+    ALSParams,
+    RatingsCOO,
+    als_train,
+    recommend,
+)
 from predictionio_tpu_torch.utils.bimap import BiMap
 
-_TRAIN_LATER = ("ALS training is not ported yet: it is slice 2 of the port "
-                "(ROADMAP.md, queue 1). Train with the JAX package's "
-                "`pio train`; this package deploys what it wrote.")
+
+@dataclass
+class Rating:
+    user: str
+    item: str
+    rating: float
+
+
+@dataclass
+class TrainingData:
+    """Columnar, index-mapped interactions + id vocabularies, built by the
+    streaming read (``data/pipeline.read_interactions``): 12 B per event
+    instead of a list of Rating objects. ``ratings`` materializes Rating
+    objects lazily for small-data consumers (tests, debugging)."""
+
+    user_idx: np.ndarray   # int32 [n]
+    item_idx: np.ndarray   # int32 [n]
+    rating: np.ndarray     # float32 [n]
+    user_ids: BiMap
+    item_ids: BiMap
+
+    @property
+    def n(self) -> int:
+        return int(self.user_idx.shape[0])
+
+    @property
+    def ratings(self) -> List[Rating]:
+        u_inv = self.user_ids.inverse()
+        i_inv = self.item_ids.inverse()
+        return [Rating(u_inv[int(u)], i_inv[int(i)], float(r))
+                for u, i, r in zip(self.user_idx, self.item_idx,
+                                   self.rating)]
+
+    @classmethod
+    def from_ratings(cls, ratings: List[Rating]) -> "TrainingData":
+        user_ids = BiMap.string_int(r.user for r in ratings)
+        item_ids = BiMap.string_int(r.item for r in ratings)
+        return cls(
+            np.fromiter((user_ids[r.user] for r in ratings), np.int32,
+                        len(ratings)),
+            np.fromiter((item_ids[r.item] for r in ratings), np.int32,
+                        len(ratings)),
+            np.fromiter((r.rating for r in ratings), np.float32,
+                        len(ratings)),
+            user_ids, item_ids)
 
 
 @dataclass
 class DataSourceParams:
-    """The JAX template's data-source params, so a stored variant's
-    ``datasource`` block parses here."""
-
     app_name: str = ""
     event_names: List[str] = field(default_factory=lambda: ["rate", "buy"])
+    # rating assigned to implicit "buy" events (reference quickstart: 4.0)
     buy_rating: float = 4.0
-    eval_k: int = 0
+    eval_k: int = 0          # evaluation folds (read_eval is not ported yet)
     eval_seed: int = 3
+    #: optional {"duration": "30 days", "removeDuplicates": bool,
+    #: "compressProperties": bool} — SelfCleaningDataSource window
     event_window: Optional[Dict[str, Any]] = None
 
 
-class RecDataSource(DataSource):
-    """Carries :class:`DataSourceParams`; reading events for training
-    comes with the training slice."""
-
+class RecDataSource(SelfCleaningDataSource, DataSource):
     ParamsClass = DataSourceParams
 
-    def read_training(self, ctx):
-        raise NotImplementedError(_TRAIN_LATER)
+    def _read(self, ctx: WorkflowContext) -> TrainingData:
+        """Stream the event store into columnar TrainingData in two passes
+        (``data/store.read_training_interactions``). "rate" events carry
+        ``properties["rating"]`` (malformed → event skipped); any other
+        configured event is an implicit positive at ``buy_rating``."""
+        from predictionio_tpu_torch.data.store import read_training_interactions
+
+        p: DataSourceParams = self.params
+        data = read_training_interactions(
+            p.app_name,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=p.event_names,
+            value_key="rating",
+            value_spec={"rate": "prop"},
+            default_spec=p.buy_rating,
+            storage=ctx.storage,
+        )
+        uu, ii, rr = data.arrays()
+        return TrainingData(uu, ii, rr, data.user_ids, data.item_ids)
+
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        self.clean(ctx, self.params.app_name)
+        td = self._read(ctx)
+        if td.n == 0:
+            raise ValueError(
+                "no rate/buy events found; import events before `pio train`")
+        return td
+
+
+class RecPreparator(Preparator):
+    """Pass-through (reference quickstart Preparator)."""
+
+    def prepare(self, ctx: WorkflowContext, training_data: TrainingData) -> TrainingData:
+        return training_data
 
 
 @dataclass
@@ -68,7 +150,10 @@ class ALSAlgorithmParams:
     seed: Optional[int] = None
     implicit_prefs: bool = False
     alpha: float = 1.0
+    # mid-train checkpoint cadence: parsed for the JAX package's variants;
+    # mid-train checkpoints are not ported yet, so it does nothing here
     checkpoint_every: int = 5
+    # bf16 factor gathers (see models/als.py ALSParams.bf16_gather)
     bf16_gather: bool = False
 
 
@@ -125,8 +210,38 @@ class ALSModel:
 class ALSAlgorithm(Algorithm):
     ParamsClass = ALSAlgorithmParams
 
-    def train(self, ctx, pd):
-        raise NotImplementedError(_TRAIN_LATER)
+    def sanity_check(self, data: TrainingData) -> None:
+        if data.n == 0:
+            raise ValueError("empty TrainingData")
+
+    @staticmethod
+    def _to_coo(pd: TrainingData):
+        # the streaming read already index-mapped everything: this is a
+        # zero-copy repackaging, not a conversion
+        coo = RatingsCOO(
+            user_idx=pd.user_idx,
+            item_idx=pd.item_idx,
+            rating=pd.rating,
+            n_users=len(pd.user_ids),
+            n_items=len(pd.item_ids),
+        )
+        return coo, pd.user_ids, pd.item_ids
+
+    @staticmethod
+    def _als_params(p: ALSAlgorithmParams) -> ALSParams:
+        return ALSParams(
+            rank=p.rank, iterations=p.num_iterations, reg=p.lambda_,
+            implicit=p.implicit_prefs, alpha=p.alpha,
+            seed=0 if p.seed is None else p.seed,
+            bf16_gather=p.bf16_gather,
+        )
+
+    def train(self, ctx: WorkflowContext, pd: TrainingData) -> ALSModel:
+        """Train on ``self.device`` (set by Engine.train from the
+        workflow context; CUDA unless the run asked for the CPU)."""
+        coo, user_ids, item_ids = self._to_coo(pd)
+        U, V = als_train(coo, self._als_params(self.params), device=self.device)
+        return ALSModel(U, V, user_ids, item_ids, device=self.device)
 
     def predict(self, model: ALSModel, query: Dict[str, Any]) -> Dict[str, Any]:
         user = str(query["user"])
@@ -184,7 +299,7 @@ class ALSAlgorithm(Algorithm):
 def engine_factory() -> Engine:
     return Engine(
         data_source_cls=RecDataSource,
-        preparator_cls=IdentityPreparator,
+        preparator_cls=RecPreparator,
         algorithm_cls_map={"als": ALSAlgorithm},
         serving_cls=FirstServing,
     )

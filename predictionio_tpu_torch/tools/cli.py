@@ -1,14 +1,18 @@
-"""Command line of the port: ``deploy``.
+"""Command line of the port: ``train`` and ``deploy``.
 
+    python -m predictionio_tpu_torch.tools.cli train \\
+        --engine-dir predictionio_tpu_torch/templates/recommendation
     python -m predictionio_tpu_torch.tools.cli deploy \\
         --engine-dir predictionio_tpu_torch/templates/recommendation \\
         --batching --aot-buckets auto
 
-serves the latest COMPLETED instance of the engine named in the engine
-directory's ``engine.json`` (one the JAX package's ``pio train`` wrote
-into the same ``PIO_HOME`` included) on the CUDA card; ``--device cpu``
-serves on the CPU instead. The flags are the JAX CLI's deploy flags for
-the options this slice serves, plus ``--device``.
+``train`` trains the engine named in the engine directory's
+``engine.json`` (or ``--variant``) on the app's events and records a
+COMPLETED instance; ``deploy`` serves the latest COMPLETED instance (one
+the JAX package's ``pio train`` wrote into the same ``PIO_HOME``
+included). Both run on the CUDA card; ``--device cpu`` runs on the CPU
+instead. The flags are the JAX CLI's flags for the options the port
+has, plus ``--device``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,19 @@ def make_server(args: argparse.Namespace):
     )
 
 
+def cmd_train(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch import ops
+    from predictionio_tpu_torch.core.workflow import run_train
+
+    variant = _load_variant_file(args.engine_dir, args.variant)
+    factory = variant.get("engineFactory") or _die("engine.json missing engineFactory")
+    iid = run_train(factory, variant=variant, batch=args.batch,
+                    verbose=args.verbose, device=args.device)
+    launches = ", ".join(f"{c.__name__}={c.launches}" for c in ops.LAUNCH_COUNTERS)
+    print(f"[info] Training completed: engine instance {iid} "
+          f"(kernel launches: {launches})")
+
+
 def cmd_deploy(args: argparse.Namespace) -> None:
     server = make_server(args)
     print(f"[info] Engine Server (instance {server.deployed.instance.id}, "
@@ -66,6 +83,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m predictionio_tpu_torch.tools.cli",
         description="PredictionIO on PyTorch and CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
+    tp = sub.add_parser("train", help="train an engine instance")
+    tp.add_argument("--engine-dir", default=".")
+    tp.add_argument("-e", "--variant")
+    tp.add_argument("--batch", default="", help="batch label of the instance")
+    tp.add_argument("-v", "--verbose", action="count", default=0)
+    tp.add_argument("--device", default=None,
+                    help="torch device to train on (default: cuda; "
+                         "'cpu' trains on the CPU)")
+    tp.set_defaults(fn=cmd_train)
     dp = sub.add_parser("deploy", help="serve the latest trained instance")
     dp.add_argument("--engine-dir", default=".")
     dp.add_argument("-e", "--variant")

@@ -268,10 +268,24 @@ def test_unknown_factory_raises(home):
                        storage=_port_storage(home), device="cpu")
 
 
-def test_train_is_the_next_slice():
-    algo = port_rec.ALSAlgorithm(port_rec.ALSAlgorithmParams())
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        algo.train(None, None)
+def test_train_is_the_next_slice(tmp_path):
+    """Slice 2 has landed: the port's ALSAlgorithm trains, on the device
+    Engine.train gives it, a model its own predict serves."""
+    from predictionio_tpu_torch.controller import WorkflowContext
+
+    ratings = [port_rec.Rating(u, i, r) for u, i, r in (
+        ("a", "x", 5.0), ("a", "y", 1.0), ("b", "x", 4.0), ("b", "z", 2.0))]
+    td = port_rec.TrainingData.from_ratings(ratings)
+    algo = port_rec.ALSAlgorithm(port_rec.ALSAlgorithmParams(rank=2, num_iterations=3))
+    algo.device = torch.device("cpu")
+    ctx = WorkflowContext(storage=_port_storage(str(tmp_path)), device=algo.device)
+    algo.sanity_check(td)
+    model = algo.train(ctx, td)
+    assert model.U.shape == (2, 2) and model.V.shape == (3, 2)
+    assert np.isfinite(model.U).all() and np.isfinite(model.V).all()
+    assert len(algo.predict(model, {"user": "a", "num": 2})["itemScores"]) == 2
+    with pytest.raises(ValueError, match="empty"):
+        algo.sanity_check(port_rec.TrainingData.from_ratings([]))
 
 
 # -- the resident scorer ------------------------------------------------------
