@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch and CUDA port (predictionio_tpu_torch) on one card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --quick    # phases 1-3: build and check the kernels
+    python3 chip_smoke.py --quick    # phases 1-3: build and check the four kernels
     python3 chip_smoke.py --profile  # also device time by kernel (torch.profiler)
                                      # of serving batches and a training iteration
 
@@ -18,8 +18,13 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    rows exact; gather_gram — bitwise equal on integer data, within 1e-5 of
    a float64 reference (relative to max|A64|) on Gaussian data, f32 and
    bf16 factors, repeated indices, pad slots; chol_solve — within 1e-4 of
-   float64 (relative to max|x64|) on ALS-like SPD systems, identity
-   systems give x = b exactly;
+   float64 (relative to max|x64|) on ALS-like SPD systems and on the same
+   systems ill-scaled, at every KP boundary of k = 1 … 128, identity
+   systems give x = b exactly; rows_gram — bitwise equal on integer data
+   (A symmetric), within 1e-5 of a float64 reference on Gaussian data
+   with 20% zero weights, pad at the end of each row and runs of zero
+   weights mid-row, at every width of the training layout's ladder, f32
+   and bf16 blocks, R = 0;
 4. time score_topk with CUDA events at the serving path's shapes, beside
    its plain version, one library call and the card's bound;
 5. full-width training: a synthetic MovieLens-20M-shaped COO (138,493
@@ -39,7 +44,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 6. time gather_gram for every bucket of that layout and chol_solve at
    both sides' N, beside the plain versions, one library call and the
    bound (the larger of the bytes and the operations the function needs,
-   per launch, summed over the launches);
+   per launch, summed over the launches); then drive rows_gram's path,
+   its op entry point, over every bucket pre-gathered as F[idx] in row
+   chunks (launch counters zeroed just before and read just after, each
+   result within 1e-5 of a float64 reference on the same inputs, the
+   plain version's distance from it printed beside), and time it the same
+   way, beside gather_gram on the same rows;
 7. ``pio train`` through the port's CLI in a subprocess on the card, on
    200,000 rate events written into a temporary PIO_HOME through the
    port's storage; the COMPLETED instance is deployed and 20 answers are
@@ -358,6 +368,73 @@ def check_gather_gram(torch, ops, dev) -> float:
     return main_err
 
 
+def rows_gram_plain(torch, ops, F_g, wo, wb):
+    """rows_gram_ref over row chunks (rows are independent), so the
+    largest shapes fit on the card."""
+    parts = [ops.rows_gram_ref(F_g[sl], wo[sl], wb[sl])
+             for sl in _row_chunks(F_g.shape[0], F_g.shape[1] * F_g.shape[2])]
+    return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+
+
+def check_rows_gram(torch, ops, dev) -> float:
+    """Phase 3: rows_gram against rows_gram_ref (bitwise on integer data,
+    A symmetric) and a float64 reference (max|dA| / max|A64| <= 1e-5 on
+    Gaussian data with 20% zero weights), f32 and bf16 F_g, R = 0. The
+    blocks are gather_gram's inputs gathered, F_g = F[idx] (repeated rows,
+    a quarter of pad slots), so gram64 is the float64 reference. Returns
+    the max abs error against the plain version at the training path's
+    width (k=64, W=128, R=4096, Gaussian)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    main_err = 0.0
+    cases = [(k, W, R, torch.float32) for k in (3, 8, RANK, 128)
+             for W in (1, 16, 128, 2048) for R in (1, 20, 4096)]
+    # the other widths of the training layout's ladder, at its k
+    cases += [(RANK, W, R, torch.float32) for W in (8, 32, 512, 8192)
+              for R in (1, 20, 4096)]
+    cases += [(k, W, 20, torch.bfloat16) for k in (3, 8, RANK, 128) for W in (16, 2048)]
+    for k, W, R, dtype in cases:
+        for kind in ("integer", "gaussian"):
+            F, idx, wo, wb = gram_inputs(torch, g, dev, R, W, k, kind)
+            # every third row also gets a run of zero weights mid-row, so
+            # the kernel skips whole tiles and then resumes
+            wo[::3, W // 4:W // 2] = 0.0
+            wb[::3, W // 4:W // 2] = 0.0
+            F = F.to(dtype)
+            F_g = F[idx.long()]
+            A, b = ops.rows_gram(F_g, wo, wb)
+            Ar, br = rows_gram_plain(torch, ops, F_g, wo, wb)
+            torch.cuda.synchronize()
+            err = max((A - Ar).abs().max().item(), (b - br).abs().max().item())
+            if kind == "integer":
+                ok = torch.equal(A, Ar) and torch.equal(b, br)
+                rel = 0.0
+            else:
+                A64, b64 = gram64(torch, F.float(), idx, wo, wb)
+                rel = max(((A.double() - A64).abs().max()
+                           / A64.abs().max().clamp_min(1e-300)).item(),
+                          ((b.double() - b64).abs().max()
+                           / b64.abs().max().clamp_min(1e-300)).item())
+                ok = rel <= GRAM_TOL
+                if k == RANK and W == 128 and R == 4096 and dtype == torch.float32:
+                    main_err = err
+                del A64, b64
+            sym = kind != "integer" or torch.equal(A, A.transpose(1, 2))
+            print(f"rows_gram {kind:8s} {str(dtype)[6:]:8s} k={k:3d} W={W:4d} "
+                  f"R={R:4d} max_abs_err={err:.3e} rel64={rel:.3e} "
+                  f"{'ok' if ok and sym else 'MISMATCH'}", flush=True)
+            check(ok, f"rows_gram disagrees ({kind}, {dtype}, k={k}, W={W}, R={R})")
+            check(sym, f"rows_gram A not symmetric (k={k}, W={W}, R={R})")
+            del F, F_g, idx, wo, wb, A, b, Ar, br
+    for dtype in (torch.float32, torch.bfloat16):
+        A, b = ops.rows_gram(torch.zeros(0, 16, RANK, device=dev, dtype=dtype),
+                             torch.zeros(0, 16, device=dev), torch.zeros(0, 16, device=dev))
+        check(A.shape == (0, RANK, RANK) and b.shape == (0, RANK),
+              f"rows_gram R=0 ({dtype}) gave {tuple(A.shape)}, {tuple(b.shape)}")
+    print("rows_gram R=0 (f32, bf16): empty outputs of the right shape, no launch",
+          flush=True)
+    return main_err
+
+
 def spd_systems(torch, g, dev, N, k, lam=0.01):
     """ALS-like SPD systems: A = G Gᵀ + λ·n·I with n = 2k rating rows."""
     n = 2 * k
@@ -368,14 +445,18 @@ def spd_systems(torch, g, dev, N, k, lam=0.01):
 
 
 def check_chol_solve(torch, ops, dev) -> float:
-    """Phase 3: chol_solve against float64 (max|x - x64| / max|x64| <=
-    1e-4) and chol_solve_ref; identity systems give x = b exactly. Returns
-    the max abs error against the plain version at the training path's
-    width (k=64, N=138,493)."""
+    """Phase 3: chol_solve against float64 and chol_solve_ref at every KP
+    boundary of the kernel (k = 1 … 128): ALS-like systems (max|x - x64| /
+    max|x64| <= 1e-4 over the batch) and the same systems ill-scaled, each
+    multiplied by 10^u, u uniform in [-2, 4) as in the CPU tests (the
+    same ratio, taken per system, <= 1e-4); identity systems give x = b
+    exactly. Returns the max abs error against the plain version at the
+    training path's width (k=64, N=138,493)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     main_err = 0.0
-    for k, N in [(k, N) for k in (1, 10, RANK, 128) for N in (1, 255)] \
-            + [(RANK, N_USERS)]:
+    cases = [(k, N) for k in (1, 7, 8, 10, 16, 31, 33, 63, RANK, 65, 100, 128)
+             for N in (1, 255, 4097)] + [(RANK, N_USERS)]
+    for k, N in cases:
         A, b = spd_systems(torch, g, dev, N, k)
         x = ops.chol_solve(A, b)
         xr = ops.chol_solve_ref(A, b)
@@ -383,17 +464,26 @@ def check_chol_solve(torch, ops, dev) -> float:
         torch.cuda.synchronize()
         rel = ((x.double() - x64).abs().max() / x64.abs().max()).item()
         err = (x - xr).abs().max().item()
+        # ill-scaled: per system 10^u, u in [-2, 4)
+        scale = 10.0 ** (torch.rand(N, 1, 1, generator=g, device=dev) * 6 - 2)
+        As = (A * scale).contiguous()
+        xs = ops.chol_solve(As, b)
+        xs64 = torch.linalg.solve(As.double(), b.double())
+        rel_s = ((xs.double() - xs64).abs().amax(1)
+                 / xs64.abs().amax(1)).max().item()
         eye = torch.eye(k, device=dev).expand(N, k, k).contiguous()
         exact = torch.equal(ops.chol_solve(eye, b), b)
-        ok = rel <= SOLVE_TOL and exact
+        ok = rel <= SOLVE_TOL and rel_s <= SOLVE_TOL and exact
         print(f"chol_solve k={k:3d} N={N:6d} rel64={rel:.3e} "
-              f"max_abs_err(plain)={err:.3e} identity_exact={exact} "
-              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+              f"ill_scaled_rel64={rel_s:.3e} max_abs_err(plain)={err:.3e} "
+              f"identity_exact={exact} {'ok' if ok else 'MISMATCH'}", flush=True)
         check(rel <= SOLVE_TOL, f"chol_solve off float64 (k={k}, N={N}): {rel:.3e}")
+        check(rel_s <= SOLVE_TOL,
+              f"chol_solve off float64 on ill-scaled systems (k={k}, N={N}): {rel_s:.3e}")
         check(exact, f"chol_solve identity systems not exact (k={k}, N={N})")
         if k == RANK and N == N_USERS:
             main_err = err
-        del A, b, x, xr, x64, eye
+        del A, b, x, xr, x64, As, xs, xs64, eye
     return main_err
 
 
@@ -783,6 +873,128 @@ def time_training_kernels(torch, ops, dev, train) -> dict:
     return out
 
 
+def rows_gram_bound(R: int, W: int, k: int, slots: int, f_bytes: int = 4):
+    """(seconds at the f32 rate, seconds at the memory rate) of the work
+    one rows_gram launch needs: per slot of nonzero weight (``slots``)
+    k(k+1)/2 + 2k FMAs and its row of F_g read once (a row at zero weight
+    adds nothing); both weights of every slot read once, A and b written
+    once."""
+    flops = slots * (k * k + 5 * k)
+    nbytes = slots * k * f_bytes + 8 * R * W + 4 * R * (k * k + k)
+    return flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+
+
+def rows_gram_library(torch, F_g, wo, wb):
+    """One PyTorch formulation of the same function: bmm of the weighted
+    block."""
+    A = torch.bmm((F_g * wo[..., None]).transpose(1, 2), F_g)
+    b = torch.bmm(wb[:, None, :], F_g)[:, 0]
+    return A, b
+
+
+def rows_gram_chunks(torch, dev, prep, U, V):
+    """The ML-20M layout's buckets (both half-steps, the trained factors
+    as F) as pre-gathered blocks: yields (label, F_g, wo, wb, rated
+    slots), F_g = F[idx] gathered in row chunks of at most 2^26 values."""
+    import numpy as np
+
+    for name, side, F_np in (("user", prep.u_side, V), ("item", prep.i_side, U)):
+        other = prep.i_side if side is prep.u_side else prep.u_side
+        F = torch.as_tensor(F_np[other.perm]).to(dev)
+        for b in side.buckets:
+            R = b.n_slabs * b.slab
+            idx = torch.as_tensor(b.other_idx.reshape(R, b.C)).to(dev)
+            mask = b.mask.reshape(R, b.C)
+            wo = torch.as_tensor(mask).to(dev)
+            wb = torch.as_tensor((b.vals * b.mask).reshape(R, b.C)).to(dev)
+            for sl in _row_chunks(R, b.C * RANK):
+                label = (f"{name} {'seg ' if b.seg is not None else ''}bucket "
+                         f"C={b.C} rows {sl.start}:{sl.stop}")
+                yield (label, F[idx[sl].long()], wo[sl].contiguous(),
+                       wb[sl].contiguous(), int(np.count_nonzero(mask[sl])))
+
+
+def time_rows_gram(torch, ops, dev, train) -> dict:
+    """Phase 6: rows_gram's path is its op entry point (no training or
+    serving path calls it). It is driven once over every bucket of the
+    ML-20M layout, pre-gathered as F[idx] outside the kernel, with the
+    launch counters zeroed just before and read just after, each result
+    held against a float64 reference on the same inputs (max|dA| /
+    max|A64| and max|db| / max|b64| <= 1e-5; the plain version, an f32
+    product in another order, is compared with the same reference and
+    printed beside it); then each chunk is timed beside the
+    plain version, one library call (bmm of the weighted block), the
+    bound, and gather_gram on the same rows (F_g as its factor table, the
+    identity as its index), which multiplies every padded slot."""
+    prep, U, V = train["prep"], train["U"], train["V"]
+
+    def rel64(A, b, A64, b64):
+        return max(((A.double() - A64).abs().max() / A64.abs().max()).item(),
+                   ((b.double() - b64).abs().max() / b64.abs().max()).item())
+
+    reset_counters(ops)
+    worst = worst_plain = max_abs = 0.0
+    for label, F_g, wo, wb, _ in rows_gram_chunks(torch, dev, prep, U, V):
+        A, b = ops.rows_gram(F_g, wo, wb)
+        Ar, br = ops.rows_gram_ref(F_g, wo, wb)
+        F64 = F_g.double()
+        A64 = torch.einsum("rw,rwk,rwl->rkl", wo.double(), F64, F64)
+        b64 = torch.einsum("rw,rwk->rk", wb.double(), F64)
+        del F64
+        rel, rel_plain = rel64(A, b, A64, b64), rel64(Ar, br, A64, b64)
+        print(f"rows_gram path {label}: off float64 {rel:.3e}, plain version "
+              f"off float64 {rel_plain:.3e}", flush=True)
+        check(bool(torch.isfinite(A).all()) and rel <= GRAM_TOL,
+              f"rows_gram off float64 on {label}: {rel:.3e}")
+        worst, worst_plain = max(worst, rel), max(worst_plain, rel_plain)
+        max_abs = max(max_abs, (A - Ar).abs().max().item(), (b - br).abs().max().item())
+        del F_g, wo, wb, A, b, Ar, br, A64, b64
+    launches = read_counters(ops)["rows_gram"]
+    print(f"rows_gram path: {launches} launches over the ML-20M layout's "
+          f"buckets; off float64 by at most {worst:.3e} (relative to max|A64|, "
+          f"max|b64|), the plain version by at most {worst_plain:.3e}; kernel "
+          f"against plain at most {max_abs:.3e} absolute", flush=True)
+    check(launches > 0, "rows_gram was not launched on its path")
+
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_bound_s=0.0,
+               bytes_bound_s=0.0, launches=launches)
+    gather_ms = 0.0
+    for label, F_g, wo, wb, slots in rows_gram_chunks(torch, dev, prep, U, V):
+        R, W, _ = F_g.shape
+        idx = torch.arange(R * W, device=dev, dtype=torch.int32).reshape(R, W)
+        F_flat = F_g.view(R * W, RANK)
+        iters = 20 if R * W < (1 << 22) else 5
+        kern, _ = cuda_ms(lambda: ops.rows_gram(F_g, wo, wb), iters=iters, warmup=2)
+        gath, _ = cuda_ms(lambda: ops.gather_gram(F_flat, idx, wo, wb), iters=iters,
+                          warmup=2)
+        plain, _ = cuda_ms(lambda: ops.rows_gram_ref(F_g, wo, wb), iters=3, warmup=1)
+        lib, _ = cuda_ms(lambda: rows_gram_library(torch, F_g, wo, wb), iters=3,
+                         warmup=1)
+        fs, bs = rows_gram_bound(R, W, RANK, slots)
+        row["ms"] += kern
+        row["plain_ms"] += plain
+        row["library_ms"] += lib
+        gather_ms += gath
+        bound = add_bound(row, fs, bs)
+        print(f"rows_gram time {label} R={R} W={W} k={RANK} ({slots} rated "
+              f"slots) device ms: kernel={kern:.4f} gather_gram(identity)="
+              f"{gath:.4f} plain={plain:.4f} library(bmm)={lib:.4f} "
+              f"bound={bound:.4f} ({'operations' if fs >= bs else 'bytes'}; "
+              f"f32 FMA {fs * 1e3:.4f}, bytes {bs * 1e3:.4f})", flush=True)
+        del F_g, F_flat, idx, wo, wb
+    row["bound_ms"] = (row["ops_bound_s"] + row["bytes_bound_s"]) * 1e3
+    row["bound_by"] = ("operations" if row["ops_bound_s"] >= row["bytes_bound_s"]
+                       else "bytes")
+    print(f"rows_gram over the whole layout (both half-steps): kernel "
+          f"{row['ms']:.3f} ms, gather_gram on the same rows {gather_ms:.3f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, library "
+          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['ops_bound_s'] * 1e3:.3f} ms in launches bound by operations, "
+          f"{row['bytes_bound_s'] * 1e3:.3f} ms by bytes), "
+          f"{row['ms'] / row['bound_ms']:.1f}x the bound", flush=True)
+    return row
+
+
 def pio_train_through_cli(torch, ops, dev) -> None:
     """Phase 7: `train` through the port's CLI on the card, then deploy the
     instance it wrote and check 20 answers against the plain reference."""
@@ -1040,6 +1252,7 @@ def main(argv) -> int:
     main_err = check_score_topk(torch, ops, dev)
     gram_err = check_gather_gram(torch, ops, dev)
     solve_err = check_chol_solve(torch, ops, dev)
+    rows_err = check_rows_gram(torch, ops, dev)
     if quick:
         return 0
 
@@ -1051,8 +1264,9 @@ def main(argv) -> int:
     phase("5. full-width training (ML-20M shape, rank 64)")
     train = train_full_width(torch, ops, dev)
 
-    phase("6. gather_gram and chol_solve timing at the training path's shapes")
+    phase("6. gather_gram, chol_solve and rows_gram at the training path's shapes")
     ttimes = time_training_kernels(torch, ops, dev, train)
+    rows = time_rows_gram(torch, ops, dev, train)
     if "--profile" in argv:
         profile_training(torch, dev, train)
 
@@ -1090,6 +1304,14 @@ def main(argv) -> int:
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],
+    }, {
+        "name": "rows_gram", "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/rows_gram.cu",
+        "replaces": "predictionio_tpu/ops/gram.py:73",
+        "launches": rows["launches"], "max_abs_err": rows_err,
+        "ms": rows["ms"], "plain_ms": rows["plain_ms"],
+        "bound_ms": rows["bound_ms"], "bound_by": rows["bound_by"],
+        "library_ms": rows["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,7 @@ def _port(A, b):
     return chol_solve(torch.from_numpy(A), torch.from_numpy(b)).numpy()
 
 
-@pytest.mark.parametrize("k", [1, 5, 8, 10, 16])
+@pytest.mark.parametrize("k", [1, 5, 8, 10, 16, 31, 33, 63, 65])
 @pytest.mark.parametrize("N", [0, 1, 3, 130])
 def test_matches_jax_solves_and_numpy(N, k):
     A, b = _spd(N, k, seed=N + k)
@@ -49,7 +49,9 @@ def test_matches_jax_solves_and_numpy(N, k):
     np.testing.assert_allclose(x, x64, rtol=TOL, atol=TOL)
     xr = np.asarray(_chol_solve(jnp.asarray(A), jnp.asarray(b)))
     np.testing.assert_allclose(x, xr, rtol=TOL, atol=TOL)
-    if N == 130:  # the Pallas kernel pads the batch to its 128-lane tile
+    # the Pallas kernel pads the batch to its 128-lane tile; in interpret
+    # mode it takes seconds a case beyond k = 16, so the wider k stop here
+    if N == 130 and k <= 16:
         xp = np.asarray(chol_solve_pallas(jnp.asarray(A), jnp.asarray(b),
                                           interpret=True))
         np.testing.assert_allclose(x, xp, rtol=TOL, atol=TOL)
