@@ -16,8 +16,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (PyTorch's default f32 matmuls, no TF32): score_topk — equal indices on integer data, values within
    rtol/atol 1e-5 and indices equal up to near-ties on Gaussian data, pad
    rows exact; gather_gram — bitwise equal on integer data, within 1e-5 of
-   a float64 reference (relative to max|A64|) on Gaussian data, f32 and
-   bf16 factors, repeated indices, pad slots; chol_solve — within 1e-4 of
+   a float64 reference (relative to max|A64|) on Gaussian data, A exactly
+   symmetric, f32 and bf16 factors, repeated indices, pad slots, every
+   path of its plan (narrow rows packed, wide rows split), all-zero rows,
+   zero runs mid-row, an F off the 16-byte boundary, R = 0; chol_solve — within 1e-4 of
    float64 (relative to max|x64|) on ALS-like SPD systems and on the same
    systems ill-scaled, at every KP boundary of k = 1 … 128, identity
    systems give x = b exactly; rows_gram — bitwise equal on integer data
@@ -41,7 +43,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    TF32 in the dense head with the guard taken out) and must fail the
    float64 check and move U, which shows those checks can tell them from
    the f32 run;
-6. time gather_gram for every bucket of that layout and chol_solve at
+6. time gather_gram for every bucket of that layout (with its padded,
+   rated and modelled multiplied slots and its plan; each result within
+   1e-5 of float64 and exactly symmetric, and a packed bucket also timed
+   with one row a block, which must give the same bits) and chol_solve at
    both sides' N, beside the plain versions, one library call and the
    bound (the larger of the bytes and the operations the function needs,
    per launch, summed over the launches); then drive rows_gram's path,
@@ -304,10 +309,13 @@ def gram_plain(torch, ops, F, idx, wo, wb):
     return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
 
 
-def gram_inputs(torch, g, dev, R, C, k, kind, n_f=N_ITEMS):
+def gram_inputs(torch, g, dev, R, C, k, kind, n_f=N_ITEMS, holes=False):
     """F, idx, wo, wb like a bucket's: odd rows draw their indices from 16
     rows (many repeats), the last quarter of each row is pad (index 0,
-    weight 0). Integer data is exact in f32 whatever the summation order."""
+    weight 0). With ``holes``, every third row from the first also has a
+    run of zero weights mid-row (whole tiles to skip at wide C) and every
+    fifth row from the third has no nonzero weight at all. Integer data is exact in f32 whatever
+    the summation order."""
     if kind == "integer":
         F = torch.randint(-3, 4, (n_f, k), generator=g, device=dev).float()
         wo = torch.randint(0, 4, (R, C), generator=g, device=dev).float()
@@ -324,23 +332,65 @@ def gram_inputs(torch, g, dev, R, C, k, kind, n_f=N_ITEMS):
     idx[:, pad:] = 0
     wo[:, pad:] = 0.0
     wb[:, pad:] = 0.0
+    if holes:
+        wo[::3, C // 8:C // 2] = 0.0
+        wb[::3, C // 8:C // 2] = 0.0
+        wo[2::5] = 0.0
+        wb[2::5] = 0.0
     return F, idx, wo.contiguous(), wb.contiguous()
+
+
+def misaligned(torch, F):
+    """A contiguous copy of F that starts one element past a 16-byte
+    boundary (a view into a larger buffer), so the kernel cannot take its
+    16-byte copies."""
+    buf = torch.empty(F.numel() + 1, dtype=F.dtype, device=F.device)
+    out = buf[1:].view(F.shape)
+    out.copy_(F)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
 
 
 def check_gather_gram(torch, ops, dev) -> float:
     """Phase 3: gather_gram against gather_gram_ref (bitwise on integer
     data) and a float64 reference (max|dA| / max|A64| <= 1e-5 on Gaussian
-    data), f32 and bf16 factors. Returns the max abs error against the
+    data), f32 and bf16 factors; A exactly symmetric on every kind of
+    data. Beside the first cases, every path of the kernel's plan: narrow
+    rows packed several to a block with R not a multiple of the rows a
+    block takes, wide rows split into chunks (C = 8,192 at R = 1, 42 and
+    384), rows whose weights are all zero, zero runs mid-row, and an F
+    that is not 16-byte aligned, and the training layout's bucket heights
+    (R = 6,144, 19,813, 105,312), whose plans pack up to 8 rows. Returns the max abs error against the
     plain version at the training path's width (k=64, C=2048, Gaussian)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     main_err = 0.0
-    cases = [(k, C, R, torch.float32) for k in (8, 10, RANK, 128)
+    # (k, C, R, dtype, holes, aligned)
+    cases = [(k, C, R, torch.float32, False, True) for k in (8, 10, RANK, 128)
              for C in (8, 128, 2048, 8192) for R in (1, 13, 4096)]
-    cases += [(k, C, 13, torch.bfloat16) for k in (10, RANK) for C in (128, 2048)]
-    for k, C, R, dtype in cases:
+    cases += [(k, C, 13, torch.bfloat16, False, True) for k in (10, RANK)
+              for C in (128, 2048)]
+    dtypes = (torch.float32, torch.bfloat16)
+    # packed narrow rows (R = 4097: the last block takes fewer rows)
+    cases += [(k, C, R, dt, True, True) for k in (10, RANK, 128) for C in (8, 32)
+              for R in (1, 7, 4097) for dt in dtypes]
+    # the training layout's bucket heights, so every packing it runs is held
+    # here too (the user C = 8 bucket's 105,312 rows take the most)
+    cases += [(RANK, C, R, dt, True, True) for C in (8, 32, 128, 512)
+              for R in (6144, 19813) for dt in dtypes]
+    cases += [(RANK, 8, 105312, torch.float32, True, True)]
+    # split wide rows: the seg bucket's 42 rows and the 384 of C = 8,192
+    cases += [(k, 8192, R, dt, True, True) for k in (10, RANK, 128) for R in (1, 42)
+              for dt in dtypes]
+    cases += [(RANK, 8192, 384, dt, True, True) for dt in dtypes]
+    # an F off the 16-byte boundary: the plain-load route at every plan
+    cases += [(k, C, R, dt, True, False) for k in (RANK, 128) for C, R in
+              ((8, 4097), (512, 13), (8192, 42)) for dt in dtypes]
+    for k, C, R, dtype, holes, aligned in cases:
         for kind in ("integer", "gaussian"):
-            F, idx, wo, wb = gram_inputs(torch, g, dev, R, C, k, kind)
+            F, idx, wo, wb = gram_inputs(torch, g, dev, R, C, k, kind, holes=holes)
             F = F.to(dtype)
+            if not aligned:
+                F = misaligned(torch, F)
             A, b = ops.gather_gram(F, idx, wo, wb)
             Ar, br = gram_plain(torch, ops, F, idx, wo, wb)
             torch.cuda.synchronize()
@@ -355,17 +405,41 @@ def check_gather_gram(torch, ops, dev) -> float:
                           ((b.double() - b64).abs().max()
                            / b64.abs().max().clamp_min(1e-300)).item())
                 ok = rel <= GRAM_TOL
-                if k == RANK and C == 2048 and dtype == torch.float32:
+                if k == RANK and C == 2048 and dtype == torch.float32 and not holes:
                     main_err = max(main_err, err)
-            # (w f_i) f_j and (w f_j) f_i round apart on Gaussian data
-            sym = kind != "integer" or torch.equal(A, A.transpose(1, 2))
+                del A64, b64
+            # A is mirrored from one triangle: symmetric on any data
+            sym = torch.equal(A, A.transpose(1, 2))
+            plan = ops.gram.gram_plan(R, C)
             print(f"gather_gram {kind:8s} {str(dtype)[6:]:8s} k={k:3d} C={C:4d} "
-                  f"R={R:4d} max_abs_err={err:.3e} rel64={rel:.3e} "
+                  f"R={R:6d} split={plan.split} rows/block={plan.rows_per_block}"
+                  f"{' holes' if holes else ''}{'' if aligned else ' unaligned F'} "
+                  f"max_abs_err={err:.3e} rel64={rel:.3e} "
                   f"{'ok' if ok and sym else 'MISMATCH'}", flush=True)
             check(ok, f"gather_gram disagrees ({kind}, {dtype}, k={k}, C={C}, R={R})")
-            check(sym, f"gather_gram A not symmetric (k={k}, C={C}, R={R})")
+            check(sym, f"gather_gram A not symmetric ({kind}, k={k}, C={C}, R={R})")
             del F, idx, wo, wb, A, b, Ar, br
+    for dtype in dtypes:
+        A, b = ops.gather_gram(torch.zeros(5, RANK, device=dev, dtype=dtype),
+                               torch.zeros(0, 8, device=dev, dtype=torch.int32),
+                               torch.zeros(0, 8, device=dev), torch.zeros(0, 8, device=dev))
+        check(A.shape == (0, RANK, RANK) and b.shape == (0, RANK),
+              f"gather_gram R=0 ({dtype}) gave {tuple(A.shape)}, {tuple(b.shape)}")
+    print("gather_gram R=0 (f32, bf16): empty outputs of the right shape, no launch",
+          flush=True)
     return main_err
+
+
+def multiplied_slots(torch, wo, wb, tile: int) -> int:
+    """Slots the kernel gathers and multiplies, modelled from its rule (it
+    counts nothing itself): in each tile of ``tile`` slots, those up to
+    its last slot of nonzero weight. Exact for unsplit rows; a split
+    chunk starts a tile of its own."""
+    R, C = wo.shape
+    live = torch.zeros((R, -(-C // tile) * tile), dtype=torch.bool, device=wo.device)
+    live[:, :C] = (wo != 0) | (wb != 0)
+    pos = torch.arange(1, tile + 1, device=wo.device)
+    return int((live.view(R, -1, tile) * pos).amax(-1).sum().item())
 
 
 def rows_gram_plain(torch, ops, F_g, wo, wb):
@@ -760,14 +834,15 @@ def profile_training(torch, dev, train) -> None:
               flush=True)
 
 
-def gram_bound(R: int, C: int, k: int, slots: int, n_f: int, f_bytes: int = 4):
+def gram_bound(R: int, C: int, k: int, slots: int, f_rows: int, f_bytes: int = 4):
     """(seconds at the f32 rate, seconds at the memory rate) of the work
     one gather_gram launch needs: per slot of nonzero weight (``slots``)
     k(k+1)/2 FMAs for the lower triangle of the symmetric A, k for w·f and
-    k for b; idx, wo and wb read once, F (n_f rows) read once, A and b
+    k for b; idx, wo and wb read once, each row of F that a slot of
+    nonzero weight gathers (``f_rows`` distinct rows) read once, A and b
     written once."""
     flops = slots * (k * k + 5 * k)
-    nbytes = 12 * R * C + n_f * k * f_bytes + 4 * R * (k * k + k)
+    nbytes = 12 * R * C + f_rows * k * f_bytes + 4 * R * (k * k + k)
     return flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
 
 
@@ -801,48 +876,101 @@ def gram_library(torch, F, idx, wo, wb):
     return outs
 
 
+def rel64(A, b, A64, b64) -> float:
+    """max|dA| / max|A64| and max|db| / max|b64|, the larger."""
+    return max(((A.double() - A64).abs().max() / A64.abs().max()).item(),
+               ((b.double() - b64).abs().max() / b64.abs().max()).item())
+
+
 def time_training_kernels(torch, ops, dev, train) -> dict:
     """Phase 6: gather_gram on every bucket of the ML-20M layout (both
     half-steps of one iteration, the trained factors as F) and chol_solve
     at both sides' N, each beside its plain version, one library call and
-    the bound. Returns the per-iteration sums."""
+    the bound. Each bucket's result is held against a float64 reference
+    (max|dA| / max|A64| and max|db| / max|b64| <= 1e-5, A exactly
+    symmetric; the plain version's distance is printed beside), and where
+    its plan packs rows, the bucket is timed again with one row a block,
+    which must give the same bits. Returns the per-iteration sums."""
     import numpy as np
+
+    from predictionio_tpu_torch.ops import _build
 
     prep, U, V = train["prep"], train["U"], train["V"]
     out = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_bound_s=0.0,
                       bytes_bound_s=0.0) for name in ("gather_gram", "chol_solve")}
     g = out["gather_gram"]
+    tile = _build.load("gather_gram").pio_gather_gram_tile_slots(RANK)
+    slot_sums = dict(padded=0, rated=0, multiplied=0)
+    worst = worst_plain = packed_ms = one_row_ms = 0.0
     for name, side, F_np in (("user", prep.u_side, V), ("item", prep.i_side, U)):
         # the factors in the other side's permuted order, as training holds them
         other = prep.i_side if side is prep.u_side else prep.u_side
         F = torch.as_tensor(F_np[other.perm]).to(dev)
         for b in side.buckets:
             R = b.n_slabs * b.slab
+            label = (f"{name} {'seg ' if b.seg is not None else ''}bucket "
+                     f"R={R} C={b.C}")
             idx = torch.as_tensor(b.other_idx.reshape(R, b.C)).to(dev)
             wo = torch.as_tensor(b.mask.reshape(R, b.C)).to(dev)
             wb = torch.as_tensor((b.vals * b.mask).reshape(R, b.C)).to(dev)
+            A, bv = ops.gather_gram(F, idx, wo, wb)
+            Ar, br = gram_plain(torch, ops, F, idx, wo, wb)
+            A64, b64 = gram64(torch, F, idx, wo, wb)
+            rel, rel_plain = rel64(A, bv, A64, b64), rel64(Ar, br, A64, b64)
+            sym = torch.equal(A, A.transpose(1, 2))
+            check(bool(torch.isfinite(A).all()) and rel <= GRAM_TOL and sym,
+                  f"gather_gram on {label}: off float64 {rel:.3e}, symmetric {sym}")
+            worst, worst_plain = max(worst, rel), max(worst_plain, rel_plain)
+            del Ar, br, A64, b64
             iters = 20 if R * b.C < (1 << 22) else 5
             kern, _ = cuda_ms(lambda: ops.gather_gram(F, idx, wo, wb), iters=iters,
                               warmup=2)
+            plan = ops.gram.gram_plan(R, b.C)
+            one_row = ""
+            if plan.rows_per_block > 1:
+                one = ops.gram.GramPlan(1, b.C, 1)
+                with mock.patch.object(ops.gram, "gram_plan", lambda *_: one):
+                    A1, b1 = ops.gather_gram(F, idx, wo, wb)
+                    one_ms, _ = cuda_ms(lambda: ops.gather_gram(F, idx, wo, wb),
+                                        iters=iters, warmup=2)
+                check(torch.equal(A1, A) and torch.equal(b1, bv),
+                      f"gather_gram on {label}: one row a block changed the result")
+                packed_ms += kern
+                one_row_ms += one_ms
+                one_row = f" one-row-a-block={one_ms:.4f}"
+                del A1, b1
+            del A, bv
             plain, _ = cuda_ms(lambda: gram_plain(torch, ops, F, idx, wo, wb),
                                iters=3, warmup=1)
             lib, _ = cuda_ms(lambda: gram_library(torch, F, idx, wo, wb),
                              iters=3, warmup=1)
+            live = (wo != 0) | (wb != 0)
             slots = int(np.count_nonzero(b.mask))
-            fs, bs = gram_bound(R, b.C, RANK, slots, F.shape[0])
+            f_rows = int(torch.unique(idx[live]).numel())
+            done = multiplied_slots(torch, wo, wb, tile)
+            fs, bs = gram_bound(R, b.C, RANK, slots, f_rows)
             g["ms"] += kern
             g["plain_ms"] += plain
             g["library_ms"] += lib
+            for key, n in (("padded", R * b.C), ("rated", slots), ("multiplied", done)):
+                slot_sums[key] += n
             bound = add_bound(g, fs, bs)
-            print(f"gather_gram time {name} {'seg ' if b.seg is not None else ''}"
-                  f"bucket R={R} C={b.C} k={RANK} ({slots} rated slots) device "
-                  f"ms: kernel={kern:.4f} plain={plain:.4f} "
+            print(f"gather_gram time {label} k={RANK} ({R * b.C} padded slots, "
+                  f"{slots} rated, {done} multiplied (modelled), {f_rows} rows "
+                  f"of F; split={plan.split} rows/block={plan.rows_per_block}) "
+                  f"off float64 {rel:.3e} (plain {rel_plain:.3e}) device "
+                  f"ms: kernel={kern:.4f}{one_row} plain={plain:.4f} "
                   f"library(F[idx]+bmm)={lib:.4f} bound={bound:.4f} "
                   f"({'operations' if fs >= bs else 'bytes'}; f32 FMA "
                   f"{fs * 1e3:.4f}, bytes {bs * 1e3:.4f}); "
                   f"{slots * (RANK * RANK + 5 * RANK) / kern / 1e9:.2f} "
                   f"needed TFLOP/s", flush=True)
-            del idx, wo, wb
+            del idx, wo, wb, live
+    print(f"gather_gram slots over both half-steps: {slot_sums['padded']} padded, "
+          f"{slot_sums['rated']} rated, {slot_sums['multiplied']} multiplied "
+          f"(modelled); off float64 by at most {worst:.3e}, the plain version "
+          f"by at most {worst_plain:.3e}; the packed buckets {packed_ms:.3f} ms, "
+          f"{one_row_ms:.3f} ms with one row a block", flush=True)
     c = out["chol_solve"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     for N in (N_USERS, N_ITEMS):
@@ -927,11 +1055,6 @@ def time_rows_gram(torch, ops, dev, train) -> dict:
     bound, and gather_gram on the same rows (F_g as its factor table, the
     identity as its index), which multiplies every padded slot."""
     prep, U, V = train["prep"], train["U"], train["V"]
-
-    def rel64(A, b, A64, b64):
-        return max(((A.double() - A64).abs().max() / A64.abs().max()).item(),
-                   ((b.double() - b64).abs().max() / b64.abs().max()).item())
-
     reset_counters(ops)
     worst = worst_plain = max_abs = 0.0
     for label, F_g, wo, wb, _ in rows_gram_chunks(torch, dev, prep, U, V):

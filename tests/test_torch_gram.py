@@ -13,6 +13,9 @@ The CUDA kernel itself runs only on the card (chip_smoke.py); here the
 wrapper takes its plain version because the tensors lie on the CPU.
 """
 
+import ast
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +25,8 @@ from predictionio_tpu.ops.gram import gather_gram as jax_gather_gram
 from predictionio_tpu.ops.gram import gather_gram_xla
 from predictionio_tpu_torch import ops
 from predictionio_tpu_torch.ops import _build
-from predictionio_tpu_torch.ops.gram import gather_gram, gather_gram_ref
+from predictionio_tpu_torch.ops.gram import (LINE, MAX_SPLIT, MIN_CHUNK, NARROW,
+                                             gather_gram, gather_gram_ref, gram_plan)
 
 TOL = 1e-5
 
@@ -131,5 +135,91 @@ def test_source_names_the_tpu_kernel_and_its_bound():
     src = (_build.CSRC / "gather_gram.cu").read_text()
     assert "predictionio_tpu/ops/gram.py" in src and "Bound" in src
     assert "pio_gather_gram" in src and "cublas" not in src.lower()
+    # chunks are summed in a fixed order: no atomic, so reruns are bitwise
+    assert "atomicAdd" not in src and "atom." not in src
     cmd = _build.nvcc_command(_build.CSRC / "gather_gram.cu", _build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+# the ML-20M layout's buckets (R, C) at rank 64, both sides (chip_smoke.py
+# phase 5's generator); only the two C = 8,192 buckets split
+ML20M_BUCKETS = [(1024, 2048), (1837, 512), (5369, 128), (19813, 32), (105312, 8),
+                 (42, 8192), (384, 8192), (1536, 2048), (6144, 512), (24576, 128),
+                 (1, 32)]
+
+
+def _chunks(plan, C):
+    return [(s * plan.chunk, min(C, (s + 1) * plan.chunk)) for s in range(plan.split)]
+
+
+@pytest.mark.parametrize("R, C", ML20M_BUCKETS + [
+    (1, 0), (1, 1), (7, 8), (4097, 8), (4097, 32), (1, 33), (1, 8192), (13, 2048),
+    (1, 2048), (1023, 4096), (3, 100_000), (1, 1100), (384, 8191)])
+def test_plan_covers_every_slot_once(R, C):
+    plan = gram_plan(R, C)
+    assert plan == gram_plan(R, C)              # the shape alone decides
+    assert 1 <= plan.split <= MAX_SPLIT and plan.rows_per_block >= 1
+    covered = np.zeros(C, np.int64)
+    for lo, hi in _chunks(plan, C):
+        assert lo < hi or C == 0                # no empty chunk
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if plan.split > 1:                          # whole lines, one row a block
+        assert plan.chunk % LINE == 0
+        assert plan.rows_per_block == 1 and C >= 2 * MIN_CHUNK
+    else:
+        assert plan.chunk == C
+    if R < 2 * 1024 or C > NARROW:              # small buckets, wide rows:
+        assert plan.rows_per_block == 1         # a row a block
+
+
+def test_plan_splits_only_the_wide_ml20m_buckets_and_packs_the_narrow():
+    plans = {(R, C): gram_plan(R, C) for R, C in ML20M_BUCKETS}
+    assert {rc for rc, p in plans.items() if p.split > 1} == {(42, 8192), (384, 8192)}
+    assert plans[(42, 8192)].split * 42 >= 132  # the seg bucket fills the SMs
+    assert plans[(105312, 8)].rows_per_block > 1
+    assert plans[(19813, 32)].rows_per_block > 1
+    assert plans[(24576, 128)].rows_per_block == 1
+    assert plans[(6144, 512)].rows_per_block == 1
+    assert plans[(1, 32)].rows_per_block == 1
+
+
+def _holed(R, C, k, seed):
+    """_data with a run of zero weights mid-row in every third row (whole
+    tiles at wide C) and every fifth row from the third all zero."""
+    F, idx, wo, wb = _data(R, C, k, seed=seed)
+    wo[::3, C // 8:C // 2] = 0.0
+    wb[::3, C // 8:C // 2] = 0.0
+    wo[2::5] = 0.0
+    wb[2::5] = 0.0
+    return F, idx, wo, wb
+
+
+@pytest.mark.parametrize("R, C, k", [(7, 32, 10), (11, 300, 6), (3, 1100, 4)])
+def test_zero_runs_and_all_zero_rows_match_float64_and_jax(R, C, k):
+    F, idx, wo, wb = _holed(R, C, k, seed=R * C + k)
+    A, b = _port(F, idx, wo, wb)
+    G = F[idx].astype(np.float64)
+    A64 = np.einsum("rc,rck,rcl->rkl", wo.astype(np.float64), G, G)
+    b64 = np.einsum("rc,rck->rk", wb.astype(np.float64), G)
+    np.testing.assert_allclose(A, A64, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(b, b64, rtol=TOL, atol=TOL)
+    Aj, bj = gather_gram_xla(jnp.asarray(F), jnp.asarray(idx), jnp.asarray(wo),
+                             jnp.asarray(wb))
+    np.testing.assert_allclose(A, np.asarray(Aj), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(b, np.asarray(bj), rtol=TOL, atol=TOL)
+    dead = np.arange(2, R, 5)                   # rows with no weight
+    assert not A[dead].any() and not b[dead].any()
+
+
+def test_gram_module_reexports_rows_gram_without_a_cycle():
+    gram = importlib.import_module("predictionio_tpu_torch.ops.gram")
+    rows = importlib.import_module("predictionio_tpu_torch.ops.rows_gram")
+    assert gram.rows_gram is rows.rows_gram
+    assert gram.rows_gram_ref is rows.rows_gram_ref
+    from predictionio_tpu_torch.ops.gram import rows_gram, rows_gram_ref  # noqa: F401
+    tree = ast.parse(open(rows.__file__).read())
+    imported = [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    imported += [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+    assert not any(m.endswith("gram") and "rows_gram" not in m for m in imported)
