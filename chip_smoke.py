@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # phases 1-3: build and check the four kernels
     python3 chip_smoke.py --profile  # also device time by kernel (torch.profiler)
                                      # of serving batches and a training iteration
+    python3 chip_smoke.py --topk     # phases 1-4 for score_topk alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -15,7 +16,11 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 3. hold each kernel against its plain PyTorch version on the card
    (PyTorch's default f32 matmuls, no TF32): score_topk — equal indices on integer data, values within
    rtol/atol 1e-5 and indices equal up to near-ties on Gaussian data, pad
-   rows exact; gather_gram — bitwise equal on integer data, within 1e-5 of
+   rows exact, at k = 16, 128 and 1,024 and around the boundary of its
+   k <= 32 path (k = 1 … 33 at B = 1 … 65, every rows-per-block
+   instantiation, each row alone bitwise equal to the same row in its
+   bucket, tie-heavy and constant V, n_valid < k, an unaligned V, catalogs
+   of 1 … 2,000 items at d = 10 and 100); gather_gram — bitwise equal on integer data, within 1e-5 of
    a float64 reference (relative to max|A64|) on Gaussian data, A exactly
    symmetric, f32 and bf16 factors, repeated indices, pad slots, every
    path of its plan (narrow rows packed, wide rows split), all-zero rows,
@@ -64,7 +69,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    deployed with the port's EngineServer (micro-batching, AOT ladder);
    sequential and concurrent POST /queries.json, every answer checked
    against the plain reference on the card; the launch counters are
-   zeroed just before the queries and score_topk must have grown.
+   zeroed just before the queries and score_topk must have grown; the
+   serving dispatches per bucket (pio_aot_dispatch_total) and what the
+   kernel loses on them, each at its bucket's phase-4 time less its bound.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -244,30 +251,8 @@ def check_score_topk(torch, ops, dev) -> float:
                                 dtype=torch.int32)
             rows_valid = B - B // 4
             for k in (16, 128, 1024):
-                vals, idx = ops.score_topk(U, Vp, k, n_valid=N_ITEMS,
-                                           rows_valid=rows_valid, ids=ids)
-                rv, ri = ops.score_topk_ref(U, Vp, k, n_valid=N_ITEMS,
-                                            rows_valid=rows_valid, ids=ids)
-                torch.cuda.synchronize()
-                err = (vals - rv).abs().max().item()
-                if kind == "integer":
-                    ok = torch.equal(idx, ri) and torch.equal(vals, rv)
-                else:
-                    s64 = U[ids.long()].double() @ Vp.double().T
-                    s64[rows_valid:] = 0.0
-                    s64[:, N_ITEMS:] = -3.0e38
-                    ok = topk_agrees(vals[:rows_valid], idx[:rows_valid],
-                                     rv[:rows_valid], ri[:rows_valid],
-                                     s64[:rows_valid])
-                pad_ok = bool((vals[rows_valid:] == 0).all()) and bool(
-                    (idx[rows_valid:] == torch.arange(k, device=dev)).all())
-                print(f"score_topk {kind:8s} B={B:3d} d={RANK} Np={N_PAD} "
-                      f"k={k:4d} rows_valid={rows_valid:3d} "
-                      f"max_abs_err={err:.3e} "
-                      f"{'ok' if ok and pad_ok else 'MISMATCH'}", flush=True)
-                check(ok, f"score_topk disagrees with score_topk_ref "
-                          f"({kind}, B={B}, k={k})")
-                check(pad_ok, f"score_topk pad rows wrong (B={B}, k={k})")
+                vals, idx, err = topk_case(torch, ops, dev, f"{kind:8s}", U, Vp, k, ids,
+                                           rows_valid, N_ITEMS, kind == "integer")
                 if kind == "gaussian" and B == BATCH_MAX and k == AOT_TOPK:
                     main_err = err
                     # a row's answer does not depend on its batch: the
@@ -278,7 +263,121 @@ def check_score_topk(torch, ops, dev) -> float:
                         check(torch.equal(v1[0], vals[r])
                               and torch.equal(i1[0], idx[r]),
                               f"row {r} differs between B={B} and B=1")
+    check_score_topk_select(torch, ops, dev, g)
     return main_err
+
+
+def topk_case(torch, ops, dev, label, U, V, k, ids, rows_valid, n_valid, exact):
+    """One score_topk call against score_topk_ref on the same inputs:
+    bitwise on exact (integer) data, topk_agrees on Gaussian data; pad
+    rows exact in both. Returns (vals, idx, max abs value error)."""
+    vals, idx = ops.score_topk(U, V, k, n_valid=n_valid, rows_valid=rows_valid, ids=ids)
+    rv, ri = ops.score_topk_ref(U, V, k, n_valid=n_valid, rows_valid=rows_valid, ids=ids)
+    torch.cuda.synchronize()
+    if exact:
+        ok = torch.equal(idx, ri) and torch.equal(vals, rv)
+    else:
+        s64 = U[ids.long()].double() @ V.double().T
+        s64[rows_valid:] = 0.0
+        s64[:, n_valid or V.shape[0]:] = -3.0e38
+        ok = topk_agrees(vals[:rows_valid], idx[:rows_valid], rv[:rows_valid],
+                         ri[:rows_valid], s64[:rows_valid])
+    # pad rows: all-zero scores, then -3e38 where n_valid < k; items 0 .. k-1
+    cols = torch.arange(k, device=dev)
+    pad_vals = torch.where(cols < (n_valid or V.shape[0]), 0.0, -3.0e38)
+    pad_ok = (bool((vals[rows_valid:] == pad_vals).all())
+              and bool((idx[rows_valid:] == cols).all()))
+    err = (vals - rv).abs().max().item()
+    print(f"score_topk {label} B={ids.shape[0]:3d} d={V.shape[1]:3d} Np={V.shape[0]:5d} "
+          f"k={k:4d} n_valid={n_valid or V.shape[0]:5d} rows_valid={rows_valid:3d} "
+          f"max_abs_err={err:.3e} {'ok' if ok and pad_ok else 'MISMATCH'}", flush=True)
+    check(ok, f"score_topk disagrees with score_topk_ref ({label}, B={ids.shape[0]}, k={k})")
+    check(pad_ok, f"score_topk pad rows wrong ({label}, B={ids.shape[0]}, k={k})")
+    return vals, idx, err
+
+
+def check_score_topk_select(torch, ops, dev, g) -> None:
+    """Phase 3, the k <= 32 path and its boundary with the k > 32 path:
+    every k of (1, 5, 16, 17, 31, 32, 33) at every B of (1, 2, 3, 8, 16,
+    31, 33, 64, 65), so each rows-per-block instantiation runs (B = 3
+    takes 4, B = 65 two groups of 64), and each Gaussian row alone equals
+    the same row in its bucket bitwise; tie-heavy V (three distinct rows repeated) and an
+    all-constant V, whose answer must be items 0 .. k-1; n_valid < k, so
+    masked columns enter the top k at -3e38 in index order; an unaligned V;
+    small catalogs (Np 1, 31, 257, 2,000) at d = 10 and 100."""
+    def integer(*shape):
+        mag = torch.randint(1, 4, shape, generator=g, device=dev)
+        return ((torch.randint(0, 2, shape, generator=g, device=dev) * 2 - 1) * mag).float()
+
+    def gaussian(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def batch(B, n_users):
+        return torch.randint(0, n_users, (B,), generator=g, device=dev, dtype=torch.int32)
+
+    n_users = 4096
+    Bs = (1, 2, 3, 8, 16, 31, 33, 64, 65)
+    for kind, draw in (("integer", integer), ("gaussian", gaussian)):
+        U = draw(n_users, RANK)
+        Vp = torch.cat([draw(N_ITEMS, RANK), torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
+        for B in Bs:
+            ids = batch(B, n_users)
+            rows_valid = B - B // 4
+            for k in (1, 5, AOT_TOPK, 17, 31, 32, 33):
+                vals, idx, _ = topk_case(torch, ops, dev, f"{kind:8s}", U, Vp, k, ids,
+                                         rows_valid, N_ITEMS, kind == "integer")
+                if kind == "gaussian":
+                    # a row's answer does not depend on its batch
+                    for r in sorted({0, rows_valid - 1}):
+                        v1, i1 = ops.score_topk(U, Vp, k, n_valid=N_ITEMS, ids=ids[r:r + 1])
+                        check(torch.equal(v1[0], vals[r]) and torch.equal(i1[0], idx[r]),
+                              f"row {r} differs between B={B} and B=1 (k={k})")
+
+    # tie-heavy and constant V (integer Q: every score exact)
+    U = integer(n_users, RANK)
+    for np_ in (2000, N_PAD):
+        distinct = integer(3, RANK)
+        V_ties = distinct[torch.randint(0, 3, (np_,), generator=g, device=dev)].contiguous()
+        V_const = torch.ones(np_, RANK, device=dev)
+        for B in (1, 8, 64, 65):
+            ids = batch(B, n_users)
+            rows_valid = B - B // 4
+            for k in (1, AOT_TOPK, 32, 33):
+                topk_case(torch, ops, dev, "ties    ", U, V_ties, k, ids, rows_valid, 0, True)
+                _, idx, _ = topk_case(torch, ops, dev, "constant", U, V_const, k, ids,
+                                      rows_valid, 0, True)
+                check(bool((idx == torch.arange(k, device=dev)).all()),
+                      f"constant V: not items 0..k-1 (B={B}, k={k})")
+
+    # n_valid < k: the masked columns fill the list from n_valid, in order
+    Vp = integer(N_PAD, RANK)
+    for B in (1, 64):
+        ids = batch(B, n_users)
+        for k in (5, 17, 32, 33):
+            n_valid = k // 2
+            vals, idx, _ = topk_case(torch, ops, dev, "masked  ", U, Vp, k, ids, B, n_valid, True)
+            check(bool((idx[:, n_valid:] == torch.arange(n_valid, k, device=dev)).all())
+                  and bool((vals[:, n_valid:] == -3.0e38).all()),
+                  f"n_valid={n_valid} < k={k}: masked columns out of place")
+
+    # a V that is not 16-byte aligned: the 4-byte copies at d % 4 == 0
+    Vm = misaligned(torch, integer(2000, RANK))
+    for B in (1, 64):
+        topk_case(torch, ops, dev, "unalignV", U, Vm, AOT_TOPK, batch(B, n_users), B, 0, True)
+
+    # small catalogs at other widths
+    for d in (10, 100):
+        for kind, draw in (("integer", integer), ("gaussian", gaussian)):
+            Ud = draw(n_users, d)
+            for np_ in (1, 31, 257, 2000):
+                V = draw(np_, d)
+                for B in (1, 3, 64):
+                    ids = batch(B, n_users)
+                    rows_valid = B - B // 4
+                    for k in (1, 5, 17, 31, 32, 33):
+                        if k <= np_:
+                            topk_case(torch, ops, dev, f"{kind:8s}", Ud, V, k, ids,
+                                      rows_valid, 0, kind == "integer")
 
 
 def _row_chunks(R: int, per_row: int, limit: int = 1 << 26):
@@ -1245,6 +1344,7 @@ def drive_server(torch, ops, dev, home: str, U, V):
     """Phase 8: deploy through the port's EngineServer and query it."""
     import numpy as np
 
+    from predictionio_tpu_torch.server import aot
     from predictionio_tpu_torch.server.engine_server import EngineServer
 
     t0 = time.perf_counter()
@@ -1287,6 +1387,7 @@ def drive_server(torch, ops, dev, home: str, U, V):
 
     reset_counters(ops)
     batches0 = server._batcher.batches
+    dispatches0 = dict(aot._DISPATCHES._values)
     seq_out = [post(q) for q in seq]
     with ThreadPoolExecutor(64) as pool:
         t_burst = time.perf_counter()
@@ -1294,6 +1395,14 @@ def drive_server(torch, ops, dev, home: str, U, V):
         t_burst = time.perf_counter() - t_burst
     launches = read_counters(ops)
     batches = server._batcher.batches - batches0
+    # serving dispatches per padded bucket (pio_aot_dispatch_total)
+    per_bucket = {}
+    for (bucket, path), n in aot._DISPATCHES._values.items():
+        n = int(n - dispatches0.get((bucket, path), 0))
+        if n:
+            per_bucket[(int(bucket), path)] = n
+    for (bucket, path), n in sorted(per_bucket.items()):
+        print(f"serving dispatches bucket={bucket:2d} path={path}: {n}", flush=True)
 
     urllib.request.urlopen(f"{url}/stop", timeout=10).read()
     serve.join(30)
@@ -1333,7 +1442,7 @@ def drive_server(torch, ops, dev, home: str, U, V):
           flush=True)
     check(bad == 0, f"{bad} of {len(queries)} answers disagree with score_topk_ref")
     check(launches["score_topk"] > 0, "score_topk was not launched on the serving path")
-    return launches
+    return launches, per_bucket
 
 
 def main(argv) -> int:
@@ -1346,6 +1455,7 @@ def main(argv) -> int:
     from predictionio_tpu_torch.ops import _build
 
     quick = "--quick" in argv
+    topk_only = "--topk" in argv
     dev = torch.device("cuda", 0)
 
     phase("1. card")
@@ -1373,9 +1483,10 @@ def main(argv) -> int:
 
     phase("3. kernels against their plain versions")
     main_err = check_score_topk(torch, ops, dev)
-    gram_err = check_gather_gram(torch, ops, dev)
-    solve_err = check_chol_solve(torch, ops, dev)
-    rows_err = check_rows_gram(torch, ops, dev)
+    if not topk_only:
+        gram_err = check_gather_gram(torch, ops, dev)
+        solve_err = check_chol_solve(torch, ops, dev)
+        rows_err = check_rows_gram(torch, ops, dev)
     if quick:
         return 0
 
@@ -1383,6 +1494,9 @@ def main(argv) -> int:
     times = time_score_topk(torch, ops, dev)
     if "--profile" in argv:
         profile_score_topk(torch, ops, dev)
+    if topk_only:
+        phase("done")
+        return 0
 
     phase("5. full-width training (ML-20M shape, rank 64)")
     train = train_full_width(torch, ops, dev)
@@ -1398,7 +1512,19 @@ def main(argv) -> int:
 
     phase("8. Recommendation engine served at ML-20M width (trained factors)")
     with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as home:
-        launches = drive_server(torch, ops, dev, home, train["U"], train["V"])
+        launches, per_bucket = drive_server(torch, ops, dev, home, train["U"], train["V"])
+    # what the serving kernel loses on phase 8's traffic: each dispatch at
+    # its bucket's phase-4 time less its bound
+    loss = 0.0
+    for (bucket, _), n in sorted(per_bucket.items()):
+        t = times.get(bucket)
+        check(t is not None, f"phase 4 has no time for serving bucket {bucket}")
+        loss += n * (t["ms"] - t["bound_ms"])
+        print(f"score_topk serving bucket={bucket:2d} dispatches={n} "
+              f"ms={t['ms']:.4f} bound_ms={t['bound_ms']:.5f} "
+              f"lost_ms={n * (t['ms'] - t['bound_ms']):.4f}", flush=True)
+    print(f"score_topk lost over phase 8's queries: {loss:.4f} ms "
+          f"(sum of dispatches x (time - bound))", flush=True)
     phase("done")
 
     main = times[BATCH_MAX]

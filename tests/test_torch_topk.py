@@ -31,23 +31,36 @@ SHAPES = {
     "ragged_tail": (3, 200, 8, 7, 64, 0, None),
     "single_tile": (2, 40, 4, 5, 64, 0, None),
     "masked_cols_and_pad_rows": (6, 256, 8, 12, 64, 200, 4),
+    # the kernel's k <= 32 path and its boundary with the k > 32 path
+    "k1_d64": (4, 256, 64, 1, 64, 0, None),
+    "k32_d64": (5, 300, 64, 32, 64, 0, 3),
+    "k33_d64": (5, 300, 64, 33, 64, 0, 3),
+    # fewer valid columns than k: masked columns fill the list in index order
+    "n_valid_below_k": (4, 256, 8, 12, 64, 5, 3),
 }
 
 
 def _data(kind, B, N, d, seed):
+    """Q (B, d) and V (N, d): "integer" and "ties" draw small nonzero
+    integers (every score exact in f32), "ties" with V made of three
+    distinct rows repeated, so most scores tie; "gaussian" draws normals."""
     rng = np.random.default_rng(seed)
-    if kind == "integer":
+    if kind == "gaussian":
+        def draw(shape):
+            return rng.standard_normal(shape).astype(np.float32)
+    else:
         def draw(shape):  # nonzero, so no score is a signed zero
             return (rng.integers(1, 4, shape) * rng.choice([-1, 1], shape)
                     ).astype(np.float32)
-    else:
-        def draw(shape):
-            return rng.standard_normal(shape).astype(np.float32)
-    return draw((B, d)), draw((N, d))
+    Q = draw((B, d))
+    if kind == "ties":
+        return Q, draw((3, d))[rng.integers(0, 3, N)]
+    return Q, draw((N, d))
 
 
 def _jax_topk(Q, V, k, tile, n_valid, rows_valid):
-    """The JAX package's two paths, as its own tests run them on the CPU."""
+    """The JAX package's two paths, as its own tests run them on the CPU:
+    the XLA path, then the Pallas kernel."""
     rv = None if rows_valid is None else jnp.int32(rows_valid)
     n_pad = -V.shape[0] % tile
     Vp = np.concatenate([V, np.zeros((n_pad, V.shape[1]), np.float32)])
@@ -56,7 +69,7 @@ def _jax_topk(Q, V, k, tile, n_valid, rows_valid):
                             interpret=True)
     xla = score_topk_xla(jnp.asarray(Q), jnp.asarray(V), k, n_valid=n_valid,
                          rows_valid=rv)
-    return [(np.asarray(v), np.asarray(i)) for v, i in (pallas, xla)]
+    return [(np.asarray(v), np.asarray(i)) for v, i in (xla, pallas)]
 
 
 def _scores64(Q, V, n_valid, rows_valid):
@@ -75,8 +88,20 @@ def _assert_near_tie_equal(idx, ref_idx, S):
     assert np.all(np.abs(got - want)[diff] <= TOL)
 
 
-@pytest.mark.parametrize("kind", ["integer", "gaussian"])
-@pytest.mark.parametrize("shape", list(SHAPES))
+#: the JAX package's Pallas kernel knocks a chosen candidate out by setting
+#: it to -3e38, the mask value, so with fewer than k columns above the mask
+#: it picks the first knocked-out column again and repeats an index; its
+#: XLA path and the port fill the list with the masked columns in order
+_PALLAS_REPEATS_MASKED = pytest.mark.xfail(
+    strict=True, raises=AssertionError,
+    reason="JAX Pallas score_topk repeats an index when n_valid < k "
+           "(predictionio_tpu/ops/topk.py:96); the XLA path is checked first")
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian", "ties"])
+@pytest.mark.parametrize("shape", [
+    pytest.param(name, marks=_PALLAS_REPEATS_MASKED) if name == "n_valid_below_k" else name
+    for name in SHAPES])
 def test_ref_matches_pallas_and_xla(shape, kind):
     B, N, d, k, tile, n_valid, rows_valid = SHAPES[shape]
     Q, V = _data(kind, B, N, d, seed=len(shape))
@@ -87,14 +112,16 @@ def test_ref_matches_pallas_and_xla(shape, kind):
     real = B if rows_valid is None else rows_valid
     S = _scores64(Q, V, n_valid, rows_valid)
     for jv, ji in _jax_topk(Q, V, k, tile, n_valid, rows_valid):
-        if kind == "integer":
+        if kind != "gaussian":
             np.testing.assert_array_equal(idx[:real], ji[:real])
             np.testing.assert_array_equal(vals[:real], jv[:real])
         else:
             np.testing.assert_allclose(vals[:real], jv[:real], rtol=TOL, atol=TOL)
             _assert_near_tie_equal(idx[:real], ji[:real], S[:real])
-    # pad rows: all-zero scores (== so -0.0 and 0.0 agree), idx 0..k-1
-    assert np.all(vals[real:] == 0.0)
+    # pad rows: all-zero scores (== so -0.0 and 0.0 agree), then the masked
+    # columns' -3e38 where n_valid < k; idx 0..k-1
+    pad_vals = np.where(np.arange(k) < (n_valid or N), 0.0, -3.0e38).astype(np.float32)
+    assert np.all(vals[real:] == pad_vals)
     assert np.all(idx[real:] == np.arange(k))
 
 
