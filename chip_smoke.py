@@ -27,12 +27,15 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    zero runs mid-row, an F off the 16-byte boundary, R = 0; chol_solve — within 1e-4 of
    float64 (relative to max|x64|) on ALS-like SPD systems and on the same
    systems ill-scaled, at every KP boundary of k = 1 … 128, identity
-   systems give x = b exactly; rows_gram — bitwise equal on integer data
-   (A symmetric), within 1e-5 of a float64 reference on Gaussian data
-   with 20% zero weights, pad at the end of each row and runs of zero
-   weights mid-row, at every width of the training layout's ladder, f32
-   and bf16 blocks, R = 0;
-4. time score_topk with CUDA events at the serving path's shapes, beside
+   systems give x = b exactly; rows_gram — bitwise equal on integer data,
+   within 1e-5 of a float64 reference on Gaussian data with 20% zero
+   weights, pad at the end of each row and runs of zero weights mid-row,
+   A exactly symmetric and a rerun bitwise equal, at every width of the
+   training layout's ladder, every path of its plan (wide rows split,
+   narrow rows packed, all-zero rows, an F_g off the 16-byte boundary),
+   f32 and bf16 blocks, R = 0;
+4. time score_topk with CUDA events at the serving path's shapes (k = 16,
+   every bucket), and at k = 64, 128 and 1,024 at B = 1, 8 and 64, beside
    its plain version, one library call and the card's bound;
 5. full-width training: a synthetic MovieLens-20M-shaped COO (138,493
    users x 26,744 items, 20,000,263 ratings, power-law popularity), the
@@ -57,9 +60,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    per launch, summed over the launches); then drive rows_gram's path,
    its op entry point, over every bucket pre-gathered as F[idx] in row
    chunks (launch counters zeroed just before and read just after, each
-   result within 1e-5 of a float64 reference on the same inputs, the
-   plain version's distance from it printed beside), and time it the same
-   way, beside gather_gram on the same rows;
+   result within 1e-5 of a float64 reference on the same inputs and
+   exactly symmetric, the plain version's distance from it printed
+   beside), and time it the same way, with each chunk's plan, beside
+   gather_gram on the same rows;
 7. ``pio train`` through the port's CLI in a subprocess on the card, on
    200,000 rate events written into a temporary PIO_HOME through the
    port's storage; the COMPLETED instance is deployed and 20 answers are
@@ -549,32 +553,64 @@ def rows_gram_plain(torch, ops, F_g, wo, wb):
     return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
 
 
+def rows_plan(R: int, W: int):
+    """The rows_gram kernel's plan for an (R, W) block (ops.rows_gram is
+    the wrapper, so the module is looked up by name)."""
+    import importlib
+
+    return importlib.import_module("predictionio_tpu_torch.ops.rows_gram").rows_plan(R, W)
+
+
 def check_rows_gram(torch, ops, dev) -> float:
-    """Phase 3: rows_gram against rows_gram_ref (bitwise on integer data,
-    A symmetric) and a float64 reference (max|dA| / max|A64| <= 1e-5 on
-    Gaussian data with 20% zero weights), f32 and bf16 F_g, R = 0. The
-    blocks are gather_gram's inputs gathered, F_g = F[idx] (repeated rows,
-    a quarter of pad slots), so gram64 is the float64 reference. Returns
+    """Phase 3: rows_gram against rows_gram_ref (bitwise on integer data)
+    and a float64 reference (max|dA| / max|A64| <= 1e-5 on Gaussian data
+    with 20% zero weights; at wide W the plain version, cuBLAS, is itself
+    up to 2.7e-5 off float64, so float64 is the reference), f32 and bf16
+    F_g, A exactly symmetric and a rerun bitwise equal on every kind of
+    data, R = 0. The blocks are gather_gram's inputs gathered, F_g =
+    F[idx] (repeated rows, a quarter of pad slots, runs of zero weights
+    mid-row), so gram64 is the float64 reference. Beside the first cases,
+    every path of the kernel's plan: wide rows split into chunks (W =
+    1,024, 2,048 and 8,192 at R = 1, 20, 42 and 128) and narrow rows
+    packed several to a block (W = 8 and 32 at R = 4,096 and 105,312, and
+    R = 4,097, where the last block takes fewer rows), with all-zero rows,
+    and an F_g off the 16-byte boundary (the plain-load route). Returns
     the max abs error against the plain version at the training path's
     width (k=64, W=128, R=4096, Gaussian)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
     main_err = 0.0
-    cases = [(k, W, R, torch.float32) for k in (3, 8, RANK, 128)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (k, W, R, dtype, holes, aligned)
+    cases = [(k, W, R, f32, False, True) for k in (3, 8, RANK, 128)
              for W in (1, 16, 128, 2048) for R in (1, 20, 4096)]
     # the other widths of the training layout's ladder, at its k
-    cases += [(RANK, W, R, torch.float32) for W in (8, 32, 512, 8192)
+    cases += [(RANK, W, R, f32, False, True) for W in (8, 32, 512, 8192)
               for R in (1, 20, 4096)]
-    cases += [(k, W, 20, torch.bfloat16) for k in (3, 8, RANK, 128) for W in (16, 2048)]
-    for k, W, R, dtype in cases:
+    cases += [(k, W, 20, bf16, False, True) for k in (3, 8, RANK, 128) for W in (16, 2048)]
+    # split wide rows, and packed narrow rows, with all-zero rows
+    cases += [(RANK, W, R, f32, True, True) for W in (1024, 2048, 8192)
+              for R in (1, 20, 42, 128)]
+    cases += [(k, 8192, 42, dt, True, True) for k in (10, RANK, 128) for dt in (f32, bf16)]
+    cases += [(RANK, W, R, f32, True, True) for W in (8, 32) for R in (4096, 4097, 105312)]
+    cases += [(k, W, 4097, dt, True, True) for k in (10, RANK, 128) for W in (8, 32)
+              for dt in (f32, bf16)]
+    # an F_g off the 16-byte boundary: the plain-load route at every plan
+    cases += [(RANK, W, R, dt, True, False) for W, R in ((8, 4097), (128, 20), (8192, 42))
+              for dt in (f32, bf16)]
+    for k, W, R, dtype, holes, aligned in cases:
         for kind in ("integer", "gaussian"):
-            F, idx, wo, wb = gram_inputs(torch, g, dev, R, W, k, kind)
-            # every third row also gets a run of zero weights mid-row, so
-            # the kernel skips whole tiles and then resumes
-            wo[::3, W // 4:W // 2] = 0.0
-            wb[::3, W // 4:W // 2] = 0.0
+            F, idx, wo, wb = gram_inputs(torch, g, dev, R, W, k, kind, holes=holes)
+            if not holes:
+                # every third row also gets a run of zero weights mid-row,
+                # so the kernel skips whole tiles and then resumes
+                wo[::3, W // 4:W // 2] = 0.0
+                wb[::3, W // 4:W // 2] = 0.0
             F = F.to(dtype)
             F_g = F[idx.long()]
+            if not aligned:
+                F_g = misaligned(torch, F_g)
             A, b = ops.rows_gram(F_g, wo, wb)
+            A2, b2 = ops.rows_gram(F_g, wo, wb)
             Ar, br = rows_gram_plain(torch, ops, F_g, wo, wb)
             torch.cuda.synchronize()
             err = max((A - Ar).abs().max().item(), (b - br).abs().max().item())
@@ -588,17 +624,24 @@ def check_rows_gram(torch, ops, dev) -> float:
                           ((b.double() - b64).abs().max()
                            / b64.abs().max().clamp_min(1e-300)).item())
                 ok = rel <= GRAM_TOL
-                if k == RANK and W == 128 and R == 4096 and dtype == torch.float32:
+                if k == RANK and W == 128 and R == 4096 and dtype == f32 and not holes:
                     main_err = err
                 del A64, b64
-            sym = kind != "integer" or torch.equal(A, A.transpose(1, 2))
+            # A is mirrored from one triangle: symmetric on any data; the
+            # split chunks are summed in a fixed order: a rerun is bitwise
+            sym = torch.equal(A, A.transpose(1, 2))
+            same = torch.equal(A, A2) and torch.equal(b, b2)
+            plan = rows_plan(R, W)
             print(f"rows_gram {kind:8s} {str(dtype)[6:]:8s} k={k:3d} W={W:4d} "
-                  f"R={R:4d} max_abs_err={err:.3e} rel64={rel:.3e} "
-                  f"{'ok' if ok and sym else 'MISMATCH'}", flush=True)
+                  f"R={R:6d} split={plan.split} rows/block={plan.rows_per_block}"
+                  f"{' holes' if holes else ''}{'' if aligned else ' unaligned F_g'} "
+                  f"max_abs_err={err:.3e} rel64={rel:.3e} rerun_bitwise={same} "
+                  f"{'ok' if ok and sym and same else 'MISMATCH'}", flush=True)
             check(ok, f"rows_gram disagrees ({kind}, {dtype}, k={k}, W={W}, R={R})")
-            check(sym, f"rows_gram A not symmetric (k={k}, W={W}, R={R})")
-            del F, F_g, idx, wo, wb, A, b, Ar, br
-    for dtype in (torch.float32, torch.bfloat16):
+            check(sym, f"rows_gram A not symmetric ({kind}, k={k}, W={W}, R={R})")
+            check(same, f"rows_gram rerun differs ({kind}, k={k}, W={W}, R={R})")
+            del F, F_g, idx, wo, wb, A, b, A2, b2, Ar, br
+    for dtype in (f32, bf16):
         A, b = ops.rows_gram(torch.zeros(0, 16, RANK, device=dev, dtype=dtype),
                              torch.zeros(0, 16, device=dev), torch.zeros(0, 16, device=dev))
         check(A.shape == (0, RANK, RANK) and b.shape == (0, RANK),
@@ -662,16 +705,20 @@ def check_chol_solve(torch, ops, dev) -> float:
 
 def time_score_topk(torch, ops, dev):
     """Phase 4: times at the serving path's shapes (d=64, Np=28,672,
-    k=16, every bucket of the default ladder)."""
+    k=16, every bucket of the default ladder), then at k = 64, 128 and
+    1,024 (the k > 32 path, which serving reaches when num plus the
+    excluded items exceeds 32) at B = 1, 8 and 64. Returns the k = 16 rows
+    by B."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     U = torch.randn(N_USERS, RANK, generator=g, device=dev)
     Vp = torch.cat([torch.randn(N_ITEMS, RANK, generator=g, device=dev),
                     torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
     rows = {}
-    for B in (1, 2, 4, 8, 16, 32, 64):
+    shapes = [(B, AOT_TOPK) for B in (1, 2, 4, 8, 16, 32, 64)]
+    shapes += [(B, k) for k in (64, 128, 1024) for B in (1, 8, 64)]
+    for B, k in shapes:
         ids = torch.randint(0, N_USERS, (B,), generator=g, device=dev,
                             dtype=torch.int32)
-        k = AOT_TOPK
         out = (torch.empty(B, k, device=dev),
                torch.empty(B, k, device=dev, dtype=torch.int32))
         kernel, kernel_call = cuda_ms(lambda: ops.score_topk(
@@ -681,8 +728,9 @@ def time_score_topk(torch, ops, dev):
         library, library_call = cuda_ms(lambda: torch.topk(
             U[ids.long()] @ Vp[:N_ITEMS].T, k))
         bound, bound_by = score_topk_bound_ms(B, RANK, N_PAD, k)
-        rows[B] = {"ms": kernel, "plain_ms": plain, "library_ms": library,
-                   "bound_ms": bound, "bound_by": bound_by}
+        if k == AOT_TOPK:
+            rows[B] = {"ms": kernel, "plain_ms": plain, "library_ms": library,
+                       "bound_ms": bound, "bound_by": bound_by}
         print(f"score_topk time B={B:2d} k={k} device ms: kernel={kernel:.4f} "
               f"plain={plain:.4f} library(torch.topk)={library:.4f} "
               f"bound={bound:.5f} ({bound_by}); per call ms: "
@@ -1164,10 +1212,11 @@ def time_rows_gram(torch, ops, dev, train) -> dict:
         b64 = torch.einsum("rw,rwk->rk", wb.double(), F64)
         del F64
         rel, rel_plain = rel64(A, b, A64, b64), rel64(Ar, br, A64, b64)
+        sym = torch.equal(A, A.transpose(1, 2))
         print(f"rows_gram path {label}: off float64 {rel:.3e}, plain version "
-              f"off float64 {rel_plain:.3e}", flush=True)
-        check(bool(torch.isfinite(A).all()) and rel <= GRAM_TOL,
-              f"rows_gram off float64 on {label}: {rel:.3e}")
+              f"off float64 {rel_plain:.3e}, symmetric {sym}", flush=True)
+        check(bool(torch.isfinite(A).all()) and rel <= GRAM_TOL and sym,
+              f"rows_gram on {label}: off float64 {rel:.3e}, symmetric {sym}")
         worst, worst_plain = max(worst, rel), max(worst_plain, rel_plain)
         max_abs = max(max_abs, (A - Ar).abs().max().item(), (b - br).abs().max().item())
         del F_g, wo, wb, A, b, Ar, br, A64, b64
@@ -1193,13 +1242,15 @@ def time_rows_gram(torch, ops, dev, train) -> dict:
         lib, _ = cuda_ms(lambda: rows_gram_library(torch, F_g, wo, wb), iters=3,
                          warmup=1)
         fs, bs = rows_gram_bound(R, W, RANK, slots)
+        plan = rows_plan(R, W)
         row["ms"] += kern
         row["plain_ms"] += plain
         row["library_ms"] += lib
         gather_ms += gath
         bound = add_bound(row, fs, bs)
         print(f"rows_gram time {label} R={R} W={W} k={RANK} ({slots} rated "
-              f"slots) device ms: kernel={kern:.4f} gather_gram(identity)="
+              f"slots; split={plan.split} rows/block={plan.rows_per_block}) "
+              f"device ms: kernel={kern:.4f} gather_gram(identity)="
               f"{gath:.4f} plain={plain:.4f} library(bmm)={lib:.4f} "
               f"bound={bound:.4f} ({'operations' if fs >= bs else 'bytes'}; "
               f"f32 FMA {fs * 1e3:.4f}, bytes {bs * 1e3:.4f})", flush=True)

@@ -10,7 +10,10 @@ gather_gram bf16 test (rtol 5e-2, atol 1e-1) against the f32 block, and
 1e-5 against rows_gram_xla of the same bf16 values (both widen to f32).
 
 The CUDA kernel itself runs only on the card (chip_smoke.py); here the
-wrapper takes its plain version because the tensors lie on the CPU.
+wrapper takes its plain version because the tensors lie on the CPU. Its
+plan (rows_plan: split wide rows, packed narrow rows) is plain Python and
+is checked here, and the parity tests run at shapes where it splits and
+where it packs.
 """
 
 import jax.numpy as jnp
@@ -22,7 +25,9 @@ from predictionio_tpu.ops.gram import rows_gram as jax_rows_gram
 from predictionio_tpu.ops.gram import rows_gram_xla
 from predictionio_tpu_torch import ops
 from predictionio_tpu_torch.ops import _build
-from predictionio_tpu_torch.ops.rows_gram import rows_gram, rows_gram_ref
+from predictionio_tpu_torch.ops.rows_gram import (LINE, MAX_PACK, MAX_SPLIT, MIN_CHUNK,
+                                                  NARROW, PACK_ROWS, SPLIT_BLOCKS, rows_gram,
+                                                  rows_gram_ref, rows_plan)
 
 TOL = 1e-5
 
@@ -136,3 +141,84 @@ def test_source_names_the_tpu_kernel_and_its_bound():
     assert "#include \"" not in src  # self-contained: the build digests this file alone
     cmd = _build.nvcc_command(_build.CSRC / "rows_gram.cu", _build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+# the chunks (R, W) that chip_smoke.py phase 6 cuts from the ML-20M layout
+# at rank 64 (row chunks of at most 2^26 values), both sides
+ML20M_CHUNKS = [(512, 2048), (1837, 512), (5369, 128), (19813, 32), (105312, 8),
+                (42, 8192), (128, 8192), (2048, 512), (8192, 128), (1, 32)]
+
+
+def _chunks(plan, W):
+    return [(s * plan.chunk, min(W, (s + 1) * plan.chunk)) for s in range(plan.split)]
+
+
+@pytest.mark.parametrize("R, W", ML20M_CHUNKS + [
+    (1, 1), (7, 8), (4096, 8), (4097, 32), (1, 33), (1, 1024), (20, 1024), (20, 2048),
+    (1, 8192), (128, 8191), (3, 100_000), (1, 1100), (1023, 4096)])
+def test_plan_covers_every_slot_once(R, W):
+    plan = rows_plan(R, W)
+    assert plan == rows_plan(R, W)              # the shape alone decides
+    assert 1 <= plan.split <= MAX_SPLIT and 1 <= plan.rows_per_block <= MAX_PACK
+    covered = np.zeros(W, np.int64)
+    for lo, hi in _chunks(plan, W):
+        assert lo < hi                          # no empty chunk
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if plan.split > 1:                          # whole lines, one row a block
+        assert plan.chunk % LINE == 0 and plan.rows_per_block == 1
+    else:
+        assert plan.chunk == W
+
+
+@pytest.mark.parametrize("W", [1, 8, 32, 33, 512, 1023, 1024, 2048, 8192])
+def test_plan_splits_only_few_row_wide_and_packs_only_many_row_narrow(W):
+    for R in (1, 3, 42, 128, 512, 1023, 1024, 4095, 4096, 4097, 105312):
+        plan = rows_plan(R, W)
+        wide, few = W >= 2 * MIN_CHUNK, R < SPLIT_BLOCKS
+        narrow, many = W <= NARROW, R >= PACK_ROWS
+        assert (plan.split > 1) == (wide and few), (R, W, plan)
+        assert (plan.rows_per_block > 1) == (narrow and many), (R, W, plan)
+        assert plan.split == 1 or plan.rows_per_block == 1  # never both
+
+
+def test_plan_of_the_ml20m_chunks():
+    plans = {(R, W): rows_plan(R, W) for R, W in ML20M_CHUNKS}
+    assert {rw for rw, p in plans.items() if p.split > 1} == {
+        (512, 2048), (42, 8192), (128, 8192)}
+    assert {rw for rw, p in plans.items() if p.rows_per_block > 1} == {
+        (19813, 32), (105312, 8)}
+    for R in (1, 42, 128):                      # few-row chunks fill the 132 SMs
+        assert R * rows_plan(R, 8192).split >= min(132, 16 * R)
+    assert rows_plan(42, 8192).split * 42 >= 132
+
+
+def _holed(R, W, k, seed):
+    """_data with a quarter of pad at the end of each row, a run of zero
+    weights mid-row in every third row and every fifth row from the third
+    all zero."""
+    F, wo, wb = _data(R, W, k, seed=seed)
+    for w in (wo, wb):
+        w[:, W - W // 4:] = 0.0
+        w[::3, W // 8:W // 2] = 0.0
+        w[2::5] = 0.0
+    return F, wo, wb
+
+
+@pytest.mark.parametrize("R, W, k, path", [
+    (1, 1024, 4, "split"), (3, 1024, 6, "split"), (1, 8192, 3, "split"),
+    (3, 8192, 4, "split"), (4096, 8, 4, "packed"), (4097, 32, 3, "packed")])
+def test_planned_shapes_match_jax_kernel_xla_path_and_float64(R, W, k, path):
+    plan = rows_plan(R, W)
+    assert (plan.split > 1 if path == "split" else plan.rows_per_block > 1)
+    F, wo, wb = _holed(R, W, k, seed=R + W + k)
+    A, b = _port(F, wo, wb)
+    A64, b64 = _numpy64(F, wo, wb)
+    args = (jnp.asarray(F), jnp.asarray(wo), jnp.asarray(wb))
+    theirs = [rows_gram_xla(*args), jax_rows_gram(*args, interpret=True), (A64, b64)]
+    # max|dA| / max|A64|, as chip_smoke.py holds the kernel on the card
+    for Aj, bj in theirs:
+        assert np.abs(A - np.asarray(Aj)).max() <= TOL * np.abs(A64).max()
+        assert np.abs(b - np.asarray(bj)).max() <= TOL * np.abs(b64).max()
+    dead = np.arange(2, R, 5)                   # rows with no weight
+    assert not A[dead].any() and not b[dead].any()
