@@ -16,11 +16,16 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 3. hold each kernel against its plain PyTorch version on the card
    (PyTorch's default f32 matmuls, no TF32): score_topk — equal indices on integer data, values within
    rtol/atol 1e-5 and indices equal up to near-ties on Gaussian data, pad
-   rows exact, at k = 16, 128 and 1,024 and around the boundary of its
+   rows exact, at k = 16, 128 and 1,024, around the boundary of its
    k <= 32 path (k = 1 … 33 at B = 1 … 65, every rows-per-block
    instantiation, each row alone bitwise equal to the same row in its
    bucket, tie-heavy and constant V, n_valid < k, an unaligned V, catalogs
-   of 1 … 2,000 items at d = 10 and 100); gather_gram — bitwise equal on integer data, within 1e-5 of
+   of 1 … 2,000 items at d = 10 and 100), and on its k > 32 path (k = 33 …
+   1,024 on each side of every power of two at B = 1 … 256, each answer
+   bitwise equal on a rerun, at k = 64 and 1,024 each row alone bitwise
+   equal to the same row in its bucket, tie-heavy and constant V — more
+   keys reach the bar than shared memory holds — n_valid < k, an unaligned
+   V, d = 8, 10 and 128, catalogs of 40 … 2,000 items); gather_gram — bitwise equal on integer data, within 1e-5 of
    a float64 reference (relative to max|A64|) on Gaussian data, A exactly
    symmetric, f32 and bf16 factors, repeated indices, pad slots, every
    path of its plan (narrow rows packed, wide rows split), all-zero rows,
@@ -35,8 +40,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    narrow rows packed, all-zero rows, an F_g off the 16-byte boundary),
    f32 and bf16 blocks, R = 0;
 4. time score_topk with CUDA events at the serving path's shapes (k = 16,
-   every bucket), and at k = 64, 128 and 1,024 at B = 1, 8 and 64, beside
-   its plain version, one library call and the card's bound;
+   every bucket), and at k = 64, 128 and 1,024 at B = 1, 8 and 64 and
+   k = 256 and 512 at B = 1 and 64 (the k > 32 path), beside its plain
+   version, one library call (torch.topk of the dense scores) and the
+   card's bound;
 5. full-width training: a synthetic MovieLens-20M-shaped COO (138,493
    users x 26,744 items, 20,000,263 ratings, power-law popularity), the
    host layout (als_prepare), then explicit ALS on the card (rank 64, 10
@@ -76,6 +83,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    zeroed just before the queries and score_topk must have grown; the
    serving dispatches per bucket (pio_aot_dispatch_total) and what the
    kernel loses on them, each at its bucket's phase-4 time less its bound.
+   Then a sequential sub-run of 96 queries with num 50, 100 and 1,000
+   (k = 64, 128 and 1,024, the k > 32 path), counters zeroed again just
+   before it: every answer checked at its own num, one launch a query,
+   its dispatches per (bucket, k, path), p50 and loss.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -198,10 +209,10 @@ def profile_score_topk(torch, ops, dev) -> None:
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     U = torch.randn(N_USERS, RANK, generator=g, device=dev)
     Vp = torch.randn(N_PAD, RANK, generator=g, device=dev)
-    for B in (1, 64):
+    for B, k in [(B, k) for k in (AOT_TOPK, 64, 1024) for B in (1, 64)]:
         ids = torch.randint(0, N_USERS, (B,), generator=g, device=dev,
                             dtype=torch.int32)
-        call = lambda: ops.score_topk(U, Vp, AOT_TOPK, n_valid=N_ITEMS, ids=ids)
+        call = lambda: ops.score_topk(U, Vp, k, n_valid=N_ITEMS, ids=ids)
         call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -213,7 +224,7 @@ def profile_score_topk(torch, ops, dev) -> None:
             if dev_us is None:
                 dev_us = getattr(ev, "cuda_time_total", 0.0)
             if dev_us and ev.count:
-                print(f"profile B={B:2d} {ev.key[:60]:60s} calls={ev.count:3d} "
+                print(f"profile B={B:2d} k={k:4d} {ev.key[:60]:60s} calls={ev.count:3d} "
                       f"device_us_per_call={dev_us / ev.count:.2f}", flush=True)
 
 
@@ -267,7 +278,8 @@ def check_score_topk(torch, ops, dev) -> float:
                         check(torch.equal(v1[0], vals[r])
                               and torch.equal(i1[0], idx[r]),
                               f"row {r} differs between B={B} and B=1")
-    check_score_topk_select(torch, ops, dev, g)
+    for spec in TOPK_PATHS.values():
+        check_score_topk_path(torch, ops, dev, g, spec)
     return main_err
 
 
@@ -300,15 +312,45 @@ def topk_case(torch, ops, dev, label, U, V, k, ids, rows_valid, n_valid, exact):
     return vals, idx, err
 
 
-def check_score_topk_select(torch, ops, dev, g) -> None:
-    """Phase 3, the k <= 32 path and its boundary with the k > 32 path:
-    every k of (1, 5, 16, 17, 31, 32, 33) at every B of (1, 2, 3, 8, 16,
-    31, 33, 64, 65), so each rows-per-block instantiation runs (B = 3
-    takes 4, B = 65 two groups of 64), and each Gaussian row alone equals
-    the same row in its bucket bitwise; tie-heavy V (three distinct rows repeated) and an
-    all-constant V, whose answer must be items 0 .. k-1; n_valid < k, so
-    masked columns enter the top k at -3e38 in index order; an unaligned V;
-    small catalogs (Np 1, 31, 257, 2,000) at d = 10 and 100."""
+#: phase 3's grid for each path of score_topk. "k": held at every B of "B"
+#: on integer and Gaussian data at ML-20M's shape; "alone": the k at which
+#: each Gaussian row alone must equal its row in the bucket bitwise (None:
+#: every k); "ties": k on tie-heavy and constant V; "masked": k with
+#: n_valid = k // 2; "unaligned": (Np, n_valid, k) of an unaligned V;
+#: "widths": d, then (Np, k) pairs of small catalogs at that d
+TOPK_PATHS = {
+    # k <= 32 and its boundary: each rows-per-block instantiation (B = 3
+    # takes 4, B = 65 two groups of 64); Np 1 ... 2,000 at d = 10 and 100
+    "select": {
+        "k": (1, 5, AOT_TOPK, 17, 31, 32, 33), "B": (1, 2, 3, 8, 16, 31, 33, 64, 65),
+        "alone": None, "ties": (1, AOT_TOPK, 32, 33), "masked": (5, 17, 32, 33),
+        "unaligned": ((2000, 0, AOT_TOPK),),
+        "widths": {d: [(np_, k) for np_ in (1, 31, 257, 2000)
+                       for k in (1, 5, 17, 31, 32, 33) if k <= np_] for d in (10, 100)},
+    },
+    # 32 < k <= 1,024 (a bar from the chunks' J-th keys, then a sort of what
+    # reaches it): each side of every power of two; B = 256 takes four row
+    # groups; constant and tie-heavy V at Np = 28,672 pass more keys than
+    # shared memory holds; a catalog of one chunk (40), and at k near Np
+    # (2,000) too few chunks for a bar
+    "bar": {
+        "k": (33, 63, 64, 65, 100, 127, 128, 129, 255, 256, 257, 511, 512, 513, 1000, 1023,
+              1024),
+        "B": (1, 2, 3, 8, 16, 32, 64, 256),
+        "alone": (64, 1024), "ties": (33, 64, 100, 1024), "masked": (33, 64, 100, 1024),
+        "unaligned": ((N_PAD, N_ITEMS, 64), (N_PAD, N_ITEMS, 1024)),
+        "widths": {d: [(np_, k) for np_ in (40, 257, 2000) for k in (33, 64, 129, 1000, 1024)
+                       if k <= np_] + [(N_PAD, 64), (N_PAD, 1024)] for d in (8, 10, 128)},
+    },
+}
+
+
+def check_score_topk_path(torch, ops, dev, g, spec) -> None:
+    """Phase 3, one path of score_topk over its TOPK_PATHS grid: integer
+    data bitwise, Gaussian data by topk_agrees against float64, pad rows
+    exact, each answer bitwise equal on a rerun; constant V must give items
+    0 .. k-1, and with n_valid < k the masked columns fill the list from
+    n_valid at -3e38 in index order."""
     def integer(*shape):
         mag = torch.randint(1, 4, shape, generator=g, device=dev)
         return ((torch.randint(0, 2, shape, generator=g, device=dev) * 2 - 1) * mag).float()
@@ -319,18 +361,24 @@ def check_score_topk_select(torch, ops, dev, g) -> None:
     def batch(B, n_users):
         return torch.randint(0, n_users, (B,), generator=g, device=dev, dtype=torch.int32)
 
+    def case(label, U, V, k, ids, rows_valid, n_valid, exact):
+        vals, idx, _ = topk_case(torch, ops, dev, label, U, V, k, ids, rows_valid, n_valid, exact)
+        v2, i2 = ops.score_topk(U, V, k, n_valid=n_valid, rows_valid=rows_valid, ids=ids)
+        check(torch.equal(v2, vals) and torch.equal(i2, idx),
+              f"score_topk rerun differs ({label}, B={ids.shape[0]}, k={k})")
+        return vals, idx
+
     n_users = 4096
-    Bs = (1, 2, 3, 8, 16, 31, 33, 64, 65)
     for kind, draw in (("integer", integer), ("gaussian", gaussian)):
         U = draw(n_users, RANK)
         Vp = torch.cat([draw(N_ITEMS, RANK), torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
-        for B in Bs:
+        for B in spec["B"]:
             ids = batch(B, n_users)
             rows_valid = B - B // 4
-            for k in (1, 5, AOT_TOPK, 17, 31, 32, 33):
-                vals, idx, _ = topk_case(torch, ops, dev, f"{kind:8s}", U, Vp, k, ids,
-                                         rows_valid, N_ITEMS, kind == "integer")
-                if kind == "gaussian":
+            for k in spec["k"]:
+                vals, idx = case(f"{kind:8s}", U, Vp, k, ids, rows_valid, N_ITEMS,
+                                 kind == "integer")
+                if kind == "gaussian" and (spec["alone"] is None or k in spec["alone"]):
                     # a row's answer does not depend on its batch
                     for r in sorted({0, rows_valid - 1}):
                         v1, i1 = ops.score_topk(U, Vp, k, n_valid=N_ITEMS, ids=ids[r:r + 1])
@@ -346,10 +394,9 @@ def check_score_topk_select(torch, ops, dev, g) -> None:
         for B in (1, 8, 64, 65):
             ids = batch(B, n_users)
             rows_valid = B - B // 4
-            for k in (1, AOT_TOPK, 32, 33):
-                topk_case(torch, ops, dev, "ties    ", U, V_ties, k, ids, rows_valid, 0, True)
-                _, idx, _ = topk_case(torch, ops, dev, "constant", U, V_const, k, ids,
-                                      rows_valid, 0, True)
+            for k in spec["ties"]:
+                case("ties    ", U, V_ties, k, ids, rows_valid, 0, True)
+                _, idx = case("constant", U, V_const, k, ids, rows_valid, 0, True)
                 check(bool((idx == torch.arange(k, device=dev)).all()),
                       f"constant V: not items 0..k-1 (B={B}, k={k})")
 
@@ -357,31 +404,30 @@ def check_score_topk_select(torch, ops, dev, g) -> None:
     Vp = integer(N_PAD, RANK)
     for B in (1, 64):
         ids = batch(B, n_users)
-        for k in (5, 17, 32, 33):
+        for k in spec["masked"]:
             n_valid = k // 2
-            vals, idx, _ = topk_case(torch, ops, dev, "masked  ", U, Vp, k, ids, B, n_valid, True)
+            vals, idx = case("masked  ", U, Vp, k, ids, B, n_valid, True)
             check(bool((idx[:, n_valid:] == torch.arange(n_valid, k, device=dev)).all())
                   and bool((vals[:, n_valid:] == -3.0e38).all()),
                   f"n_valid={n_valid} < k={k}: masked columns out of place")
 
     # a V that is not 16-byte aligned: the 4-byte copies at d % 4 == 0
-    Vm = misaligned(torch, integer(2000, RANK))
-    for B in (1, 64):
-        topk_case(torch, ops, dev, "unalignV", U, Vm, AOT_TOPK, batch(B, n_users), B, 0, True)
+    for np_, n_valid, k in spec["unaligned"]:
+        Vm = misaligned(torch, integer(np_, RANK))
+        for B in (1, 64):
+            case("unalignV", U, Vm, k, batch(B, n_users), B, n_valid, True)
 
-    # small catalogs at other widths
-    for d in (10, 100):
+    # other widths
+    for d, shapes in spec["widths"].items():
         for kind, draw in (("integer", integer), ("gaussian", gaussian)):
             Ud = draw(n_users, d)
-            for np_ in (1, 31, 257, 2000):
+            for np_ in sorted({np_ for np_, _ in shapes}):
                 V = draw(np_, d)
                 for B in (1, 3, 64):
                     ids = batch(B, n_users)
                     rows_valid = B - B // 4
-                    for k in (1, 5, 17, 31, 32, 33):
-                        if k <= np_:
-                            topk_case(torch, ops, dev, f"{kind:8s}", Ud, V, k, ids,
-                                      rows_valid, 0, kind == "integer")
+                    for k in [k for n, k in shapes if n == np_]:
+                        case(f"{kind:8s}", Ud, V, k, ids, rows_valid, 0, kind == "integer")
 
 
 def _row_chunks(R: int, per_row: int, limit: int = 1 << 26):
@@ -703,19 +749,24 @@ def check_chol_solve(torch, ops, dev) -> float:
     return main_err
 
 
+#: phase 4's cells of the k > 32 path, (B, k): k = 64, 128 and 1,024 are
+#: what served queries with num = 50, 100 and 1,000 reach
+BAR_CELLS = [(B, k) for k in (64, 128, 1024) for B in (1, 8, 64)] + [
+    (B, k) for k in (256, 512) for B in (1, 64)]
+
+
 def time_score_topk(torch, ops, dev):
     """Phase 4: times at the serving path's shapes (d=64, Np=28,672,
-    k=16, every bucket of the default ladder), then at k = 64, 128 and
-    1,024 (the k > 32 path, which serving reaches when num plus the
-    excluded items exceeds 32) at B = 1, 8 and 64. Returns the k = 16 rows
-    by B."""
+    k=16, every bucket of the default ladder), then at the k > 32 path's
+    BAR_CELLS (serving reaches it when num plus the excluded items exceeds
+    32). Returns every cell's row by (B, k)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     U = torch.randn(N_USERS, RANK, generator=g, device=dev)
     Vp = torch.cat([torch.randn(N_ITEMS, RANK, generator=g, device=dev),
                     torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
     rows = {}
     shapes = [(B, AOT_TOPK) for B in (1, 2, 4, 8, 16, 32, 64)]
-    shapes += [(B, k) for k in (64, 128, 1024) for B in (1, 8, 64)]
+    shapes += BAR_CELLS
     for B, k in shapes:
         ids = torch.randint(0, N_USERS, (B,), generator=g, device=dev,
                             dtype=torch.int32)
@@ -728,9 +779,8 @@ def time_score_topk(torch, ops, dev):
         library, library_call = cuda_ms(lambda: torch.topk(
             U[ids.long()] @ Vp[:N_ITEMS].T, k))
         bound, bound_by = score_topk_bound_ms(B, RANK, N_PAD, k)
-        if k == AOT_TOPK:
-            rows[B] = {"ms": kernel, "plain_ms": plain, "library_ms": library,
-                       "bound_ms": bound, "bound_by": bound_by}
+        rows[B, k] = {"ms": kernel, "plain_ms": plain, "library_ms": library,
+                      "bound_ms": bound, "bound_by": bound_by}
         print(f"score_topk time B={B:2d} k={k} device ms: kernel={kernel:.4f} "
               f"plain={plain:.4f} library(torch.topk)={library:.4f} "
               f"bound={bound:.5f} ({bound_by}); per call ms: "
@@ -1395,6 +1445,7 @@ def drive_server(torch, ops, dev, home: str, U, V):
     """Phase 8: deploy through the port's EngineServer and query it."""
     import numpy as np
 
+    from predictionio_tpu_torch.models.als import _bucket_k
     from predictionio_tpu_torch.server import aot
     from predictionio_tpu_torch.server.engine_server import EngineServer
 
@@ -1435,6 +1486,19 @@ def drive_server(torch, ops, dev, home: str, U, V):
         rng.integers(0, N_USERS, 200), rng.choice([5, 10, 16], 200))]
     burst = [{"user": f"u{int(u)}", "num": 10}
              for u in rng.integers(0, N_USERS, 512)]
+    # the k > 32 path: num 50, 100 and 1,000 serve at k = 64, 128 and 1,024
+    wide = [{"user": f"u{int(u)}", "num": int(n)} for u, n in zip(
+        rng.integers(0, N_USERS, 96), rng.choice([50, 100, 1000], 96))]
+
+    def dispatches_since(before):
+        """Serving dispatches per (padded bucket, path) since ``before``
+        (pio_aot_dispatch_total)."""
+        out = {}
+        for (bucket, path), n in aot._DISPATCHES._values.items():
+            n = int(n - before.get((bucket, path), 0))
+            if n:
+                out[(int(bucket), path)] = n
+        return out
 
     reset_counters(ops)
     batches0 = server._batcher.batches
@@ -1446,54 +1510,82 @@ def drive_server(torch, ops, dev, home: str, U, V):
         t_burst = time.perf_counter() - t_burst
     launches = read_counters(ops)
     batches = server._batcher.batches - batches0
-    # serving dispatches per padded bucket (pio_aot_dispatch_total)
-    per_bucket = {}
-    for (bucket, path), n in aot._DISPATCHES._values.items():
-        n = int(n - dispatches0.get((bucket, path), 0))
-        if n:
-            per_bucket[(int(bucket), path)] = n
+    per_bucket = dispatches_since(dispatches0)
     for (bucket, path), n in sorted(per_bucket.items()):
         print(f"serving dispatches bucket={bucket:2d} path={path}: {n}", flush=True)
+
+    # the sequential sub-run with num > 32, counted on its own. The metric
+    # has no k label: one query at a time is one dispatch at bucket 1, so
+    # each dispatch's k is its query's num bucketed
+    reset_counters(ops)
+    dispatches1 = dict(aot._DISPATCHES._values)
+    wide_out = [post(q) for q in wide]
+    wide_launches = read_counters(ops)
+    wide_buckets = dispatches_since(dispatches1)
+    check(sum(wide_buckets.values()) == len(wide)
+          and all(bucket == 1 for bucket, _ in wide_buckets),
+          f"num > 32 sub-run: {wide_buckets} is not one bucket-1 dispatch a query")
+    (path,) = {p for _, p in wide_buckets}
+    wide_per_k = {}
+    for q in wide:
+        key = (1, _bucket_k(q["num"]), path)
+        wide_per_k[key] = wide_per_k.get(key, 0) + 1
+    for (bucket, k, p), n in sorted(wide_per_k.items()):
+        print(f"serving dispatches (num > 32 sub-run) bucket={bucket} k={k} path={p}: {n}",
+              flush=True)
 
     urllib.request.urlopen(f"{url}/stop", timeout=10).read()
     serve.join(30)
     check(not serve.is_alive(), "server did not stop")
     loop.close()
 
-    # every answer against the plain reference on the card
-    queries = seq + burst
-    answers = [b for b, _ in seq_out + burst_out]
+    # every answer against the plain reference on the card, each at its
+    # query's own num (the reference's stable sort: its first num of any
+    # longer list are its top num)
+    queries = seq + burst + wide
+    answers = [b for b, _ in seq_out + burst_out + wide_out]
     rows = torch.tensor([int(q["user"][1:]) for q in queries], device=dev,
                         dtype=torch.int32)
     Ud = torch.as_tensor(U, device=dev)
     Vp = torch.cat([torch.as_tensor(V, device=dev),
                     torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
-    rv, ri = ops.score_topk_ref(Ud, Vp, AOT_TOPK, n_valid=N_ITEMS, ids=rows)
+    rv, ri = ops.score_topk_ref(Ud, Vp, max(q["num"] for q in queries), n_valid=N_ITEMS,
+                                ids=rows)
     s64 = Ud[rows.long()].double() @ Vp.double().T
-    bad = 0
+    bad_at = []
     for j, (q, a) in enumerate(zip(queries, answers)):
         n = q["num"]
         items = a.get("itemScores", [])
         if len(items) != n:
-            bad += 1
+            bad_at.append(j)
             continue
         got_idx = torch.tensor([int(it["item"][1:]) for it in items], device=dev)
         got_val = torch.tensor([it["score"] for it in items], device=dev)
         if not topk_agrees(got_val[None], got_idx[None], rv[j:j + 1, :n],
                            ri[j:j + 1, :n], s64[j:j + 1]):
-            bad += 1
+            bad_at.append(j)
+    bad = len(bad_at)
+    bad_wide = sum(1 for j in bad_at if j >= len(seq) + len(burst))
     lat = np.asarray([t for _, t in seq_out]) * 1e3
     blat = np.asarray([t for _, t in burst_out]) * 1e3
+    wlat = np.asarray([t for _, t in wide_out]) * 1e3
     print(f"queries: {len(seq)} sequential p50={np.percentile(lat, 50):.3f} ms "
           f"p99={np.percentile(lat, 99):.3f} ms; burst of {len(burst)} over 64 "
           f"clients p50={np.percentile(blat, 50):.3f} ms "
           f"p99={np.percentile(blat, 99):.3f} ms "
           f"({len(burst) / t_burst:.1f} q/s); {batches} device batches; "
-          f"kernel launches {launches}; answers off the reference: {bad}",
+          f"kernel launches {launches}; answers off the reference: {bad - bad_wide}",
           flush=True)
+    print(f"queries with num > 32: {len(wide)} sequential p50={np.percentile(wlat, 50):.3f} ms "
+          f"p99={np.percentile(wlat, 99):.3f} ms; kernel launches {wide_launches}; "
+          f"answers off the reference: {bad_wide}", flush=True)
     check(bad == 0, f"{bad} of {len(queries)} answers disagree with score_topk_ref")
     check(launches["score_topk"] > 0, "score_topk was not launched on the serving path")
-    return launches, per_bucket
+    check(wide_launches["score_topk"] == len(wide),
+          f"the num > 32 sub-run launched score_topk {wide_launches['score_topk']} times "
+          f"for {len(wide)} queries")
+    return launches, per_bucket, {"launches": wide_launches["score_topk"],
+                                  "per_k": wide_per_k, "p50_ms": float(np.percentile(wlat, 50))}
 
 
 def main(argv) -> int:
@@ -1563,12 +1655,13 @@ def main(argv) -> int:
 
     phase("8. Recommendation engine served at ML-20M width (trained factors)")
     with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as home:
-        launches, per_bucket = drive_server(torch, ops, dev, home, train["U"], train["V"])
+        launches, per_bucket, wide = drive_server(torch, ops, dev, home, train["U"],
+                                                  train["V"])
     # what the serving kernel loses on phase 8's traffic: each dispatch at
     # its bucket's phase-4 time less its bound
     loss = 0.0
     for (bucket, _), n in sorted(per_bucket.items()):
-        t = times.get(bucket)
+        t = times.get((bucket, AOT_TOPK))
         check(t is not None, f"phase 4 has no time for serving bucket {bucket}")
         loss += n * (t["ms"] - t["bound_ms"])
         print(f"score_topk serving bucket={bucket:2d} dispatches={n} "
@@ -1576,9 +1669,19 @@ def main(argv) -> int:
               f"lost_ms={n * (t['ms'] - t['bound_ms']):.4f}", flush=True)
     print(f"score_topk lost over phase 8's queries: {loss:.4f} ms "
           f"(sum of dispatches x (time - bound))", flush=True)
+    wide_loss = 0.0
+    for (bucket, k, _), n in sorted(wide["per_k"].items()):
+        t = times.get((bucket, k))
+        check(t is not None, f"phase 4 has no time for bucket {bucket} at k={k}")
+        wide_loss += n * (t["ms"] - t["bound_ms"])
+        print(f"score_topk serving (num > 32) bucket={bucket} k={k} dispatches={n} "
+              f"ms={t['ms']:.4f} bound_ms={t['bound_ms']:.5f} "
+              f"lost_ms={n * (t['ms'] - t['bound_ms']):.4f}", flush=True)
+    print(f"score_topk lost over the num > 32 sub-run: {wide_loss:.4f} ms over "
+          f"{wide['launches']} launches, p50 {wide['p50_ms']:.3f} ms", flush=True)
     phase("done")
 
-    main = times[BATCH_MAX]
+    main = times[BATCH_MAX, AOT_TOPK]
     gram, solve = ttimes["gather_gram"], ttimes["chol_solve"]
     print(json.dumps({"kernels": [{
         "name": "score_topk", "route": "cuda",
@@ -1588,6 +1691,9 @@ def main(argv) -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "launches_k_gt_32": wide["launches"],
+        "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
     }, {
         "name": "gather_gram", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/gather_gram.cu",

@@ -22,9 +22,9 @@
 // core with a running (B, k) list in VMEM; blocks on the GPU run in no
 // order, so the selection is split in two launches. The path is chosen by k.
 //
-// k <= 32, the serving path (it buckets k to 16):
+// k <= 32 (serving buckets k to powers of two from 16: num <= 16 takes k = 16):
 //
-//   Phase A, select_kernel<RB>, grid (item chunks x row groups of RB rows,
+//   Phase A, select_kernel<RB, false>, grid (item chunks x row groups of RB rows,
 //   RB the next power of two of min(B, 64)), 8 warps a block. The chunks
 //   are cut so that one row group gives about 132 blocks (the H100's SMs),
 //   and each row group reads V once. The block stages its RB query rows
@@ -48,23 +48,35 @@
 //   share of the row's sorted chunk lists at once and merges them as a
 //   tree, then the 8 warps fold as a tree.
 //
-// 32 < k <= 1024, the first design, kept as it was:
+// 32 < k <= 1024 (kp, the next power of two of k, at least 64):
 //
-//   Phase A, chunk_topk_kernel, grid (row blocks x item chunks). A block
-//   gathers its RB query rows (Q[ids[r]]) into shared memory,
-//   dimension-major so a thread's four rows are one 16-byte load, and
-//   streams its chunk of V (256 items, or KP when that is more) through
-//   shared memory in VT x DK tiles; each tile's global loads are issued
-//   into registers while the previous tile is being scored. The chunk's
-//   best KP keys are then selected without sorting the whole chunk: runs of
-//   KP are sorted (bitonic, alternating direction), and rounds of "keep the
-//   larger of each pair of runs, then bitonic-merge what is kept" halve the
-//   keys until one sorted run is left.
+//   Phase A, select_kernel<RB, true>: phase A of the k <= 32 path, with the
+//   chunks cut so that every row group gives about 132 blocks (finer bars),
+//   run for a short list of J keys: J = ceil(k / (3/4 of the chunks)), at
+//   most 32 (1, 2, 3, 6 and 11 at k = 64 ... 1,024 over 132 chunks). It
+//   keeps of its list only the J-th key, the chunk's bar, and writes every
+//   score of its chunk, as the upper 32 bits of its key, to a (B, np)
+//   scratch S (bytes that phase B reads back from L2).
 //
-//   Phase B, merge_topk_kernel, one block per row. It stages the chunks'
-//   sorted lists through shared memory in groups and reduces each group
-//   with the same halving rounds; a group's result is folded into the
-//   running best KP the same way.
+//   Phase B, bar_merge_kernel, one block of 1,024 threads per row. The
+//   row's bar T is the p-th largest of the chunks' bars, p = ceil(k / J):
+//   those p chunks hold J keys each at or above T, so at least k keys reach
+//   it and nothing of the top k lies below it (with p past the chunks T = 0
+//   and every key is a candidate). The block reads the row's scores (one
+//   batch of 16-byte loads, issued before T is known), keeps the keys whose
+//   score reaches T's (ties pass) and compacts them into shared memory by a
+//   block-wide scan; on random data somewhat more than k. The sort takes one
+//   key a thread, at most 1,024: each warp sorts its 32 keys by a bitonic
+//   network over shuffles, then rounds of merges put each key at its rank
+//   in its pair of runs (its place in its own run plus a binary search in
+//   the other: log2(n / 32) barriers). When more than 1,024 keys pass, a
+//   radix select over the candidates in shared memory (the bytes below
+//   their common leading bits, stopping at the first byte whose boundary
+//   bin holds just the keys still needed) finds the k-th key exactly, and
+//   only the k keys at or above it are sorted. When more keys reach T than
+//   shared memory holds (BAR_CAP; all of them do when V is constant), a
+//   radix select over the row's scores in S finds the k-th key: correct,
+//   not fast.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (predictionio_tpu_torch/ops/_build.py), bound through ctypes.
@@ -74,24 +86,8 @@
 
 namespace {
 
-constexpr int RB = 8;          // query rows per phase-A block
-constexpr int MAX_CHUNK = 1024;  // the largest KP (a chunk holds at least KP items)
-constexpr int MIN_CHUNK = 256;   // items per phase-A block when KP is smaller
-constexpr int VT = 128;        // items per shared-memory V tile
-constexpr int DK = 32;         // factor dims per shared-memory V tile
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_THREAD = RB * VT / THREADS;   // 4
-constexpr int LOADS = VT * DK / THREADS;             // 16 tile loads per thread
-constexpr int MERGE_KEYS = 4096;                     // phase B: lists staged per group
+constexpr int MAX_K = 1024;   // the largest k the kernel takes
 constexpr float NEG = -3.0e38f;
-
-static_assert(RB * VT % THREADS == 0, "row split");
-static_assert(ROWS_PER_THREAD == 4, "a thread's rows are one float4 of Q");
-static_assert(VT * DK % THREADS == 0, "tile split");
-static_assert((MAX_CHUNK & (MAX_CHUNK - 1)) == 0 && (MIN_CHUNK & (MIN_CHUNK - 1)) == 0,
-              "chunk widths are powers of two");
-static_assert(MIN_CHUNK % VT == 0, "a chunk is whole V tiles");
-static_assert(MAX_CHUNK <= MERGE_KEYS, "phase B stages at least one list");
 
 __device__ __forceinline__ uint64_t make_key(float v, int col) {
     uint32_t u = __float_as_uint(v);
@@ -109,243 +105,6 @@ __device__ __forceinline__ float key_value(uint64_t key) {
 
 __device__ __forceinline__ int key_index(uint64_t key) {
     return static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
-}
-
-// Selection of the best kp keys of each of `rows` rows (n keys each, n and
-// kp powers of two, kp <= n, row stride n), with every thread of the block.
-// Sizes are powers of two, so all index arithmetic is shifts and masks.
-__device__ void sort_runs(uint64_t* keys, int rows, int n, int kp) {
-    // runs of kp sorted: run q descending if q is even, else ascending
-    const int lg_half = __ffs(n) - 2;          // log2(n / 2)
-    for (int size = 2; size <= kp; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int t = threadIdx.x; t < (rows << lg_half); t += blockDim.x) {
-                int r = t >> lg_half;
-                int p = t & ((1 << lg_half) - 1);
-                int i = 2 * p - (p & (stride - 1));
-                uint64_t* row = keys + static_cast<size_t>(r) * n;
-                uint64_t a = row[i];
-                uint64_t b = row[i + stride];
-                bool desc = (i & size) == 0;
-                if ((a < b) == desc) {
-                    row[i] = b;
-                    row[i + stride] = a;
-                }
-            }
-            __syncthreads();
-        }
-    }
-}
-
-// Halving rounds over runs of kp sorted as sort_runs leaves them: the pair
-// (run m*2S descending, run m*2S+S ascending) is a bitonic sequence, so the
-// elementwise larger of the two is its best kp, itself bitonic; merge it in
-// place, descending for even m and ascending for odd m, ready for the next
-// round. The best kp of the row end up sorted descending at its start.
-__device__ void halve_runs(uint64_t* keys, int rows, int n, int kp) {
-    const int lg_kp = __ffs(kp) - 1;
-    for (int S = kp; S < n; S <<= 1) {
-        const int lg_pairs = __ffs(n) - __ffs(S) - 1;   // log2(n / 2S)
-        const int lg_row = lg_pairs + lg_kp;
-        for (int t = threadIdx.x; t < (rows << lg_row); t += blockDim.x) {
-            int r = t >> lg_row;
-            int u = t & ((1 << lg_row) - 1);
-            int m = u >> lg_kp;
-            int i = m * 2 * S + (u & (kp - 1));
-            uint64_t* row = keys + static_cast<size_t>(r) * n;
-            uint64_t b = row[i + S];
-            if (row[i] < b) row[i] = b;
-        }
-        __syncthreads();
-        if (kp < 2) continue;
-        const int lg_hk = lg_kp - 1;
-        const int lg_row_m = lg_pairs + lg_hk;
-        for (int stride = kp >> 1; stride > 0; stride >>= 1) {
-            for (int t = threadIdx.x; t < (rows << lg_row_m); t += blockDim.x) {
-                int r = t >> lg_row_m;
-                int u = t & ((1 << lg_row_m) - 1);
-                int m = u >> lg_hk;
-                int p = u & ((1 << lg_hk) - 1);
-                int i = m * 2 * S + 2 * p - (p & (stride - 1));
-                uint64_t* row = keys + static_cast<size_t>(r) * n;
-                uint64_t a = row[i];
-                uint64_t b = row[i + stride];
-                bool desc = (m & 1) == 0;
-                if ((a < b) == desc) {
-                    row[i] = b;
-                    row[i + stride] = a;
-                }
-            }
-            __syncthreads();
-        }
-    }
-}
-
-__device__ __forceinline__ void select_top_runs(uint64_t* keys, int rows, int n, int kp) {
-    sort_runs(keys, rows, n, kp);
-    halve_runs(keys, rows, n, kp);
-}
-
-__device__ __forceinline__ void load_tile(const float* __restrict__ V, int np, int d,
-                                          int col_base, int k0, float (&buf)[LOADS]) {
-#pragma unroll
-    for (int l = 0; l < LOADS; ++l) {
-        int t = threadIdx.x + l * THREADS;
-        int it = t / DK;
-        int c = t - it * DK;
-        int col = col_base + it;
-        int dim = k0 + c;
-        buf[l] = (col < np && dim < d) ? __ldg(V + static_cast<size_t>(col) * d + dim) : 0.0f;
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
-chunk_topk_kernel(const float* __restrict__ Q, int nq,
-                  const int* __restrict__ ids,
-                  const float* __restrict__ V, int np, int d,
-                  int B, int rows_valid, int n_valid, int kp, int chunk_w,
-                  int n_chunks, uint64_t* __restrict__ cand) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    uint64_t* keys = reinterpret_cast<uint64_t*>(smem);             // RB x chunk_w
-    float* qs = reinterpret_cast<float*>(keys + RB * chunk_w);        // d x RB
-    float* vs = qs + RB * d;                                          // VT x (DK+1)
-
-    const int row0 = blockIdx.x * RB;
-    const int chunk = blockIdx.y;
-    const int col0 = chunk * chunk_w;
-    const int nrows = min(RB, B - row0);
-
-    float pre[LOADS];
-    load_tile(V, np, d, col0, 0, pre);   // in flight while Q is gathered
-
-    for (int t = threadIdx.x; t < RB * d; t += blockDim.x) {
-        int r = t / d;
-        int c = t - r * d;
-        int row = row0 + r;
-        float v = 0.0f;
-        if (r < nrows && row < rows_valid) {
-            int src = ids ? ids[row] : row;
-            src = min(max(src, 0), nq - 1);   // out-of-range ids clamp, as a JAX gather does
-            v = Q[static_cast<size_t>(src) * d + c];
-        }
-        qs[c * RB + r] = v;
-    }
-
-    const int j = threadIdx.x % VT;                       // this thread's item in the tile
-    const int r0 = (threadIdx.x / VT) * ROWS_PER_THREAD;   // its first query row
-    const int kt = (d + DK - 1) / DK;
-    const int n_tiles = (chunk_w / VT) * kt;
-    float acc[ROWS_PER_THREAD];
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        const int t0 = (tile / kt) * VT;
-        const int k0 = (tile - (tile / kt) * kt) * DK;
-        if (k0 == 0) {
-#pragma unroll
-            for (int r = 0; r < ROWS_PER_THREAD; ++r) acc[r] = 0.0f;
-        }
-        __syncthreads();  // the previous tile is scored (and, first, qs is set)
-#pragma unroll
-        for (int l = 0; l < LOADS; ++l) {
-            int t = threadIdx.x + l * THREADS;
-            int it = t / DK;
-            vs[it * (DK + 1) + (t - it * DK)] = pre[l];
-        }
-        __syncthreads();
-        if (tile + 1 < n_tiles) {
-            const int nt = tile + 1;
-            load_tile(V, np, d, col0 + (nt / kt) * VT, (nt - (nt / kt) * kt) * DK, pre);
-        }
-        if (r0 < nrows) {  // rows past the batch are never ranked
-            const int kmax = min(DK, d - k0);
-            const float* vrow = vs + j * (DK + 1);
-            const float* qcol = qs + k0 * RB + r0;
-            for (int c = 0; c < kmax; ++c) {
-                const float v = vrow[c];
-                const float4 q = *reinterpret_cast<const float4*>(qcol + c * RB);
-                acc[0] = fmaf(q.x, v, acc[0]);
-                acc[1] = fmaf(q.y, v, acc[1]);
-                acc[2] = fmaf(q.z, v, acc[2]);
-                acc[3] = fmaf(q.w, v, acc[3]);
-            }
-        }
-        if (k0 + DK >= d) {
-            const int col = col0 + t0 + j;
-#pragma unroll
-            for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-                uint64_t key = 0;  // empty slot past the end of V
-                if (col < np) key = make_key(col < n_valid ? acc[r] : NEG, col);
-                keys[(r0 + r) * chunk_w + t0 + j] = key;
-            }
-        }
-    }
-    __syncthreads();
-
-    select_top_runs(keys, nrows, chunk_w, kp);
-
-    for (int t = threadIdx.x; t < nrows * kp; t += blockDim.x) {
-        int r = t / kp;
-        int c = t - r * kp;
-        size_t dst = (static_cast<size_t>(row0 + r) * n_chunks + chunk) * kp + c;
-        cand[dst] = keys[r * chunk_w + c];
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
-merge_topk_kernel(const uint64_t* __restrict__ cand, int n_chunks, int kp, int k,
-                  int group, float* __restrict__ out_vals, int* __restrict__ out_idx) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    uint64_t* best = reinterpret_cast<uint64_t*>(smem);   // kp, descending
-    uint64_t* lists = best + kp;                           // group x kp
-    const int row = blockIdx.x;
-    const int lg_kp = __ffs(kp) - 1;
-    const uint64_t* src = cand + static_cast<size_t>(row) * n_chunks * kp;
-
-    for (int g0 = 0; g0 < n_chunks; g0 += group) {
-        const int cnt = min(group, n_chunks - g0);
-        int runs = 1;
-        while (runs < cnt) runs <<= 1;
-        __syncthreads();  // the previous group is folded into best
-        // stage the group's lists as runs for halve_runs: odd runs
-        // reversed (ascending), missing runs empty (key 0)
-        for (int t = threadIdx.x; t < (runs << lg_kp); t += blockDim.x) {
-            int q = t >> lg_kp;
-            int e = t & (kp - 1);
-            lists[t] = q < cnt
-                ? src[static_cast<size_t>(g0 + q) * kp + ((q & 1) ? kp - 1 - e : e)]
-                : 0ull;
-        }
-        __syncthreads();
-        halve_runs(lists, 1, runs << lg_kp, kp);   // ends in a barrier
-        if (g0 == 0) {
-            for (int p = threadIdx.x; p < kp; p += blockDim.x) best[p] = lists[p];
-            continue;
-        }
-        // best (descending) ++ the group's run reversed (ascending) is
-        // bitonic: keep the larger of each pair, then merge the kept half
-        for (int p = threadIdx.x; p < kp; p += blockDim.x) {
-            uint64_t b = lists[kp - 1 - p];
-            if (best[p] < b) best[p] = b;
-        }
-        __syncthreads();
-        for (int stride = kp / 2; stride > 0; stride >>= 1) {
-            for (int p = threadIdx.x; p < kp / 2; p += blockDim.x) {
-                int i = 2 * p - (p & (stride - 1));
-                uint64_t a = best[i];
-                uint64_t b = best[i + stride];
-                if (a < b) {
-                    best[i] = b;
-                    best[i + stride] = a;
-                }
-            }
-            __syncthreads();
-        }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < k; t += blockDim.x) {
-        uint64_t key = best[t];
-        out_vals[static_cast<size_t>(row) * k + t] = key_value(key);
-        out_idx[static_cast<size_t>(row) * k + t] = key_index(key);
-    }
 }
 
 // ---- k <= 32: register-blocked scores, a warp-held list per row ----------
@@ -514,7 +273,20 @@ __device__ __forceinline__ void stage_v(float* buf, const float* __restrict__ V,
     }
 }
 
-template <int RB>
+// The words of a k > 32 launch's scratch before S: one bar per row and
+// chunk, rounded up to an even count so that S starts on 16 bytes.
+__host__ __device__ __forceinline__ size_t bar_words(int B, int n_chunks) {
+    return (static_cast<size_t>(B) * n_chunks + 1) & ~static_cast<size_t>(1);
+}
+
+// S's row stride in 32-bit words: np rounded up to 4, 16-byte rows
+__host__ __device__ __forceinline__ int score_stride(int np) { return (np + 3) & ~3; }
+
+// BAR = false: the k <= 32 path, cand = (B, n_chunks, k) sorted lists.
+// BAR = true: the k > 32 path's phase A, k = J: cand = the (B, n_chunks)
+// bars (each list's J-th key), then S, the (B, score_stride(np)) upper
+// halves of the row's keys.
+template <int RB, bool BAR>
 __global__ void __launch_bounds__(SEL_THREADS)
 select_kernel(const float* __restrict__ Q, int nq, const int* __restrict__ ids,
               const float* __restrict__ V, int np, int d, int vec,
@@ -619,6 +391,19 @@ select_kernel(const float* __restrict__ Q, int nq, const int* __restrict__ ids,
                     const int col = base + t * 32;
                     return col < col_end ? make_key(score(i, t), col) : 0ull;
                 };
+                if constexpr (BAR) {   // every score of the tile, for phase B's filter
+                    uint32_t* S = reinterpret_cast<uint32_t*>(cand + bar_words(B, n_chunks));
+                    const size_t lds = score_stride(np);
+#pragma unroll
+                    for (int i = 0; i < RW; ++i) {
+                        const int row = row0 + wr * RW + i;
+#pragma unroll
+                        for (int t = 0; t < TI; ++t)
+                            if (row < B && base + t * 32 < col_end)
+                                S[row * lds + base + t * 32] =
+                                    static_cast<uint32_t>(key_of(i, t) >> 32);
+                    }
+                }
                 if constexpr (TI == 1) {   // the lanes' keys are the tile's: sort, merge
                     uint64_t top[RW];
 #pragma unroll
@@ -681,7 +466,15 @@ select_kernel(const float* __restrict__ Q, int nq, const int* __restrict__ ids,
 
     if constexpr (WI > 1)   // RW == 1: the WI warps of a row fold into the first
         fold_warps(list[0], reinterpret_cast<uint64_t*>(smem), WI, warp, lane);
-    if (wi == 0 && lane < k) {
+    if constexpr (BAR) {
+        if (wi == 0 && lane == k - 1) {   // the chunk's J-th key
+#pragma unroll
+            for (int i = 0; i < RW; ++i) {
+                const int row = row0 + wr * RW + i;
+                if (row < B) cand[static_cast<size_t>(row) * n_chunks + chunk] = list[i];
+            }
+        }
+    } else if (wi == 0 && lane < k) {
 #pragma unroll
         for (int i = 0; i < RW; ++i) {
             const int row = row0 + wr * RW + i;
@@ -717,28 +510,338 @@ merge_select_kernel(const uint64_t* __restrict__ cand, int n_chunks, int k,
     }
 }
 
+// ---- 32 < k <= 1024: a bar from the chunks' J-th keys, then one sort ----
+
+constexpr int BAR_THREADS = 1024;
+constexpr int BAR_WARPS = BAR_THREADS / 32;
+constexpr int BAR_CAP = 8192;                    // candidate keys a row's block holds
+constexpr int BAR_LOADS = 7;                     // 16-byte score loads a thread has in flight:
+                                                 // 28,672 scores (ML-20M's catalog) in one batch
+constexpr size_t BAR_SMEM = sizeof(uint64_t) * (BAR_CAP + BAR_THREADS);   // candidates, a sort's
+                                                                         // other buffer
+
+static_assert(SEL_THREADS == 8 * 32 && BAR_THREADS % 32 == 0, "whole warps");
+static_assert(MAX_K <= BAR_THREADS && BAR_THREADS <= BAR_CAP, "a sort takes one key a thread");
+static_assert(BAR_LOADS * 4 <= 32, "a thread's passing scores are one 32-bit mask");
+static_assert(2 * SEL_BLOCKS <= BAR_THREADS, "two threads rank each chunk's bar");
+
+// buf[0, n2) sorted descending, for distinct keys, n2 a power of two, 64 <=
+// n2 <= BAR_THREADS: each warp sorts its 32 keys by a bitonic network over
+// the lanes, then rounds of merges put each key of a pair of sorted runs at
+// its rank in the pair, its place in its own run plus the keys of the other
+// run above it (one binary search). tmp[0, n2) is the other buffer; returns
+// the one that holds the result. Every thread calls it; it starts after a
+// barrier and ends in one.
+__device__ uint64_t* block_sort_desc(uint64_t* buf, uint64_t* tmp, int n2) {
+    const int tid = threadIdx.x;
+    const bool mine = tid < n2;   // whole warps
+    uint64_t x[1] = {mine ? buf[tid] : 0ull};
+    if (mine) {
+        sort_desc<1>(x, tid & 31);
+        buf[tid] = x[0];
+    }
+    __syncthreads();
+    uint64_t* src = buf;
+    uint64_t* dst = tmp;
+    for (int len = 32; len < n2; len <<= 1) {
+        if (mine) {
+            const int pair = tid & ~(2 * len - 1);
+            const uint64_t* other = src + pair + ((tid & len) ? 0 : len);
+            int lo = 0, hi = len;   // the other run's keys above x[0]
+            while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                if (other[mid] > x[0]) lo = mid + 1;
+                else hi = mid;
+            }
+            dst[pair + (tid & (len - 1)) + lo] = x[0];
+        }
+        __syncthreads();
+        if (mine) x[0] = dst[tid];
+        uint64_t* t = src;
+        src = dst;
+        dst = t;
+    }
+    return src;
+}
+
+__device__ __forceinline__ uint64_t col_key(uint32_t hi, int col) {
+    return (static_cast<uint64_t>(hi) << 32) | static_cast<uint64_t>(0xFFFFFFFFu - static_cast<uint32_t>(col));
+}
+
+// The lowest of the k largest of the keys that key_at(i, key) accepts for
+// i in [0, n) (at least k of them, all distinct), exactly: a radix select
+// over the bits below the keys' common leading bits, 8 at a time from the
+// highest bit in which they differ, counting in a shared histogram, that
+// stops at the first window whose boundary bin holds just the keys still
+// needed. The k largest keys are those at or above it. Every thread calls it.
+template <typename KeyAt>
+__device__ uint64_t kth_key(KeyAt key_at, int n, int k, unsigned* hist, uint64_t* prefix_s,
+                            int* need_s, unsigned* bits_s) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid < 4) bits_s[tid] = tid < 2 ? 0u : ~0u;   // OR, then AND, of the keys' halves
+    __syncthreads();
+    uint64_t any = 0, all = ~0ull;
+    for (int i = tid; i < n; i += BAR_THREADS) {
+        uint64_t key;
+        if (key_at(i, key)) {
+            any |= key;
+            all &= key;
+        }
+    }
+    const unsigned r[4] = {__reduce_or_sync(FULL, static_cast<unsigned>(any >> 32)),
+                           __reduce_or_sync(FULL, static_cast<unsigned>(any)),
+                           __reduce_and_sync(FULL, static_cast<unsigned>(all >> 32)),
+                           __reduce_and_sync(FULL, static_cast<unsigned>(all))};
+    if (lane == 0) {
+        atomicOr(&bits_s[0], r[0]);
+        atomicOr(&bits_s[1], r[1]);
+        atomicAnd(&bits_s[2], r[2]);
+        atomicAnd(&bits_s[3], r[3]);
+    }
+    __syncthreads();
+    const uint64_t or_bits = (static_cast<uint64_t>(bits_s[0]) << 32) | bits_s[1];
+    const uint64_t and_bits = (static_cast<uint64_t>(bits_s[2]) << 32) | bits_s[3];
+    if (or_bits == and_bits) return or_bits;   // one key
+    int top = 64 - __clzll(static_cast<long long>(or_bits ^ and_bits));   // bits [top, 64) common
+    uint64_t mask = top == 64 ? 0ull : ~0ull << top;
+    uint64_t prefix = and_bits & mask;
+    int need = k;
+    while (top > 0) {
+        const int shift = top > 8 ? top - 8 : 0;
+        const unsigned width = (1u << (top - shift)) - 1u;   // the window's digit mask
+        for (int i = tid; i < 256; i += BAR_THREADS) hist[i] = 0;
+        __syncthreads();
+        for (int i = tid; i < n; i += BAR_THREADS) {
+            uint64_t key;
+            if (key_at(i, key) && (key & mask) == prefix)
+                atomicAdd(&hist[static_cast<unsigned>(key >> shift) & width], 1u);
+        }
+        __syncthreads();
+        if (warp == 0) {   // lane l takes digits 255 - 8l down to 248 - 8l
+            unsigned h[8];
+            int sum = 0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                h[j] = hist[255 - 8 * lane - j];
+                sum += h[j];
+            }
+            int incl = sum;
+#pragma unroll
+            for (int dl = 1; dl < 32; dl <<= 1) {
+                const int x = __shfl_up_sync(FULL, incl, dl);
+                if (lane >= dl) incl += x;
+            }
+            int above = incl - sum;
+            if (above < need && incl >= need) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    if (above + static_cast<int>(h[j]) >= need) {
+                        const uint64_t digit = static_cast<uint64_t>(255 - 8 * lane - j);
+                        *prefix_s = prefix | (digit << shift);
+                        // the bin holds just the keys still needed: all of it is kept
+                        *need_s = static_cast<int>(h[j]) == need - above ? 0 : need - above;
+                        break;
+                    }
+                    above += h[j];
+                }
+            }
+        }
+        __syncthreads();
+        prefix = *prefix_s;
+        need = *need_s;
+        mask |= static_cast<uint64_t>(width) << shift;
+        top = shift;
+        if (need == 0) break;
+    }
+    return prefix;
+}
+
+// Phase B of the k > 32 path, one block per row (see the header).
+__global__ void __launch_bounds__(BAR_THREADS)
+bar_merge_kernel(const uint64_t* __restrict__ scratch, int B, int np, int n_chunks, int J, int k,
+                 float* __restrict__ out_vals, int* __restrict__ out_idx) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint64_t* keys = reinterpret_cast<uint64_t*>(smem);   // BAR_CAP, then BAR_THREADS
+    __shared__ uint64_t bar_s[SEL_BLOCKS];
+    __shared__ unsigned hist[256];
+    __shared__ int warp_s[BAR_WARPS];
+    __shared__ uint64_t thr_s, prefix_s;
+    __shared__ int count_s, need_s;
+    __shared__ unsigned bits_s[4];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t row = blockIdx.x;
+    const int lds = score_stride(np);
+    const uint32_t* srow = reinterpret_cast<const uint32_t*>(scratch + bar_words(B, n_chunks)) +
+                           row * lds;
+    const uint4* srow4 = reinterpret_cast<const uint4*>(srow);
+    const int n4 = lds / 4;
+
+    // the chunks' bars, then the first BAR_LOADS x BAR_THREADS x 4 scores
+    // of the row, in flight while the bar is found
+    const uint64_t my_bar = tid < n_chunks ? scratch[row * n_chunks + tid] : 0ull;
+    uint4 v[BAR_LOADS];
+    auto load = [&](int q0) {
+#pragma unroll
+        for (int l = 0; l < BAR_LOADS; ++l) {
+            const int q = q0 + l * BAR_THREADS + tid;
+            v[l] = q < n4 ? srow4[q] : make_uint4(0, 0, 0, 0);
+        }
+    };
+    load(0);
+
+    // the bar T: the p-th largest of the chunks' J-th keys. Threads 2c and
+    // 2c + 1 count the bars above chunk c's (equal bars, only ever 0 from
+    // chunks shorter than J, rank by chunk); with p past the chunks T stays
+    // 0 and every key is a candidate
+    const int p = (k + J - 1) / J;
+    if (tid == 0) thr_s = 0;
+    if (tid < n_chunks) bar_s[tid] = my_bar;
+    __syncthreads();
+    {
+        const int c = tid >> 1;
+        const bool mine = p <= n_chunks && c < n_chunks;
+        const uint64_t b = mine ? bar_s[c] : 0ull;
+        int rank = 0;
+        if (mine) {
+#pragma unroll 4
+            for (int o = tid & 1; o < n_chunks; o += 2) {
+                const uint64_t x = bar_s[o];
+                rank += x > b || (x == b && o < c);
+            }
+        }
+        rank += __shfl_xor_sync(FULL, rank, 1);
+        if (mine && (tid & 1) == 0 && rank == p - 1) thr_s = b;
+    }
+    __syncthreads();
+    const uint32_t t32 = static_cast<uint32_t>(thr_s >> 32);
+
+    // candidates: every key whose score reaches the bar's, compacted in
+    // thread order by a block-wide scan, batch by batch of loads (the order
+    // is free: the sort makes it one)
+    int n = 0;
+    for (int q0 = 0; q0 < n4; q0 += BAR_LOADS * BAR_THREADS) {
+        if (q0) load(q0);
+        unsigned pass = 0;
+#pragma unroll
+        for (int l = 0; l < BAR_LOADS; ++l) {
+            const int col = 4 * (q0 + l * BAR_THREADS + tid);
+            const uint32_t o[4] = {v[l].x, v[l].y, v[l].z, v[l].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (col + j < np && o[j] >= t32) pass |= 1u << (4 * l + j);
+        }
+        const int mine = __popc(pass);
+        int incl = mine;
+#pragma unroll
+        for (int dl = 1; dl < 32; dl <<= 1) {
+            const int x = __shfl_up_sync(FULL, incl, dl);
+            if (lane >= dl) incl += x;
+        }
+        if (lane == 31) warp_s[warp] = incl;
+        __syncthreads();
+        if (warp == 0) {
+            int t = lane < BAR_WARPS ? warp_s[lane] : 0;
+#pragma unroll
+            for (int dl = 1; dl < BAR_WARPS; dl <<= 1) {
+                const int x = __shfl_up_sync(FULL, t, dl);
+                if (lane >= dl) t += x;
+            }
+            if (lane < BAR_WARPS) warp_s[lane] = t;
+        }
+        __syncthreads();
+        int pos = n + (warp ? warp_s[warp - 1] : 0) + incl - mine;
+#pragma unroll
+        for (int l = 0; l < BAR_LOADS; ++l) {
+            const int col = 4 * (q0 + l * BAR_THREADS + tid);
+            const uint32_t o[4] = {v[l].x, v[l].y, v[l].z, v[l].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (pass >> (4 * l + j) & 1u) {
+                    if (pos < BAR_CAP) keys[pos] = col_key(o[j], col + j);
+                    ++pos;
+                }
+        }
+        n += warp_s[BAR_WARPS - 1];
+        __syncthreads();   // warp_s is read before the next batch writes it
+    }
+
+    // at most BAR_THREADS keys to sort, one a thread: when more reach the
+    // bar, the k largest first, found by a radix select over the candidates
+    // in shared memory or, when more reach it than shared memory holds, over
+    // the row's scores in S (correct, not fast), and kept in their own buffer
+    uint64_t* sorted = keys;
+    if (n > BAR_THREADS) {
+        const bool in_smem = n <= BAR_CAP;
+        auto candidate = [&](int i, uint64_t& key) {
+            if (in_smem) {
+                key = keys[i];
+                return true;
+            }
+            key = col_key(srow[i], i);
+            return srow[i] >= t32;
+        };
+        const int m = in_smem ? n : np;
+        const uint64_t kth = kth_key(candidate, m, k, hist, &prefix_s, &need_s, bits_s);
+        sorted = keys + BAR_CAP;
+        if (tid == 0) count_s = 0;
+        __syncthreads();
+        for (int i0 = 0; i0 < m; i0 += BAR_THREADS) {   // a whole warp takes each step
+            const int i = i0 + tid;
+            uint64_t key = 0;
+            const bool keep = i < m && candidate(i, key) && key >= kth;
+            const unsigned b = __ballot_sync(FULL, keep);
+            int base = 0;
+            if (lane == 0 && b) base = atomicAdd(&count_s, __popc(b));
+            base = __shfl_sync(FULL, base, 0);
+            if (keep) sorted[base + __popc(b & ((1u << lane) - 1u))] = key;
+        }
+        n = k;
+    }
+    int n2 = 64;
+    while (n2 < n) n2 <<= 1;
+    // pad with distinct keys below every real one (a real key is at least
+    // 2^55: its score is finite), so that every key has one rank
+    for (int i = n + tid; i < n2; i += BAR_THREADS) sorted[i] = static_cast<uint64_t>(n2 - i);
+    __syncthreads();
+    sorted = block_sort_desc(sorted, sorted == keys ? keys + BAR_CAP : keys, n2);
+    for (int i = tid; i < k; i += BAR_THREADS) {
+        const uint64_t key = sorted[i];
+        out_vals[row * k + i] = key_value(key);
+        out_idx[row * k + i] = key_index(key);
+    }
+}
+
 int next_pow2(int x) {
     int p = 1;
     while (p < x) p <<= 1;
     return p;
 }
 
-int chunk_width(int kp) { return kp > MIN_CHUNK ? kp : MIN_CHUNK; }
-
-// k <= 32: rows per phase-A block and the item chunks. The chunks depend on
-// B and np alone (not on d, which may shrink the rows a block takes), and
-// there are at most SEL_BLOCKS of them, which phase B's MERGE_LISTS holds.
+// Rows per phase-A block and the item chunks. The chunks depend on B and
+// np alone (not on d, which may shrink the rows a block takes), and there
+// are at most SEL_BLOCKS of them, which phase B's MERGE_LISTS and
+// bar_merge_kernel's bar_s hold. k <= 32 cuts them so that all row groups
+// together give about SEL_BLOCKS blocks; k > 32 (bar = true) so that each
+// row group does, since more chunks make a row's bar finer.
 struct SelPlan {
     int rb, chunk_w, n_chunks;
 };
 
-SelPlan sel_plan(int B, int np) {
+SelPlan sel_plan(int B, int np, bool bar = false) {
     const int rb = next_pow2(B < SEL_MAX_RB ? B : SEL_MAX_RB);
-    const int groups = (B + rb - 1) / rb;
+    const int groups = bar ? 1 : (B + rb - 1) / rb;
     const int target = (SEL_BLOCKS + groups - 1) / groups;
     int chunk_w = (np + target - 1) / target;
     if (chunk_w < SEL_MIN_CHUNK) chunk_w = SEL_MIN_CHUNK;
     return {rb, chunk_w, (np + chunk_w - 1) / chunk_w};
+}
+
+// k > 32: the length J of phase A's lists, so that the bar is about the
+// 3/4-th of the chunks' J-th keys (p = ceil(k / J) of them)
+int bar_list(int k, int n_chunks) {
+    const int covered = n_chunks * 3 / 4 > 1 ? n_chunks * 3 / 4 : 1;
+    const int j = (k + covered - 1) / covered;
+    return j < SEL_MAX_K ? j : SEL_MAX_K;
 }
 
 // V tiles, Q rows, then 32 candidate keys per row and warp
@@ -747,42 +850,66 @@ size_t sel_smem(int rb, int d) {
            sizeof(uint64_t) * 32 * (rb > SEL_WARPS ? rb : SEL_WARPS);
 }
 
-template <int RB>
+template <int RB, bool BAR>
 cudaError_t launch_select(const float* Q, int nq, const int* ids, const float* V, int np,
                           int d, int vec, int B, int rows_valid, int n_valid, int k,
                           const SelPlan& p, uint64_t* cand, cudaStream_t s) {
     const size_t smem = sel_smem(RB, d);
     // the attribute is per device: set it on every launch
     cudaError_t err = cudaFuncSetAttribute(
-        select_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        select_kernel<RB, BAR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     dim3 grid(p.n_chunks, (B + RB - 1) / RB);
-    select_kernel<RB><<<grid, SEL_THREADS, smem, s>>>(Q, nq, ids, V, np, d, vec, B, rows_valid,
-                                                      n_valid, k, p.chunk_w, p.n_chunks, cand);
+    select_kernel<RB, BAR><<<grid, SEL_THREADS, smem, s>>>(
+        Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p.chunk_w, p.n_chunks, cand);
     return cudaGetLastError();
+}
+
+// Phase A of either path (k: the list length, J when BAR)
+template <bool BAR>
+cudaError_t select_phase(const float* Q, int nq, const int* ids, const float* V, int np, int d,
+                         int B, int rows_valid, int n_valid, int k, const SelPlan& p,
+                         uint64_t* cand, cudaStream_t s) {
+    int rb = p.rb;
+    while (rb > 1 && sel_smem(rb, d) > SEL_MAX_SMEM) rb >>= 1;   // wide d: fewer rows a block
+    if (sel_smem(rb, d) > SEL_MAX_SMEM || (B + rb - 1) / rb > 65535) return cudaErrorInvalidValue;
+    const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0;
+    switch (rb) {
+        case 1: return launch_select<1, BAR>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s);
+        case 2: return launch_select<2, BAR>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s);
+        case 4: return launch_select<4, BAR>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s);
+        case 8: return launch_select<8, BAR>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s);
+        case 16: return launch_select<16, BAR>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s);
+        case 32: return launch_select<32, BAR>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s);
+        default: return launch_select<64, BAR>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s);
+    }
 }
 
 int score_topk_select(const float* Q, int nq, const int* ids, const float* V, int np, int d,
                       int B, int rows_valid, int n_valid, int k, uint64_t* cand,
                       float* out_vals, int* out_idx, cudaStream_t s) {
     const SelPlan p = sel_plan(B, np);
-    int rb = p.rb;
-    while (rb > 1 && sel_smem(rb, d) > SEL_MAX_SMEM) rb >>= 1;   // wide d: fewer rows a block
-    if (sel_smem(rb, d) > SEL_MAX_SMEM || (B + rb - 1) / rb > 65535)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0;
-    cudaError_t err;
-    switch (rb) {
-        case 1: err = launch_select<1>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s); break;
-        case 2: err = launch_select<2>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s); break;
-        case 4: err = launch_select<4>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s); break;
-        case 8: err = launch_select<8>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s); break;
-        case 16: err = launch_select<16>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s); break;
-        case 32: err = launch_select<32>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s); break;
-        default: err = launch_select<64>(Q, nq, ids, V, np, d, vec, B, rows_valid, n_valid, k, p, cand, s); break;
-    }
+    const cudaError_t err = select_phase<false>(Q, nq, ids, V, np, d, B, rows_valid, n_valid, k,
+                                                p, cand, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     merge_select_kernel<<<B, SEL_THREADS, 0, s>>>(cand, p.n_chunks, k, out_vals, out_idx);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int score_topk_bar(const float* Q, int nq, const int* ids, const float* V, int np, int d,
+                   int B, int rows_valid, int n_valid, int k, uint64_t* scratch,
+                   float* out_vals, int* out_idx, cudaStream_t s) {
+    const SelPlan p = sel_plan(B, np, true);
+    const int J = bar_list(k, p.n_chunks);
+    cudaError_t err = select_phase<true>(Q, nq, ids, V, np, d, B, rows_valid, n_valid, J, p,
+                                         scratch, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(bar_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(BAR_SMEM));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bar_merge_kernel<<<B, BAR_THREADS, BAR_SMEM, s>>>(scratch, B, np, p.n_chunks, J, k,
+                                                      out_vals, out_idx);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -790,12 +917,12 @@ int score_topk_select(const float* Q, int nq, const int* ids, const float* V, in
 
 extern "C" {
 
-// Number of 64-bit scratch keys one launch needs.
+// Number of 64-bit scratch words one launch needs: k <= 32, the chunks'
+// lists; k > 32, the chunks' bars and the (B, score_stride(np)) scores.
 long long pio_score_topk_scratch_elems(int B, int np, int k) {
     if (k <= SEL_MAX_K) return static_cast<long long>(B) * sel_plan(B, np).n_chunks * k;
-    const int kp = next_pow2(k);
-    const long long w = chunk_width(kp);
-    return static_cast<long long>(B) * ((np + w - 1) / w) * kp;
+    return static_cast<long long>(bar_words(B, sel_plan(B, np, true).n_chunks)) +
+           (static_cast<long long>(B) * score_stride(np) + 1) / 2;
 }
 
 // Q: (nq, d) f32; ids: (B,) i32 rows of Q, or null for rows 0..B-1;
@@ -807,37 +934,15 @@ int pio_score_topk(const float* Q, int nq, const int* ids,
                    int B, int rows_valid, int n_valid, int k,
                    unsigned long long* scratch,
                    float* out_vals, int* out_idx, void* stream) {
-    if (B <= 0 || k <= 0 || k > MAX_CHUNK || k > np || d <= 0 || nq <= 0)
+    if (B <= 0 || k <= 0 || k > MAX_K || k > np || d <= 0 || nq <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     uint64_t* cand = reinterpret_cast<uint64_t*>(scratch);
     if (k <= SEL_MAX_K)
         return score_topk_select(Q, nq, ids, V, np, d, B, rows_valid, n_valid, k, cand,
                                  out_vals, out_idx, s);
-
-    const int kp = next_pow2(k);
-    const int chunk_w = chunk_width(kp);
-    const int n_chunks = (np + chunk_w - 1) / chunk_w;
-    const size_t smem_a = sizeof(uint64_t) * RB * chunk_w + sizeof(float) * RB * d +
-                          sizeof(float) * VT * (DK + 1);
-    cudaError_t err;
-    if (smem_a > 48 * 1024) {   // the attribute is per device: set it on every launch
-        err = cudaFuncSetAttribute(chunk_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem_a));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    dim3 grid_a((B + RB - 1) / RB, n_chunks);
-    chunk_topk_kernel<<<grid_a, THREADS, smem_a, s>>>(
-        Q, nq, ids, V, np, d, B, rows_valid, n_valid, kp, chunk_w, n_chunks, cand);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-
-    // phase B: as many lists per shared-memory group as MERGE_KEYS holds
-    const int group = MERGE_KEYS / kp;
-    const size_t smem_b = sizeof(uint64_t) * (kp + group * kp);
-    merge_topk_kernel<<<B, THREADS, smem_b, s>>>(cand, n_chunks, kp, k, group,
-                                                 out_vals, out_idx);
-    return static_cast<int>(cudaGetLastError());
+    return score_topk_bar(Q, nq, ids, V, np, d, B, rows_valid, n_valid, k, cand,
+                          out_vals, out_idx, s);
 }
 
 }  // extern "C"

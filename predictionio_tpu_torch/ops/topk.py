@@ -24,8 +24,8 @@ import torch
 
 _NEG = -3.0e38  # finite "-inf", the JAX package's mask value
 
-#: the largest k the kernel takes (its sorted chunk width, MAX_CHUNK in
-#: csrc/score_topk.cu, which refuses a larger k)
+#: the largest k the kernel takes (MAX_K in csrc/score_topk.cu, which
+#: refuses a larger k)
 MAX_K = 1024
 
 _count_lock = threading.Lock()

@@ -37,7 +37,24 @@ SHAPES = {
     "k33_d64": (5, 300, 64, 33, 64, 0, 3),
     # fewer valid columns than k: masked columns fill the list in index order
     "n_valid_below_k": (4, 256, 8, 12, 64, 5, 3),
+    # the kernel's k > 32 path (a bar from the chunks' J-th keys, then a
+    # sort of what reaches it): num 50 and 100 serve at k = 64 and 128
+    "k64_d64": (4, 300, 64, 64, 64, 0, 3),
+    "k100_d16_masked_cols": (3, 500, 16, 100, 128, 450, None),
+    "k128_d64": (5, 700, 64, 128, 128, 0, 4),
+    "k100_n_valid_below_k": (3, 400, 16, 100, 128, 60, 2),
+    # num 1,000 serves at k = 1,024
+    "k1000_d8": (2, 1500, 8, 1000, 128, 0, None),
+    "k1024_d64": (3, 2000, 64, 1024, 128, 1900, 2),
 }
+
+#: shapes held against the XLA path only: the Pallas body unrolls k
+#: selection rounds per tile (predictionio_tpu/ops/topk.py:89), so interpret
+#: mode at k = 1,000 and more is too slow for the tier-1 run
+XLA_ONLY = {"k1000_d8", "k1024_d64"}
+
+#: shapes with fewer valid columns than k (see _PALLAS_REPEATS_MASKED)
+N_VALID_BELOW_K = {"n_valid_below_k", "k100_n_valid_below_k"}
 
 
 def _data(kind, B, N, d, seed):
@@ -58,18 +75,20 @@ def _data(kind, B, N, d, seed):
     return Q, draw((N, d))
 
 
-def _jax_topk(Q, V, k, tile, n_valid, rows_valid):
+def _jax_topk(Q, V, k, tile, n_valid, rows_valid, pallas=True):
     """The JAX package's two paths, as its own tests run them on the CPU:
-    the XLA path, then the Pallas kernel."""
+    the XLA path, then (unless ``pallas`` is False) the Pallas kernel."""
     rv = None if rows_valid is None else jnp.int32(rows_valid)
-    n_pad = -V.shape[0] % tile
-    Vp = np.concatenate([V, np.zeros((n_pad, V.shape[1]), np.float32)])
-    pallas = jax_score_topk(jnp.asarray(Q), jnp.asarray(Vp), k, tile=tile,
-                            n_valid=n_valid or V.shape[0], rows_valid=rv,
-                            interpret=True)
     xla = score_topk_xla(jnp.asarray(Q), jnp.asarray(V), k, n_valid=n_valid,
                          rows_valid=rv)
-    return [(np.asarray(v), np.asarray(i)) for v, i in (xla, pallas)]
+    yield np.asarray(xla[0]), np.asarray(xla[1])
+    if pallas:
+        n_pad = -V.shape[0] % tile
+        Vp = np.concatenate([V, np.zeros((n_pad, V.shape[1]), np.float32)])
+        v, i = jax_score_topk(jnp.asarray(Q), jnp.asarray(Vp), k, tile=tile,
+                              n_valid=n_valid or V.shape[0], rows_valid=rv,
+                              interpret=True)
+        yield np.asarray(v), np.asarray(i)
 
 
 def _scores64(Q, V, n_valid, rows_valid):
@@ -100,7 +119,7 @@ _PALLAS_REPEATS_MASKED = pytest.mark.xfail(
 
 @pytest.mark.parametrize("kind", ["integer", "gaussian", "ties"])
 @pytest.mark.parametrize("shape", [
-    pytest.param(name, marks=_PALLAS_REPEATS_MASKED) if name == "n_valid_below_k" else name
+    pytest.param(name, marks=_PALLAS_REPEATS_MASKED) if name in N_VALID_BELOW_K else name
     for name in SHAPES])
 def test_ref_matches_pallas_and_xla(shape, kind):
     B, N, d, k, tile, n_valid, rows_valid = SHAPES[shape]
@@ -111,7 +130,8 @@ def test_ref_matches_pallas_and_xla(shape, kind):
     assert vals.shape == (B, k) and idx.dtype == np.int32
     real = B if rows_valid is None else rows_valid
     S = _scores64(Q, V, n_valid, rows_valid)
-    for jv, ji in _jax_topk(Q, V, k, tile, n_valid, rows_valid):
+    for jv, ji in _jax_topk(Q, V, k, tile, n_valid, rows_valid,
+                            pallas=shape not in XLA_ONLY):
         if kind != "gaussian":
             np.testing.assert_array_equal(idx[:real], ji[:real])
             np.testing.assert_array_equal(vals[:real], jv[:real])
@@ -164,6 +184,20 @@ def test_wrapper_on_cpu_takes_plain_version_and_counts_nothing():
     assert score_topk in ops.LAUNCH_COUNTERS
 
 
+@pytest.mark.parametrize("k", [33, 1024])
+def test_wrapper_on_cpu_takes_plain_version_above_32(k):
+    """The kernel's k > 32 path: on the CPU the plain version, no launch."""
+    Q, V = _data("gaussian", 5, 1100, 8, seed=8)
+    Qt, Vt = torch.from_numpy(Q), torch.from_numpy(V)
+    ids = torch.tensor([4, 0, 0, 2], dtype=torch.int32)
+    before = score_topk.launches
+    out = (torch.empty(4, k), torch.empty(4, k, dtype=torch.int32))
+    got = score_topk(Qt, Vt, k, n_valid=1080, rows_valid=3, ids=ids, out=out)
+    rv, ri = score_topk_ref(Qt[ids.long()], Vt, k, n_valid=1080, rows_valid=3)
+    assert got[0] is out[0] and torch.equal(out[0], rv) and torch.equal(out[1], ri)
+    assert score_topk.launches == before
+
+
 @pytest.mark.parametrize("kwargs, match", [
     ({"k": ops.MAX_K + 1}, "k="),
     ({"k": 0}, "k="),
@@ -180,6 +214,17 @@ def test_wrapper_rejects_bad_arguments(kwargs, match):
 def test_wrapper_rejects_mismatched_widths():
     with pytest.raises(ValueError, match="needs Q"):
         score_topk(torch.zeros(3, 4), torch.zeros(10, 5), 2)
+
+
+def test_source_has_one_kernel_pair_per_path():
+    """k <= 32: select_kernel + merge_select_kernel; 32 < k <= 1,024:
+    select_kernel in its bar mode + bar_merge_kernel. The first design's
+    sort-everything kernels are gone, and no library sort is called."""
+    src = (_build.CSRC / "score_topk.cu").read_text()
+    for name in ("select_kernel", "merge_select_kernel", "bar_merge_kernel"):
+        assert f"{name}<" in src or f"{name}(" in src
+    for gone in ("chunk_topk_kernel", "merge_topk_kernel", "cub::", "thrust::"):
+        assert gone not in src
 
 
 def test_build_targets_hopper_from_package_source():
