@@ -71,10 +71,17 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    exactly symmetric, the plain version's distance from it printed
    beside), and time it the same way, with each chunk's plan, beside
    gather_gram on the same rows;
-7. ``pio train`` through the port's CLI in a subprocess on the card, on
-   200,000 rate events written into a temporary PIO_HOME through the
-   port's storage; the COMPLETED instance is deployed and 20 answers are
-   checked against the plain reference;
+7. the quickstart through the port's CLI and HTTP alone, in one
+   temporary PIO_HOME: ``app new``; ``eventserver --ingest-batching``
+   taking 200,000 rate events (2,000 single POSTs from 64 clients, the
+   rest in batches of 50 from 16), every one answered 201, and a few
+   users' events read back as posted; ``export`` (200,000 lines),
+   ``import`` into a second app and its ``export``, equal lines; ``train``
+   on the card (it must launch gather_gram and chol_solve); ``deploy
+   --batching --aot-buckets auto`` on the card, 20 HTTP answers checked
+   against the plain reference and equal to the same instance served in
+   this process, where score_topk's counter must grow; ``status``, which
+   must name the card. Each step prints its wall time;
 8. the factors phase 5 trained, written as a COMPLETED Recommendation
    engine instance into a temporary PIO_HOME through the port's storage,
    deployed with the port's EngineServer (micro-batching, AOT ladder);
@@ -1318,14 +1325,87 @@ def time_rows_gram(torch, ops, dev, train) -> dict:
     return row
 
 
-def pio_train_through_cli(torch, ops, dev) -> None:
-    """Phase 7: `train` through the port's CLI on the card, then deploy the
-    instance it wrote and check 20 answers against the plain reference."""
+CLI = [sys.executable, "-m", "predictionio_tpu_torch.tools.cli"]
+# phase 7's clients: singles from many, so the coalescer groups them, the
+# rest in batches of the event server's limit
+SINGLE_EVENTS, SINGLE_CLIENTS, BATCH_CLIENTS, BATCH_EVENTS = 2_000, 64, 16, 50
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(port: int, method: str, path: str, body=None, timeout: float = 30):
+    """One request on a new connection: (status, decoded JSON body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    finally:
+        conn.close()
+
+
+def post_all(port: int, path: str, bodies, clients: int) -> list:
+    """POST every pre-encoded body from ``clients`` keep-alive connections;
+    returns the (status, JSON) answers in the bodies' order."""
+    import http.client
+
+    out = [None] * len(bodies)
+
+    def client(c: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for j in range(c, len(bodies), clients):
+                conn.request("POST", path, body=bodies[j],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                out[j] = (resp.status, json.loads(resp.read()))
+        finally:
+            conn.close()
+
+    with ThreadPoolExecutor(clients) as pool:
+        for f in [pool.submit(client, c) for c in range(clients)]:
+            f.result()
+    return out
+
+
+def wait_until(ready, proc, log: str, timeout: float) -> None:
+    """Poll ``ready()`` until true; fail if ``proc`` exits (printing the end
+    of its ``log``) or time runs out."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if proc.poll() is not None:
+            with open(log) as f:
+                check(False, f"{proc.args[3]} exited with {proc.returncode}:\n"
+                             f"{f.read()[-4000:]}")
+        try:
+            if ready():
+                return
+        except OSError:
+            pass  # not listening yet
+        check(time.monotonic() < deadline,
+              f"{proc.args[3]} not ready in {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def quickstart_through_cli(torch, ops, dev) -> None:
+    """Phase 7: the quickstart through the port's CLI and HTTP alone: `app
+    new`, the event server with group commit taking the app's 200,000
+    events, `export` and an `import` round trip, `train` and `deploy` on
+    the card, 20 answers over HTTP held against the plain reference, and
+    `status`."""
     import numpy as np
 
     from predictionio_tpu_torch.core.workflow import (RECOMMENDATION_FACTORY,
                                                       prepare_deploy)
-    from predictionio_tpu_torch.data.event import Event
     from predictionio_tpu_torch.storage import Storage, StorageConfig
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1333,79 +1413,186 @@ def pio_train_through_cli(torch, ops, dev) -> None:
                               "recommendation")
     with open(os.path.join(engine_dir, "engine.json")) as f:
         app_name = json.load(f)["datasource"]["params"]["appName"]
-    with tempfile.TemporaryDirectory(prefix="pio_chip_train_") as home:
-        storage = Storage(StorageConfig(home=home))
-        app = storage.meta.create_app(app_name)
-        users, items, ratings = synthetic_ml20m(APP_EVENTS, APP_USERS, APP_ITEMS,
-                                                seed=SEED + 3)
-        t0 = time.perf_counter()
-        for s in range(0, APP_EVENTS, 20_000):
-            storage.events.insert_batch([
-                Event(event="rate", entity_type="user", entity_id=f"u{u}",
-                      target_entity_type="item", target_entity_id=f"i{i}",
-                      properties={"rating": float(r)})
-                for u, i, r in zip(users[s:s + 20_000], items[s:s + 20_000],
-                                   ratings[s:s + 20_000])], app.id)
-        print(f"{APP_EVENTS} rate events ({len(np.unique(users))} users x "
-              f"{len(np.unique(items))} items) written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "train",
-             "--engine-dir", engine_dir],
-            cwd=repo, env=dict(os.environ, PIO_HOME=home), capture_output=True,
-            text=True, timeout=600)
-        print(proc.stdout.strip(), flush=True)
-        check(proc.returncode == 0, f"pio train failed ({proc.returncode}):\n"
-                                    f"{proc.stderr[-4000:]}")
-        found = dict(re.findall(r"(\w+)=(\d+)", proc.stdout.split(
-            "kernel launches:")[-1]))
-        print(f"pio train subprocess {time.perf_counter() - t0:.1f} s wall; "
-              f"kernel launches {found}", flush=True)
-        for name in ("gather_gram", "chol_solve"):
-            check(int(found.get(name, 0)) > 0,
-                  f"pio train did not launch {name}")
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="pio_chip_quickstart_") as home:
+        env = dict(os.environ, PIO_HOME=home)
 
-        # the catalog is under the host-scoring threshold: ask for the card
-        prev = os.environ.get("PIO_ALS_SERVE")
-        os.environ["PIO_ALS_SERVE"] = "device"
+        def cli(*args, extra_env=None) -> str:
+            t0 = time.perf_counter()
+            proc = subprocess.run(CLI + list(args), cwd=repo,
+                                  env=dict(env, **(extra_env or {})),
+                                  capture_output=True, text=True, timeout=600)
+            print(proc.stdout.strip(), flush=True)
+            check(proc.returncode == 0, f"cli {' '.join(args)} failed "
+                                        f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+            print(f"-- cli {' '.join(args[:2])}: {time.perf_counter() - t0:.2f} s wall",
+                  flush=True)
+            return proc.stdout
+
+        def serve(*args, extra_env=None):
+            """Start a server verb; its output goes to <home>/<verb>.log."""
+            log = os.path.join(home, f"{args[0]}.log")
+            with open(log, "w") as out:
+                proc = subprocess.Popen(CLI + list(args), cwd=repo,
+                                        env=dict(env, **(extra_env or {})),
+                                        stdout=out, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            return proc, log
+
         try:
-            eng = prepare_deploy(RECOMMENDATION_FACTORY,
-                                 storage=Storage(StorageConfig(home=home)),
-                                 device=dev)
-            check(eng.instance.status == "COMPLETED", "instance not COMPLETED")
-            model = eng.models[0]
-            rng = np.random.default_rng(SEED + 4)
-            inv = model.user_ids.inverse()
-            rows = rng.choice(len(model.user_ids), 20, replace=False)
-            reset_counters(ops)
-            answers = [eng.query({"user": inv[int(r)], "num": 10}) for r in rows]
-            served = read_counters(ops)["score_topk"]
+            key = re.search(r"Access Key: (\S+)", cli("app", "new", app_name)).group(1)
+
+            t0 = time.perf_counter()
+            es_port = free_port()
+            es, es_log = serve("eventserver", "--ip", "127.0.0.1", "--port",
+                               str(es_port), "--ingest-batching", "--stats")
+            wait_until(lambda: http_json(es_port, "GET", "/") == (200, {"status": "alive"}),
+                       es, es_log, 120)
+            print(f"-- eventserver up: {time.perf_counter() - t0:.2f} s", flush=True)
+
+            users, items, ratings = synthetic_ml20m(APP_EVENTS, APP_USERS, APP_ITEMS,
+                                                    seed=SEED + 3)
+            t_base = 1_767_225_600  # 2026-01-01T00:00:00Z, one event a second
+            events = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+                       "targetEntityType": "item", "targetEntityId": f"i{i}",
+                       "properties": {"rating": float(r)},
+                       "eventTime": time.strftime("%Y-%m-%dT%H:%M:%S.000Z",
+                                                  time.gmtime(t_base + j))}
+                       for j, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(),
+                                                         ratings.tolist()))]
+            path = f"/events.json?accessKey={key}"
+            singles = [json.dumps(e) for e in events[:SINGLE_EVENTS]]
+            t0 = time.perf_counter()
+            answers = post_all(es_port, path, singles, SINGLE_CLIENTS)
+            dt = time.perf_counter() - t0
+            bad = sum(a[0] != 201 for a in answers)
+            print(f"{SINGLE_EVENTS} single POST /events.json from {SINGLE_CLIENTS} "
+                  f"clients: {dt:.2f} s, {SINGLE_EVENTS / dt:.0f} events/s, "
+                  f"{bad} not 201", flush=True)
+            check(bad == 0, f"{bad} single posts not answered 201: "
+                            f"{[a for a in answers if a[0] != 201][:3]}")
+            rest = events[SINGLE_EVENTS:]
+            batches = [json.dumps(rest[s:s + BATCH_EVENTS])
+                       for s in range(0, len(rest), BATCH_EVENTS)]
+            t0 = time.perf_counter()
+            answers = post_all(es_port, "/batch/events.json?accessKey=" + key,
+                               batches, BATCH_CLIENTS)
+            dt = time.perf_counter() - t0
+            items_ok = sum(it["status"] == 201 for st, body in answers if st == 200
+                           for it in body)
+            print(f"{len(rest)} events in {len(batches)} POST /batch/events.json of "
+                  f"{BATCH_EVENTS} from {BATCH_CLIENTS} clients: {dt:.2f} s, "
+                  f"{len(rest) / dt:.0f} events/s, {len(rest) - items_ok} items not 201",
+                  flush=True)
+            check(items_ok == len(rest), f"{len(rest) - items_ok} batch items not 201")
+            st, stats = http_json(es_port, "GET", "/stats.json")
+            counted = sum(e["count"] for a in stats["appStats"] for e in a["events"]
+                          if e["status"] == 201)
+            print(f"GET /stats.json: {counted} events answered 201", flush=True)
+            check(st == 200 and counted == APP_EVENTS,
+                  f"stats.json counts {counted} of {APP_EVENTS}")
+            # a few users' events come back exactly as posted
+            rng = np.random.default_rng(SEED + 5)
+            for u in rng.choice(np.unique(users), 5, replace=False).tolist():
+                st, got = http_json(es_port, "GET", f"{path}&limit=-1&entityType=user"
+                                                    f"&entityId=u{u}")
+                key_of = lambda e: (e["targetEntityId"], e["properties"]["rating"],
+                                    e["eventTime"][:19])
+                want = sorted(key_of(e) for e in events if e["entityId"] == f"u{u}")
+                check(st == 200 and sorted(map(key_of, got)) == want,
+                      f"GET /events.json for user u{u}: {len(got)} events, "
+                      f"{len(want)} posted")
+            print("GET /events.json of 5 users: every event as posted", flush=True)
+            es.send_signal(2)  # SIGINT: the server drains its queue and ends
+            es.wait(timeout=60)
+
+            exported = os.path.join(home, "MyApp1.jsonl")
+            cli("export", "--app-name", app_name, "--output", exported)
+            with open(exported) as f:
+                lines = sorted(f)
+            check(len(lines) == APP_EVENTS, f"export wrote {len(lines)} lines")
+            cli("app", "new", "MyApp2")
+            cli("import", "--app-name", "MyApp2", "--input", exported)
+            again = os.path.join(home, "MyApp2.jsonl")
+            cli("export", "--app-name", "MyApp2", "--output", again)
+            with open(again) as f:
+                check(sorted(f) == lines, "MyApp2's export differs from MyApp1's")
+            print(f"export, import, export: {APP_EVENTS} equal lines", flush=True)
+
+            out = cli("train", "--engine-dir", engine_dir)
+            found = dict(re.findall(r"(\w+)=(\d+)", out.split("kernel launches:")[-1]))
+            print(f"train kernel launches {found}", flush=True)
+            for name in ("gather_gram", "chol_solve"):
+                check(int(found.get(name, 0)) > 0, f"cli train did not launch {name}")
+
+            # the catalog is under the host-scoring threshold: ask for the card
+            serve_env = {"PIO_ALS_SERVE": "device"}
+            t0 = time.perf_counter()
+            port = free_port()
+            dp, dp_log = serve("deploy", "--engine-dir", engine_dir, "--batching",
+                               "--aot-buckets", "auto", "--ip", "127.0.0.1",
+                               "--port", str(port), extra_env=serve_env)
+            # 503s until the ladder is warm, which on the card includes
+            # loading the kernel
+            wait_until(lambda: http_json(port, "GET", "/")[1]["warmup"]["state"] == "ready",
+                       dp, dp_log, 600)
+            print(f"-- deploy up and warm: {time.perf_counter() - t0:.2f} s", flush=True)
+            prev = os.environ.get("PIO_ALS_SERVE")
+            os.environ.update(serve_env)
+            try:
+                eng = prepare_deploy(RECOMMENDATION_FACTORY,
+                                     storage=Storage(StorageConfig(home=home)),
+                                     device=dev)
+                check(eng.instance.status == "COMPLETED", "instance not COMPLETED")
+                model = eng.models[0]
+                inv = model.user_ids.inverse()
+                rows = np.random.default_rng(SEED + 4).choice(len(model.user_ids), 20,
+                                                              replace=False)
+                t0 = time.perf_counter()
+                answers = [http_json(port, "POST", "/queries.json",
+                                     {"user": inv[int(r)], "num": 10}) for r in rows]
+                print(f"20 POST /queries.json: {time.perf_counter() - t0:.2f} s", flush=True)
+                check(all(st == 200 for st, _ in answers),
+                      f"queries not 200: {[a for a in answers if a[0] != 200][:3]}")
+                reset_counters(ops)
+                local = [eng.query({"user": inv[int(r)], "num": 10}) for r in rows]
+                served = read_counters(ops)["score_topk"]
+            finally:
+                if prev is None:
+                    os.environ.pop("PIO_ALS_SERVE")
+                else:
+                    os.environ["PIO_ALS_SERVE"] = prev
+            check(served > 0, "the deployed instance was not served by score_topk")
+            items_of = lambda a: [it["item"] for it in a["itemScores"]]
+            check([items_of(a) for _, a in answers] == [items_of(a) for a in local],
+                  "HTTP answers differ from the same instance served in-process")
+            Ud = torch.as_tensor(model.U, device=dev)
+            Vd = torch.as_tensor(model.V, device=dev)
+            ids = torch.as_tensor(rows.astype(np.int32), device=dev)
+            rv, ri = ops.score_topk_ref(Ud, Vd, 10, ids=ids)
+            s64 = Ud[ids.long()].double() @ Vd.double().T
+            bad = 0
+            for j, (_, a) in enumerate(answers):
+                got_idx = torch.tensor([model.item_ids[it["item"]] for it in a["itemScores"]],
+                                       device=dev)
+                got_val = torch.tensor([it["score"] for it in a["itemScores"]], device=dev)
+                if len(got_idx) != 10 or not topk_agrees(
+                        got_val[None], got_idx[None], rv[j:j + 1], ri[j:j + 1],
+                        s64[j:j + 1]):
+                    bad += 1
+            print(f"deployed instance {eng.instance.id} ({model.U.shape[0]} users x "
+                  f"{model.V.shape[0]} items, rank {model.U.shape[1]}): 20 HTTP answers, "
+                  f"{bad} off the reference; in-process score_topk launches {served}",
+                  flush=True)
+            check(bad == 0, f"{bad} of 20 answers disagree with score_topk_ref")
+
+            out = cli("status")
+            check(torch.cuda.get_device_name(0) in out, "cli status did not name the card")
         finally:
-            if prev is None:
-                os.environ.pop("PIO_ALS_SERVE")
-            else:
-                os.environ["PIO_ALS_SERVE"] = prev
-        check(served > 0, "the deployed instance was not served by score_topk")
-        Ud = torch.as_tensor(model.U, device=dev)
-        Vd = torch.as_tensor(model.V, device=dev)
-        ids = torch.as_tensor(rows.astype(np.int32), device=dev)
-        rv, ri = ops.score_topk_ref(Ud, Vd, 10, ids=ids)
-        s64 = Ud[ids.long()].double() @ Vd.double().T
-        item_ids = model.item_ids
-        bad = 0
-        for j, a in enumerate(answers):
-            got_idx = torch.tensor([item_ids[it["item"]] for it in a["itemScores"]],
-                                   device=dev)
-            got_val = torch.tensor([it["score"] for it in a["itemScores"]], device=dev)
-            if len(got_idx) != 10 or not topk_agrees(
-                    got_val[None], got_idx[None], rv[j:j + 1], ri[j:j + 1],
-                    s64[j:j + 1]):
-                bad += 1
-        print(f"deployed instance {eng.instance.id} ({model.U.shape[0]} users x "
-              f"{model.V.shape[0]} items, rank {model.U.shape[1]}): 20 answers, "
-              f"{bad} off the reference; score_topk launches {served}", flush=True)
-        check(bad == 0, f"{bad} of 20 answers disagree with score_topk_ref")
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
 
 
 def write_instance(home: str, U, V):
@@ -1650,8 +1837,8 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_training(torch, dev, train)
 
-    phase("7. pio train through the port's CLI, then deploy")
-    pio_train_through_cli(torch, ops, dev)
+    phase("7. the quickstart through the port's CLI and HTTP")
+    quickstart_through_cli(torch, ops, dev)
 
     phase("8. Recommendation engine served at ML-20M width (trained factors)")
     with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as home:

@@ -6,8 +6,9 @@ keeps the reference's table per (app, channel) namespace
 (``pio_event_<appId>[_<channelId>]``), its schema, its indexes and its
 scan order, so events the JAX package wrote into a ``PIO_HOME`` are read
 by the port and the other way round. The other backends (the native
-event log, segments, replication, remote SQL engines) and the columnar
-scan are not ported yet.
+event log, segments, replication, remote SQL engines), their bulk paths
+(the native JSONL import and export) and the columnar scan are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +33,19 @@ class EventStore(ABC):
 
     def init_channel(self, app_id: int, channel_id: Optional[int] = None) -> None:
         """Prepare storage for a namespace (idempotent)."""
+
+    def remove_channel(self, app_id: int, channel_id: Optional[int] = None) -> None:
+        """Drop a namespace entirely."""
+
+    def close(self) -> None:
+        pass
+
+    def set_durable(self, durable: bool = True) -> None:
+        """Ask the backend to make each commit survive power loss (fsync
+        on commit), not just process death. The event server's durable-
+        ack mode turns this on so that a 201 means on disk; group commit
+        amortizes the sync over the whole batch. Backends without a sync
+        level (in-memory) ignore it."""
 
     @abstractmethod
     def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
@@ -118,6 +132,10 @@ class MemoryEventStore(EventStore):
         with self._lock:
             self._ns(app_id, channel_id)
 
+    def remove_channel(self, app_id: int, channel_id: Optional[int] = None) -> None:
+        with self._lock:
+            self._data.pop((app_id, channel_id), None)
+
     def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
         return self.insert_batch([event], app_id, channel_id)[0]
 
@@ -196,7 +214,8 @@ class SqliteEventStore(EventStore):
     channel) namespace, indexed on eventTime, entity, event name and
     creationTime; one connection per thread in WAL mode (``':memory:'``
     shares one connection, since such a database exists per
-    connection)."""
+    connection). Each connection commits at ``synchronous=NORMAL``, or
+    at ``FULL`` (an fsync of the WAL per commit) after ``set_durable``."""
 
     def __init__(self, path: str) -> None:
         self._path = path
@@ -204,6 +223,11 @@ class SqliteEventStore(EventStore):
         self._local = threading.local()
         self._shared = self._connect() if path == ":memory:" else None
         self._known: set = set()  # (table, connection) whose DDL already ran
+        self._sync = "NORMAL"
+
+    def set_durable(self, durable: bool = True) -> None:
+        # each thread's connection takes the level the next time it is used
+        self._sync = "FULL" if durable else "NORMAL"
 
     def _connect(self) -> sqlite3.Connection:
         conn = sqlite3.connect(self._path, timeout=30.0,
@@ -219,6 +243,11 @@ class SqliteEventStore(EventStore):
         conn = getattr(self._local, "conn", None)
         if conn is None:
             conn = self._local.conn = self._connect()
+            self._local.sync = "NORMAL"
+        if self._local.sync != self._sync:
+            sync = self._sync
+            conn.execute(f"PRAGMA synchronous={sync}")
+            self._local.sync = sync
         return conn
 
     @staticmethod
@@ -254,6 +283,14 @@ class SqliteEventStore(EventStore):
                 cur.execute(f"CREATE INDEX IF NOT EXISTS {t}_{name} ON {t}({cols})")
             c.commit()
             self._known.add((t, id(c)))
+
+    def remove_channel(self, app_id: int, channel_id: Optional[int] = None) -> None:
+        t = self._table(app_id, channel_id)
+        c = self._conn()
+        with self._lock:
+            c.execute(f"DROP TABLE IF EXISTS {t}")
+            c.commit()
+            self._known = {k for k in self._known if k[0] != t}
 
     @staticmethod
     def _row(event: Event) -> Tuple:

@@ -1,11 +1,15 @@
 """Meta-data store: apps, access keys, channels and engine instances.
 
-The port's copy of the JAX package's ``storage/meta.py`` for what
-training and deploy read, on the same SQLite schema and time format, so
-an app created or an instance trained by one package in a ``PIO_HOME``
-is found by the other. Training resolves the app (and channel) named in
-the variant; serving loads the latest COMPLETED instance for (engine
-factory, variant) — the reference's ``EngineInstances.getLatestCompleted``.
+The port's copy of the JAX package's ``storage/meta.py``, on the same
+SQLite schema and time format, so an app, key, channel or trained
+instance that one package writes into a ``PIO_HOME`` is found by the
+other. The CLI's ``app`` and ``accesskey`` verbs and the event server's
+auth read and write apps, keys and channels; training resolves the app
+(and channel) named in the variant; serving loads the latest COMPLETED
+instance for (engine factory, variant) — the reference's
+``EngineInstances.getLatestCompleted``. Left out: evaluation instances
+(with ``pio eval``) and the remote SQL dialects (with the event-store
+backends).
 """
 
 from __future__ import annotations
@@ -17,6 +21,29 @@ import sqlite3
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+
+# -- meta mutation epoch -------------------------------------------------------
+#
+# Process-wide generation counter over access-key and channel state. Every
+# key or channel mutation bumps it; the event server's AuthCache compares it
+# on each lookup and drops its entries when it moves, so a revocation in
+# the same process is immediate. Mutations by another process are seen
+# only after the cache's TTL.
+
+_META_EPOCH = 0
+_META_EPOCH_LOCK = threading.Lock()
+
+
+def bump_meta_epoch() -> None:
+    """Record an access-key/channel mutation (invalidates auth caches)."""
+    global _META_EPOCH
+    with _META_EPOCH_LOCK:
+        _META_EPOCH += 1
+
+
+def meta_epoch() -> int:
+    return _META_EPOCH
 
 
 def utcnow() -> _dt.datetime:
@@ -163,8 +190,8 @@ class MetaStore:
         rows = self._q(q, args)
         return rows[0] if rows else None
 
-    def _x(self, q: str, args: tuple = ()) -> int:
-        """Run one write; returns the new row's id (autoincrement tables)."""
+    def _x(self, q: str, args: tuple = ()) -> sqlite3.Cursor:
+        """Run one write; returns its cursor (``lastrowid``, ``rowcount``)."""
         with self._lock:
             c = self._conn()
             try:
@@ -173,30 +200,95 @@ class MetaStore:
             except Exception:
                 c.rollback()
                 raise
-        return cur.lastrowid
+        return cur
 
-    # -- apps, access keys, channels -------------------------------------------
+    # -- apps ------------------------------------------------------------------
 
     def create_app(self, name: str, description: str = "") -> App:
         rid = self._x("INSERT INTO apps(name, description) VALUES (?,?)",
-                      (name, description))
+                      (name, description)).lastrowid
         return App(id=rid, name=name, description=description)
+
+    def get_app(self, app_id: int) -> Optional[App]:
+        row = self._q1("SELECT id,name,description FROM apps WHERE id=?", (app_id,))
+        return App(*row) if row else None
 
     def get_app_by_name(self, name: str) -> Optional[App]:
         row = self._q1("SELECT id,name,description FROM apps WHERE name=?", (name,))
         return App(*row) if row else None
+
+    def list_apps(self) -> List[App]:
+        return [App(*r) for r in self._q(
+            "SELECT id,name,description FROM apps ORDER BY id")]
+
+    def delete_app(self, app_id: int) -> bool:
+        """Delete the app with its keys and channels (one transaction)."""
+        with self._lock:
+            c = self._conn()
+            try:
+                existed = c.execute("DELETE FROM apps WHERE id=?",
+                                    (app_id,)).rowcount > 0
+                c.execute("DELETE FROM access_keys WHERE appid=?", (app_id,))
+                c.execute("DELETE FROM channels WHERE appid=?", (app_id,))
+                c.commit()
+            except Exception:
+                c.rollback()
+                raise
+        bump_meta_epoch()  # the app's keys and channels went with it
+        return existed
+
+    # -- access keys -----------------------------------------------------------
 
     def create_access_key(self, app_id: int, events: Optional[List[str]] = None,
                           key: Optional[str] = None) -> AccessKey:
         key = key or secrets.token_urlsafe(48)
         self._x("INSERT INTO access_keys(accesskey, appid, events) VALUES (?,?,?)",
                 (key, app_id, json.dumps(events or [])))
+        bump_meta_epoch()
         return AccessKey(key=key, app_id=app_id, events=events or [])
+
+    def get_access_key(self, key: str) -> Optional[AccessKey]:
+        row = self._q1("SELECT accesskey,appid,events FROM access_keys "
+                       "WHERE accesskey=?", (key,))
+        return AccessKey(row[0], row[1], json.loads(row[2])) if row else None
+
+    def list_access_keys(self, app_id: Optional[int] = None) -> List[AccessKey]:
+        if app_id is None:
+            rows = self._q("SELECT accesskey,appid,events FROM access_keys")
+        else:
+            rows = self._q("SELECT accesskey,appid,events FROM access_keys "
+                           "WHERE appid=?", (app_id,))
+        return [AccessKey(r[0], r[1], json.loads(r[2])) for r in rows]
+
+    def delete_access_key(self, key: str) -> bool:
+        deleted = self._x("DELETE FROM access_keys WHERE accesskey=?",
+                          (key,)).rowcount > 0
+        bump_meta_epoch()
+        return deleted
+
+    # -- channels --------------------------------------------------------------
+
+    def create_channel(self, app_id: int, name: str) -> Channel:
+        rid = self._x("INSERT INTO channels(name, appid) VALUES (?,?)",
+                      (name, app_id)).lastrowid
+        bump_meta_epoch()
+        return Channel(id=rid, name=name, app_id=app_id)
 
     def get_channel_by_name(self, app_id: int, name: str) -> Optional[Channel]:
         row = self._q1("SELECT id,name,appid FROM channels WHERE appid=? AND name=?",
                        (app_id, name))
         return Channel(*row) if row else None
+
+    def list_channels(self, app_id: int) -> List[Channel]:
+        return [Channel(*r) for r in self._q(
+            "SELECT id,name,appid FROM channels WHERE appid=? ORDER BY id",
+            (app_id,))]
+
+    def delete_channel(self, channel_id: int) -> bool:
+        deleted = self._x("DELETE FROM channels WHERE id=?",
+                          (channel_id,)).rowcount > 0
+        bump_meta_epoch()
+        return deleted
 
     # -- engine instances --------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Backend registry: env-driven selection of the meta, event and model stores.
 
 The port's copy of the JAX package's ``storage/registry.py``, limited to
-what training and deploy read: the meta repository (SQLITE or MEMORY),
+the backends the port has: the meta repository (SQLITE or MEMORY),
 the event repository (SQLITE or MEMORY) and the model repository
 (LOCALFS or MEMORY). It honours the same
 ``PIO_STORAGE_REPOSITORIES_*`` / ``PIO_STORAGE_SOURCES_*`` variables and
@@ -157,6 +157,19 @@ class Storage:
                         f"the port has: {sorted(_MODEL_BACKENDS)}") from None
                 self._models = factory(self.config)
             return self._models
+
+    def verify(self) -> Dict[str, str]:
+        """Connectivity check for ``status``: it touches what the JAX
+        package's ``verify`` touches (the app list, the namespace of app 0
+        and the model ids), so both leave the same files behind."""
+        out = {}
+        self.meta.list_apps()
+        out["metadata"] = self.config.metadata_type
+        self.events.init_channel(0)
+        out["eventdata"] = self.config.eventdata_type
+        self.models.list_ids()
+        out["modeldata"] = self.config.modeldata_type
+        return out
 
 
 _default: Optional[Storage] = None

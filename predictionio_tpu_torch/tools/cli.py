@@ -1,18 +1,33 @@
-"""Command line of the port: ``train`` and ``deploy``.
+"""Command line of the port: the quickstart's verbs.
 
+    python -m predictionio_tpu_torch.tools.cli app new MyApp1
+    python -m predictionio_tpu_torch.tools.cli eventserver --ingest-batching
     python -m predictionio_tpu_torch.tools.cli train \\
         --engine-dir predictionio_tpu_torch/templates/recommendation
     python -m predictionio_tpu_torch.tools.cli deploy \\
         --engine-dir predictionio_tpu_torch/templates/recommendation \\
         --batching --aot-buckets auto
 
-``train`` trains the engine named in the engine directory's
-``engine.json`` (or ``--variant``) on the app's events and records a
-COMPLETED instance; ``deploy`` serves the latest COMPLETED instance (one
-the JAX package's ``pio train`` wrote into the same ``PIO_HOME``
-included). Both run on the CUDA card; ``--device cpu`` runs on the CPU
-instead. The flags are the JAX CLI's flags for the options the port
-has, plus ``--device``.
+Verbs:
+
+- ``app`` (``new``, ``list``, ``show``, ``delete``, ``data-delete``,
+  ``channel-new``, ``channel-delete``) and ``accesskey`` (``new``,
+  ``list``, ``delete``) manage apps, access keys and channels;
+- ``eventserver`` serves the event REST API (``server/event_server.py``);
+- ``import`` and ``export`` move an app's events from and to JSONL;
+- ``train`` trains the engine named in the engine directory's
+  ``engine.json`` (or ``--variant``) on the app's events and records a
+  COMPLETED instance;
+- ``deploy`` serves the latest COMPLETED instance (one the JAX
+  package's ``pio train`` wrote into the same ``PIO_HOME`` included);
+- ``status`` checks the storage backends and the card.
+
+The verbs print the JAX CLI's lines and write the same rows, so either
+package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
+``deploy`` and ``status`` run on the CUDA card and exit non-zero without
+one; ``--device cpu`` runs them on the CPU instead. The flags are the
+JAX CLI's flags for the options the port has, plus ``--device``; ``app
+quota`` comes with tenancy.
 """
 
 from __future__ import annotations
@@ -22,6 +37,8 @@ import json
 import os
 import sys
 from typing import Any, Dict, List, Optional
+
+from predictionio_tpu_torch.storage.registry import get_storage
 
 
 def _die(msg: str, code: int = 1) -> "NoReturn":  # type: ignore[name-defined]
@@ -35,6 +52,103 @@ def _load_variant_file(engine_dir: str, variant: Optional[str]) -> Dict[str, Any
         _die(f"engine variant file not found: {path}")
     with open(path, "r", encoding="utf-8") as f:
         return json.load(f)
+
+
+# -- app, accesskey ---------------------------------------------------------
+
+
+def cmd_app(args: argparse.Namespace) -> None:
+    st = get_storage()
+    meta = st.meta
+    if args.app_cmd == "new":
+        if meta.get_app_by_name(args.name):
+            _die(f"app {args.name!r} already exists")
+        app = meta.create_app(args.name, args.description or "")
+        st.events.init_channel(app.id)
+        ak = meta.create_access_key(app.id, key=args.access_key)
+        print(f"[info] Created app {app.name!r} (id {app.id}).")
+        print(f"[info] Access Key: {ak.key}")
+    elif args.app_cmd == "list":
+        for app in meta.list_apps():
+            keys = meta.list_access_keys(app.id)
+            print(f"{app.id:>6}  {app.name:<24} keys={len(keys)}  {app.description}")
+    elif args.app_cmd == "show":
+        app = meta.get_app_by_name(args.name) or _die(f"no app {args.name!r}")
+        print(f"id={app.id} name={app.name} description={app.description!r}")
+        for ak in meta.list_access_keys(app.id):
+            events = ",".join(ak.events) or "(all)"
+            print(f"  accesskey {ak.key}  events={events}")
+        for ch in meta.list_channels(app.id):
+            print(f"  channel {ch.id}: {ch.name}")
+    elif args.app_cmd == "delete":
+        app = meta.get_app_by_name(args.name) or _die(f"no app {args.name!r}")
+        for ch in meta.list_channels(app.id):
+            st.events.remove_channel(app.id, ch.id)
+        st.events.remove_channel(app.id)
+        meta.delete_app(app.id)
+        print(f"[info] Deleted app {args.name!r}.")
+    elif args.app_cmd == "data-delete":
+        app = meta.get_app_by_name(args.name) or _die(f"no app {args.name!r}")
+        if args.channel:
+            ch = meta.get_channel_by_name(app.id, args.channel) or _die(
+                f"no channel {args.channel!r}")
+            st.events.wipe(app.id, ch.id)
+        else:
+            st.events.wipe(app.id)
+        print(f"[info] Wiped event data of app {args.name!r}.")
+    elif args.app_cmd == "channel-new":
+        app = meta.get_app_by_name(args.name) or _die(f"no app {args.name!r}")
+        ch = meta.create_channel(app.id, args.channel)
+        st.events.init_channel(app.id, ch.id)
+        print(f"[info] Created channel {ch.name!r} (id {ch.id}) in app {app.name!r}.")
+    elif args.app_cmd == "channel-delete":
+        app = meta.get_app_by_name(args.name) or _die(f"no app {args.name!r}")
+        ch = meta.get_channel_by_name(app.id, args.channel) or _die(
+            f"no channel {args.channel!r}")
+        st.events.remove_channel(app.id, ch.id)
+        meta.delete_channel(ch.id)
+        print(f"[info] Deleted channel {args.channel!r}.")
+
+
+def cmd_accesskey(args: argparse.Namespace) -> None:
+    meta = get_storage().meta
+    if args.ak_cmd == "new":
+        app = meta.get_app_by_name(args.app_name) or _die(f"no app {args.app_name!r}")
+        events = args.events.split(",") if args.events else []
+        ak = meta.create_access_key(app.id, events=[e for e in events if e])
+        print(f"[info] Access Key: {ak.key}")
+    elif args.ak_cmd == "list":
+        app = meta.get_app_by_name(args.app_name) if args.app_name else None
+        for ak in meta.list_access_keys(app.id if app else None):
+            events = ",".join(ak.events) or "(all)"
+            print(f"{ak.key}  app={ak.app_id}  events={events}")
+    elif args.ak_cmd == "delete":
+        if not meta.delete_access_key(args.key):
+            _die("no such access key")
+        print("[info] Deleted access key.")
+
+
+# -- servers --------------------------------------------------------------------
+
+
+def make_event_server(args: argparse.Namespace):
+    """The EventServer ``eventserver`` runs, built from parsed flags."""
+    from predictionio_tpu_torch.server.event_server import EventServer
+
+    return EventServer(host=args.ip, port=args.port, stats=args.stats,
+                       ingest_batching=args.ingest_batching,
+                       ingest_max_batch=args.ingest_max_batch,
+                       ingest_queue_depth=args.ingest_queue_depth,
+                       auth_cache_ttl=args.auth_cache_ttl,
+                       durable_acks=args.durable_acks)
+
+
+def cmd_eventserver(args: argparse.Namespace) -> None:
+    server = make_event_server(args)
+    mode = "group-commit" if args.ingest_batching else "per-event commit"
+    print(f"[info] Event Server listening on {args.ip}:{args.port} ({mode})",
+          flush=True)
+    server.run()
 
 
 def make_server(args: argparse.Namespace):
@@ -78,11 +192,113 @@ def cmd_deploy(args: argparse.Namespace) -> None:
     server.run()
 
 
+# -- export, import, status -------------------------------------------------
+
+
+def _app_id_for(args: argparse.Namespace) -> int:
+    if args.appid is not None:
+        return args.appid
+    if args.app_name:
+        app = get_storage().meta.get_app_by_name(args.app_name) or _die(
+            f"no app {args.app_name!r}")
+        return app.id
+    _die("need --appid or --app-name")
+
+
+def cmd_export(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch.tools.export_import import export_events
+
+    app_id = _app_id_for(args)
+    with open(args.output, "w", encoding="utf-8") as f:
+        n = export_events(app_id, f)
+    print(f"[info] Exported {n} events to {args.output}")
+
+
+def cmd_import(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch.tools.export_import import import_events
+
+    app_id = _app_id_for(args)
+    with open(args.input, "r", encoding="utf-8") as f:
+        n = import_events(app_id, f)
+    print(f"[info] Imported {n} events.")
+
+
+def cmd_status(args: argparse.Namespace) -> None:
+    import torch
+
+    from predictionio_tpu_torch import __version__
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        _die(str(e))
+    print(f"[info] predictionio_tpu_torch {__version__}")
+    try:
+        backends = get_storage().verify()
+    except Exception as e:
+        _die(f"storage connectivity FAILED: {e}")
+    for repo, backend in backends.items():
+        print(f"[info] {repo}: {backend} (ok)")
+    print(f"[info] torch {torch.__version__} (CUDA {torch.version.cuda})")
+    if dev.type == "cuda":
+        print(f"[info] device: {torch.cuda.get_device_name(dev)}")
+    else:
+        print("[info] device: cpu")
+    print("[info] status: all systems go")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.tools.cli",
-        description="PredictionIO on PyTorch and CUDA")
+        description="PredictionIO on PyTorch and CUDA. Verbs: app, "
+                    "accesskey, eventserver, import, export, train, deploy, "
+                    "status.")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    ap = sub.add_parser("app", aliases=["apps"],
+                        help="manage apps and channels")
+    aps = ap.add_subparsers(dest="app_cmd", required=True)
+    x = aps.add_parser("new"); x.add_argument("name")
+    x.add_argument("--description"); x.add_argument("--access-key")
+    aps.add_parser("list")
+    x = aps.add_parser("show"); x.add_argument("name")
+    x = aps.add_parser("delete"); x.add_argument("name")
+    x = aps.add_parser("data-delete"); x.add_argument("name")
+    x.add_argument("--channel")
+    x = aps.add_parser("channel-new"); x.add_argument("name"); x.add_argument("channel")
+    x = aps.add_parser("channel-delete"); x.add_argument("name"); x.add_argument("channel")
+    ap.set_defaults(fn=cmd_app)
+
+    ak = sub.add_parser("accesskey", help="manage access keys")
+    aks = ak.add_subparsers(dest="ak_cmd", required=True)
+    x = aks.add_parser("new"); x.add_argument("app_name"); x.add_argument("--events")
+    x = aks.add_parser("list"); x.add_argument("app_name", nargs="?")
+    x = aks.add_parser("delete"); x.add_argument("key")
+    ak.set_defaults(fn=cmd_accesskey)
+
+    es = sub.add_parser("eventserver", help="start the event server")
+    es.add_argument("--ip", default="0.0.0.0")
+    es.add_argument("--port", type=int, default=7070)
+    es.add_argument("--stats", action="store_true")
+    es.add_argument("--ingest-batching", action="store_true",
+                    help="group-commit concurrent single-event POSTs "
+                         "into one storage commit per (app, channel); "
+                         "201 is still acked only after the commit")
+    es.add_argument("--ingest-max-batch", type=int, default=512,
+                    help="max events per group commit")
+    es.add_argument("--ingest-queue-depth", type=int, default=4096,
+                    help="pending-event limit before POSTs get 429 + "
+                         "Retry-After backpressure")
+    es.add_argument("--durable-acks", action="store_true",
+                    help="fsync storage before acking 201 (survives "
+                         "power loss, not just process death); group "
+                         "commit amortizes the sync per batch")
+    es.add_argument("--auth-cache-ttl", type=float, default=30.0,
+                    help="access-key/channel auth cache TTL seconds "
+                         "(0 disables; in-process key mutations "
+                         "invalidate immediately regardless)")
+    es.set_defaults(fn=cmd_eventserver)
     tp = sub.add_parser("train", help="train an engine instance")
     tp.add_argument("--engine-dir", default=".")
     tp.add_argument("-e", "--variant")
@@ -118,6 +334,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to serve on (default: cuda; "
                          "'cpu' serves on the CPU)")
     dp.set_defaults(fn=cmd_deploy)
+
+    ex = sub.add_parser("export", help="export events to JSONL")
+    ex.add_argument("--appid", type=int)
+    ex.add_argument("--app-name")
+    ex.add_argument("--output", required=True)
+    ex.set_defaults(fn=cmd_export)
+
+    im = sub.add_parser("import", help="import events from JSONL")
+    im.add_argument("--appid", type=int)
+    im.add_argument("--app-name")
+    im.add_argument("--input", required=True)
+    im.set_defaults(fn=cmd_import)
+
+    stp = sub.add_parser("status", help="check storage + device connectivity")
+    stp.add_argument("--device", default=None,
+                     help="torch device to check (default: cuda; 'cpu' "
+                          "checks the CPU and needs no card)")
+    stp.set_defaults(fn=cmd_status)
     return p
 
 
