@@ -80,8 +80,13 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    on the card (it must launch gather_gram and chol_solve); ``deploy
    --batching --aot-buckets auto`` on the card, 20 HTTP answers checked
    against the plain reference and equal to the same instance served in
-   this process, where score_topk's counter must grow; ``status``, which
-   must name the card. Each step prints its wall time;
+   this process, where score_topk's counter must grow; ``eval`` of the
+   template's RecEvaluation over its DefaultGrid (ranks 8 and 16 x lambda
+   0.01 and 0.1, 8 iterations, two folds) serially and ``--distributed``
+   on the card: both instances EVALCOMPLETED, equal leaderboard digests,
+   every score within 1e-5 relative across the two, compiles <= buckets;
+   then ``eval leaderboard``, ``evals list`` and ``evals show``;
+   ``status``, which must name the card. Each step prints its wall time;
 8. the factors phase 5 trained, written as a COMPLETED Recommendation
    engine instance into a temporary PIO_HOME through the port's storage,
    deployed with the port's EngineServer (micro-batching, AOT ladder);
@@ -93,7 +98,17 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    Then a sequential sub-run of 96 queries with num 50, 100 and 1,000
    (k = 64, 128 and 1,024, the k > 32 path), counters zeroed again just
    before it: every answer checked at its own num, one launch a query,
-   its dispatches per (bucket, k, path), p50 and loss.
+   its dispatches per (bucket, k, path), p50 and loss;
+9. ``pio eval`` at ML-20M width: phase 5's COO as the template's training
+   data, ``run_evaluation(distributed=True)`` on the card over evalK 2,
+   rank 64, 10 iterations, lambda 0.01 / 0.03 / 0.1 / 0.3 (one bucket a
+   fold); every fold score held against a float64 recomputation, the
+   launch counters (zeroed just before) against candidates x iterations
+   x (buckets + parts) of the fold layouts, the best candidate's fold-0
+   factors against their float64 normal equations; the walls of
+   ``read_eval``, each fold's ``als_prepare`` and each dispatch, the
+   phase's wall and the host's peak RSS. The serial path runs in phase 7
+   only (see ``eval_full_width``).
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -138,6 +153,7 @@ TOL = 1e-5
 GRAM_TOL = 1e-5    # gather_gram: max|dA| / max|A64| on Gaussian data
 SOLVE_TOL = 1e-4   # chol_solve: max|x - x64| / max|x64|
 ORACLE_TOL = 1e-3  # trained factors against their float64 normal equations
+EVAL_TOL = 1e-5    # pio eval scores: serial against distributed, sweep against float64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1001,8 +1017,193 @@ def train_full_width(torch, ops, dev) -> dict:
     check(err_v <= ORACLE_TOL, f"items off their normal equations: {err_v:.3e}")
     check(err_u <= ORACLE_TOL, f"users off their normal equations: {err_u:.3e}")
     precision_controls(torch, dev, prep, p, coo, U, V9, items_chk, users_chk)
-    return {"prep": prep, "U": U, "V": V, "launches": launches,
+    return {"prep": prep, "coo": coo, "U": U, "V": V, "launches": launches,
             "t_train": t_train, "rmse": rmse}
+
+
+def eval_full_width(torch, ops, dev, train) -> dict:
+    """Phase 9: `pio eval` at ML-20M width on the card, distributed.
+
+    Phase 5's synthetic COO (not generated again) becomes the template's
+    TrainingData (ids "u<j>" and "i<j>"), served by a RecDataSource whose
+    `_read` returns it, so `read_eval` (the seeded fold draw, `subset`'s
+    trimmed vocabularies, the query dicts), `sweep_programs` and the sweep
+    run as they do on an event store. `run_evaluation(distributed=True)`
+    evaluates rank 64, 10 iterations, seed 3, lambda 0.01 / 0.03 / 0.1 /
+    0.3 over evalK 2: one bucket a fold, four candidates. Checks: every
+    candidate's fold scores equal a float64 recomputation (the candidate
+    trained again with `als_train_prepared` on that fold's layout, the
+    held-out pairs drawn again in numpy) within EVAL_TOL, with the same
+    ranking; the launch counters, zeroed just before the sweep, read
+    exactly candidates x iterations x (buckets + parts) launches of
+    gather_gram and chol_solve summed over the folds; the best
+    candidate's fold-0 factors hold their float64 normal equations (64
+    items, ORACLE_TOL). The serial path is not run at this width: it
+    answers 10 M `predict_rating` calls in Python per candidate and fold.
+    Phase 7 holds it against the distributed path instead."""
+    import resource
+
+    import numpy as np
+
+    from predictionio_tpu_torch.controller import (Engine, EngineParams,
+                                                   Evaluation, FirstServing)
+    from predictionio_tpu_torch.core.workflow import run_evaluation
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.storage import leaderboard as lb
+    from predictionio_tpu_torch.templates.recommendation import engine as rec
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    t_phase = time.perf_counter()
+    coo = train["coo"]
+    td = rec.TrainingData(coo.user_idx, coo.item_idx, coo.rating,
+                          BiMap({f"u{j}": j for j in range(coo.n_users)}),
+                          BiMap({f"i{j}": j for j in range(coo.n_items)}))
+    folds_seen = []
+
+    class ML20MSource(rec.RecDataSource):
+        def _read(self, ctx):
+            return td
+
+        def read_eval(self, ctx):
+            t0 = time.perf_counter()
+            folds = super().read_eval(ctx)
+            print(f"read_eval: {len(folds)} folds of {td.n} ratings, "
+                  f"{sum(len(qa) for _, _, qa in folds)} held-out queries, "
+                  f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+            folds_seen.extend(folds)
+            return folds
+
+    class ML20MEvaluation(Evaluation):
+        engine_factory = staticmethod(lambda: Engine(
+            ML20MSource, rec.RecPreparator, {"als": rec.ALSAlgorithm}, FirstServing))
+        metric = rec.NegRMSE()
+
+    lams, eval_k, seed = (0.01, 0.03, 0.1, 0.3), 2, 3
+    cands = [EngineParams(
+        data_source_params=rec.DataSourceParams(app_name="ml20m", eval_k=eval_k),
+        algorithms_params=[("als", rec.ALSAlgorithmParams(
+            rank=RANK, num_iterations=ITERATIONS, lambda_=lam, seed=seed))])
+        for lam in lams]
+    preps = []
+    prepare = als.als_prepare
+
+    def timed_prepare(fold_coo):
+        t0 = time.perf_counter()
+        prep = prepare(fold_coo)
+        print(f"fold {len(preps)}: als_prepare of {fold_coo.nnz} ratings "
+              f"({fold_coo.n_users} x {fold_coo.n_items}) "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        preps.append(prep)
+        return prep
+
+    with tempfile.TemporaryDirectory(prefix="pio_chip_eval_") as home:
+        reset_counters(ops)
+        t0 = time.perf_counter()
+        with mock.patch.object(als, "als_prepare", timed_prepare):
+            iid, result = run_evaluation(
+                ML20MEvaluation(), cands, storage=Storage(StorageConfig(home=home)),
+                distributed=True, device=dev, verbose=1)
+        t_eval = time.perf_counter() - t0
+        launches = read_counters(ops)
+        doc = lb.read(home, iid)
+    print(f"run_evaluation (distributed): {t_eval:.1f} s wall, sweep "
+          f"{doc['wallSeconds']:.1f} s of which {doc['deviceSeconds']:.3f} s in "
+          f"{doc['dispatches']} dispatches (buckets={doc['buckets']} "
+          f"compiles={doc['compiles']}); kernel launches {launches}", flush=True)
+    check(len(preps) == len(folds_seen) == eval_k, f"{len(preps)} fold layouts")
+    check(doc["compiles"] <= doc["buckets"] == eval_k, f"{doc['buckets']} buckets")
+
+    # the launches: each half-step launches gather_gram once a bucket and
+    # chol_solve once a part (the dense head is a part without a bucket)
+    want = {"gather_gram": 0, "chol_solve": 0, "score_topk": 0, "rows_gram": 0}
+    for f, prep in enumerate(preps):
+        buckets = sum(len(s.buckets) for s in (prep.u_side, prep.i_side))
+        parts = buckets + sum(s.dense is not None for s in (prep.u_side, prep.i_side))
+        print(f"fold {f} layout: {buckets} buckets, {parts} parts "
+              f"(user {[b.C for b in prep.u_side.buckets]}, item "
+              f"{[b.C for b in prep.i_side.buckets]}, dense heads "
+              f"{[s.dense.nb if s.dense is not None else 0 for s in (prep.u_side, prep.i_side)]})",
+              flush=True)
+        want["gather_gram"] += len(cands) * ITERATIONS * buckets
+        want["chol_solve"] += len(cands) * ITERATIONS * parts
+    print(f"expected launches {want} (candidates x iterations x buckets or parts, "
+          f"summed over the folds)", flush=True)
+    check(launches == want, f"eval launches {launches}, expected {want}")
+
+    # every fold score against a float64 recomputation
+    fold_of = np.random.default_rng(rec.DataSourceParams().eval_seed).integers(
+        0, eval_k, size=td.n)
+    worst, best_uv = 0.0, None
+    best = result.best_index
+    recomputed = [[0.0] * eval_k for _ in cands]
+    sq_sums, warm = [[0.0] * eval_k for _ in cands], [0] * eval_k
+    t0 = time.perf_counter()
+    for f, ((fold_td, _, qa), prep) in enumerate(zip(folds_seen, preps)):
+        train_rows, test = fold_of != f, fold_of == f
+        check(len(qa) == int(test.sum()), f"fold {f}: {len(qa)} queries")
+        luts = []
+        for idx, n in ((coo.user_idx, coo.n_users), (coo.item_idx, coo.n_items)):
+            lut = np.full(n, -1, np.int64)
+            seen = np.unique(idx[train_rows])
+            lut[seen] = np.arange(len(seen))
+            luts.append(lut[idx[test]])
+        uq, iq = luts
+        rq = coo.rating[test].astype(np.float64)
+        valid = (uq >= 0) & (iq >= 0)
+        uq, iq, rq = uq[valid], iq[valid], rq[valid]
+        for c, lam in enumerate(lams):
+            p = als.ALSParams(rank=RANK, iterations=ITERATIONS, reg=lam, seed=seed)
+            U, V = als.als_train_prepared(prep, p, device=dev)
+            sq = 0.0
+            for s in range(0, len(uq), 1 << 20):
+                u, i = uq[s:s + (1 << 20)], iq[s:s + (1 << 20)]
+                pred = np.einsum("nk,nk->n", U[u].astype(np.float64),
+                                 V[i].astype(np.float64))
+                sq += float(((pred - rq[s:s + (1 << 20)]) ** 2).sum())
+            sq_sums[c][f], warm[f] = sq, len(uq)
+            recomputed[c][f] = -(sq / len(uq)) ** 0.5
+            got = doc_fold_score(doc, c, f)
+            worst = max(worst, abs(got - recomputed[c][f]) / abs(recomputed[c][f]))
+            if c == best and f == 0:
+                best_uv = (fold_td, U, V, lam)
+        print(f"fold {f}: {int(valid.sum())} of {len(valid)} held-out pairs warm; "
+              f"NegRMSE sweep {[doc_fold_score(doc, c, f) for c in range(len(lams))]} "
+              f"float64 {[recomputed[c][f] for c in range(len(lams))]}", flush=True)
+    totals = [-(sum(sq) / sum(warm)) ** 0.5 for sq in sq_sums]
+    scores = [sc for _, sc, _ in result.candidates]
+    worst = max([worst] + [abs(a - b) / abs(b) for a, b in zip(scores, totals)])
+    print(f"sweep fold scores against float64: max relative difference "
+          f"{worst:.3e} (limit {EVAL_TOL}); recomputation {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(worst <= EVAL_TOL, f"sweep scores off float64 by {worst:.3e}")
+    for f in range(eval_k):
+        ranks_sweep = lb.rank_candidates([doc_fold_score(doc, c, f) for c in range(len(lams))],
+                                         True)
+        ranks_64 = lb.rank_candidates([recomputed[c][f] for c in range(len(lams))], True)
+        check(ranks_sweep == ranks_64, f"fold {f} ranks {ranks_sweep} vs {ranks_64}")
+    check(lb.rank_candidates(scores, True) == lb.rank_candidates(totals, True),
+          f"sweep ranks {scores} unlike float64 {totals}")
+    print(f"NegRMSE over both folds: sweep {scores}, float64 {totals}; best "
+          f"candidate {best} (lambda {lams[best]})", flush=True)
+
+    fold_td, U, V, lam = best_uv
+    items_chk = oracle_entities(preps[0].i_side, np.random.default_rng(SEED + 9))
+    err_v = normal_equations_err(torch, dev, fold_td.item_idx, fold_td.user_idx,
+                                 fold_td.rating, U, V, items_chk, lam)
+    print(f"best candidate (lambda {lam}) on fold 0: {len(items_chk)} items off "
+          f"their float64 normal equations by {err_v:.3e} (limit {ORACLE_TOL})",
+          flush=True)
+    check(err_v <= ORACLE_TOL, f"fold-0 items off their normal equations: {err_v:.3e}")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s wall; host peak RSS "
+          f"{rss:.1f} GiB", flush=True)
+    return {"launches": launches, "t_eval": t_eval, "doc": doc}
+
+
+def doc_fold_score(doc: dict, index: int, fold: int) -> float:
+    """Fold score of the candidate at ``index`` in a leaderboard."""
+    return next(e["foldScores"][fold] for e in doc["entries"] if e["index"] == index)
 
 
 def profile_training(torch, dev, train) -> None:
@@ -1425,8 +1626,9 @@ def quickstart_through_cli(torch, ops, dev) -> None:
             print(proc.stdout.strip(), flush=True)
             check(proc.returncode == 0, f"cli {' '.join(args)} failed "
                                         f"({proc.returncode}):\n{proc.stderr[-4000:]}")
-            print(f"-- cli {' '.join(args[:2])}: {time.perf_counter() - t0:.2f} s wall",
-                  flush=True)
+            label = " ".join(args[:2]) + (" --distributed" if "--distributed" in args
+                                          else "")
+            print(f"-- cli {label}: {time.perf_counter() - t0:.2f} s wall", flush=True)
             return proc.stdout
 
         def serve(*args, extra_env=None):
@@ -1525,6 +1727,8 @@ def quickstart_through_cli(torch, ops, dev) -> None:
             for name in ("gather_gram", "chol_solve"):
                 check(int(found.get(name, 0)) > 0, f"cli train did not launch {name}")
 
+            eval_through_cli(cli, home, engine_dir, app_name)
+
             # the catalog is under the host-scoring threshold: ask for the card
             serve_env = {"PIO_ALS_SERVE": "device"}
             t0 = time.perf_counter()
@@ -1593,6 +1797,56 @@ def quickstart_through_cli(torch, ops, dev) -> None:
                 if proc.poll() is None:
                     proc.kill()
                 proc.wait()
+
+
+def eval_through_cli(cli, home: str, engine_dir: str, app_name: str) -> None:
+    """Phase 7's `pio eval` steps on the quickstart's app: the template's
+    RecEvaluation over its DefaultGrid (ranks 8 and 16 x lambda 0.01 and
+    0.1, 8 iterations, two folds) serially and with --distributed, then
+    `eval leaderboard`, `evals list` and `evals show`. Both instances must
+    be EVALCOMPLETED, rank the grid alike (equal leaderboard digests) and
+    score every candidate within EVAL_TOL of each other; the distributed
+    run builds each program at most once a bucket."""
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.storage import leaderboard as lb
+
+    mod = "predictionio_tpu_torch.templates.recommendation.engine"
+    env = {"PIO_EVAL_APP_NAME": app_name}
+    ids = {}
+    for mode, extra in (("serial", []), ("distributed", ["--distributed"])):
+        out = cli("eval", f"{mod}:RecEvaluation", f"{mod}:DefaultGrid",
+                  "--engine-dir", engine_dir, *extra, extra_env=env)
+        ids[mode] = re.search(r"Evaluation completed: instance (\S+)", out).group(1)
+    meta = Storage(StorageConfig(home=home)).meta
+    docs = {}
+    for mode, iid in ids.items():
+        vi = meta.get_evaluation_instance(iid)
+        check(vi is not None and vi.status == "EVALCOMPLETED",
+              f"{mode} evaluation {iid} is {vi and vi.status}")
+        docs[mode] = lb.read(home, iid)
+        check(docs[mode] is not None and docs[mode]["mode"] == mode,
+              f"no {mode} leaderboard for {iid}")
+    ser, dist = docs["serial"], docs["distributed"]
+    check(lb.digest(ser) == lb.digest(dist),
+          f"serial and distributed rank the grid differently: "
+          f"{lb.digest(ser)} vs {lb.digest(dist)}")
+    by_index = {e["index"]: e["score"] for e in ser["entries"]}
+    worst = max(abs(e["score"] - by_index[e["index"]]) / abs(by_index[e["index"]])
+                for e in dist["entries"])
+    print(f"pio eval: serial and distributed digests {lb.digest(ser)}, scores "
+          f"within {worst:.3e} relative (limit {EVAL_TOL}); distributed "
+          f"buckets={dist['buckets']} compiles={dist['compiles']} "
+          f"dispatches={dist['dispatches']} device {dist['deviceSeconds']:.3f} s "
+          f"of {dist['wallSeconds']:.3f} s sweep wall", flush=True)
+    check(worst <= EVAL_TOL, f"serial and distributed scores differ by {worst:.3e}")
+    check(dist["compiles"] <= dist["buckets"],
+          f"{dist['compiles']} compiles for {dist['buckets']} buckets")
+    out = cli("eval", "leaderboard")
+    check(f"instance={ids['distributed']}" in out, "eval leaderboard is not the latest")
+    out = cli("evals", "list")
+    check(all(iid in out for iid in ids.values()), "evals list misses an instance")
+    out = cli("evals", "show", ids["serial"])
+    check("status=EVALCOMPLETED" in out, "evals show does not show the instance")
 
 
 def write_instance(home: str, U, V):
@@ -1866,6 +2120,9 @@ def main(argv) -> int:
               f"lost_ms={n * (t['ms'] - t['bound_ms']):.4f}", flush=True)
     print(f"score_topk lost over the num > 32 sub-run: {wide_loss:.4f} ms over "
           f"{wide['launches']} launches, p50 {wide['p50_ms']:.3f} ms", flush=True)
+
+    phase("9. pio eval at ML-20M width (distributed sweep, rank 64)")
+    evals = eval_full_width(torch, ops, dev, train)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -1885,7 +2142,8 @@ def main(argv) -> int:
         "name": "gather_gram", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/gather_gram.cu",
         "replaces": "predictionio_tpu/ops/gram.py:203",
-        "launches": train["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches": train["launches"]["gather_gram"],
+        "launches_eval": evals["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -1893,7 +2151,8 @@ def main(argv) -> int:
         "name": "chol_solve", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/chol_solve.cu",
         "replaces": "predictionio_tpu/ops/cholesky.py:315",
-        "launches": train["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches": train["launches"]["chol_solve"],
+        "launches_eval": evals["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],

@@ -17,10 +17,25 @@ from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineFactory,
     EngineParams,
+    FastEvalCache,
+)
+from predictionio_tpu_torch.controller.evaluation import (
+    AverageMetric,
+    EngineParamsGenerator,
+    Evaluation,
+    Metric,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+    OptionAverageMetric,
+    SumMetric,
+    ZeroMetric,
 )
 
 __all__ = [
     "params_from_json", "params_to_json", "WorkflowContext", "DataSource",
     "Preparator", "IdentityPreparator", "Algorithm", "Serving",
     "FirstServing", "Engine", "EngineFactory", "EngineParams",
+    "FastEvalCache", "Metric", "AverageMetric", "OptionAverageMetric",
+    "SumMetric", "ZeroMetric", "EngineParamsGenerator", "MetricEvaluator",
+    "MetricEvaluatorResult", "Evaluation",
 ]

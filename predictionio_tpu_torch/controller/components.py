@@ -28,6 +28,13 @@ class DataSource(ABC, Generic[TD]):
     def read_training(self, ctx: Any) -> TD:
         ...
 
+    def read_eval(self, ctx: Any) -> List[tuple]:
+        """Return ``[(training_data, eval_info, [(query, actual), ...]), ...]``
+        — one tuple per fold (reference: PDataSource.readEval)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement read_eval; "
+            "evaluation is unavailable for this engine")
+
 
 class Preparator(ABC, Generic[TD, PD]):
     def __init__(self, params: Any = None) -> None:
@@ -88,6 +95,32 @@ class Algorithm(ABC, Generic[PD, M, Q, PR]):
         algorithm's serving program for every batch bucket in ``ladder``
         (× each top-k width in ``ks``). Return ``{"targets", "compiled",
         "cached"}`` counts, or None. Default: nothing to warm."""
+        return None
+
+    @classmethod
+    def train_many(cls, ctx: Any, prepared_data: PD,
+                   params_list: Sequence[Any]) -> List[M]:
+        """Train one model per params on the SAME prepared data — the
+        grid-search fan-out (``pio eval``), on ``ctx.device``. Default is
+        sequential; an algorithm overrides it to share its per-dataset
+        work (layout, upload) across the candidates."""
+        models = []
+        for p in params_list:
+            algo = cls(p)
+            algo.device = ctx.device
+            models.append(algo.train(ctx, prepared_data))
+        return models
+
+    @classmethod
+    def sweep_programs(cls, ctx: Any, prepared_data: PD,
+                       params_list: Sequence[Any], qpa: Sequence[Any],
+                       metric: Any) -> Optional[List[Any]]:
+        """Distributed-sweep hook (``core/sweep.py``): return a list of
+        ``SweepProgram``s that together cover every candidate in
+        ``params_list`` — each a train+score program over a stacked
+        hyperparameter axis, bucketed by geometry, on ``ctx.device`` — or
+        None when this algorithm (or ``metric.sweep_kind``) can only run
+        on the serial qpa path. ``qpa`` is the fold's ``[(q, a), ...]``."""
         return None
 
     def sanity_check(self, data: Any) -> None:

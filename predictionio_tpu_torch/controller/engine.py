@@ -1,14 +1,20 @@
 """Engine: binds the four DASE roles; params arrive separately (from
-``engine.json`` or a stored engine instance)."""
+``engine.json``, a stored engine instance, or an evaluation's grid), so
+one engine trains under many parameter variants (``pio eval``)."""
 
 from __future__ import annotations
 
 import importlib
+import json
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
-from predictionio_tpu_torch.controller.base import WorkflowContext, params_from_json
+from predictionio_tpu_torch.controller.base import (
+    WorkflowContext,
+    params_from_json,
+    params_to_json,
+)
 from predictionio_tpu_torch.controller.components import (
     Algorithm,
     DataSource,
@@ -115,6 +121,152 @@ class Engine:
             ctx.timings[f"train:{name}"] = time.perf_counter() - t0
             ctx.log(f"algorithm {name!r} trained")
         return models
+
+    def eval(
+        self, ctx: WorkflowContext, engine_params: EngineParams,
+        cache: Optional["FastEvalCache"] = None,
+    ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Per fold: train on the fold's training split, predict the fold's
+        (query, actual) pairs → ``[(eval_info, [(q, p, a), ...]), ...]``
+        (reference: Engine.eval producing RDD[(Q,P,A)] per fold)."""
+        return self.eval_batch(ctx, [engine_params], cache)[0]
+
+    def eval_batch(
+        self, ctx: WorkflowContext, candidates: Sequence[EngineParams],
+        cache: Optional["FastEvalCache"] = None,
+    ) -> List[List[Tuple[Any, List[Tuple[Any, Any, Any]]]]]:
+        """Evaluate several candidates on ``ctx.device``, sharing the
+        expensive pipeline prefixes (the reference's FastEvalEngine,
+        SURVEY.md §2d P4):
+
+        - ``read_eval`` folds are computed once per distinct
+          dataSourceParams, ``prepare`` once per (dataSourceParams,
+          preparatorParams, fold) — memoized in ``cache`` so the reuse
+          also spans separate ``eval_batch`` calls;
+        - per fold, each algorithm slot trains ALL candidates that share
+          the (dsp, pp) prefix through ONE ``Algorithm.train_many`` call.
+
+        Returns per-candidate eval data, in input order.
+        """
+        cache = cache if cache is not None else FastEvalCache()
+        out: List[Optional[list]] = [None] * len(candidates)
+
+        # group candidates by shared (dsp, pp, algorithm slots) prefix,
+        # preserving order — only same-slot candidates can train through
+        # one train_many call. Cache keys carry the COMPONENT CLASS too:
+        # one cache may serve several engines, and params alone would
+        # collide across engines whose params serialize identically.
+        groups: Dict[Tuple[str, str, Tuple[str, ...]], List[int]] = {}
+        for i, ep in enumerate(candidates):
+            groups.setdefault(self.group_key(cache, ep), []).append(i)
+
+        for (ds_key, pp_key, names), idxs in groups.items():
+            ep0 = candidates[idxs[0]]
+            folds = cache.folds(
+                ds_key,
+                lambda: self.data_source_cls(
+                    ep0.data_source_params).read_eval(ctx))
+            prep = self.preparator_cls(ep0.preparator_params)
+            results: List[list] = [[] for _ in idxs]
+            for f, (td, eval_info, qa) in enumerate(folds):
+                pd = cache.prepared(ds_key, pp_key, f,
+                                    lambda: prep.prepare(ctx, td))
+                # per algorithm slot: one train_many over the group
+                models_by_cand: List[list] = [[] for _ in idxs]
+                for slot, name in enumerate(names):
+                    cls = self.algorithm_cls_map[name]
+                    plist = [candidates[i].algorithms_params[slot][1]
+                             for i in idxs]
+                    # every candidate's params get checked: a degenerate
+                    # candidate must fail here, not deep inside training
+                    for p in plist:
+                        cls(p).sanity_check(pd)
+                    models = cls.train_many(ctx, pd, plist)
+                    for j, m in enumerate(models):
+                        models_by_cand[j].append(m)
+                for j, i in enumerate(idxs):
+                    ep = candidates[i]
+                    serving = self.serving_cls(ep.serving_params)
+                    algos = self.make_algorithms(ep)
+                    for _, algo in algos:
+                        algo.device = ctx.device
+                    queries = [serving.supplement(q) for q, _ in qa]
+                    per_algo = [
+                        algo.batch_predict(model, queries)
+                        for (_, algo), model in zip(algos, models_by_cand[j])
+                    ]
+                    qpa = [
+                        (q, serving.serve(q, [preds[qi] for preds in per_algo]), a)
+                        for qi, (q, a) in enumerate(
+                            zip(queries, (a for _, a in qa)))
+                    ]
+                    results[j].append((eval_info, qpa))
+            for j, i in enumerate(idxs):
+                out[i] = results[j]
+        return out  # type: ignore[return-value]
+
+    def group_key(self, cache: "FastEvalCache", ep: EngineParams
+                  ) -> Tuple[str, str, Tuple[str, ...]]:
+        """The (data source, preparator, algorithm slots) prefix a
+        candidate shares with the others of its group; the first two are
+        also its ``cache`` keys."""
+        def cls_key(c) -> str:
+            return f"{c.__module__}:{c.__qualname__}"
+
+        return (cls_key(self.data_source_cls) + "|"
+                + cache.params_key(ep.data_source_params),
+                cls_key(self.preparator_cls) + "|"
+                + cache.params_key(ep.preparator_params),
+                tuple(n for n, _ in ep.algorithms_params))
+
+
+class FastEvalCache:
+    """Memoizes the eval pipeline's expensive prefixes across grid
+    candidates: dataSourceParams → folds, (dsp, pp, fold) → PreparedData
+    (the reference's FastEvalEngine workflow caching). ``stats`` counts
+    misses (i.e. actual reads/prepares) and hits for tests and logs.
+
+    Contracts the sharing imposes (same as the reference's FastEval):
+
+    - entries are SNAPSHOTS of the event data at first read — create a
+      fresh cache after ingesting new events (MetricEvaluator already
+      creates one per evaluate() call);
+    - folds/PreparedData are shared across candidates and cache hits,
+      so preparators and algorithms must not mutate them in place."""
+
+    def __init__(self) -> None:
+        self._folds: Dict[str, list] = {}
+        self._prepared: Dict[Tuple[str, str, int], Any] = {}
+        self.stats = {"read_eval": 0, "read_eval_hits": 0,
+                      "prepare": 0, "prepare_hits": 0}
+
+    @staticmethod
+    def params_key(params: Any) -> str:
+        try:
+            return json.dumps(params_to_json(params), sort_keys=True,
+                              default=str)
+        except TypeError:
+            # params types outside the JSON contract (plain classes)
+            # still evaluate — they just key by repr, so equal-looking
+            # instances won't share cache entries
+            return repr(params)
+
+    def folds(self, ds_key: str, compute) -> list:
+        if ds_key not in self._folds:
+            self.stats["read_eval"] += 1
+            self._folds[ds_key] = compute()
+        else:
+            self.stats["read_eval_hits"] += 1
+        return self._folds[ds_key]
+
+    def prepared(self, ds_key: str, pp_key: str, fold: int, compute) -> Any:
+        key = (ds_key, pp_key, fold)
+        if key not in self._prepared:
+            self.stats["prepare"] += 1
+            self._prepared[key] = compute()
+        else:
+            self.stats["prepare_hits"] += 1
+        return self._prepared[key]
 
 
 class EngineFactory:

@@ -8,7 +8,11 @@ Equivalent of the reference's ``CoreWorkflow`` / ``CreateServer.prepareDeploy``
 - :func:`prepare_deploy` — load the latest COMPLETED instance for (engine
   factory, variant), or a given one, rebuild its params from the
   recorded JSON, and restore each algorithm's model onto the serving
-  device.
+  device;
+- :func:`run_evaluation` — EVALUATING row → the grid search on the
+  device, serial (``MetricEvaluator``) or distributed (``core/sweep``)
+  → EVALCOMPLETED (or FAILED, with the exception's text) and a
+  ``leaderboard.json`` beside the row.
 
 Engine factories resolve through an explicit table. An instance trained
 by the JAX package records the JAX template's factory; importing it
@@ -24,6 +28,7 @@ import json
 import os
 import pickle
 import traceback
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -33,7 +38,15 @@ from predictionio_tpu_torch.controller.engine import (
     EngineParams,
 )
 from predictionio_tpu_torch.controller.base import WorkflowContext, params_to_json
-from predictionio_tpu_torch.storage.meta import EngineInstance, utcnow
+from predictionio_tpu_torch.controller.evaluation import (
+    Evaluation,
+    MetricEvaluatorResult,
+)
+from predictionio_tpu_torch.storage.meta import (
+    EngineInstance,
+    EvaluationInstance,
+    utcnow,
+)
 from predictionio_tpu_torch.storage.registry import Storage, get_storage
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -255,3 +268,99 @@ def prepare_deploy(
     return DeployedEngine(
         engine=engine, engine_params=engine_params, algorithms=algorithms,
         models=models, serving=serving, instance=ei)
+
+
+def run_evaluation(
+    evaluation: Evaluation,
+    candidates: Sequence[EngineParams],
+    storage: Optional[Storage] = None,
+    verbose: int = 0,
+    evaluation_class: str = "",
+    generator_class: str = "",
+    distributed: bool = False,
+    sweep_shards: int = 0,
+    device=None,
+) -> Tuple[str, MetricEvaluatorResult]:
+    """Grid-search evaluation on ``device`` (CUDA unless the caller passes
+    "cpu"; raises when there is no card and no CPU request). Persists an
+    EvaluationInstance row (reference: EvaluationWorkflow, SURVEY.md
+    §3.4) and a versioned ``leaderboard.json`` next to it
+    (``storage/leaderboard.py``), as the JAX package does.
+
+    ``distributed=True`` routes the grid through ``core/sweep.py``:
+    candidates bucketed by geometry, each bucket's sub-grid one sweep
+    program that trains and scores on the device, instead of a
+    per-candidate train and a per-query scoring loop. Rankings equal the
+    serial path's; groups the sweep can't stack fall back to it.
+    """
+    device = resolve_device(device)
+    storage = storage or get_storage()
+    instance_id = storage.meta.new_instance_id()
+    vi = EvaluationInstance(
+        id=instance_id, status="EVALUATING", start_time=utcnow(), end_time=None,
+        evaluation_class=evaluation_class or type(evaluation).__name__,
+        engine_params_generator_class=generator_class,
+        batch="", env={},
+    )
+    storage.meta.insert_evaluation_instance(vi)
+    ctx = WorkflowContext(storage=storage, device=device, verbose=verbose,
+                          instance_id=instance_id)
+    try:
+        if evaluation.metric is None:
+            raise ValueError("Evaluation.metric not set")
+        sweep_stats = None
+        fold_scores = None
+        if distributed:
+            from predictionio_tpu_torch.core.sweep import run_sweep
+
+            sres = run_sweep(
+                ctx, evaluation.get_engine(), candidates,
+                evaluation.metric, evaluation.other_metrics,
+                sweep_shards=sweep_shards)
+            result = sres.result
+            sweep_stats = sres.stats()
+            fold_scores = sres.fold_scores
+        else:
+            result = evaluation.run(ctx, candidates)
+        vi.status = "EVALCOMPLETED"
+        vi.end_time = utcnow()
+        vi.evaluator_results = (
+            f"best {evaluation.metric.header} = {result.best_score:.6f} "
+            f"(candidate {result.best_index} of {len(result.candidates)})")
+        vi.evaluator_results_json = result.to_json()
+        storage.meta.update_evaluation_instance(vi)
+        _write_leaderboard(storage, instance_id, evaluation.metric, result,
+                           fold_scores=fold_scores, sweep_stats=sweep_stats,
+                           distributed=distributed)
+        return instance_id, result
+    except Exception as e:
+        vi.status = "FAILED"
+        vi.end_time = utcnow()
+        # record WHY: `pio evals show` explains a dead sweep from its row
+        vi.evaluator_results = f"{type(e).__name__}: {e}"
+        storage.meta.update_evaluation_instance(vi)
+        raise
+
+
+def _write_leaderboard(storage: Storage, instance_id: str, metric,
+                       result: MetricEvaluatorResult,
+                       fold_scores=None, sweep_stats=None,
+                       distributed: bool = False) -> Optional[str]:
+    """Persist the versioned leaderboard artifact for this evaluation
+    under ``<home>/leaderboards/<instance_id>.json``. Best-effort: a
+    leaderboard write failure must not fail a completed evaluation."""
+    from predictionio_tpu_torch.storage import leaderboard as lb
+
+    try:
+        ep_rows = json.loads(result.to_json())["candidates"]
+        doc = lb.build(
+            instance_id, metric.header, bool(metric.higher_is_better),
+            [row["engineParams"] for row in ep_rows],
+            [s for _, s, _ in result.candidates],
+            fold_scores=fold_scores,
+            mode="distributed" if distributed else "serial",
+            stats=sweep_stats)
+        return lb.write(storage.config.home, doc)
+    except Exception as e:  # a completed evaluation stays completed
+        warnings.warn(f"leaderboard write failed: {e}", RuntimeWarning)
+        return None

@@ -9,7 +9,9 @@ The port's copy of the generic path of the JAX package's
 - :func:`read_interactions` — the two-pass reader for (user, item[,
   rating]) training data: pass 1 builds the id vocabularies in first-seen
   order, pass 2 re-streams yielding index-mapped chunks
-  (:class:`InteractionData`).
+  (:class:`InteractionData`);
+- :func:`subset_columnar` — a fold's rows with both vocabularies trimmed
+  to the entities present (the eval-fold cold-entity rule).
 
 The native columnar scan, its snapshot cache and the device prefetcher
 are not ported yet.
@@ -139,3 +141,35 @@ def read_interactions(
             yield u, i, vals[keep]
 
     return InteractionData(user_ids, item_ids, chunk_factory, n_events)
+
+
+def subset_columnar(
+    mask: np.ndarray,
+    user_idx: np.ndarray,
+    item_idx: np.ndarray,
+    user_ids: BiMap,
+    item_ids: BiMap,
+    *values: np.ndarray,
+) -> tuple:
+    """Rows where ``mask`` holds, with both vocabularies TRIMMED to the
+    entities present and the index columns re-mapped to the trimmed
+    maps. The eval-fold primitive: a training fold must NOT know the
+    held-out fold's cold users/items (they would score 0.0 instead of
+    being skipped by the OptionAverageMetric convention).
+
+    Returns ``(user_idx, item_idx, user_ids, item_ids, *values)`` with
+    each extra ``values`` column masked alongside.
+    """
+    uu, ii = user_idx[mask], item_idx[mask]
+    uniq_u = np.unique(uu)
+    uniq_i = np.unique(ii)
+    lut_u = np.full(len(user_ids), -1, np.int32)
+    lut_u[uniq_u] = np.arange(len(uniq_u), dtype=np.int32)
+    lut_i = np.full(len(item_ids), -1, np.int32)
+    lut_i[uniq_i] = np.arange(len(uniq_i), dtype=np.int32)
+    u_inv = user_ids.inverse()
+    i_inv = item_ids.inverse()
+    return (lut_u[uu], lut_i[ii],
+            BiMap({u_inv[int(u)]: int(j) for j, u in enumerate(uniq_u)}),
+            BiMap({i_inv[int(i)]: int(j) for j, i in enumerate(uniq_i)}),
+            *(v[mask] for v in values))

@@ -16,6 +16,10 @@ one gather → score → top-k launch of the ``score_topk`` kernel
 - :class:`RatingsCOO`, :class:`ALSParams`, :func:`als_prepare` — ratings,
   parameters and the host layout, copied from the JAX package;
 - :func:`als_train`, :func:`als_train_prepared` — training on a device;
+- :func:`als_train_many`, :func:`als_train_scored`,
+  :func:`als_sweep_program` — ``pio eval``'s grid: many candidates over
+  one prepared, uploaded layout, serially or as sweep programs that
+  score the held-out fold on the device;
 - :func:`predict_ratings`, :func:`recommend` — host numpy scoring for
   small catalogs;
 - :class:`ResidentScorer` — U and tile-padded V resident on the device,
@@ -27,6 +31,7 @@ one gather → score → top-k launch of the ``score_topk`` kernel
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import threading
 import time
@@ -549,6 +554,76 @@ def als_train(coo: RatingsCOO, params: ALSParams, device=None,
     return als_train_prepared(als_prepare(coo), params, device=device)
 
 
+def als_train_many(coo: RatingsCOO, params_list, device=None) -> list:
+    """Train one (U, V) per params on the SAME ratings — the ``pio eval``
+    grid fan-out — on ``device`` (CUDA unless the caller passes "cpu").
+    The host layout is prepared ONCE and uploaded once (the upload is
+    cached on the layout, ``_device_buffers``); each candidate then runs
+    the same half-steps as ``pio train``, one after another."""
+    device = resolve_device(device)
+    prep = als_prepare(coo)
+    return [als_train_prepared(prep, p, device=device) for p in params_list]
+
+
+def als_train_scored(prep: ALSPrepared, p0: ALSParams):
+    """The per-candidate train+score program of the distributed sweep
+    (``core/sweep.py``): ``one(hyper, u_bufs, i_bufs, V0p, uq, iq, rq,
+    valid) -> (sq_err_sum, valid_count)``, two tensors on the device,
+    with ``hyper = [reg, alpha]`` one float32 row of the stacked grid
+    (the rest of the params are ``p0``'s).
+
+    Training is :func:`_train_permuted`'s (a zero U0, then ``iterations``
+    pairs of half-steps through the ``gather_gram`` and ``chol_solve``
+    kernels); the held-out fold is scored on the device: ``uq``/``iq``
+    index PERMUTED factor rows, ``valid`` masks cold pairs (NegRMSE's
+    skip-empty-prediction convention), so a candidate with no warm pair
+    returns count 0 (NaN downstream, ranked last). ``prep`` gives only the
+    layout's structure, which the sweep's geometry key holds, so one
+    program serves every layout of the same geometry."""
+
+    def one(hyper, u_bufs, i_bufs, V0p, uq, iq, rq, valid):
+        p = dataclasses.replace(p0, reg=float(hyper[0]), alpha=float(hyper[1]))
+        with _full_f32():
+            U, V = _train_permuted(prep, p, (u_bufs, i_bufs), V0p)
+        pred = (U[uq] * V[iq]).sum(-1)
+        err = torch.where(valid, (pred - rq) ** 2, torch.zeros_like(pred))
+        return err.sum(), valid.to(torch.float32).sum()
+
+    return one
+
+
+def als_sweep_program(prep: ALSPrepared, p0: ALSParams, users: np.ndarray,
+                      items: np.ndarray, ratings: np.ndarray,
+                      valid: np.ndarray, device=None):
+    """The ``(geometry, build, data)`` triple core/sweep.py's SweepProgram
+    wants for a bucket of ALS candidates sharing rank, iterations,
+    implicit, weighted_reg, bf16_gather, seed and the prepared layout, on
+    ``device`` (CUDA unless the caller passes "cpu"). ``users``/``items``
+    are fold-local dense entity ids (cold pairs carry any in-range id
+    with ``valid`` False); they are mapped to permuted factor positions
+    HERE so the program gathers directly. ``data`` lives on the device:
+    the layout (uploaded once, cached on ``prep``), V0 in permuted order
+    and the held-out fold."""
+    device = resolve_device(device)
+    geometry = ("als_scored", prep.u_side.geometry, prep.i_side.geometry,
+                prep.n_users, prep.n_items, int(p0.rank),
+                int(p0.iterations), bool(p0.implicit),
+                bool(p0.weighted_reg), str(device), bool(p0.bf16_gather),
+                int(p0.seed), len(users))
+    u_bufs, i_bufs = _device_buffers(prep, device)
+
+    def put(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype)).to(device)
+
+    V0p = init_factors(prep.n_items, p0.rank, p0.seed)[prep.i_side.perm]
+    uq = prep.u_side.inv_perm[np.asarray(users, np.int64)].astype(np.int64)
+    iq = prep.i_side.inv_perm[np.asarray(items, np.int64)].astype(np.int64)
+    data = (u_bufs, i_bufs, put(V0p, np.float32), put(uq), put(iq),
+            put(ratings, np.float32), put(valid, bool))
+
+    return geometry, lambda: als_train_scored(prep, p0), data
+
+
 # -- scoring ------------------------------------------------------------------
 
 
@@ -807,14 +882,15 @@ class ResidentScorer:
         """One serving dispatch at an (already bucket-padded) batch.
         ``rows`` = real row count (pad rows masked on device). Warmed
         buckets run their warmed program; any other shape builds a
-        one-off program (counted as path "eager" — a warmup gap)."""
+        one-off program (counted as path "jit", the JAX package's label
+        for the same warmup gap)."""
         from predictionio_tpu_torch.server import aot
         from predictionio_tpu_torch.utils import tracing
 
         B = len(user_ids)
         rows_valid = B if rows is None else int(rows)
         prog = self._aot.get((B, k))
-        path = "aot" if prog is not None else "eager"
+        path = "aot" if prog is not None else "jit"
         with tracing.span("serving.device", bucket=B, k=k, path=path):
             t0 = time.perf_counter()
             if prog is None:

@@ -181,7 +181,8 @@ EXECUTABLES = ExecutableCache()
 # -- per-bucket device latency ------------------------------------------------
 
 #: device-program latency per padded batch bucket. ``path`` = aot
-#: (warmed program) | eager (an unwarmed shape — counts a warmup gap).
+#: (warmed program) | jit (an unwarmed shape — counts a warmup gap; the
+#: JAX package's label, so one dashboard reads both packages).
 DEVICE_LATENCY = REGISTRY.histogram(
     "pio_predict_device_seconds",
     "Serving device-program latency (ids upload, kernel, result fetch) "

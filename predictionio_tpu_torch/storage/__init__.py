@@ -1,7 +1,12 @@
-"""Storage the port's training and deploy read: apps, engine-instance
-records, events and model blobs, on the JAX package's on-disk layout."""
+"""Storage the port's training, deploy and evaluation read: apps,
+engine- and evaluation-instance records, events, model blobs and sweep
+leaderboards, on the JAX package's on-disk layout."""
 
-from predictionio_tpu_torch.storage.meta import EngineInstance, MetaStore
+from predictionio_tpu_torch.storage.meta import (
+    EngineInstance,
+    EvaluationInstance,
+    MetaStore,
+)
 from predictionio_tpu_torch.storage.models import (
     LocalFSModelStore,
     MemoryModelStore,
@@ -15,7 +20,7 @@ from predictionio_tpu_torch.storage.registry import (
 )
 
 __all__ = [
-    "EngineInstance", "MetaStore", "ModelStore", "LocalFSModelStore",
+    "EngineInstance", "EvaluationInstance", "MetaStore", "ModelStore", "LocalFSModelStore",
     "MemoryModelStore", "Storage", "StorageConfig", "get_storage",
     "set_storage",
 ]

@@ -1,15 +1,16 @@
-"""Meta-data store: apps, access keys, channels and engine instances.
+"""Meta-data store: apps, access keys, channels, engine and evaluation
+instances.
 
 The port's copy of the JAX package's ``storage/meta.py``, on the same
-SQLite schema and time format, so an app, key, channel or trained
-instance that one package writes into a ``PIO_HOME`` is found by the
-other. The CLI's ``app`` and ``accesskey`` verbs and the event server's
-auth read and write apps, keys and channels; training resolves the app
-(and channel) named in the variant; serving loads the latest COMPLETED
-instance for (engine factory, variant) — the reference's
-``EngineInstances.getLatestCompleted``. Left out: evaluation instances
-(with ``pio eval``) and the remote SQL dialects (with the event-store
-backends).
+SQLite schema and time format, so an app, key, channel, trained instance
+or evaluation instance that one package writes into a ``PIO_HOME`` is
+found by the other. The CLI's ``app`` and ``accesskey`` verbs and the
+event server's auth read and write apps, keys and channels; training
+resolves the app (and channel) named in the variant; serving loads the
+latest COMPLETED instance for (engine factory, variant) — the
+reference's ``EngineInstances.getLatestCompleted``; ``pio eval`` records
+one evaluation instance per grid search, which ``pio evals`` lists.
+Left out: the remote SQL dialects (with the event-store backends).
 """
 
 from __future__ import annotations
@@ -107,6 +108,23 @@ class EngineInstance:
     serving_params: str
 
 
+@dataclass
+class EvaluationInstance:
+    """One ``pio eval`` run's record (EVALUATING → EVALCOMPLETED or FAILED)."""
+
+    id: str
+    status: str
+    start_time: _dt.datetime
+    end_time: Optional[_dt.datetime]
+    evaluation_class: str
+    engine_params_generator_class: str
+    batch: str
+    env: Dict[str, str]
+    evaluator_results: str = ""        # human-readable summary
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""   # structured per-candidate scores
+
+
 _SCHEMA = (
     """CREATE TABLE IF NOT EXISTS apps (
     id INTEGER PRIMARY KEY AUTOINCREMENT,
@@ -139,11 +157,27 @@ _SCHEMA = (
     algorithmsParams TEXT NOT NULL,
     servingParams TEXT NOT NULL
 )""",
+    """CREATE TABLE IF NOT EXISTS evaluation_instances (
+    id TEXT PRIMARY KEY,
+    status TEXT NOT NULL,
+    startTime TEXT NOT NULL,
+    endTime TEXT,
+    evaluationClass TEXT NOT NULL,
+    engineParamsGeneratorClass TEXT NOT NULL,
+    batch TEXT NOT NULL,
+    env TEXT NOT NULL,
+    evaluatorResults TEXT NOT NULL,
+    evaluatorResultsHTML TEXT NOT NULL,
+    evaluatorResultsJSON TEXT NOT NULL
+)""",
 )
 
 _EI_COLS = ("id", "status", "startTime", "endTime", "engineFactory",
             "engineVariant", "batch", "env", "meshConf", "dataSourceParams",
             "preparatorParams", "algorithmsParams", "servingParams")
+_VI_COLS = ("id", "status", "startTime", "endTime", "evaluationClass",
+            "engineParamsGeneratorClass", "batch", "env", "evaluatorResults",
+            "evaluatorResultsHTML", "evaluatorResultsJSON")
 
 
 class MetaStore:
@@ -339,6 +373,46 @@ class MetaStore:
         q += " ORDER BY startTime DESC LIMIT 1"
         row = self._q1(q, tuple(args))
         return self._ei_from_row(row) if row else None
+
+    # -- evaluation instances --------------------------------------------------
+
+    def insert_evaluation_instance(self, vi: EvaluationInstance) -> None:
+        self._x(
+            f"INSERT OR REPLACE INTO evaluation_instances ({','.join(_VI_COLS)}) "
+            f"VALUES ({','.join('?' * len(_VI_COLS))})",
+            (
+                vi.id, vi.status, format_time(vi.start_time),
+                format_time(vi.end_time) if vi.end_time else None,
+                vi.evaluation_class, vi.engine_params_generator_class,
+                vi.batch, json.dumps(vi.env), vi.evaluator_results,
+                vi.evaluator_results_html, vi.evaluator_results_json,
+            ),
+        )
+
+    def update_evaluation_instance(self, vi: EvaluationInstance) -> None:
+        self.insert_evaluation_instance(vi)
+
+    @staticmethod
+    def _vi_from_row(r) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=r[0], status=r[1],
+            start_time=parse_time(r[2]),
+            end_time=parse_time(r[3]) if r[3] else None,
+            evaluation_class=r[4], engine_params_generator_class=r[5],
+            batch=r[6], env=json.loads(r[7]), evaluator_results=r[8],
+            evaluator_results_html=r[9], evaluator_results_json=r[10],
+        )
+
+    def get_evaluation_instance(self, instance_id: str) -> Optional[EvaluationInstance]:
+        row = self._q1(
+            f"SELECT {','.join(_VI_COLS)} FROM evaluation_instances "
+            "WHERE id=?", (instance_id,))
+        return self._vi_from_row(row) if row else None
+
+    def list_evaluation_instances(self) -> List[EvaluationInstance]:
+        return [self._vi_from_row(r) for r in self._q(
+            f"SELECT {','.join(_VI_COLS)} FROM evaluation_instances "
+            "ORDER BY startTime DESC")]
 
     def new_instance_id(self) -> str:
         return utcnow().strftime("%Y%m%d%H%M%S") + "-" + secrets.token_hex(4)

@@ -12,13 +12,22 @@ shapes are the reference's:
 
 and the model blob is the JAX package's (a pickle holding an npz of U and
 V and the two id maps), so an instance trained by either package deploys
-in the other. Evaluation (``read_eval``, ``train_many``, sweeps) is not
-ported yet.
+in the other.
+
+``pio eval`` runs out of the box: ``read_eval`` draws the JAX package's
+folds (the same seeded draw, the same trimmed vocabularies and query
+dicts), ``NegRMSE`` scores held-out ratings, ``RecEvaluation`` binds the
+two and ``DefaultGrid`` is the JAX package's grid. The serial path trains
+each fold's candidates through ``train_many`` over one uploaded layout
+and answers the rating queries on the host; the distributed path
+(``sweep_programs``) trains and scores every candidate on the device.
 """
 
 from __future__ import annotations
 
 import io
+import math
+import os
 import pickle
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -29,7 +38,11 @@ from predictionio_tpu_torch.controller import (
     Algorithm,
     DataSource,
     Engine,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
+    Metric,
     Preparator,
     WorkflowContext,
 )
@@ -88,6 +101,16 @@ class TrainingData:
                         len(ratings)),
             user_ids, item_ids)
 
+    def subset(self, mask: np.ndarray) -> "TrainingData":
+        """Rows where ``mask`` holds, vocabularies trimmed (eval-fold
+        cold-entity rule — see ``data/pipeline.subset_columnar``)."""
+        from predictionio_tpu_torch.data.pipeline import subset_columnar
+
+        uu, ii, u_ids, i_ids, rr = subset_columnar(
+            mask, self.user_idx, self.item_idx,
+            self.user_ids, self.item_ids, self.rating)
+        return TrainingData(uu, ii, rr, u_ids, i_ids)
+
 
 @dataclass
 class DataSourceParams:
@@ -95,7 +118,7 @@ class DataSourceParams:
     event_names: List[str] = field(default_factory=lambda: ["rate", "buy"])
     # rating assigned to implicit "buy" events (reference quickstart: 4.0)
     buy_rating: float = 4.0
-    eval_k: int = 0          # evaluation folds (read_eval is not ported yet)
+    eval_k: int = 0          # >0 enables read_eval with k folds
     eval_seed: int = 3
     #: optional {"duration": "30 days", "removeDuplicates": bool,
     #: "compressProperties": bool} — SelfCleaningDataSource window
@@ -133,6 +156,29 @@ class RecDataSource(SelfCleaningDataSource, DataSource):
             raise ValueError(
                 "no rate/buy events found; import events before `pio train`")
         return td
+
+    def read_eval(self, ctx: WorkflowContext):
+        """``eval_k`` folds: each rating's fold is drawn with
+        ``eval_seed``; a fold trains on the other folds' ratings (the
+        vocabularies trimmed to them) and is queried with its own as
+        ``{"user", "item", "num": 1}`` rating queries."""
+        p: DataSourceParams = self.params
+        if p.eval_k <= 0:
+            raise ValueError("set dataSourceParams.evalK > 0 to evaluate")
+        td = self._read(ctx)
+        rng = np.random.default_rng(p.eval_seed)
+        fold_of = rng.integers(0, p.eval_k, size=td.n)
+        u_inv = td.user_ids.inverse()
+        i_inv = td.item_ids.inverse()
+        folds = []
+        for f in range(p.eval_k):
+            train = td.subset(fold_of != f)
+            test = np.nonzero(fold_of == f)[0]
+            qa = [({"user": u_inv[int(td.user_idx[j])],
+                    "item": i_inv[int(td.item_idx[j])], "num": 1},
+                   float(td.rating[j])) for j in test]
+            folds.append((train, {"fold": f}, qa))
+        return folds
 
 
 class RecPreparator(Preparator):
@@ -236,6 +282,20 @@ class ALSAlgorithm(Algorithm):
             bf16_gather=p.bf16_gather,
         )
 
+    @classmethod
+    def train_many(cls, ctx: WorkflowContext, pd: TrainingData,
+                   params_list) -> List[ALSModel]:
+        """Grid fan-out (``pio eval``) on ``ctx.device``: the layout is
+        built and uploaded once, then each candidate trains over it
+        (``models/als.als_train_many``)."""
+        from predictionio_tpu_torch.models.als import als_train_many
+
+        coo, user_ids, item_ids = cls._to_coo(pd)
+        results = als_train_many(
+            coo, [cls._als_params(p) for p in params_list], device=ctx.device)
+        return [ALSModel(U, V, user_ids, item_ids, device=ctx.device)
+                for U, V in results]
+
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> ALSModel:
         """Train on ``self.device`` (set by Engine.train from the
         workflow context; CUDA unless the run asked for the CPU)."""
@@ -267,6 +327,52 @@ class ALSAlgorithm(Algorithm):
             model._device_scorer(), model.user_ids, model._item_inv,
             queries, fallback=lambda q: self.predict(model, q),
             per_query=lambda q: "item" in q)
+
+    @classmethod
+    def sweep_programs(cls, ctx: WorkflowContext, pd: TrainingData,
+                       params_list, qa, metric):
+        """Distributed ``pio eval`` (core/sweep.py) on ``ctx.device``:
+        candidates sharing (rank, iterations, implicit, seed, bf16) bucket
+        into ONE train+score program over stacked [lambda, alpha] float32
+        rows. Held-out pairs are mapped to the fold's dense ids here; cold
+        pairs (user/item unseen by the trained fold) get valid=False,
+        mirroring NegRMSE's skip-empty-prediction convention."""
+        if getattr(metric, "sweep_kind", None) != "sq_err":
+            return None
+        from predictionio_tpu_torch.core.sweep import SweepProgram
+        from predictionio_tpu_torch.models.als import (als_prepare,
+                                                       als_sweep_program)
+
+        coo, user_ids, item_ids = cls._to_coo(pd)
+        prep = als_prepare(coo)
+        n = len(qa)
+        users = np.zeros(n, np.int32)
+        items = np.zeros(n, np.int32)
+        ratings = np.zeros(n, np.float32)
+        valid = np.zeros(n, bool)
+        for j, (q, a) in enumerate(qa):
+            uidx = user_ids.get(str(q.get("user")))
+            iidx = (item_ids.get(str(q["item"])) if "item" in q else None)
+            if uidx is not None and iidx is not None:
+                users[j], items[j], valid[j] = uidx, iidx, True
+            ratings[j] = float(a)
+        groups: Dict[tuple, List[int]] = {}
+        for i, p in enumerate(params_list):
+            key = (int(p.rank), int(p.num_iterations),
+                   bool(p.implicit_prefs),
+                   0 if p.seed is None else int(p.seed),
+                   bool(p.bf16_gather))
+            groups.setdefault(key, []).append(i)
+        progs = []
+        for idxs in groups.values():
+            p0 = cls._als_params(params_list[idxs[0]])
+            geometry, build, data = als_sweep_program(
+                prep, p0, users, items, ratings, valid, device=ctx.device)
+            hyper = np.asarray(
+                [[params_list[i].lambda_, params_list[i].alpha]
+                 for i in idxs], np.float32)
+            progs.append(SweepProgram(geometry, build, hyper, data, idxs))
+        return progs
 
     def aot_warm(self, model: ALSModel, ladder, ks=(16,)):
         """Warm the gather → score → top-k program for every (bucket, k)
@@ -303,3 +409,54 @@ def engine_factory() -> Engine:
         algorithm_cls_map={"als": ALSAlgorithm},
         serving_cls=FirstServing,
     )
+
+
+# -- evaluation (pio eval out of the box) -------------------------------------
+
+
+class NegRMSE(Metric):
+    """-RMSE of predicted vs held-out ratings over the eval folds
+    (higher is better, so the evaluator's argmax picks the lowest
+    error). Cold (user, item) pairs — unknown to the trained fold —
+    are skipped, the OptionAverageMetric convention."""
+
+    higher_is_better = True
+    #: distributed sweeps (core/sweep.py) accumulate (Σ sq_err, #warm)
+    #: on the device; sweep_finalize folds them into the same -RMSE
+    sweep_kind = "sq_err"
+
+    def sweep_finalize(self, stat_sum: float, stat_count: float) -> float:
+        return (-math.sqrt(stat_sum / stat_count) if stat_count > 0
+                else float("nan"))
+
+    def calculate(self, ctx, eval_data):
+        errs = []
+        for _, qpa in eval_data:
+            for q, p, a in qpa:
+                scores = p.get("itemScores", [])
+                if scores and scores[0].get("score") is not None:
+                    errs.append((float(scores[0]["score"]) - float(a)) ** 2)
+        return (-math.sqrt(sum(errs) / len(errs)) if errs
+                else float("nan"))
+
+    @property
+    def header(self) -> str:
+        return "NegRMSE"
+
+
+class RecEvaluation(Evaluation):
+    engine_factory = staticmethod(engine_factory)
+    metric = NegRMSE()
+
+
+class DefaultGrid(EngineParamsGenerator):
+    """Rank/λ candidates over 2 folds; app via $PIO_EVAL_APP_NAME."""
+
+    @property
+    def engine_params_list(self):
+        app = os.environ.get("PIO_EVAL_APP_NAME", "MyApp1")
+        return [EngineParams(
+            data_source_params=DataSourceParams(app_name=app, eval_k=2),
+            algorithms_params=[("als", ALSAlgorithmParams(
+                rank=r, num_iterations=8, lambda_=lam, seed=3))])
+            for r in (8, 16) for lam in (0.01, 0.1)]

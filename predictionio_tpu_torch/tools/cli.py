@@ -7,6 +7,10 @@
     python -m predictionio_tpu_torch.tools.cli deploy \\
         --engine-dir predictionio_tpu_torch/templates/recommendation \\
         --batching --aot-buckets auto
+    python -m predictionio_tpu_torch.tools.cli eval \\
+        predictionio_tpu_torch.templates.recommendation.engine:RecEvaluation \\
+        predictionio_tpu_torch.templates.recommendation.engine:DefaultGrid \\
+        --distributed
 
 Verbs:
 
@@ -20,12 +24,17 @@ Verbs:
   COMPLETED instance;
 - ``deploy`` serves the latest COMPLETED instance (one the JAX
   package's ``pio train`` wrote into the same ``PIO_HOME`` included);
+- ``eval`` runs an Evaluation over a generator's grid, serially or
+  ``--distributed`` (``core/sweep.py``), and records an evaluation
+  instance with its leaderboard; ``eval leaderboard`` and ``evals
+  list|show`` read those back (SQLite and JSON only: they import no
+  torch);
 - ``status`` checks the storage backends and the card.
 
 The verbs print the JAX CLI's lines and write the same rows, so either
 package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
-``deploy`` and ``status`` run on the CUDA card and exit non-zero without
-one; ``--device cpu`` runs them on the CPU instead. The flags are the
+``deploy``, ``eval`` and ``status`` run on the CUDA card and exit
+non-zero without one; ``--device cpu`` runs them on the CPU instead. The flags are the
 JAX CLI's flags for the options the port has, plus ``--device``; ``app
 quota`` comes with tenancy.
 """
@@ -192,6 +201,177 @@ def cmd_deploy(args: argparse.Namespace) -> None:
     server.run()
 
 
+# -- eval, evals ------------------------------------------------------------
+
+
+def _resolve(spec: str) -> Any:
+    """``"module.path:attr"`` (or ``"module.path.attr"``) → object."""
+    import importlib
+
+    if ":" in spec:
+        mod_name, attr = spec.split(":", 1)
+    else:
+        mod_name, _, attr = spec.rpartition(".")
+    if not mod_name or not attr:
+        raise ImportError(f"bad spec {spec!r}; expected 'module.path:attr'")
+    mod = importlib.import_module(mod_name)
+    try:
+        return getattr(mod, attr)
+    except AttributeError as e:
+        raise ImportError(f"{mod_name!r} has no attribute {attr!r}") from e
+
+
+def _print_leaderboard(doc: dict, as_json: bool) -> None:
+    from predictionio_tpu_torch.storage import leaderboard as lb
+
+    if as_json:
+        print(json.dumps(doc, indent=2))
+        return
+    print(f"[leaderboard] instance={doc.get('instanceId')} "
+          f"metric={doc.get('metric')} mode={doc.get('mode')} "
+          f"grid={doc.get('gridSize')} digest={lb.digest(doc)}")
+    if doc.get("mode") == "distributed":
+        print(f"[leaderboard] buckets={doc.get('buckets')} "
+              f"compiles={doc.get('compiles')} "
+              f"dispatches={doc.get('dispatches')} "
+              f"shards={doc.get('shards')} "
+              f"wall={doc.get('wallSeconds', 0):.3f}s "
+              f"device={doc.get('deviceSeconds', 0):.3f}s")
+    for e in doc.get("entries", []):
+        score = e.get("score")
+        folds = e.get("foldScores") or []
+        fold_s = (" folds=[" + ", ".join(
+            "nan" if s is None else f"{s:.4f}" for s in folds) + "]"
+            if folds else "")
+        algos = (e.get("engineParams") or {}).get("algorithmsParams") or []
+        algo_s = "; ".join(
+            f"{a.get('name')}:{json.dumps(a.get('params'), sort_keys=True, default=str)}"
+            for a in algos)
+        print(f"  #{e['rank']:<3} cand {e['index']:<3} "
+              f"score={'nan' if score is None else f'{score:.6f}'}"
+              f"{fold_s}  {algo_s}")
+
+
+def _eval_leaderboard(args: argparse.Namespace) -> None:
+    """`eval leaderboard [instance_id]`: a persisted sweep leaderboard,
+    read from JSON alone (no torch, no engine code)."""
+    from predictionio_tpu_torch.storage import leaderboard as lb
+
+    home = get_storage().config.home
+    iid = args.engine_params_generator  # optional positional, reused
+    doc = lb.read(home, iid) if iid else lb.latest(home)
+    if doc is None:
+        _die("no leaderboard found"
+             + (f" for instance {iid}" if iid else
+                f" under {lb.leaderboard_dir(home)}; run `pio eval "
+                "--distributed` (or any eval) first"))
+    _print_leaderboard(doc, args.json)
+
+
+def cmd_eval(args: argparse.Namespace) -> None:
+    if args.evaluation == "leaderboard":
+        _eval_leaderboard(args)
+        return
+    from predictionio_tpu_torch.core.workflow import run_evaluation
+    from predictionio_tpu_torch.storage import leaderboard as lb
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    if not args.engine_params_generator:
+        _die("pio eval needs an engine params generator (module:attr)")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        _die(str(e))
+    sys.path.insert(0, os.path.abspath(args.engine_dir))
+    ev_obj = _resolve(args.evaluation)
+    evaluation = ev_obj() if isinstance(ev_obj, type) else ev_obj
+    gen_obj = _resolve(args.engine_params_generator)
+    generator = gen_obj() if isinstance(gen_obj, type) else gen_obj
+    instance_id, result = run_evaluation(
+        evaluation, generator.engine_params_list,
+        verbose=args.verbose,
+        evaluation_class=args.evaluation,
+        generator_class=args.engine_params_generator,
+        distributed=args.distributed,
+        sweep_shards=args.sweep_shards,
+        device=device,
+    )
+    print(f"[info] Evaluation completed: instance {instance_id}")
+    metric = evaluation.metric
+    for i, (_, score, _) in enumerate(result.candidates):
+        mark = " *best*" if i == result.best_index else ""
+        print(f"  candidate {i}: {metric.header} = {score:.6f}{mark}")
+    doc = lb.read(get_storage().config.home, instance_id)
+    if doc is not None:
+        _print_leaderboard(doc, args.json)
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            f.write(result.to_json())
+        print(f"[info] wrote {args.output}")
+
+
+def cmd_evals(args: argparse.Namespace) -> None:
+    """Evaluation-instance inspection from SQLite and JSON alone (no
+    torch): list past grid searches, explain a dead one (the FAILED row
+    carries the exception), show leaderboards."""
+    from predictionio_tpu_torch.storage import leaderboard as lb
+
+    st = get_storage()
+    home = st.config.home
+    if args.evals_cmd == "list":
+        rows = []
+        for vi in st.meta.list_evaluation_instances():
+            rows.append({
+                "id": vi.id,
+                "status": vi.status,
+                "evaluationClass": vi.evaluation_class,
+                "startTime": str(vi.start_time) if vi.start_time else None,
+                "endTime": str(vi.end_time) if vi.end_time else None,
+                "results": vi.evaluator_results or "",
+                "hasLeaderboard": os.path.exists(
+                    lb.leaderboard_path(home, vi.id)),
+            })
+        if args.json:
+            print(json.dumps({"evaluations": rows}, indent=2))
+            return
+        if not rows:
+            print("[evals] no evaluation instances")
+            return
+        for r in rows:
+            mark = " +leaderboard" if r["hasLeaderboard"] else ""
+            print(f"  {r['id']}  {r['status']:<14} "
+                  f"{r['evaluationClass']:<24} {r['results']}{mark}")
+        return
+    vi = st.meta.get_evaluation_instance(args.instance_id)
+    if vi is None:
+        _die(f"no evaluation instance {args.instance_id!r}")
+    doc = {
+        "id": vi.id,
+        "status": vi.status,
+        "evaluationClass": vi.evaluation_class,
+        "generatorClass": vi.engine_params_generator_class,
+        "startTime": str(vi.start_time) if vi.start_time else None,
+        "endTime": str(vi.end_time) if vi.end_time else None,
+        # EVALCOMPLETED: the best-candidate summary. FAILED: the
+        # recorded exception type and message
+        "results": vi.evaluator_results or "",
+        "resultsJson": (json.loads(vi.evaluator_results_json)
+                        if vi.evaluator_results_json else None),
+        "leaderboard": lb.read(home, vi.id),
+    }
+    if args.json:
+        print(json.dumps(doc, indent=2, default=str))
+        return
+    print(f"[evals] {doc['id']}  status={doc['status']}")
+    print(f"[evals] class={doc['evaluationClass']} "
+          f"generator={doc['generatorClass'] or '-'}")
+    print(f"[evals] start={doc['startTime']} end={doc['endTime']}")
+    if doc["results"]:
+        print(f"[evals] results: {doc['results']}")
+    if doc["leaderboard"] is not None:
+        _print_leaderboard(doc["leaderboard"], False)
+
+
 # -- export, import, status -------------------------------------------------
 
 
@@ -253,7 +433,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m predictionio_tpu_torch.tools.cli",
         description="PredictionIO on PyTorch and CUDA. Verbs: app, "
                     "accesskey, eventserver, import, export, train, deploy, "
-                    "status.")
+                    "eval, evals, status.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ap = sub.add_parser("app", aliases=["apps"],
@@ -334,6 +514,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to serve on (default: cuda; "
                          "'cpu' serves on the CPU)")
     dp.set_defaults(fn=cmd_deploy)
+
+    ev = sub.add_parser("eval", help="hyperparameter evaluation (grid search)")
+    ev.add_argument("evaluation",
+                    help="module:attr of the Evaluation, or the literal "
+                         "'leaderboard' to inspect a persisted sweep "
+                         "leaderboard (no engine code loaded)")
+    ev.add_argument("engine_params_generator", nargs="?", default=None,
+                    help="module:attr of the generator (after "
+                         "'leaderboard': an optional evaluation instance "
+                         "id, default latest)")
+    ev.add_argument("--engine-dir", default=".")
+    ev.add_argument("-v", "--verbose", action="count", default=0)
+    ev.add_argument("--output", help="write full results JSON here")
+    ev.add_argument("--distributed", action="store_true",
+                    help="run the grid as sweep programs: one build per "
+                         "program geometry bucket, training and scoring "
+                         "on the device, instead of one train per "
+                         "candidate per fold scored query by query")
+    ev.add_argument("--sweep-shards", type=int, default=0,
+                    help="shard each sweep over this many devices (0 = "
+                         "one device; the port has no mesh yet, so more "
+                         "warns and runs unsharded)")
+    ev.add_argument("--json", action="store_true",
+                    help="print the leaderboard document as JSON")
+    ev.add_argument("--device", default=None,
+                    help="torch device to evaluate on (default: cuda; "
+                         "'cpu' evaluates on the CPU)")
+    ev.set_defaults(fn=cmd_eval)
+
+    evs = sub.add_parser(
+        "evals", help="inspect past evaluation instances (no torch)")
+    evsub = evs.add_subparsers(dest="evals_cmd", required=True)
+    evl = evsub.add_parser("list", help="list evaluation instances")
+    evl.add_argument("--json", action="store_true")
+    evw = evsub.add_parser(
+        "show", help="one instance: status, results/error, leaderboard")
+    evw.add_argument("instance_id")
+    evw.add_argument("--json", action="store_true")
+    evs.set_defaults(fn=cmd_evals)
 
     ex = sub.add_parser("export", help="export events to JSONL")
     ex.add_argument("--appid", type=int)

@@ -9,25 +9,40 @@ fixed ``--access-key`` values: their exit codes, printed lines and
 events gives byte-equal files from both packages, and ``import``
 round-trips through each. ``status --device cpu`` prints the backends;
 without it and without a card, ``status`` exits non-zero.
-``eventserver`` builds its server from the flags. Last, a small CPU
-quickstart: ``app new`` → event server → HTTP posts → ``train --device
-cpu`` → ``deploy --device cpu``, which answers a query.
+``eventserver`` builds its server from the flags. ``eval`` (serial and
+``--distributed``, the port with ``--device cpu``), ``eval
+leaderboard``, ``evals list`` and ``evals show`` print the JAX CLI's
+lines (instance ids, times and the run's walls normalised, scores
+within 1e-4 relative) and write equal ``evaluation_instances`` rows;
+``evals`` and ``eval leaderboard`` run in a process that cannot import
+torch; ``eval`` without a card and without ``--device cpu`` exits
+non-zero. Last, a small CPU quickstart: ``app new`` → event server →
+HTTP posts → ``train --device cpu`` → ``deploy --device cpu``, which
+answers a query.
 """
 
 import json
 import os
+import re
 import sqlite3
+import subprocess
+import sys
 
 import numpy as np
 import torch
 
+from predictionio_tpu.data.event import Event as JaxEvent
+from predictionio_tpu.storage import leaderboard as jax_lb
 from predictionio_tpu.storage import registry as jax_registry
 from predictionio_tpu.storage.registry import Storage as JaxStorage
 from predictionio_tpu.storage.registry import StorageConfig as JaxStorageConfig
 from predictionio_tpu.tools import cli as jax_cli
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage import leaderboard as lb
 from predictionio_tpu_torch.storage import registry as port_registry
 from predictionio_tpu_torch.storage.registry import Storage, StorageConfig
 from predictionio_tpu_torch.tools import cli
+from tests.test_torch_eval import APP, _seed
 from tests.test_torch_event_server import ServerThread, request
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -215,6 +230,128 @@ def test_status_prints_backends_and_needs_a_card(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     code, lines, err = _run(cli.main, port_registry, st, ["status"], capsys)
     assert code == 1 and lines == [] and "no CUDA device" in err[0]
+
+
+_INSTANCE_ID = re.compile(r"\d{14}-[0-9a-f]{8}")
+_TIME = re.compile(r"\d{4}-\d\d-\d\d[ T]\d\d:\d\d:\d\d(\.\d+)?\+00:00")
+_WALLS = re.compile(r"wall=[\d.]+s device=[\d.]+s")
+_FLOAT = re.compile(r"-?\d+\.\d+(e-?\d+)?")
+
+
+def _shape(text, ids):
+    """``text`` with instance ids numbered by first appearance (``ids``
+    carries the numbering across calls), times and walls blanked, the
+    port's module paths under the JAX package's names, and every float
+    taken out: (template, floats)."""
+    def number(m):
+        return f"<id{ids.setdefault(m.group(0), len(ids))}>"
+
+    text = _INSTANCE_ID.sub(number, text)
+    text = _WALLS.sub("wall=<t> device=<t>", _TIME.sub("<time>", text))
+    text = text.replace("predictionio_tpu_torch.", "predictionio_tpu.")
+    floats = [float(m.group(0)) for m in _FLOAT.finditer(text)]
+    return _FLOAT.sub("<f>", text), floats
+
+
+def _assert_same_shape(mine, theirs):
+    assert mine[0] == theirs[0]
+    np.testing.assert_allclose(mine[1], theirs[1], rtol=1e-4)
+
+
+def test_eval_verbs_match_the_jax_cli(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("PIO_EVAL_APP_NAME", APP)
+    homes = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
+    _seed(JaxStorage(JaxStorageConfig(home=homes["jax"])), JaxEvent)
+    _seed(Storage(StorageConfig(home=homes["port"])), Event)
+    mods = {"jax": "predictionio_tpu.templates.recommendation.engine",
+            "port": "predictionio_tpu_torch.templates.recommendation.engine"}
+    ids = {"jax": {}, "port": {}}
+    done = {"jax": [], "port": []}  # instance ids in order
+
+    def both(*argv, eval_args=False):
+        out = {}
+        for name, main, registry, storage, config in (
+                ("jax", jax_cli.main, jax_registry, JaxStorage, JaxStorageConfig),
+                ("port", cli.main, port_registry, Storage, StorageConfig)):
+            args = [a.format(mod=mods[name], id=done[name][-1] if done[name] else "")
+                    for a in argv]
+            if eval_args and name == "port":
+                args += ["--device", "cpu"]
+            code, lines, _ = _run(main, registry, storage(config(home=homes[name])),
+                                  args, capsys)
+            found = [m.group(0) for m in _INSTANCE_ID.finditer("\n".join(lines))]
+            if eval_args:
+                done[name].append(found[0])
+            out[name] = (code, _shape("\n".join(lines), ids[name]))
+        assert out["port"][0] == out["jax"][0] == 0, argv
+        _assert_same_shape(out["port"][1], out["jax"][1])
+        return out["port"][1][0]
+
+    rec_eval, grid = "{mod}:RecEvaluation", "{mod}:DefaultGrid"
+    serial = both("eval", rec_eval, grid, "--engine-dir", ENGINE_DIR, eval_args=True)
+    assert "mode=serial grid=4" in serial and "*best*" in serial
+    dist = both("eval", rec_eval, grid, "--engine-dir", ENGINE_DIR, "--distributed",
+                eval_args=True)
+    assert "mode=distributed" in dist and "buckets=4 compiles=4 dispatches=4" in dist
+    both("eval", "leaderboard")
+    both("eval", "leaderboard", "{id}")
+    listed = both("evals", "list")
+    assert listed.count("EVALCOMPLETED") == 2 and listed.count("+leaderboard") == 2
+    both("evals", "show", "{id}")
+    both("evals", "list", "--json")
+    # the two paths rank the grid alike, in both packages
+    for name, lb_mod in (("jax", jax_lb), ("port", lb)):
+        docs = [lb_mod.read(homes[name], iid) for iid in done[name]]
+        assert len({lb.digest(d) for d in docs}) == 1
+    rows = {}
+    for name in ("jax", "port"):
+        with sqlite3.connect(os.path.join(homes[name], "meta.db")) as c:
+            found = c.execute("SELECT * FROM evaluation_instances "
+                              "ORDER BY startTime").fetchall()
+        rows[name] = _shape(json.dumps(found), {})
+    _assert_same_shape(rows["port"], rows["jax"])
+
+
+def test_evals_and_eval_leaderboard_import_no_torch(tmp_path):
+    code = (
+        "import sys, datetime as dt\n"
+        "sys.modules['torch'] = None  # poison: any import of torch fails\n"
+        "from predictionio_tpu_torch.tools import cli\n"
+        "from predictionio_tpu_torch.storage.registry import get_storage\n"
+        "from predictionio_tpu_torch.storage.meta import EvaluationInstance\n"
+        "from predictionio_tpu_torch.storage import leaderboard as lb\n"
+        "st = get_storage()\n"
+        "iid = st.meta.new_instance_id()\n"
+        "now = dt.datetime.now(dt.timezone.utc)\n"
+        "st.meta.insert_evaluation_instance(EvaluationInstance(\n"
+        "    id=iid, status='FAILED', start_time=now, end_time=now,\n"
+        "    evaluation_class='my.Ev', engine_params_generator_class='my.Grid',\n"
+        "    batch='', env={}, evaluator_results='ValueError: boom'))\n"
+        "lb.write(st.config.home, lb.build(iid, 'M', True,\n"
+        "                                  [{'algorithmsParams': []}], [0.5]))\n"
+        "for argv in (['evals', 'list'], ['evals', 'show', iid, '--json'],\n"
+        "             ['eval', 'leaderboard'], ['eval', 'leaderboard', iid]):\n"
+        "    cli.main(argv)\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] == 'torch'\n"
+        "          and sys.modules[m] is not None]\n"
+        "print('TORCH_FREE', loaded)\n")
+    env = dict(os.environ, PIO_HOME=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "TORCH_FREE []" in proc.stdout
+    assert "ValueError: boom" in proc.stdout and "digest=" in proc.stdout
+
+
+def test_eval_needs_a_card_or_device_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    st = Storage(StorageConfig(home=str(tmp_path)))
+    mod = "predictionio_tpu_torch.templates.recommendation.engine"
+    code, lines, err = _run(cli.main, port_registry, st,
+                            ["eval", f"{mod}:RecEvaluation", f"{mod}:DefaultGrid"],
+                            capsys)
+    assert code == 1 and lines == [] and "no CUDA device" in err[0]
+    assert st.meta.list_evaluation_instances() == []
 
 
 def test_cli_eventserver_builds_the_server_from_flags(tmp_path):

@@ -372,10 +372,33 @@ def test_serving_dispatch_is_traced_when_tracing_is_on():
     names = [d["name"] for d in spans]
     assert names == ["serving.device", "test.root"]
     assert spans[0]["parentId"] == spans[1]["spanId"]
-    assert spans[0]["attrs"] == {"bucket": 1, "k": 6, "path": "eager"}
+    assert spans[0]["attrs"] == {"bucket": 1, "k": 6, "path": "jit"}
     assert tracing.extract_headers(
         {"traceparent": "00-" + "cd" * 16 + "-" + "ef" * 8 + "-01"}) == \
         ("cd" * 16, "ef" * 8)
+
+
+def test_unwarmed_dispatch_has_the_jax_packages_path_label():
+    """The same unwarmed query in both packages records its dispatch
+    under the same (bucket, path) labels of ``pio_aot_dispatch_total``."""
+    from predictionio_tpu.server import aot as jax_aot
+
+    rng = np.random.default_rng(6)
+    U = rng.standard_normal((5, 4)).astype(np.float32)
+    V = rng.standard_normal((7, 4)).astype(np.float32)
+
+    def grown(counter, before):
+        return {k for k, v in counter._values.items() if v > before.get(k, 0)}
+
+    labels = {}
+    for name, counter, scorer in (
+            ("jax", jax_aot._DISPATCHES, lambda: JaxResidentScorer(U, V)),
+            ("port", aot._DISPATCHES, lambda: ResidentScorer(U, V, device="cpu"))):
+        sc = scorer()
+        before = dict(counter._values)
+        sc.recommend(2, 3)
+        labels[name] = grown(counter, before)
+    assert labels["port"] == labels["jax"] == {("1", "jit")}
 
 
 def test_scorer_cache_follows_the_factors(serve_on_device):
