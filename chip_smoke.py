@@ -6,6 +6,8 @@
     python3 chip_smoke.py --profile  # also device time by kernel (torch.profiler)
                                      # of serving batches and a training iteration
     python3 chip_smoke.py --topk     # phases 1-4 for score_topk alone (no result line)
+    python3 chip_smoke.py --ops      # phases 1, 2, 5 and 10: the engine server's
+                                     # operations surface alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -108,7 +110,43 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    factors against their float64 normal equations; the walls of
    ``read_eval``, each fold's ``als_prepare`` and each dispatch, the
    phase's wall and the host's peak RSS. The serial path runs in phase 7
-   only (see ``eval_full_width``).
+   only (see ``eval_full_width``);
+10. the engine server's operations surface at ML-20M width, in a
+   temporary PIO_HOME: phase 8's instance and a second COMPLETED one of
+   the same geometry (phase 5's final U with its second-to-last V), the
+   first deployed with micro-batching, the AOT ladder, max_inflight 32,
+   query_timeout_ms 2,000, a 0.2 s history scrape and the tracer on with
+   a span file. ``/health`` answers 503 not-ready with Retry-After and a
+   warmup block while the ladder warms (the warm-up starts once the
+   server listens, every program built anew), then 200 ok, with one
+   instance id throughout; ``/reload`` swaps to the second instance under
+   64 closed-loop clients of num 10 (the cap lifted for it): every answer
+   200 and equal to score_topk_ref of the old or the new factors, every
+   query sent after the reload's 200 equal to the new ones',
+   reloadGeneration 1, lastSwap promoted, score_topk launched, the
+   reload's wall, its candidate's warm time and the launches it made,
+   counted on the threads of the candidate's warm-up and of its probe
+   (the probe must launch once, and the load's launches with the
+   reload's must make the counter's total); a second ``/reload``
+   with a ``serving.reload`` fault answers 500 rolled_back, later answers
+   equal the serving instance's reference and
+   pio_engine_reloads_total{result="rolled_back"} grows by 1; with a 3 s
+   ``serving.query`` fault a query answers 504 within the 2 s deadline
+   (plus 0.5 s) and with ``X-PIO-Deadline-Ms: 500`` within 0.5 s (plus
+   0.5 s); 64 one-shot clients over the cap of 32 under the same fault:
+   shed 503s with Retry-After, pio_engine_shed_total equal to the sheds
+   the clients saw, ``/health`` degraded "at inflight capacity" while the
+   cap is full; 200 sequential queries with the tracer on, then off
+   (p50/p99 printed, no limit); ``/metrics`` parsed with the port's
+   parse_prom_text, pio_engine_queries_total{status} equal to the
+   clients' counts; ``/metrics/history`` has samples; ``/traces`` holds
+   engine.query spans with a serving.device span under the serving.batch
+   span of their dispatch, each serving.batch span links as many traces
+   as its size, the span file is not empty and ``pio trace --tree``
+   prints one such trace. Phase 7 also
+   reads the event server's ``/health``, ``/metrics`` (its
+   pio_events_ingested_total must count the 200,000 events) and
+   ``/traces``.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -1017,8 +1055,8 @@ def train_full_width(torch, ops, dev) -> dict:
     check(err_v <= ORACLE_TOL, f"items off their normal equations: {err_v:.3e}")
     check(err_u <= ORACLE_TOL, f"users off their normal equations: {err_u:.3e}")
     precision_controls(torch, dev, prep, p, coo, U, V9, items_chk, users_chk)
-    return {"prep": prep, "coo": coo, "U": U, "V": V, "launches": launches,
-            "t_train": t_train, "rmse": rmse}
+    return {"prep": prep, "coo": coo, "U": U, "V": V, "V9": V9,
+            "launches": launches, "t_train": t_train, "rmse": rmse}
 
 
 def eval_full_width(torch, ops, dev, train) -> dict:
@@ -1705,6 +1743,26 @@ def quickstart_through_cli(torch, ops, dev) -> None:
                       f"GET /events.json for user u{u}: {len(got)} events, "
                       f"{len(want)} posted")
             print("GET /events.json of 5 users: every event as posted", flush=True)
+            st, health = http_json(es_port, "GET", "/health")
+            check(st == 200 and health["status"] == "ok"
+                  and health["ingest"]["breaker"] == "closed",
+                  f"event server /health: {st} {health}")
+            st, traces = http_json(es_port, "GET", "/traces")
+            check(st == 200 and traces["enabled"] is False,
+                  f"event server /traces: {st} {traces}")
+            with urllib.request.urlopen(f"http://127.0.0.1:{es_port}/metrics",
+                                        timeout=30) as r:
+                exposition = r.read().decode()
+            ingested = sum(float(line.rsplit(" ", 1)[1])
+                           for line in exposition.splitlines()
+                           if line.startswith("pio_events_ingested_total{")
+                           and 'status="201"' in line)
+            print(f"event server: /health {health['status']} (ingest queue "
+                  f"{health['ingest']['queueDepth']}, breaker "
+                  f"{health['ingest']['breaker']}); /metrics "
+                  f"pio_events_ingested_total 201 = {ingested:g}; /traces "
+                  f"enabled={traces['enabled']}", flush=True)
+            check(ingested == APP_EVENTS, f"/metrics counts {ingested} of {APP_EVENTS}")
             es.send_signal(2)  # SIGINT: the server drains its queue and ends
             es.wait(timeout=60)
 
@@ -2029,6 +2087,431 @@ def drive_server(torch, ops, dev, home: str, U, V):
                                   "per_k": wide_per_k, "p50_ms": float(np.percentile(wlat, 50))}
 
 
+# phase 10: the load across the reload, the burst over the cap, the
+# sequential runs with the tracer on and off
+RELOAD_CLIENTS, SHED_CLIENTS, MAX_INFLIGHT, QUERY_TIMEOUT_MS = 64, 64, 32, 2000
+TRACE_QUERIES, DEADLINE_MARGIN_S = 200, 0.5
+
+
+def ops_surface(torch, ops, dev, home: str, train) -> dict:
+    """Phase 10: the engine server's operations surface at ML-20M width.
+    Two COMPLETED instances (phase 5's final U with its final V, then with
+    its second-to-last V9); the first deployed with micro-batching, the
+    AOT ladder, a max-inflight cap, a query deadline, a fast history
+    scrape and the tracer on; then /health through the warm-up, a /reload
+    under a 64-client load, a rolled-back /reload, the 504 deadlines, the
+    shed 503s, /metrics, /metrics/history, /traces and `pio trace`."""
+    import http.client
+    import io
+    from collections import Counter
+
+    import numpy as np
+
+    from predictionio_tpu_torch.server import aot
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+    from predictionio_tpu_torch.tools import cli as port_cli
+    from predictionio_tpu_torch.utils import tracing
+    from predictionio_tpu_torch.utils.faults import FAULTS
+    from predictionio_tpu_torch.utils.timeseries import parse_prom_text
+
+    t_phase = time.perf_counter()
+    U, V, V9 = train["U"], train["V"], train["V9"]
+    t0 = time.perf_counter()
+    storage, factory, _, _ = write_instance(home, U, V)
+    first = storage.meta.get_latest_completed_engine_instance(factory, "default").id
+    write_instance(home, U, V9)
+    second = storage.meta.get_latest_completed_engine_instance(factory, "default").id
+    check(first != second, "the second instance was not recorded")
+    print(f"two instances written in {time.perf_counter() - t0:.1f} s: "
+          f"{first} (U, V) and {second} (U, V9)", flush=True)
+
+    trace_file = os.path.join(home, "traces", "spans.jsonl")
+    tracing.TRACER.reset()
+    tracing.TRACER.configure(enabled=True, jsonl_path=trace_file)
+    # every ladder program is built by this deploy's warm-up, not taken
+    # from phase 8's; the warm-up starts once /health is listening, so
+    # that the not-ready answers are seen
+    aot.EXECUTABLES.clear()
+    t0 = time.perf_counter()
+    with mock.patch.object(aot.AOTWarmup, "start"):
+        server = EngineServer(engine_factory=factory, instance_id=first,
+                              storage=storage, host="127.0.0.1", port=0,
+                              batching=True, batch_max=BATCH_MAX,
+                              aot_buckets="auto", aot_topk=AOT_TOPK,
+                              max_inflight=MAX_INFLIGHT,
+                              query_timeout_ms=QUERY_TIMEOUT_MS,
+                              scrape_interval=0.2, device=dev)
+    t_load = time.perf_counter() - t0
+    loop = asyncio.new_event_loop()
+    serve = threading.Thread(target=loop.run_until_complete,
+                             args=(server.serve_forever(),), daemon=True)
+    serve.start()
+    deadline = time.time() + 60
+    while server.http._server is None:
+        check(time.time() < deadline and serve.is_alive(), "server did not start")
+        time.sleep(0.05)
+    port = server.http.bound_port
+    seen = Counter()      # status of every POST /queries.json of this phase
+    seen_lock = threading.Lock()
+
+    def get(path, headers=None, timeout=30):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        try:
+            conn.request("GET", path, headers=headers or {})
+            r = conn.getresponse()
+            return r.status, r.read(), r.headers
+        finally:
+            conn.close()
+
+    def get_json(path):
+        st, raw, hdrs = get(path)
+        return st, json.loads(raw), hdrs
+
+    def query(conn, user, headers=None):
+        """(status, body, sent, answered) of one num-10 query."""
+        sent = time.perf_counter()
+        conn.request("POST", "/queries.json",
+                     body=json.dumps({"user": f"u{user}", "num": 10}),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        body = json.loads(r.read())
+        done = time.perf_counter()
+        with seen_lock:
+            seen[r.status] += 1
+        return r.status, body, sent, done, r.headers
+
+    def one(user, headers=None, timeout=30):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        try:
+            return query(conn, user, headers)
+        finally:
+            conn.close()
+
+    def metric(text, name, **labels):
+        return sum(v for n, lab, v in parse_prom_text(text)
+                   if n == name and all(lab.get(k) == w for k, w in labels.items()))
+
+    def metrics_text():
+        st, raw, _ = get("/metrics")
+        check(st == 200, f"GET /metrics answered {st}")
+        return raw.decode()
+
+    Ud = torch.as_tensor(U, device=dev)
+
+    def padded(Vh):
+        return torch.cat([torch.as_tensor(Vh, device=dev),
+                          torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
+
+    Vp = {first: padded(V), second: padded(V9)}
+
+    def agrees(users, answers, iid):
+        """Per answer: does it equal score_topk_ref of instance iid? (the
+        rule of topk_agrees, row by row: values within rtol/atol 1e-5,
+        indices equal except between float64 near-ties)"""
+        rows = torch.tensor(users, device=dev, dtype=torch.int32)
+        rv, ri = ops.score_topk_ref(Ud, Vp[iid], 10, n_valid=N_ITEMS, ids=rows)
+        full = [len(a.get("itemScores", [])) == 10 for a in answers]
+        got_idx = torch.tensor([[int(it["item"][1:]) for it in a["itemScores"]]
+                                if f else [0] * 10 for a, f in zip(answers, full)],
+                               device=dev)
+        got_val = torch.tensor([[it["score"] for it in a["itemScores"]]
+                                if f else [0.0] * 10 for a, f in zip(answers, full)],
+                               device=dev)
+        ok = torch.isclose(got_val, rv, rtol=TOL, atol=TOL).all(1)
+        ok &= torch.tensor(full, device=dev)
+        diff = got_idx != ri.to(got_idx.dtype)
+        need = (diff.any(1) & ok).nonzero()[:, 0]
+        for c in range(0, len(need), 1024):
+            r = need[c:c + 1024]
+            s64 = Ud[rows[r].long()].double() @ Vp[iid].double().T
+            tie = (torch.gather(s64, 1, got_idx[r].long())
+                   - torch.gather(s64, 1, ri[r].long())).abs() <= TOL
+            ok[r] = (tie | ~diff[r]).all(1)
+        return ok.tolist()
+
+    text0 = metrics_text()
+    rng = np.random.default_rng(SEED + 10)
+    try:
+        # 1. /health: not-ready while the ladder warms, then ok
+        st, body, hdrs = get_json("/health")
+        check(st == 503 and body["status"] == "not-ready"
+              and int(hdrs["Retry-After"]) >= 1 and "warmup" in body,
+              f"/health before the warm-up: {st} {body}")
+        instance = body["instance"]
+        t0 = time.perf_counter()
+        server._warmup.start(server.deployed)
+        states = []
+        while True:
+            st, body, _ = get_json("/health")
+            states.append((st, body["status"]))
+            check(body["instance"] == instance, "/health changed its instance")
+            if st == 200:
+                break
+            check(st == 503 and body["status"] == "not-ready"
+                  and time.perf_counter() - t0 < 600,
+                  f"/health while warming: {st} {body}")
+            time.sleep(0.02)
+        t_warm = time.perf_counter() - t0
+        check(body["status"] == "ok", f"/health after the warm-up: {body}")
+        print(f"deployed {first} in {t_load:.1f} s; /health 503 not-ready "
+              f"{sum(s == 503 for s, _ in states) + 1} times, then 200 ok after "
+              f"{t_warm:.3f} s of warm-up (ladder {body['warmup']['buckets']}, "
+              f"{body['warmup']['compiled']} programs built in "
+              f"{body['warmup']['wallSec']} s); instance {instance}", flush=True)
+
+        # 2. /reload under a 64-client load (the cap lifted: 64 clients
+        # over a cap of 32 shed, which check 5 holds on its own)
+        server.max_inflight = 0
+        answers = []
+        stop = threading.Event()
+
+        def client(c):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            r = np.random.default_rng(SEED + 100 + c)
+            try:
+                while not stop.is_set():
+                    u = int(r.integers(0, N_USERS))
+                    st, body, sent, done, _ = query(conn, u)
+                    answers.append((u, st, body, sent, done))
+            finally:
+                conn.close()
+
+        # the reload's own launches, counted on the threads that make
+        # them: the candidate's warm-up and its probe each run on a thread
+        # of their own, apart from the batcher's dispatch thread. The
+        # tally only observes: every launch still counts in the kernel's
+        # wrapper
+        role, by_role, role_lock = threading.local(), Counter(), threading.Lock()
+        kernel = ops.score_topk
+
+        def tallied(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            with role_lock:
+                by_role[getattr(role, "name", "load")] += 1
+            return out
+
+        def in_role(name, fn):
+            def run(*args, **kwargs):
+                role.name = name
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    del role.name
+            return run
+
+        reset_counters(ops)
+        batches0 = server._batcher.batches
+        counts0 = aot.EXECUTABLES.counts()
+        with ThreadPoolExecutor(RELOAD_CLIENTS) as pool, \
+                mock.patch.object(ops, "score_topk", tallied), \
+                mock.patch.object(server, "_probe_worker",
+                                  in_role("probe", server._probe_worker)), \
+                mock.patch.object(server._warmup, "warm_sync",
+                                  in_role("warmup", server._warmup.warm_sync)):
+            futs = [pool.submit(client, c) for c in range(RELOAD_CLIENTS)]
+            time.sleep(0.5)
+            t0 = time.perf_counter()
+            st, rbody, _ = get_json("/reload")
+            swapped = time.perf_counter()
+            t_reload = swapped - t0
+            time.sleep(0.5)
+            stop.set()
+            for f in futs:
+                f.result()
+        launches = read_counters(ops)["score_topk"]
+        batches = server._batcher.batches - batches0
+        counts1 = aot.EXECUTABLES.counts()
+        built = counts1.get("compile", 0) - counts0.get("compile", 0)
+        adopted = counts1.get("hit", 0) - counts0.get("hit", 0)
+        check(st == 200 and rbody["swap"] == "promoted"
+              and rbody["engineInstanceId"] == second
+              and rbody["reloadGeneration"] == 1, f"/reload: {st} {rbody}")
+        health = get_json("/health")[1]
+        check(health["reloadGeneration"] == 1
+              and health["lastSwap"]["outcome"] == "promoted",
+              f"/health after the reload: {health}")
+        statuses = Counter(a[1] for a in answers)
+        check(set(statuses) == {200}, f"answers across the reload: {statuses}")
+        users = [a[0] for a in answers]
+        old_ok = agrees(users, [a[2] for a in answers], first)
+        new_ok = agrees(users, [a[2] for a in answers], second)
+        after = [a[3] > swapped for a in answers]
+        bad = sum(1 for o, n, late in zip(old_ok, new_ok, after)
+                  if not (n if late else (o or n)))
+        lat = np.asarray([a[4] - a[3] for a in answers]) * 1e3
+        print(f"/reload under {RELOAD_CLIENTS} clients: {t_reload:.3f} s wall, "
+              f"candidate warmed in {server._warmup.wall_sec:.3f} s "
+              f"({adopted} cached programs adopted, {built} built); "
+              f"{len(answers)} answers ({sum(after)} sent after the swap), all 200, "
+              f"{sum(old_ok)} equal the old factors' reference, {sum(new_ok)} the "
+              f"new ones', {bad} neither (or old after the swap); p50 "
+              f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms; "
+              f"score_topk launches {launches}: {by_role['load']} by the load's "
+              f"{batches} device batches, {by_role['warmup']} by the candidate's "
+              f"warm-up, {by_role['probe']} by its probe", flush=True)
+        check(bad == 0, f"{bad} answers across the reload off both references")
+        check(sum(after) > 0, "no query was sent after the reload")
+        check(launches > 0, "score_topk was not launched under the reload's load")
+        check(by_role["probe"] == 1, f"the probe launched score_topk {by_role['probe']} times")
+        check(sum(by_role.values()) == launches,
+              f"launches by thread {dict(by_role)} do not add up to {launches}")
+        server.max_inflight = MAX_INFLIGHT
+
+        # 3. a rolled-back /reload keeps the serving engine
+        rb0 = metric(metrics_text(), "pio_engine_reloads_total", result="rolled_back")
+        FAULTS.arm("serving.reload", error="candidate cannot serve")
+        try:
+            st, body, _ = get_json("/reload")
+        finally:
+            FAULTS.disarm("serving.reload")
+        check(st == 500 and body["swap"] == "rolled_back"
+              and body["engineInstanceId"] == second, f"faulted /reload: {st} {body}")
+        later_users = [int(u) for u in rng.integers(0, N_USERS, 20)]
+        later = [one(u) for u in later_users]
+        check(all(a[0] == 200 for a in later), "queries after the rollback not 200")
+        check(all(agrees(later_users, [a[1] for a in later], second)),
+              "answers after the rollback off the serving engine's reference")
+        rb = metric(metrics_text(), "pio_engine_reloads_total", result="rolled_back") - rb0
+        swap = get_json("/health")[1]["lastSwap"]
+        print(f"faulted /reload: 500 {body['swap']} ({swap['reason']}); 20 later "
+              f"answers equal the serving instance's reference; "
+              f"pio_engine_reloads_total{{result=\"rolled_back\"}} +{rb:g}", flush=True)
+        check(rb == 1 and swap["outcome"] == "rolled_back", f"rolled_back counted {rb}")
+
+        # 4. deadlines: the server's own, then a hop's tighter one
+        FAULTS.arm("serving.query", latency=3.0)
+        try:
+            st4, body4, sent, done, _ = one(1)
+            st5, body5, sent5, done5, _ = one(2, {"X-PIO-Deadline-Ms": "500"})
+        finally:
+            FAULTS.disarm("serving.query")
+        print(f"deadline: {st4} after {done - sent:.3f} s (limit "
+              f"{QUERY_TIMEOUT_MS / 1e3} s); X-PIO-Deadline-Ms 500: {st5} after "
+              f"{done5 - sent5:.3f} s", flush=True)
+        check(st4 == 504 and done - sent < QUERY_TIMEOUT_MS / 1e3 + DEADLINE_MARGIN_S,
+              f"deadline: {st4} {body4} after {done - sent:.3f} s")
+        check(st5 == 504 and done5 - sent5 < 0.5 + DEADLINE_MARGIN_S,
+              f"hop deadline: {st5} {body5} after {done5 - sent5:.3f} s")
+
+        # 5. shedding: 64 clients over a cap of 32, each query held 3 s
+        shed0 = metric(metrics_text(), "pio_engine_shed_total")
+        degraded = []
+        burst_done = threading.Event()
+
+        def watch():
+            while not burst_done.is_set():
+                st, body, _ = get_json("/health")
+                if body.get("status") == "degraded":
+                    degraded.append(body.get("reason"))
+                time.sleep(0.02)
+
+        FAULTS.arm("serving.query", latency=3.0)
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        try:
+            with ThreadPoolExecutor(SHED_CLIENTS) as pool:
+                burst = list(pool.map(lambda u: one(u, timeout=60),
+                                      [int(u) for u in rng.integers(0, N_USERS,
+                                                                    SHED_CLIENTS)]))
+        finally:
+            FAULTS.disarm("serving.query")
+            burst_done.set()
+            watcher.join()
+        shed = [b for b in burst if b[0] == 503]
+        shed_metric = metric(metrics_text(), "pio_engine_shed_total") - shed0
+        print(f"{SHED_CLIENTS} clients over a cap of {MAX_INFLIGHT}: "
+              f"{dict(Counter(b[0] for b in burst))}; pio_engine_shed_total "
+              f"+{shed_metric:g}; /health degraded {len(degraded)} times "
+              f"({sorted(set(degraded))})", flush=True)
+        check(shed and all(int(b[4]["Retry-After"]) >= 1
+                           and "overloaded" in b[1]["message"] for b in shed),
+              "no shed 503 with Retry-After")
+        check(shed_metric == len(shed), f"shed metric {shed_metric} != {len(shed)} seen")
+        check("at inflight capacity" in degraded,
+              f"/health never said 'at inflight capacity': {degraded}")
+        # the batches held by the fault drain before the next checks
+        t0 = time.perf_counter()
+        while one(3, timeout=60)[0] != 200:
+            check(time.perf_counter() - t0 < 60, "server did not recover after the burst")
+
+        # 6. the tracer on, then off: sequential p50/p99 in the same server
+        def sequential(n):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                out = [query(conn, int(u))
+                       for u in rng.integers(0, N_USERS, n)]
+            finally:
+                conn.close()
+            check(all(o[0] == 200 for o in out), "sequential queries not 200")
+            return np.asarray([o[3] - o[2] for o in out]) * 1e3
+
+        on = sequential(TRACE_QUERIES)
+        tracing.TRACER.configure(enabled=False)
+        off = sequential(TRACE_QUERIES)
+        tracing.TRACER.configure(enabled=True)
+        print(f"{TRACE_QUERIES} sequential num-10 queries: tracer on p50 "
+              f"{np.percentile(on, 50):.3f} ms p99 {np.percentile(on, 99):.3f} ms; "
+              f"tracer off p50 {np.percentile(off, 50):.3f} ms p99 "
+              f"{np.percentile(off, 99):.3f} ms", flush=True)
+
+        # 7. /metrics against the clients' own counts
+        text = metrics_text()
+        by_status = {str(code): metric(text, "pio_engine_queries_total", status=str(code))
+                     - metric(text0, "pio_engine_queries_total", status=str(code))
+                     for code in seen}
+        print(f"/metrics pio_engine_queries_total by status +{by_status}; the "
+              f"clients saw {dict(seen)}", flush=True)
+        check(by_status == {str(c): float(n) for c, n in seen.items()},
+              f"pio_engine_queries_total {by_status} != clients' {dict(seen)}")
+
+        # 8. /metrics/history and /traces
+        st, hist, _ = get_json("/metrics/history?series=pio_engine_queries_total&window=5m")
+        samples = sum(len(v) for v in hist.get("series", {}).values())
+        check(st == 200 and samples > 0, f"/metrics/history: {st} {hist}")
+        st, tr, _ = get_json("/traces?limit=1000")
+        spans = tr["spans"]
+        # a batched query's device span is the child of the serving.batch
+        # span its dispatch opened under the batch's first query
+        batch_of = {d["spanId"]: d["parentId"] for d in spans
+                    if d["name"] == "serving.batch"}
+        parents = {batch_of.get(d["parentId"], d["parentId"]) for d in spans
+                   if d["name"] in ("engine.predict", "serving.device")}
+        queries = [d for d in spans if d["name"] == "engine.query"]
+        linked = [d for d in queries if d["spanId"] in parents]
+        batches = [d["attrs"] for d in spans if d["name"] == "serving.batch"]
+        check(all(a["size"] == len(a["link_traces"]) for a in batches),
+              "a serving.batch span does not link every trace it served")
+        print(f"/metrics/history: {len(hist['series'])} series, {samples} samples; "
+              f"/traces: {len(spans)} spans, {len(queries)} engine.query, "
+              f"{len(linked)} with a device span under their serving.batch, "
+              f"{len(batches)} serving.batch spans of sizes "
+              f"{sorted(Counter(a['size'] for a in batches).items())}", flush=True)
+        check(st == 200 and linked, "/traces holds no engine.query with a device span")
+        traced = linked[0]["traceId"]
+    finally:
+        FAULTS.disarm()
+        loop.call_soon_threadsafe(server.http.request_shutdown)
+        serve.join(30)
+        loop.close()
+        tracing.TRACER.reset()
+    check(not serve.is_alive(), "server did not stop")
+    check(os.path.getsize(trace_file) > 0, "the trace file is empty")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        port_cli.main(["trace", "--file", trace_file, "--tree", "--trace-id", traced])
+    tree = out.getvalue()
+    print(f"pio trace --tree ({os.path.getsize(trace_file)} bytes of spans):\n"
+          + "\n".join(tree.splitlines()[:12]), flush=True)
+    check(f"trace {traced}:" in tree and "\n  engine.query" in tree
+          and "\n    serving.batch" in tree and "\n      serving.device" in tree,
+          "pio trace --tree printed no tree")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return {"reload_launches": by_role["warmup"] + by_role["probe"],
+            "load_launches": launches,
+            "reload_s": t_reload, "p50_on": float(np.percentile(on, 50)),
+            "p50_off": float(np.percentile(off, 50))}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2040,6 +2523,7 @@ def main(argv) -> int:
 
     quick = "--quick" in argv
     topk_only = "--topk" in argv
+    ops_only = "--ops" in argv
     dev = torch.device("cuda", 0)
 
     phase("1. card")
@@ -2064,6 +2548,15 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if ops_only:
+        phase("5. full-width training (ML-20M shape, rank 64)")
+        train = train_full_width(torch, ops, dev)
+        phase("10. the engine server's operations surface at ML-20M width")
+        with tempfile.TemporaryDirectory(prefix="pio_chip_ops_") as home:
+            ops_surface(torch, ops, dev, home, train)
+        phase("done")
+        return 0
 
     phase("3. kernels against their plain versions")
     main_err = check_score_topk(torch, ops, dev)
@@ -2123,6 +2616,10 @@ def main(argv) -> int:
 
     phase("9. pio eval at ML-20M width (distributed sweep, rank 64)")
     evals = eval_full_width(torch, ops, dev, train)
+
+    phase("10. the engine server's operations surface at ML-20M width")
+    with tempfile.TemporaryDirectory(prefix="pio_chip_ops_") as home:
+        surface = ops_surface(torch, ops, dev, home, train)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -2136,6 +2633,8 @@ def main(argv) -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "launches_k_gt_32": wide["launches"],
+        "launches_phase10_load": surface["load_launches"],
+        "launches_phase10_reload": surface["reload_launches"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
     }, {

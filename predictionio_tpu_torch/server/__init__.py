@@ -1,1 +1,2 @@
-"""Serving layers of the port: HTTP shell, micro-batcher, AOT bucket warmup, engine server."""
+"""Serving layers of the port: HTTP shell, TLS, micro-batcher, AOT bucket
+warmup, tenancy, event server with group-commit ingest, engine server."""

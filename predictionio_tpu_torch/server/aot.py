@@ -172,6 +172,15 @@ class ExecutableCache:
             self._programs.setdefault(key, prog)
             return self._programs[key]
 
+    def counts(self) -> Dict[str, int]:
+        """{"hit": n, "compile": m}: what a warm pass found cached and
+        what it built (a same-geometry ``/reload`` adds only hits)."""
+        return {k[0]: int(v) for k, v in self._m_lookups.items()}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._programs.clear()
+
 
 #: process-wide cache — all scorers share it so repeated deploys in one
 #: process never re-warm a known geometry
@@ -289,6 +298,14 @@ class AOTWarmup:
             self.state = "ready"
         self._m_state.set(1)
 
+    def mark_ready(self) -> None:
+        """Record a successful synchronous warm (the ``/reload`` path
+        calls :meth:`warm_sync` on the candidate directly, with no
+        background thread to flip the state)."""
+        with self._lock:
+            self.state = "ready"
+        self._m_state.set(1)
+
     def wait(self, timeout: Optional[float] = None) -> bool:
         t = self._thread
         if t is not None:
@@ -323,3 +340,15 @@ class AOTWarmup:
                 "wallSec": round(self.wall_sec, 3),
                 **({"error": self.error} if self.error else {}),
             }
+
+    def release(self) -> None:
+        """Drop the warmup thread reference and return to ``idle``, for
+        an owner that is done with this warm-up. ``serve_forever`` does
+        not call it: a server that serves again after a stop keeps its
+        ready ladder. The process-wide :data:`EXECUTABLES` cache
+        survives, and no buffer is freed here: a program's buffers go
+        only with the last scorer or in-flight dispatch that holds it."""
+        with self._lock:
+            self._thread = None
+            self.state = "idle"
+            self._m_state.set(0)

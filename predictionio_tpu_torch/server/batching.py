@@ -19,16 +19,25 @@ sparse traffic where trading latency for bigger batches is worth it.
 Latency math: a lone query pays ~0 extra; under load per-query cost
 approaches dispatch/B. Enable with ``deploy --batching`` (or
 ``EngineServer(batching=True)``).
+
+While tracing is on, a dispatch runs in the context of its first query,
+under a ``serving.batch`` span (a child of that query's ``engine.query``)
+that records the batch's size and, in ``link_traces``, the trace id of
+every query it serves, the way ``ingest.commit`` links its requests; the
+device span (``serving.device``) is its child. The JAX package's batcher
+dispatches outside any trace.
 """
 
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextvars
 import inspect
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from predictionio_tpu_torch.server.aot import PAD, BucketLadder
+from predictionio_tpu_torch.utils import tracing
 from predictionio_tpu_torch.utils.metrics import REGISTRY
 
 _BATCHES = REGISTRY.counter(
@@ -122,7 +131,9 @@ class MicroBatcher:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self.submitted += 1
         _SUBMITTED.inc()
-        await self._queue.put((query, fut, group))
+        # the submitter's context rides along only while tracing is on
+        ctx = contextvars.copy_context() if tracing.TRACER.enabled else None
+        await self._queue.put((query, fut, group, ctx))
         return await fut
 
     def _pad_to_bucket(self, queries: List[Any],
@@ -196,14 +207,35 @@ class MicroBatcher:
             for group, items in grouped.items():
                 await self._run_group(group, items)
 
+    def _traced_dispatch(self, queries: List[Any], group: Any,
+                         links: List[str]) -> List[Any]:
+        with tracing.span("serving.batch", size=len(queries),
+                          link_traces=links):
+            return self._dispatch(queries, group)
+
+    def _in_context(self, items: List[tuple], group: Any):
+        """Run one dispatch of ``items`` on the executor: inside the
+        first item's context, under a ``serving.batch`` span linking
+        every item's trace, when that item was submitted with tracing
+        on."""
+        loop = asyncio.get_running_loop()
+        queries = [item[0] for item in items]
+        ctx = items[0][3]
+        if ctx is None:
+            return loop.run_in_executor(
+                self._get_executor(), self._dispatch, queries, group)
+        links = [tid for tid in (item[3].run(tracing.current_trace_id)
+                                 for item in items if item[3] is not None)
+                 if tid]
+        return loop.run_in_executor(
+            self._get_executor(), ctx.run, self._traced_dispatch, queries,
+            group, links)
+
     async def _run_group(self, group: Any, items: List[tuple]) -> None:
-        queries = [q for q, _, _ in items]
         self.batches += 1
         _BATCHES.inc()
-        loop = asyncio.get_running_loop()
         try:
-            results = await loop.run_in_executor(
-                self._get_executor(), self._dispatch, queries, group)
+            results = await self._in_context(items, group)
         except Exception as e:
             if len(items) == 1:
                 if not items[0][1].done():
@@ -215,12 +247,12 @@ class MicroBatcher:
             # query). Isolate by re-running every query alone.
             self.isolations += 1
             _ISOLATIONS.inc()
-            for q, fut, _ in items:
+            for item in items:
+                fut = item[1]
                 if fut.done():  # caller gone — don't burn a dispatch
                     continue
                 try:
-                    r = await loop.run_in_executor(
-                        self._get_executor(), self._dispatch, [q], group)
+                    r = await self._in_context([item], group)
                 except Exception as single_e:
                     if not fut.done():
                         fut.set_exception(single_e)
@@ -228,7 +260,7 @@ class MicroBatcher:
                     if not fut.done():
                         fut.set_result(r[0])
             return
-        for (_, fut, _), r in zip(items, results):
+        for (_, fut, _, _), r in zip(items, results):
             if not fut.done():
                 fut.set_result(r)
 
@@ -249,7 +281,7 @@ class MicroBatcher:
         self._group_ladders.clear()
         while True:
             try:
-                _, fut, _ = self._queue.get_nowait()
+                _, fut, _, _ = self._queue.get_nowait()
             except asyncio.QueueEmpty:
                 break
             if not fut.done():

@@ -20,21 +20,29 @@ exist). With ``ingest_batching`` single-event POSTs are group-committed
 queue answers 429 and an open storage breaker 503, both with
 ``Retry-After``.
 
+The operations surface is the JAX server's: ``GET /health`` (ok, or
+degraded while the ingest breaker is open or the queue is full, with the
+``ingest`` block), ``GET /metrics``, ``GET /metrics/history`` (its own
+scraped history), ``GET /traces``, the access log, TLS (``ssl_context``,
+by default from ``PIO_SSL_CERT_PATH``/``PIO_SSL_KEY_PATH``) and the
+request spans (``storage.insert``, ``storage.insert_batch``,
+``ingest.submit``).
+
 Left out of the port for now, each with the part of the JAX server that
-brings it: ``/health``, ``/metrics``, ``/metrics/history``, ``/traces``,
-the access log, TLS and the request spans (the operations surface);
-tenant quotas, plugins and incident capture; segment maintenance (the
-native event log); the replication gate (replication).
+brings it: tenant quotas, plugins and incident capture; segment
+maintenance (the native event log); the replication gate (replication).
 """
 
 from __future__ import annotations
 
 import asyncio
 import base64
+import contextlib
 import math
 import threading
 import time
 import urllib.parse
+import uuid
 from collections import Counter
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -50,6 +58,7 @@ from predictionio_tpu_torch.server.http import (
     Request,
     Response,
     Router,
+    traces_handler,
 )
 from predictionio_tpu_torch.server.ingest import (
     IngestOverload,
@@ -58,7 +67,14 @@ from predictionio_tpu_torch.server.ingest import (
 )
 from predictionio_tpu_torch.storage.meta import meta_epoch
 from predictionio_tpu_torch.storage.registry import Storage, get_storage
-from predictionio_tpu_torch.utils.metrics import REGISTRY
+from predictionio_tpu_torch.utils import tracing
+from predictionio_tpu_torch.utils.metrics import REGISTRY, build_info
+from predictionio_tpu_torch.utils.timeseries import (
+    TimeSeriesStore,
+    history_payload,
+    scaled_tiers,
+    scrape_loop,
+)
 
 BATCH_LIMIT = 50
 DEFAULT_FIND_LIMIT = 20
@@ -168,11 +184,16 @@ class EventServer:
         host: str = "0.0.0.0",
         port: int = 7070,
         stats: bool = False,
+        ssl_context: Optional[Any] = None,
+        bind_retries: int = 3,
+        bind_retry_sec: float = 1.0,
         ingest_batching: bool = False,
         ingest_max_batch: int = 512,
         ingest_queue_depth: int = 4096,
         auth_cache_ttl: float = 30.0,
         durable_acks: bool = False,
+        access_log: bool = False,
+        scrape_interval: float = 10.0,
     ) -> None:
         self.storage = storage or get_storage()
         if durable_acks:
@@ -186,6 +207,14 @@ class EventServer:
             ("app_id", "status"))
         self._m_insert = REGISTRY.histogram(
             "pio_event_insert_seconds", "Single-event insert latency")
+        #: process identity on pio_build_info
+        self.instance_uid = uuid.uuid4().hex[:12]
+        build_info(self.instance_uid)
+        #: local metrics history (GET /metrics/history), scraped from
+        #: the registry every scrape_interval by a background task
+        self.scrape_interval = max(0.05, scrape_interval)
+        self.tsdb = TimeSeriesStore(
+            REGISTRY, tiers=scaled_tiers(self.scrape_interval))
         self._ingest = (WriteCoalescer(self.storage.events,
                                        max_batch=ingest_max_batch,
                                        max_queue=ingest_queue_depth)
@@ -194,6 +223,10 @@ class EventServer:
                             if auth_cache_ttl > 0 else None)
         router = Router()
         router.route("GET", "/", self._status)
+        router.route("GET", "/health", self._health)
+        router.route("GET", "/metrics", self._metrics)
+        router.route("GET", "/metrics/history", self._metrics_history)
+        router.route("GET", "/traces", traces_handler)
         router.route("POST", "/events.json", self._post_event)
         router.route("GET", "/events.json", self._get_events)
         router.route("POST", "/batch/events.json", self._post_batch)
@@ -202,9 +235,19 @@ class EventServer:
         router.route("GET", "/stats.json", self._get_stats)
         router.route("POST", "/webhooks/{connector}.json", self._webhook)
         router.route("GET", "/webhooks/{connector}.json", self._webhook_probe)
+        if ssl_context is None:
+            from predictionio_tpu_torch.server.ssl_config import (
+                ssl_context_from_env,
+            )
+
+            ssl_context = ssl_context_from_env()
         # retry a busy port for a few seconds, while a previous server on
         # it shuts down
-        self.http = HTTPServer(router, host, port, bind_retries=3,
+        self.http = HTTPServer(router, host, port,
+                               ssl_context=ssl_context,
+                               bind_retries=bind_retries,
+                               bind_retry_sec=bind_retry_sec,
+                               access_log=access_log,
                                server_name="events")
 
     # -- auth ------------------------------------------------------------------
@@ -245,6 +288,40 @@ class EventServer:
 
     async def _status(self, req: Request) -> Response:
         return Response.json({"status": "alive"})
+
+    async def _health(self, req: Request) -> Response:
+        """Liveness and readiness: ``ok`` when storage is reachable,
+        ``degraded`` (still 200: a supervisor must not restart a server
+        that sheds correctly) while the ingest storage breaker is open or
+        the queue is full."""
+        body: Dict[str, Any] = {"status": "ok"}
+        if self._ingest is not None:
+            breaker = self._ingest.breaker
+            body["ingest"] = {
+                "queueDepth": self._ingest.depth,
+                "breaker": breaker.state,
+                "rejected": self._ingest.rejected,
+                "breakerRejected": self._ingest.breaker_rejected,
+                # who filled the queue (accepted, not yet committed)
+                "queuedByApp": {str(a): n for a, n in
+                                sorted(self._ingest.queued_by_app.items())},
+            }
+            if breaker.state != "closed":
+                body["status"] = "degraded"
+                body["reason"] = "ingest storage circuit breaker open"
+            elif self._ingest.depth >= self._ingest.max_queue:
+                body["status"] = "degraded"
+                body["reason"] = "ingest queue at capacity"
+        return Response.json(body)
+
+    async def _metrics(self, req: Request) -> Response:
+        return Response.text(REGISTRY.render(),
+                             content_type="text/plain; version=0.0.4")
+
+    async def _metrics_history(self, req: Request) -> Response:
+        status, payload = history_payload(
+            self.tsdb, req.param("series") or "", req.param("window") or "")
+        return Response.json(payload, status=status)
 
     @staticmethod
     def _throttled(status: int, message: str, retry_after: float) -> Response:
@@ -297,7 +374,8 @@ class EventServer:
         ev, err = self._prepare_one(obj, app_id, allowed)
         if err is not None:
             return err
-        eid = self.storage.events.insert(ev, app_id, channel_id)
+        with tracing.span("storage.insert", app_id=app_id):
+            eid = self.storage.events.insert(ev, app_id, channel_id)
         self._finish_one(ev, app_id, time.perf_counter() - t0)
         return 201, {"eventId": eid}
 
@@ -321,7 +399,11 @@ class EventServer:
             status, body = err
             return Response.json(body, status=status)
         try:
-            eid = await self._ingest.submit(ev, app_id, channel_id)
+            # the submit span covers queue wait and group commit; the
+            # commit's detached ingest.commit span lists this trace id
+            async with tracing.span("ingest.submit", app_id=app_id,
+                                    queue_depth=self._ingest.depth):
+                eid = await self._ingest.submit(ev, app_id, channel_id)
         except IngestOverload as e:
             # the Retry-After is computed from queue depth over the
             # measured drain rate, not a constant
@@ -370,8 +452,10 @@ class EventServer:
                 # accurate
                 events = [ev for ev, _ in prepared]
                 try:
-                    ids = self.storage.events.insert_batch(
-                        events, app_id, channel_id)
+                    with tracing.span("storage.insert_batch",
+                                      app_id=app_id, records=len(events)):
+                        ids = self.storage.events.insert_batch(
+                            events, app_id, channel_id)
                 except Exception:
                     pass
                 else:
@@ -496,9 +580,15 @@ class EventServer:
     # -- lifecycle -------------------------------------------------------------
 
     async def serve_forever(self) -> None:
+        scraper = asyncio.create_task(
+            scrape_loop(self.tsdb, self.scrape_interval),
+            name="pio-events-tsdb")
         try:
             await self.http.serve_forever()
         finally:
+            scraper.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await scraper
             if self._ingest is not None:
                 # drain: everything accepted before shutdown commits —
                 # a 201 promised durability, so the queue must land

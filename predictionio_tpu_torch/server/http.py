@@ -90,6 +90,23 @@ class Response:
 
 Handler = Callable[[Request], Awaitable[Response]]
 
+
+async def traces_handler(req: Request) -> Response:
+    """``GET /traces`` — recent spans from the tracer's ring buffer,
+    filterable by ``?trace_id=``, ``?min_ms=``, ``?error=1``,
+    ``?limit=``. Mounted by both servers."""
+    try:
+        raw_min = req.param("min_ms")
+        min_ms = float(raw_min) if raw_min else None
+        limit = int(req.param("limit") or "100")
+    except ValueError:
+        return Response.json(
+            {"message": "min_ms and limit must be numeric"}, status=400)
+    errors_only = (req.param("error") or "") in ("1", "true", "yes")
+    return Response.json(tracing.traces_payload(
+        trace_id=req.param("trace_id"), min_ms=min_ms,
+        errors_only=errors_only, limit=max(1, min(limit, 1000))))
+
 _REASONS = {
     200: "OK", 201: "Created", 400: "Bad Request", 401: "Unauthorized",
     403: "Forbidden", 404: "Not Found", 405: "Method Not Allowed",
@@ -265,10 +282,11 @@ class HTTPServer:
         t0 = time.perf_counter()
         trace_id = ""
         if tracing.TRACER.enabled:
-            in_trace, in_parent = tracing.extract_headers(req.headers)
+            in_trace, in_parent, in_sampled = tracing.extract_headers(
+                req.headers)
             async with tracing.root_span(
                     "http.request", trace_id=in_trace,
-                    parent_span_id=in_parent,
+                    parent_span_id=in_parent, sampled=in_sampled,
                     server=self.server_name, method=req.method,
                     path=req.path) as sp:
                 resp = await self._route(req)

@@ -45,12 +45,14 @@ Design mirrors :class:`~predictionio_tpu_torch.server.batching.MicroBatcher`
 Enable with ``EventServer(ingest_batching=True)`` or
 ``cli eventserver --ingest-batching``.
 
+Each commit is a detached ``ingest.commit`` span that links the trace
+ids of the requests it acknowledges, and the coalescer counts the queued
+events per app (``queued_by_app``, on the event server's ``/health``).
+
 Left out of the port for now: the branch for a write refused by a
 fenced ex-leader (``FencedWriteError``), which comes with replication,
-and the fault-injection hook on each commit (``faults.inject``), which
-comes with ``utils/faults.py``; the commit's trace span and the per-app
-queue accounting, which ``/traces`` and ``/health`` read, come with those
-routes. A test injects a storage failure with a store whose
+and the ``ingest.commit`` fault site on each commit, which comes with
+the rest of tenancy. A test injects a storage failure with a store whose
 ``insert_batch`` raises.
 """
 
@@ -62,6 +64,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.utils import tracing
 from predictionio_tpu_torch.utils.metrics import REGISTRY
 from predictionio_tpu_torch.utils.resilience import CircuitBreaker
 
@@ -118,6 +121,9 @@ class WriteCoalescer:
         self.isolations = 0   # failed groups re-run event-by-event
         self.rejected = 0     # submits refused by backpressure
         self.breaker_rejected = 0  # submits refused by the open breaker
+        #: queued events per app (accepted, not yet dispatched to a
+        #: commit): when the cap trips, this names the app that filled it
+        self.queued_by_app: Dict[int, int] = {}
         #: EWMA of commit throughput (events/sec) — denominator for
         #: the computed 429 Retry-After
         self._drain_ewma = 0.0
@@ -162,6 +168,15 @@ class WriteCoalescer:
         if self._worker is None or self._worker.done():
             self._worker = asyncio.get_running_loop().create_task(self._run())
 
+    @property
+    def depth(self) -> int:
+        return self._queue.qsize()
+
+    @property
+    def drain_rate(self) -> float:
+        """Measured commit throughput, events/sec (0 until observed)."""
+        return self._drain_ewma
+
     def overload_retry_after(self) -> float:
         """Honest backoff hint for a queue-full 429: time to drain the
         current depth at the measured rate, clamped to [0.05s, 30s].
@@ -191,10 +206,14 @@ class WriteCoalescer:
         self._ensure_worker()
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self.submitted += 1
+        self.queued_by_app[app_id] = self.queued_by_app.get(app_id, 0) + 1
         # hot path: put_nowait (the queue is unbounded — depth limiting
         # happened above) skips a coroutine round trip per event, and
-        # the depth gauge is refreshed once per dispatch in _collect()
-        self._queue.put_nowait((app_id, channel_id, event, fut))
+        # the depth gauge is refreshed once per dispatch in _collect().
+        # The submitter's trace id rides along: the commit serves many
+        # requests' traces, so its span links to them
+        self._queue.put_nowait(
+            (app_id, channel_id, event, fut, tracing.current_trace_id()))
         return await fut
 
     # -- committer -------------------------------------------------------------
@@ -248,8 +267,9 @@ class WriteCoalescer:
         multi-namespace dispatch commits them concurrently on the
         dedicated pool."""
         groups: Dict[Tuple[int, Optional[int]], List[tuple]] = {}
-        for app_id, channel_id, event, fut in items:
-            groups.setdefault((app_id, channel_id), []).append((event, fut))
+        for app_id, channel_id, event, fut, trace_id in items:
+            groups.setdefault((app_id, channel_id), []).append(
+                (event, fut, trace_id))
         if len(groups) == 1:
             ((app_id, channel_id), pairs), = groups.items()
             await self._commit_group(app_id, channel_id, pairs)
@@ -262,51 +282,66 @@ class WriteCoalescer:
                             pairs: List[tuple]) -> None:
         loop = asyncio.get_running_loop()
         ex = self._get_executor()
-        events = [e for e, _ in pairs]
+        events = [e for e, _, _ in pairs]
+        left = self.queued_by_app.get(app_id, 0) - len(pairs)
+        if left > 0:
+            self.queued_by_app[app_id] = left
+        else:
+            self.queued_by_app.pop(app_id, None)
+        # the commit serves MANY requests' traces: a detached root span
+        # that links every submitter's trace id
+        links = sorted({t for _, _, t in pairs if t})[:64]
         self.batches += 1
         t0 = time.perf_counter()
-        try:
-            ids = await loop.run_in_executor(
-                ex, self.store.insert_batch, events, app_id, channel_id)
-            if len(ids) != len(events):
-                raise RuntimeError(
-                    f"insert_batch returned {len(ids)} ids for "
-                    f"{len(events)} events")
-        except Exception as e:
-            self.breaker.record_failure()
-            if len(pairs) == 1:
-                if not pairs[0][1].done():
-                    pairs[0][1].set_exception(e)
+        with tracing.detached_span("ingest.commit", app_id=app_id,
+                                   records=len(events),
+                                   link_traces=links) as sp:
+            try:
+                ids = await loop.run_in_executor(
+                    ex, self.store.insert_batch, events, app_id, channel_id)
+                if len(ids) != len(events):
+                    raise RuntimeError(
+                        f"insert_batch returned {len(ids)} ids for "
+                        f"{len(events)} events")
+            except Exception as e:
+                self.breaker.record_failure()
+                sp.set_error(f"{type(e).__name__}: {e}")
+                if len(pairs) == 1:
+                    if not pairs[0][1].done():
+                        pairs[0][1].set_exception(e)
+                    return
+                # a poison event must not fail its commit siblings, and
+                # each caller must see their OWN error — re-run alone
+                self.isolations += 1
+                sp.set_attr("isolated", True)
+                for event, fut, _ in pairs:
+                    if fut.done():
+                        continue
+                    try:
+                        eid = await loop.run_in_executor(
+                            ex, self.store.insert, event, app_id,
+                            channel_id)
+                    except Exception as single_e:
+                        if not fut.done():
+                            fut.set_exception(single_e)
+                    else:
+                        # storage demonstrably works — the group failure
+                        # was a poison event, not an outage
+                        self.breaker.record_success()
+                        if not fut.done():
+                            fut.set_result(eid)
                 return
-            # a poison event must not fail its commit siblings, and each
-            # caller must see their OWN error — re-run alone
-            self.isolations += 1
-            for event, fut in pairs:
-                if fut.done():
-                    continue
-                try:
-                    eid = await loop.run_in_executor(
-                        ex, self.store.insert, event, app_id, channel_id)
-                except Exception as single_e:
-                    if not fut.done():
-                        fut.set_exception(single_e)
-                else:
-                    # storage demonstrably works — the group failure
-                    # was a poison event, not an outage
-                    self.breaker.record_success()
-                    if not fut.done():
-                        fut.set_result(eid)
-            return
         self.breaker.record_success()
         elapsed = time.perf_counter() - t0
         rate = len(events) / max(elapsed, 1e-6)
         self._drain_ewma = (rate if self._drain_ewma <= 0
                             else 0.3 * rate + 0.7 * self._drain_ewma)
-        self._m_commit.observe(elapsed)
+        self._m_commit.observe(elapsed,
+                               exemplar=links[0] if links else None)
         self._m_batch.observe(len(events))
         if len(events) > 1:
             self._m_coalesced.inc(n=len(events))
-        for (_, fut), eid in zip(pairs, ids):
+        for (_, fut, _), eid in zip(pairs, ids):
             if not fut.done():
                 fut.set_result(eid)
 

@@ -1,4 +1,5 @@
-"""Model blob stores: the port's copy of the LOCALFS and MEMORY backends.
+"""Model blob stores: the port's copy of the LOCALFS and MEMORY backends,
+and a read-only lookup in the model registry's manifest.
 
 A "model" is an opaque byte blob keyed by engine-instance id. The LOCALFS
 layout is the JAX package's: ``<root>/<instance_id>/model.bin`` beside a
@@ -10,12 +11,13 @@ package wrote loads in the other and a corrupt one is refused.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import shutil
 import tempfile
 import threading
 from abc import ABC, abstractmethod
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 DIGEST_SUFFIX = ".sha256"
 
@@ -145,3 +147,38 @@ class LocalFSModelStore(ModelStore):
         d = self._dir(instance_id)
         os.makedirs(d, exist_ok=True)
         return d
+
+
+#: the JAX package's model registry, ``<home>/model_registry``: a
+#: ``registry.json`` manifest of generations, each naming the engine
+#: instance behind it. The port reads it; its writers (the continuous
+#: trainer's register, promote and rollback) are not ported yet.
+REGISTRY_DIR = "model_registry"
+REGISTRY_MANIFEST = "registry.json"
+
+
+def registry_manifest(home: str) -> Optional[Dict[str, Any]]:
+    """The registry manifest under ``home``, or None when there is no
+    registry there. Creates nothing (the JAX package's ``model_registry``
+    creates the directory when it looks)."""
+    path = os.path.join(home, REGISTRY_DIR, REGISTRY_MANIFEST)
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            doc = json.load(f)
+    except FileNotFoundError:
+        return None
+    if doc.get("schema") != 1:
+        raise ValueError(f"unknown model-registry schema {doc.get('schema')!r}")
+    return doc
+
+
+def find_gen(home: str, instance_id: str) -> Optional[int]:
+    """Newest registry generation backed by ``instance_id`` (the JAX
+    package's ``ModelRegistry.find_gen``), or None when the instance was
+    never registered or there is no registry at ``home``."""
+    doc = registry_manifest(home)
+    if doc is None:
+        return None
+    gens = [e["gen"] for e in doc.get("generations", [])
+            if e.get("instance_id") == instance_id]
+    return max(gens) if gens else None

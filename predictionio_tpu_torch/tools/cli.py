@@ -29,14 +29,18 @@ Verbs:
   instance with its leaderboard; ``eval leaderboard`` and ``evals
   list|show`` read those back (SQLite and JSON only: they import no
   torch);
-- ``status`` checks the storage backends and the card.
+- ``status`` checks the storage backends and the card;
+- ``trace`` reads the span JSONL that ``eventserver`` and ``deploy``
+  write with ``--tracing`` (the JAX package's format: either package's
+  ``trace`` reads the other's file).
 
 The verbs print the JAX CLI's lines and write the same rows, so either
 package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
 ``deploy``, ``eval`` and ``status`` run on the CUDA card and exit
 non-zero without one; ``--device cpu`` runs them on the CPU instead. The flags are the
 JAX CLI's flags for the options the port has, plus ``--device``; ``app
-quota`` comes with tenancy.
+quota``, ``--feedback*``, ``--variants`` and ``--incident-dir`` come with
+the rest of the engine server's surface.
 """
 
 from __future__ import annotations
@@ -140,6 +144,38 @@ def cmd_accesskey(args: argparse.Namespace) -> None:
 # -- servers --------------------------------------------------------------------
 
 
+def _configure_tracing(args: argparse.Namespace) -> None:
+    """Arm the process-wide tracer from the shared server flags."""
+    if getattr(args, "access_log", False):
+        import logging
+
+        # the access log emits at INFO on "pio.access"; without a
+        # handler the stdlib lastResort (WARNING+) would drop every line
+        lg = logging.getLogger("pio.access")
+        if not lg.handlers:
+            h = logging.StreamHandler()
+            h.setFormatter(logging.Formatter("%(message)s"))
+            lg.addHandler(h)
+            lg.setLevel(logging.INFO)
+            lg.propagate = False
+    if not getattr(args, "tracing", False):
+        return
+    from predictionio_tpu_torch.storage.registry import StorageConfig
+    from predictionio_tpu_torch.utils import tracing
+
+    path = args.trace_file
+    if path is None:
+        path = tracing.default_trace_path(StorageConfig.from_env().home)
+    tracing.TRACER.configure(
+        enabled=True,
+        sample_rate=args.trace_sample,
+        slow_query_ms=args.slow_query_ms,
+        jsonl_path=path or None,
+    )
+    print(f"[info] tracing enabled (sample={args.trace_sample}, "
+          f"file={path or '(ring only)'})")
+
+
 def make_event_server(args: argparse.Namespace):
     """The EventServer ``eventserver`` runs, built from parsed flags."""
     from predictionio_tpu_torch.server.event_server import EventServer
@@ -149,10 +185,12 @@ def make_event_server(args: argparse.Namespace):
                        ingest_max_batch=args.ingest_max_batch,
                        ingest_queue_depth=args.ingest_queue_depth,
                        auth_cache_ttl=args.auth_cache_ttl,
-                       durable_acks=args.durable_acks)
+                       durable_acks=args.durable_acks,
+                       access_log=args.access_log)
 
 
 def cmd_eventserver(args: argparse.Namespace) -> None:
+    _configure_tracing(args)
     server = make_event_server(args)
     mode = "group-commit" if args.ingest_batching else "per-event commit"
     print(f"[info] Event Server listening on {args.ip}:{args.port} ({mode})",
@@ -176,6 +214,10 @@ def make_server(args: argparse.Namespace):
         batch_wait_ms=args.batch_wait_ms,
         aot_buckets=args.aot_buckets,
         aot_topk=args.aot_topk,
+        query_timeout_ms=args.query_timeout_ms,
+        max_inflight=args.max_inflight,
+        access_log=args.access_log,
+        tenant_quotas=args.tenant_quotas,
         device=args.device,
     )
 
@@ -194,6 +236,7 @@ def cmd_train(args: argparse.Namespace) -> None:
 
 
 def cmd_deploy(args: argparse.Namespace) -> None:
+    _configure_tracing(args)
     server = make_server(args)
     print(f"[info] Engine Server (instance {server.deployed.instance.id}, "
           f"device {server.deployed.algorithms[0][1].device}) "
@@ -428,12 +471,88 @@ def cmd_status(args: argparse.Namespace) -> None:
     print("[info] status: all systems go")
 
 
+def cmd_trace(args: argparse.Namespace) -> None:
+    """Tail or grep the span JSONL that servers started with
+    ``--tracing`` write. Filters compose; ``--tree`` re-assembles whole
+    traces into the indented view the slow-query log prints."""
+    from predictionio_tpu_torch.storage.registry import StorageConfig
+    from predictionio_tpu_torch.utils import tracing
+
+    path = args.file or tracing.default_trace_path(
+        StorageConfig.from_env().home)
+    # include the rotated predecessor so recent history survives rotation
+    paths = [p for p in (path + ".1", path) if os.path.exists(p)]
+    if not paths:
+        _die(f"no trace file at {path} (start a server with --tracing)")
+    spans: List[Dict[str, Any]] = []
+    for fp in paths:
+        with open(fp, "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    spans.append(json.loads(line))
+                except ValueError:
+                    continue  # torn tail from a live writer
+
+    def keep(s: Dict[str, Any]) -> bool:
+        if args.trace_id and s.get("traceId") != args.trace_id:
+            return False
+        if args.errors_only and s.get("status") != "error":
+            return False
+        if args.min_ms and s.get("durationUs", 0) < args.min_ms * 1000:
+            return False
+        if args.grep and args.grep not in json.dumps(s, sort_keys=True):
+            return False
+        return True
+
+    spans = [s for s in spans if keep(s)]
+    if not spans:
+        print("[info] no spans matched")
+        return
+    if args.tree:
+        by_trace: Dict[str, List[Dict[str, Any]]] = {}
+        for s in spans:
+            by_trace.setdefault(str(s.get("traceId", "?")), []).append(s)
+        for tid in list(by_trace)[-args.limit:]:
+            print(f"trace {tid}:")
+            print(tracing.render_trace_tree(by_trace[tid]))
+    else:
+        for s in spans[-args.limit:]:
+            print(json.dumps(s, sort_keys=True))
+
+
+def _add_observability_flags(sp: argparse.ArgumentParser) -> None:
+    """Tracing and access-log flags shared by ``eventserver`` and ``deploy``."""
+    sp.add_argument("--tracing", action="store_true",
+                    help="request-scoped tracing: root span per request, "
+                         "child spans through ingest/serving/storage, "
+                         "ring-buffered for /traces and exported to a "
+                         "span JSONL file (see `trace`)")
+    sp.add_argument("--trace-sample", type=float, default=1.0,
+                    help="probability a trace is exported to the JSONL "
+                         "file; errors and slow spans always export "
+                         "(ring buffer + /traces see every span)")
+    sp.add_argument("--trace-file",
+                    help="span JSONL path (default: "
+                         "<home>/traces/spans.jsonl; '' = ring only)")
+    sp.add_argument("--slow-query-ms", type=float, default=0.0,
+                    help="log the full span tree of any request slower "
+                         "than this, regardless of sampling "
+                         "(0 = disabled)")
+    sp.add_argument("--access-log", action="store_true",
+                    help="one structured JSON line per request (method, "
+                         "path, status, duration, trace id) on the "
+                         "'pio.access' logger")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.tools.cli",
         description="PredictionIO on PyTorch and CUDA. Verbs: app, "
                     "accesskey, eventserver, import, export, train, deploy, "
-                    "eval, evals, status.")
+                    "eval, evals, status, trace.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ap = sub.add_parser("app", aliases=["apps"],
@@ -478,6 +597,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="access-key/channel auth cache TTL seconds "
                          "(0 disables; in-process key mutations "
                          "invalidate immediately regardless)")
+    _add_observability_flags(es)
     es.set_defaults(fn=cmd_eventserver)
     tp = sub.add_parser("train", help="train an engine instance")
     tp.add_argument("--engine-dir", default=".")
@@ -510,9 +630,22 @@ def build_parser() -> argparse.ArgumentParser:
     dp.add_argument("--aot-topk", type=int, default=16,
                     help="top-k width to warm the AOT ladder at (serving "
                          "k is bucketed up to this program shape)")
+    dp.add_argument("--query-timeout-ms", type=float, default=0.0,
+                    help="per-request deadline for /queries.json; a query "
+                         "still running at the deadline returns 504 "
+                         "(0 = no deadline)")
+    dp.add_argument("--max-inflight", type=int, default=0,
+                    help="concurrent query cap; excess requests are shed "
+                         "immediately with 503 + Retry-After "
+                         "(0 = unlimited)")
+    dp.add_argument("--tenant-quotas", metavar="PATH", default=None,
+                    help="per-app QoS policy file driving weighted-fair "
+                         "admission under --max-inflight (default: "
+                         "<storage home>/quotas.json; hot-reloaded)")
     dp.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda; "
                          "'cpu' serves on the CPU)")
+    _add_observability_flags(dp)
     dp.set_defaults(fn=cmd_deploy)
 
     ev = sub.add_parser("eval", help="hyperparameter evaluation (grid search)")
@@ -571,6 +704,25 @@ def build_parser() -> argparse.ArgumentParser:
                      help="torch device to check (default: cuda; 'cpu' "
                           "checks the CPU and needs no card)")
     stp.set_defaults(fn=cmd_status)
+
+    tc = sub.add_parser(
+        "trace",
+        help="tail/grep exported trace spans (JSONL written by servers "
+             "started with --tracing)")
+    tc.add_argument("--file", help="span JSONL path "
+                                   "(default: <home>/traces/spans.jsonl)")
+    tc.add_argument("--trace-id", help="only spans of this trace id")
+    tc.add_argument("--min-ms", type=float, default=0.0,
+                    help="only spans at least this many ms long")
+    tc.add_argument("--errors-only", action="store_true",
+                    help="only spans that finished in error")
+    tc.add_argument("--grep", help="substring filter over the span JSON")
+    tc.add_argument("--tree", action="store_true",
+                    help="group by trace and render indented span trees")
+    tc.add_argument("--limit", type=int, default=50,
+                    help="print at most the newest N spans (or traces "
+                         "with --tree)")
+    tc.set_defaults(fn=cmd_trace)
     return p
 
 

@@ -471,8 +471,12 @@ def test_all_valid_batch_is_one_commit_and_mixed_falls_back():
 
 def _post_from_threads(port, key, n, body_of=_ev):
     results = {}
+    # every post leaves together, so they reach the coalescer at once
+    # even on a loaded machine
+    start = threading.Barrier(n)
 
     def worker(m):
+        start.wait(timeout=60)
         status, body, headers = request(port, "POST", f"/events.json?accessKey={key}",
                                         body_of(m))
         results[m] = (status, body, headers.get("Retry-After"))

@@ -366,7 +366,7 @@ def test_serving_dispatch_is_traced_when_tracing_is_on():
         with tracing.root_span("test.root", trace_id="ab" * 16) as root:
             sc.recommend(1, 2)
             assert tracing.exemplar() == root.trace_id
-        spans = tracing.TRACER.spans(trace_id="ab" * 16)
+        spans = tracing.TRACER.ring.spans(trace_id="ab" * 16)[::-1]
     finally:
         tracing.TRACER.configure(enabled=False)
     names = [d["name"] for d in spans]
@@ -375,7 +375,7 @@ def test_serving_dispatch_is_traced_when_tracing_is_on():
     assert spans[0]["attrs"] == {"bucket": 1, "k": 6, "path": "jit"}
     assert tracing.extract_headers(
         {"traceparent": "00-" + "cd" * 16 + "-" + "ef" * 8 + "-01"}) == \
-        ("cd" * 16, "ef" * 8)
+        ("cd" * 16, "ef" * 8, True)
 
 
 def test_unwarmed_dispatch_has_the_jax_packages_path_label():
@@ -447,7 +447,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "import predictionio_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, serving_ab\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'predictionio_tpu'\n"
         "       or m.startswith('predictionio_tpu.')]\n"
