@@ -6,8 +6,9 @@
     python3 chip_smoke.py --profile  # also device time by kernel (torch.profiler)
                                      # of serving batches and a training iteration
     python3 chip_smoke.py --topk     # phases 1-4 for score_topk alone (no result line)
-    python3 chip_smoke.py --ops      # phases 1, 2, 5 and 10: the engine server's
-                                     # operations surface alone (no result line)
+    python3 chip_smoke.py --ops      # phases 1, 2, 5, 10 and 11: the engine
+                                     # server's operations surface and online
+                                     # loop alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -147,6 +148,42 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    reads the event server's ``/health``, ``/metrics`` (its
    pio_events_ingested_total must count the 200,000 events) and
    ``/traces``.
+11. the engine server's online loop at ML-20M width, in a temporary
+   PIO_HOME: phase 10's two instances registered as model-registry
+   generations 1 and 2, generation 1 promoted through ``models promote``;
+   the port's event server (``eventserver --ingest-batching`` in a
+   subprocess) with a feedback app and an EventServerPlugin from
+   PIO_PLUGINS that refuses ``blocked`` events and writes a line per
+   committed one; an EngineServer with variants champion:9,challenger:1,
+   micro-batching, the AOT ladder, feedback to that event server, an
+   incident directory and a counting EngineServerPlugin. Checks: the
+   challenger's warm-up adopts the champion's programs and builds none;
+   2,000 distinct users from 16 clients all 200, X-PIO-Variant equal to
+   ``weighted_assign`` for each, every answer equal to score_topk_ref of
+   its own arm's factors, score_topk launches equal to each arm's device
+   batches (counted on the batcher's thread per arm); 200 of them
+   repeated on the same arms, ``X-PIO-Variant: challenger`` overriding;
+   ``POST /variants/weights`` 1:1 applied and the next 2,000 queries on
+   the new hash, a weight on an unknown arm refused with the split
+   unchanged; ``/reload?variant=challenger`` with ``variant.reload.partial``
+   armed answers 500 failed, ``/health`` names the arm and its users are
+   answered from the champion's factors, then a clean reload brings it
+   back; one ``predict`` event per 200 answer in the store (entityType
+   pio_pr, the answer's prId, properties.variant equal to the header),
+   pio_engine_feedback_total{status="ok"} equal to them and none dropped,
+   100 clicks through ``POST /feedback.json`` counted per arm on
+   ``/variants``; with the event server stopped 50 queries all 200 (each
+   sent once the previous one's feedback has settled, so that each is a
+   send of its own), the feedback breaker open after 5 failures, the
+   other 45 dropped as ``breaker_open``, and one incident bundle, read
+   back with ``incidents list`` and ``incidents show``; on the restarted
+   event server a ``blocked`` event answers 403 and the sniffer sees every
+   201, ``app quota`` with a 10-event bucket makes a 50-POST burst answer
+   429 with Retry-After (pio_tenant_quota_rejected_total equal to the
+   429s), and with ``ingest.commit`` armed the group commits answer 500
+   until the storage breaker opens, then 503, and none of their events
+   lands. Prints the phase's wall, per-arm p50/p99, launches per arm and
+   the feedback counts.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -2093,6 +2130,32 @@ RELOAD_CLIENTS, SHED_CLIENTS, MAX_INFLIGHT, QUERY_TIMEOUT_MS = 64, 64, 32, 2000
 TRACE_QUERIES, DEADLINE_MARGIN_S = 200, 0.5
 
 
+def answers_agree(torch, ops, dev, Ud, Vp, users, answers, num: int = 10) -> list:
+    """Per answer: does it equal score_topk_ref of the factors (Ud, Vp)?
+    (the rule of topk_agrees, row by row: values within rtol/atol 1e-5,
+    indices equal except between float64 near-ties)"""
+    rows = torch.tensor(users, device=dev, dtype=torch.int32)
+    rv, ri = ops.score_topk_ref(Ud, Vp, num, n_valid=N_ITEMS, ids=rows)
+    full = [len(a.get("itemScores", [])) == num for a in answers]
+    got_idx = torch.tensor([[int(it["item"][1:]) for it in a["itemScores"]]
+                            if f else [0] * num for a, f in zip(answers, full)],
+                           device=dev)
+    got_val = torch.tensor([[it["score"] for it in a["itemScores"]]
+                            if f else [0.0] * num for a, f in zip(answers, full)],
+                           device=dev)
+    ok = torch.isclose(got_val, rv, rtol=TOL, atol=TOL).all(1)
+    ok &= torch.tensor(full, device=dev)
+    diff = got_idx != ri.to(got_idx.dtype)
+    need = (diff.any(1) & ok).nonzero()[:, 0]
+    for c in range(0, len(need), 1024):
+        r = need[c:c + 1024]
+        s64 = Ud[rows[r].long()].double() @ Vp.double().T
+        tie = (torch.gather(s64, 1, got_idx[r].long())
+               - torch.gather(s64, 1, ri[r].long())).abs() <= TOL
+        ok[r] = (tie | ~diff[r]).all(1)
+    return ok.tolist()
+
+
 def ops_surface(torch, ops, dev, home: str, train) -> dict:
     """Phase 10: the engine server's operations surface at ML-20M width.
     Two COMPLETED instances (phase 5's final U with its final V, then with
@@ -2205,29 +2268,7 @@ def ops_surface(torch, ops, dev, home: str, train) -> dict:
     Vp = {first: padded(V), second: padded(V9)}
 
     def agrees(users, answers, iid):
-        """Per answer: does it equal score_topk_ref of instance iid? (the
-        rule of topk_agrees, row by row: values within rtol/atol 1e-5,
-        indices equal except between float64 near-ties)"""
-        rows = torch.tensor(users, device=dev, dtype=torch.int32)
-        rv, ri = ops.score_topk_ref(Ud, Vp[iid], 10, n_valid=N_ITEMS, ids=rows)
-        full = [len(a.get("itemScores", [])) == 10 for a in answers]
-        got_idx = torch.tensor([[int(it["item"][1:]) for it in a["itemScores"]]
-                                if f else [0] * 10 for a, f in zip(answers, full)],
-                               device=dev)
-        got_val = torch.tensor([[it["score"] for it in a["itemScores"]]
-                                if f else [0.0] * 10 for a, f in zip(answers, full)],
-                               device=dev)
-        ok = torch.isclose(got_val, rv, rtol=TOL, atol=TOL).all(1)
-        ok &= torch.tensor(full, device=dev)
-        diff = got_idx != ri.to(got_idx.dtype)
-        need = (diff.any(1) & ok).nonzero()[:, 0]
-        for c in range(0, len(need), 1024):
-            r = need[c:c + 1024]
-            s64 = Ud[rows[r].long()].double() @ Vp[iid].double().T
-            tie = (torch.gather(s64, 1, got_idx[r].long())
-                   - torch.gather(s64, 1, ri[r].long())).abs() <= TOL
-            ok[r] = (tie | ~diff[r]).all(1)
-        return ok.tolist()
+        return answers_agree(torch, ops, dev, Ud, Vp[iid], users, answers)
 
     text0 = metrics_text()
     rng = np.random.default_rng(SEED + 10)
@@ -2512,6 +2553,536 @@ def ops_surface(torch, ops, dev, home: str, train) -> dict:
             "p50_off": float(np.percentile(off, 50))}
 
 
+#: phase 11: the online loop
+SPLIT_USERS, SPLIT_CLIENTS, REPEAT_USERS, CLICKS, DEAD_SINK_QUERIES = 2_000, 16, 200, 100, 50
+ARMS = "champion:9,challenger:1"
+
+EVENT_PLUGIN = '''
+from predictionio_tpu_torch.core.plugins import EventServerPlugin
+
+
+class Gate(EventServerPlugin):
+    """Refuses events named "blocked"; writes one line per committed event."""
+
+    name = "chip-gate"
+
+    def input_blocker(self, event, app_id, channel_id):
+        return "blocked by chip-gate" if event.event == "blocked" else None
+
+    def input_sniffer(self, event, app_id, channel_id):
+        with open({sniffed!r}, "a") as f:
+            f.write(event.event + "\\n")
+'''
+
+
+def online_loop(torch, ops, dev, home: str, train) -> dict:
+    """Phase 11: the engine server's online loop at ML-20M width. Two
+    registry generations (phase 5's U with its final V, then with its
+    second-to-last V9) served side by side as champion and challenger
+    through one EngineServer on the card, with feedback going back
+    through the port's event server (a CLI subprocess with group commit
+    and an EventServerPlugin from PIO_PLUGINS), an EngineServerPlugin,
+    and incident capture; then the event server's quota, plugin and
+    ingest.commit fault paths."""
+    import http.client
+    import io
+    from collections import Counter
+
+    import numpy as np
+
+    from predictionio_tpu_torch.core import plugins as port_plugins
+    from predictionio_tpu_torch.server import aot
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+    from predictionio_tpu_torch.server.variants import parse_weights, weighted_assign
+    from predictionio_tpu_torch.storage.models import model_registry
+    from predictionio_tpu_torch.utils.faults import FAULTS
+    from predictionio_tpu_torch.utils.timeseries import parse_prom_text
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    U, V, V9 = train["U"], train["V"], train["V9"]
+    env = dict(os.environ, PIO_HOME=home)
+    procs = []
+
+    def cli(*args, extra_env=None) -> str:
+        proc = subprocess.run(CLI + list(args), cwd=repo,
+                              env=dict(env, **(extra_env or {})),
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"cli {' '.join(args)} failed "
+                                    f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        return proc.stdout
+
+    # -- set-up: two generations, the champion promoted through the CLI
+    t0 = time.perf_counter()
+    storage, factory, _, _ = write_instance(home, U, V)
+    first = storage.meta.get_latest_completed_engine_instance(factory, "default").id
+    write_instance(home, U, V9)
+    second = storage.meta.get_latest_completed_engine_instance(factory, "default").id
+    reg = model_registry(storage)
+    g1 = reg.register(first, storage.models.get(first))
+    g2 = reg.register(second, storage.models.get(second))
+    out = cli("models", "promote", str(g1))
+    check(f"promoted gen-{g1:06d}" in out, f"models promote: {out}")
+    listed = json.loads(cli("models", "list", "--json"))
+    check(listed["championGeneration"] == g1
+          and [e["gen"] for e in listed["generations"]] == [g1, g2],
+          f"models list: {listed}")
+    key = re.search(r"Access Key: (\S+)",
+                    cli("app", "new", "FeedbackApp")).group(1)
+    quota_key = re.search(r"Access Key: (\S+)",
+                          cli("app", "new", "QuotaApp")).group(1)
+    fb_app = storage.meta.get_app_by_name("FeedbackApp").id
+    quota_app = storage.meta.get_app_by_name("QuotaApp").id
+    plugin_dir = os.path.join(home, "plugins")
+    os.makedirs(plugin_dir)
+    sniffed = os.path.join(home, "sniffed.txt")
+    with open(os.path.join(plugin_dir, "chip_event_plugin.py"), "w") as f:
+        f.write(EVENT_PLUGIN.format(sniffed=sniffed))
+    plugin_env = {"PYTHONPATH": plugin_dir, "PIO_PLUGINS": "chip_event_plugin:Gate"}
+    es_port = free_port()
+
+    def start_event_server(extra_env=None):
+        log = os.path.join(home, f"eventserver{len(procs)}.log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                CLI + ["eventserver", "--ip", "127.0.0.1", "--port", str(es_port),
+                       "--ingest-batching"], cwd=repo,
+                env=dict(env, **plugin_env, **(extra_env or {})),
+                stdout=out, stderr=subprocess.STDOUT)
+        procs.append(proc)
+        wait_until(lambda: http_json(es_port, "GET", "/") == (200, {"status": "alive"}),
+                   proc, log, 120)
+        return proc
+
+    def stop_event_server(proc):
+        proc.send_signal(2)  # SIGINT: the server drains its queue and ends
+        proc.wait(timeout=60)
+
+    es = start_event_server()
+    t_setup = time.perf_counter() - t0
+    print(f"set-up in {t_setup:.1f} s: generations {g1} ({first}: U, V) and {g2} "
+          f"({second}: U, V9) registered, gen {g1} promoted through `models "
+          f"promote`; event server with group commit and the chip-gate plugin on "
+          f":{es_port}", flush=True)
+
+    # -- the engine server: champion and challenger, feedback, a plugin
+    class Counting(port_plugins.EngineServerPlugin):
+        name = "chip-counter"
+        seen = 0
+
+        def output_sniffer(self, query, prediction):
+            Counting.seen += 1
+
+    incident_dir = os.path.join(home, "incidents")
+    aot.EXECUTABLES.clear()
+    counts0 = aot.EXECUTABLES.counts()
+    port_plugins.reset_plugins()
+    port_plugins.register_engine_plugin(Counting())
+    t0 = time.perf_counter()
+    try:
+        server = EngineServer(engine_factory=factory, storage=storage,
+                              host="127.0.0.1", port=0, variants=ARMS,
+                              batching=True, batch_max=BATCH_MAX,
+                              aot_buckets="auto", aot_topk=AOT_TOPK,
+                              feedback_url=f"http://127.0.0.1:{es_port}",
+                              feedback_access_key=key,
+                              incident_dir=incident_dir, device=dev)
+    finally:
+        port_plugins.reset_plugins()
+    t_load = time.perf_counter() - t0
+    check([p.name for p in server.plugins] == ["chip-counter"],
+          f"engine plugins {server.plugins}")
+    loop = asyncio.new_event_loop()
+    serve = threading.Thread(target=loop.run_until_complete,
+                             args=(server.serve_forever(),), daemon=True)
+    serve.start()
+    deadline = time.time() + 60
+    while server.http._server is None:
+        check(time.time() < deadline and serve.is_alive(), "server did not start")
+        time.sleep(0.05)
+    port = server.http.bound_port
+
+    def get_json(path, method="GET", body=None):
+        return http_json(port, method, path, body)
+
+    def query(conn, user, headers=None):
+        """(user, status, body, arm, ms) of one num-10 query."""
+        t = time.perf_counter()
+        conn.request("POST", "/queries.json",
+                     body=json.dumps({"user": f"u{user}", "num": 10}),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        body = json.loads(r.read())
+        return (user, r.status, body, r.headers.get("X-PIO-Variant"),
+                (time.perf_counter() - t) * 1e3)
+
+    def run_queries(users, clients, headers=None):
+        out = [None] * len(users)
+
+        def client(c):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                for j in range(c, len(users), clients):
+                    out[j] = query(conn, users[j], headers)
+            finally:
+                conn.close()
+
+        with ThreadPoolExecutor(clients) as pool:
+            for f in [pool.submit(client, c) for c in range(clients)]:
+                f.result()
+        return out
+
+    Ud = torch.as_tensor(U, device=dev)
+    pad = torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)
+    Vp = {"champion": torch.cat([torch.as_tensor(V, device=dev), pad]),
+          "challenger": torch.cat([torch.as_tensor(V9, device=dev), pad])}
+
+    def on_own_arm(answers, arm_of=lambda a: a[3]):
+        """Answers that equal score_topk_ref of the factors of the arm that
+        served them, and those that equal the other arm's too."""
+        own = other = 0
+        for arm in ("champion", "challenger"):
+            mine = [a for a in answers if arm_of(a) == arm]
+            if not mine:
+                continue
+            users, bodies = [a[0] for a in mine], [a[2] for a in mine]
+            own += sum(answers_agree(torch, ops, dev, Ud, Vp[arm], users, bodies))
+            rival = "challenger" if arm == "champion" else "champion"
+            other += sum(answers_agree(torch, ops, dev, Ud, Vp[rival], users, bodies))
+        return own, other
+
+    def split_of(spec):
+        return [(s.name, s.weight) for s in parse_weights(spec)]
+
+    served = []   # every 200 answer: (user, status, body, arm, ms)
+    rng = np.random.default_rng(SEED + 11)
+    # the size of every feedback send (the workers deliver a backlog at once)
+    sends, send_batch = Counter(), server._event_sink.send_batch
+
+    def counted_send(events):
+        sends[len(events)] += 1
+        return send_batch(events)
+
+    server._event_sink.send_batch = counted_send
+    try:
+        # 0. both arms warm: the challenger adopts the champion's programs
+        t0 = time.perf_counter()
+        while True:
+            st, health = get_json("/health")
+            if st == 200:
+                break
+            check(st == 503 and time.perf_counter() - t0 < 600,
+                  f"/health while the arms warm: {st} {health}")
+            time.sleep(0.05)
+        t_warm = time.perf_counter() - t0
+        arms = health["variants"]["variants"]
+        counts1 = aot.EXECUTABLES.counts()
+        built = counts1.get("compile", 0) - counts0.get("compile", 0)
+        ladder = len(arms["champion"]["warmup"]["buckets"])
+        print(f"deployed {ARMS} in {t_load:.1f} s, both arms warm {t_warm:.2f} s "
+              f"later: champion gen {arms['champion']['generation']} built "
+              f"{arms['champion']['warmup']['compiled']} programs, challenger gen "
+              f"{arms['challenger']['generation']} built "
+              f"{arms['challenger']['warmup']['compiled']} and adopted "
+              f"{arms['challenger']['warmup']['cached']}; the cache built {built} "
+              f"for a ladder of {ladder}", flush=True)
+        check(arms["champion"]["generation"] == g1
+              and arms["challenger"]["generation"] == g2
+              and arms["champion"]["engineInstanceId"] == first
+              and arms["challenger"]["engineInstanceId"] == second,
+              f"arms resolved to {arms}")
+        check(arms["challenger"]["warmup"]["compiled"] == 0
+              and arms["challenger"]["warmup"]["cached"] == ladder
+              and built == ladder, "the challenger's warm-up built programs")
+
+        # 1. the split: 2,000 distinct users from 16 clients, per-arm launches
+        users = [int(u) for u in rng.choice(N_USERS, SPLIT_USERS, replace=False)]
+        by_arm, batches = Counter(), Counter()
+        role, role_lock = threading.local(), threading.Lock()
+        kernel, batch_fn = ops.score_topk, server._batcher.fn_batch
+
+        def tallied(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            with role_lock:
+                by_arm[getattr(role, "arm", "other")] += 1
+            return out
+
+        def tallied_batch(queries, arm):
+            role.arm = arm
+            with role_lock:
+                batches[arm] += 1
+            try:
+                return batch_fn(queries, arm)
+            finally:
+                del role.arm
+
+        reset_counters(ops)
+        t0 = t_first = time.perf_counter()
+        with mock.patch.object(ops, "score_topk", tallied), \
+                mock.patch.object(server._batcher, "fn_batch", tallied_batch):
+            split = run_queries(users, SPLIT_CLIENTS)
+        t_split = time.perf_counter() - t0
+        launches = read_counters(ops)["score_topk"]
+        check(all(a[1] == 200 for a in split),
+              f"split answers {Counter(a[1] for a in split)}")
+        served += split
+        arms9 = split_of(ARMS)
+        want = [weighted_assign(f"u{u}", arms9, "pio") for u in users]
+        wrong = sum(a[3] != w for a, w in zip(split, want))
+        per_arm = Counter(a[3] for a in split)
+        own, other = on_own_arm(split)
+        lat = {arm: np.asarray([a[4] for a in split if a[3] == arm]) for arm in per_arm}
+        print(f"{SPLIT_USERS} users from {SPLIT_CLIENTS} clients in {t_split:.2f} s: "
+              f"{dict(per_arm)} (the hash: {dict(Counter(want))}), {wrong} off the "
+              f"hash; {own} answers equal their own arm's reference, {other} the "
+              f"other arm's; " + "; ".join(
+                  f"{arm} p50 {np.percentile(x, 50):.3f} ms p99 "
+                  f"{np.percentile(x, 99):.3f} ms" for arm, x in sorted(lat.items()))
+              + f"; score_topk launches {launches}: {dict(by_arm)} over device "
+              f"batches {dict(batches)}", flush=True)
+        check(wrong == 0, f"{wrong} answers off weighted_assign")
+        check(own == SPLIT_USERS, f"{SPLIT_USERS - own} answers off their arm's reference")
+        check(set(per_arm) == {"champion", "challenger"}, "an arm served nothing")
+        check(dict(by_arm) == dict(batches) and sum(by_arm.values()) == launches,
+              f"launches {dict(by_arm)} (total {launches}) != batches {dict(batches)}")
+        launches_phase11 = dict(by_arm)
+
+        # 2. sticky on a repeat; the X-PIO-Variant header overrides
+        again = run_queries(users[:REPEAT_USERS], SPLIT_CLIENTS)
+        check(all(a[1] == 200 and a[3] == b[3] for a, b in zip(again, split)),
+              "a repeated user changed arm")
+        champs = [a[0] for a in split if a[3] == "champion"][:50]
+        forced = run_queries(champs, 4, {"X-PIO-Variant": "challenger"})
+        own_f, _ = on_own_arm(forced)
+        check(all(a[1] == 200 and a[3] == "challenger" for a in forced)
+              and own_f == len(forced), "X-PIO-Variant: challenger did not override")
+        ghost = run_queries(champs[:1], 1, {"X-PIO-Variant": "ghost"})[0]
+        check(ghost[1] == 400, f"X-PIO-Variant: ghost answered {ghost[1]}")
+        served += again + forced
+        print(f"{REPEAT_USERS} repeated users on the same arms; {len(forced)} of the "
+              f"champion's users forced onto the challenger, each equal to its "
+              f"reference; X-PIO-Variant: ghost answered 400", flush=True)
+
+        # 3. weights: 1:1 applied, then the next 2,000 follow the new split
+        st, body = get_json("/variants/weights", "POST",
+                            {"weights": {"champion": 1, "challenger": 1}})
+        check(st == 200 and body["applied"]
+              and body["effectiveWeights"] == {"champion": 1.0, "challenger": 1.0},
+              f"/variants/weights: {st} {body}")
+        epoch = body["weightsEpoch"]
+        users2 = [int(u) for u in rng.choice(N_USERS, SPLIT_USERS, replace=False)]
+        split2 = run_queries(users2, SPLIT_CLIENTS)
+        arms1 = [("champion", 1.0), ("challenger", 1.0)]
+        wrong2 = sum(a[1] != 200 or a[3] != weighted_assign(f"u{a[0]}", arms1, "pio")
+                     for a in split2)
+        own2, _ = on_own_arm(split2)
+        st, body = get_json("/variants/weights", "POST",
+                            {"weights": {"champion": 1, "ghost": 1}})
+        _, snap = get_json("/variants")
+        check(400 <= st < 500 and snap["weightsEpoch"] == epoch
+              and snap["variants"]["champion"]["weight"] == 1.0
+              and snap["variants"]["challenger"]["weight"] == 1.0,
+              f"a weight on an unknown arm: {st} {body}; /variants {snap}")
+        served += split2
+        print(f"weights 1:1 applied (epoch {epoch}); the next {SPLIT_USERS} queries "
+              f"{dict(Counter(a[3] for a in split2))}, {wrong2} off the new hash, "
+              f"{own2} on their arm's reference; a weight on 'ghost' answered {st}, "
+              f"the split unchanged", flush=True)
+        check(wrong2 == 0 and own2 == SPLIT_USERS, "the re-weighted split is off")
+
+        # 4. /reload?variant=challenger: a partial swap fails closed, then heals
+        chal_users = [a[0] for a in split2 if a[3] == "challenger"][:100]
+        FAULTS.arm("variant.reload.partial", error="mid-swap kill")
+        try:
+            st, body = get_json("/reload?variant=challenger")
+        finally:
+            FAULTS.disarm("variant.reload.partial")
+        check(st == 500 and body["swap"] == "failed", f"faulted reload: {st} {body}")
+        st, health = get_json("/health")
+        check(st == 200 and health["status"] == "degraded"
+              and "challenger" in health["reason"]
+              and health["variants"]["variants"]["challenger"]["state"] == "failed",
+              f"/health after the failed swap: {st} {health}")
+        moved = run_queries(chal_users, 4)
+        own_m, _ = on_own_arm(moved)
+        check(all(a[1] == 200 and a[3] == "champion" for a in moved)
+              and own_m == len(moved),
+              "the failed arm's users were not answered from the champion's factors")
+        t0 = time.perf_counter()
+        st, body = get_json("/reload?variant=challenger")
+        t_heal = time.perf_counter() - t0
+        check(st == 200 and body["swap"] == "promoted"
+              and body["modelGeneration"] == g2, f"clean reload: {st} {body}")
+        back = run_queries(chal_users, 4)
+        own_b, _ = on_own_arm(back)
+        check(all(a[1] == 200 and a[3] == "challenger" for a in back)
+              and own_b == len(back), "the challenger did not serve again")
+        check(get_json("/health")[1]["status"] == "ok", "/health not ok after the heal")
+        served += moved + back
+        print(f"/reload?variant=challenger with variant.reload.partial: 500 failed, "
+              f"/health degraded ({health['reason']}), {len(moved)} of its users "
+              f"answered by the champion on the champion's factors; a clean reload "
+              f"in {t_heal:.2f} s brought it back ({len(back)} answers on its "
+              f"factors)", flush=True)
+
+        # 5. feedback: one predict event per 200 answer, with prId and arm
+        t0 = time.perf_counter()
+        while server._feedback_inflight:
+            check(time.perf_counter() - t0 < 120, "the feedback executor did not drain")
+            time.sleep(0.05)
+        t_drain = time.perf_counter() - t0
+        fb_rate = len(served) / (time.perf_counter() - t_first)
+        fb = {k[0]: v for k, v in server._m_feedback.items()}
+        events = list(storage.events.find(fb_app, event_names=["predict"]))
+        arm_of = {a[2]["prId"]: a[3] for a in served}
+        got = {e.pr_id: e for e in events}
+        wrong_ev = sum(1 for e in events
+                       if e.entity_type != "pio_pr" or e.entity_id != e.pr_id
+                       or e.properties.get("variant") != arm_of.get(e.pr_id))
+        print(f"feedback: {len(served)} answers with a prId, {len(events)} predict "
+              f"events in the store ({wrong_ev} with a wrong entity or arm), "
+              f"pio_engine_feedback_total {fb}; drained {t_drain:.2f} s after the "
+              f"last query, {fb_rate:.0f} events/s from the first query to the "
+              f"drain; {sum(sends.values())} sends, by size "
+              f"{sorted(sends.items())}", flush=True)
+        check(len(got) == len(events) == len(served) and set(got) == set(arm_of)
+              and wrong_ev == 0, "predict events do not match the answers")
+        check(fb.get("ok") == len(served) and not fb.get("dropped"),
+              f"pio_engine_feedback_total {fb} for {len(served)} answers")
+        # recent answers of both arms: the scoreboard keeps the last 4,096 prIds
+        clicked = split2[-CLICKS:]
+        clicks = Counter()
+        for a in clicked:
+            st, body = get_json("/feedback.json", "POST",
+                                {"prId": a[2]["prId"], "click": True})
+            check(st == 200 and body["variant"] == a[3], f"click: {st} {body}")
+            clicks[a[3]] += 1
+        _, snap = get_json("/variants")
+        online = {n: v["online"] for n, v in snap["variants"].items()}
+        check(all(online[n]["clicks"] == clicks[n] for n in online),
+              f"/variants clicks {online} != {dict(clicks)}")
+        print(f"{CLICKS} clicks accepted on their arms {dict(clicks)}; /variants "
+              f"online: " + "; ".join(f"{n} served {v['served']} clicks {v['clicks']} "
+                                      f"ctr {v['ctr']}" for n, v in online.items()),
+              flush=True)
+
+        # 6. a dead sink: serving stays 200, the breaker opens, one bundle
+        stop_event_server(es)
+        fb0 = {k[0]: v for k, v in server._m_feedback.items()}
+        # one query at a time, each after the previous one's feedback has
+        # settled, so that each is a send of its own (a backlog would go
+        # out in one batch)
+        dead = []
+        t0 = time.perf_counter()
+        for u in rng.integers(0, N_USERS, DEAD_SINK_QUERIES):
+            dead += run_queries([int(u)], 1)
+            while server._feedback_inflight:
+                check(time.perf_counter() - t0 < 120, "feedback did not drain "
+                                                      "(dead sink)")
+                time.sleep(0.005)
+        check(all(a[1] == 200 for a in dead), "a query failed with the sink down")
+        fb1 = {k[0]: v for k, v in server._m_feedback.items()}
+        delta = {k: fb1.get(k, 0) - fb0.get(k, 0) for k in fb1}
+        server.incidents.join(30)
+        st, health = get_json("/health")
+        print(f"event server stopped: {DEAD_SINK_QUERIES} queries all 200; feedback "
+              f"{delta}; breaker {server._sink_breaker.state}; /health "
+              f"{health['status']} ({health.get('reason')})", flush=True)
+        check(server._sink_breaker.state == "open" and delta.get("error", 0) == 5
+              and delta.get("breaker_open", 0) > 0
+              and delta.get("error", 0) + delta.get("breaker_open", 0)
+              == DEAD_SINK_QUERIES, f"the feedback breaker: {delta}")
+        listed = cli("incidents", "list", "--dir", incident_dir)
+        ids = json.loads(cli("incidents", "list", "--dir", incident_dir, "--json"))
+        check(len(ids) == 1 and ids[0]["trigger"] == "breaker-open"
+              and ids[0]["id"] in listed, f"incidents list: {listed}")
+        shown = cli("incidents", "show", ids[0]["id"], "--dir", incident_dir)
+        print(listed.strip() + "\n" + shown.strip(), flush=True)
+        check("trigger breaker-open" in shown and "health.json" in shown
+              and "engine_feedback_sink" in shown, f"incidents show: {shown}")
+
+        # 7. the event server's share: plugin, tenant quota, ingest.commit
+        cli("app", "quota", "QuotaApp", "--rate", "1", "--burst", "10")
+        sniffed0 = sum(1 for _ in open(sniffed))
+        es = start_event_server()
+        ev = {"entityType": "user", "entityId": "chip", "targetEntityType": "item",
+              "targetEntityId": "i1"}
+        st, body = http_json(es_port, "POST", f"/events.json?accessKey={key}",
+                             dict(ev, event="blocked"))
+        check(st == 403 and "chip-gate" in body["message"], f"blocked: {st} {body}")
+        good = post_all(es_port, f"/events.json?accessKey={key}",
+                        [json.dumps(dict(ev, event="view"))] * 20, 4)
+        check(all(a[0] == 201 for a in good), "the plugin refused good events")
+        sniffed1 = sum(1 for _ in open(sniffed))
+        burst = post_all(es_port, f"/events.json?accessKey={quota_key}",
+                         [json.dumps(dict(ev, event="view"))] * 50, 50)
+        raw = urllib.request.urlopen(f"http://127.0.0.1:{es_port}/metrics",
+                                     timeout=30).read().decode()
+        rejected = sum(v for n, lab, v in parse_prom_text(raw)
+                       if n == "pio_tenant_quota_rejected_total"
+                       and lab.get("app") == str(quota_app))
+        codes = Counter(a[0] for a in burst)
+        sniffed2 = sum(1 for _ in open(sniffed))
+        print(f"restarted event server: 'blocked' answered 403; the sniffer saw "
+              f"{sniffed1 - sniffed0} of 20 201s; QuotaApp (10-event bucket) burst of "
+              f"50: {dict(codes)}, pio_tenant_quota_rejected_total{{app={quota_app}}} "
+              f"= {rejected:g}", flush=True)
+        check(sniffed1 - sniffed0 == 20, "the sniffer missed a 201")
+        check(codes[429] > 0 and rejected == codes[429]
+              and sniffed2 - sniffed1 == codes[201]
+              and codes[201] + codes[429] == 50, f"the quota burst: {dict(codes)}")
+        check(all(a[1]["retryAfterSec"] > 0 for a in burst if a[0] == 429),
+              "a 429 without retryAfterSec")
+        conn = http.client.HTTPConnection("127.0.0.1", es_port, timeout=30)
+        try:
+            conn.request("POST", f"/events.json?accessKey={quota_key}",
+                         body=json.dumps(dict(ev, event="view")),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            r.read()
+            check(r.status == 429 and int(r.headers["Retry-After"]) >= 1,
+                  f"one more QuotaApp event: {r.status} {dict(r.headers)}")
+        finally:
+            conn.close()
+        stop_event_server(es)
+        es = start_event_server({"PIO_FAULTS": "ingest.commit:error=storage down"})
+        seq = []
+        for _ in range(20):
+            st, _ = http_json(es_port, "POST", f"/events.json?accessKey={key}",
+                              dict(ev, event="view", entityId="faulted"))
+            seq.append(st)
+            if st == 503:
+                break
+        batch = post_all(es_port, f"/events.json?accessKey={key}",
+                         [json.dumps(dict(ev, event="view", entityId="faulted"))] * 50,
+                         50)
+        stop_event_server(es)
+        landed = list(storage.events.find(fb_app, entity_type="user",
+                                          entity_id="faulted"))
+        print(f"ingest.commit armed: single POSTs {seq} (500 per failed group commit "
+              f"until the storage breaker opens), then a burst of 50: "
+              f"{dict(Counter(a[0] for a in batch))}; {len(landed)} of them in the "
+              f"store", flush=True)
+        check(seq[-1] == 503 and set(seq[:-1]) == {500}
+              and all(a[0] == 503 for a in batch) and not landed,
+              "the faulted commits")
+        check(Counting.seen == len(served) + DEAD_SINK_QUERIES,
+              f"the engine plugin saw {Counting.seen} answers")
+    finally:
+        FAULTS.disarm()
+        loop.call_soon_threadsafe(server.http.request_shutdown)
+        serve.join(30)
+        loop.close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    check(not serve.is_alive(), "server did not stop")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return {"launches_phase11": launches_phase11, "feedback": fb,
+            "feedback_per_s": fb_rate}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2555,6 +3126,9 @@ def main(argv) -> int:
         phase("10. the engine server's operations surface at ML-20M width")
         with tempfile.TemporaryDirectory(prefix="pio_chip_ops_") as home:
             ops_surface(torch, ops, dev, home, train)
+        phase("11. the engine server's online loop at ML-20M width")
+        with tempfile.TemporaryDirectory(prefix="pio_chip_online_") as home:
+            online_loop(torch, ops, dev, home, train)
         phase("done")
         return 0
 
@@ -2620,6 +3194,9 @@ def main(argv) -> int:
     phase("10. the engine server's operations surface at ML-20M width")
     with tempfile.TemporaryDirectory(prefix="pio_chip_ops_") as home:
         surface = ops_surface(torch, ops, dev, home, train)
+    phase("11. the engine server's online loop at ML-20M width")
+    with tempfile.TemporaryDirectory(prefix="pio_chip_online_") as home:
+        online = online_loop(torch, ops, dev, home, train)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -2635,6 +3212,7 @@ def main(argv) -> int:
         "launches_k_gt_32": wide["launches"],
         "launches_phase10_load": surface["load_launches"],
         "launches_phase10_reload": surface["reload_launches"],
+        "launches_phase11": online["launches_phase11"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
     }, {

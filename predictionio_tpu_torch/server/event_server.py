@@ -28,9 +28,20 @@ by default from ``PIO_SSL_CERT_PATH``/``PIO_SSL_KEY_PATH``) and the
 request spans (``storage.insert``, ``storage.insert_batch``,
 ``ingest.submit``).
 
+Tenancy: each app's events are charged to its own token bucket
+(``quotas.json`` next to the event data, written by ``app quota``,
+hot-reloaded); an app over its quota gets its OWN 429 with
+``Retry-After``, counted in ``pio_tenant_quota_rejected_total{app}``,
+and other apps never see it. ``/health`` names the policy file in
+``tenantQuotas``. Plugins (``core/plugins.py``, ``PIO_PLUGINS``): an
+``input_blocker`` refuses an event with 403, and ``input_sniffer`` sees
+every event after its commit. Incident capture (``incident_dir``): the
+ingest storage breaker opening writes a postmortem bundle, and
+``serve_forever`` installs the SIGQUIT and crash handlers.
+
 Left out of the port for now, each with the part of the JAX server that
-brings it: tenant quotas, plugins and incident capture; segment
-maintenance (the native event log); the replication gate (replication).
+brings it: writer sharding and segment maintenance (the native event
+log); the replication gate (replication).
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from predictionio_tpu_torch.data.event import (
     parse_event_time,
     utcnow,
 )
+from predictionio_tpu_torch.core.plugins import event_server_plugins
 from predictionio_tpu_torch.data.webhooks import get_connector
 from predictionio_tpu_torch.server.http import (
     HTTPServer,
@@ -65,6 +77,7 @@ from predictionio_tpu_torch.server.ingest import (
     StorageUnavailable,
     WriteCoalescer,
 )
+from predictionio_tpu_torch.server.tenancy import TenantQuotas
 from predictionio_tpu_torch.storage.meta import meta_epoch
 from predictionio_tpu_torch.storage.registry import Storage, get_storage
 from predictionio_tpu_torch.utils import tracing
@@ -184,6 +197,7 @@ class EventServer:
         host: str = "0.0.0.0",
         port: int = 7070,
         stats: bool = False,
+        plugins: Optional[List[Any]] = None,
         ssl_context: Optional[Any] = None,
         bind_retries: int = 3,
         bind_retry_sec: float = 1.0,
@@ -193,20 +207,35 @@ class EventServer:
         auth_cache_ttl: float = 30.0,
         durable_acks: bool = False,
         access_log: bool = False,
+        tenant_quotas: Optional[Any] = None,
         scrape_interval: float = 10.0,
+        incident_dir: Optional[str] = None,
     ) -> None:
         self.storage = storage or get_storage()
+        # per-app QoS policy (quotas.json next to the event data, written
+        # by `app quota`): ingest token buckets. The zero-config default
+        # is unlimited, so single-tenant deployments are unchanged.
+        if isinstance(tenant_quotas, TenantQuotas):
+            self.quotas = tenant_quotas
+        elif tenant_quotas:
+            self.quotas = TenantQuotas(str(tenant_quotas))
+        else:
+            self.quotas = TenantQuotas.for_home(self.storage.config.home)
         if durable_acks:
             # 201 then means on disk (fsync), not just committed to the
             # page cache; with ingest batching the coalescer amortizes
             # the sync over each group commit
             self.storage.events.set_durable(True)
         self.stats = Stats() if stats else None
+        self.plugins = plugins if plugins is not None else event_server_plugins()
         self._m_events = REGISTRY.counter(
             "pio_events_ingested_total", "Events accepted/rejected",
             ("app_id", "status"))
         self._m_insert = REGISTRY.histogram(
             "pio_event_insert_seconds", "Single-event insert latency")
+        self._m_quota = REGISTRY.counter(
+            "pio_tenant_quota_rejected_total",
+            "Events refused by the app's own ingest quota", ("app",))
         #: process identity on pio_build_info
         self.instance_uid = uuid.uuid4().hex[:12]
         build_info(self.instance_uid)
@@ -219,6 +248,30 @@ class EventServer:
                                        max_batch=ingest_max_batch,
                                        max_queue=ingest_queue_depth)
                         if ingest_batching else None)
+        # incident flight recorder: breaker-open / crash / SIGQUIT
+        # postmortem bundles under <home>/incidents (utils/incidents)
+        self.incidents = None
+        if incident_dir:
+            from predictionio_tpu_torch.utils.incidents import (
+                IncidentCapturer,
+                IncidentStore,
+                default_incident_dir,
+            )
+
+            if incident_dir == "auto":
+                incident_dir = default_incident_dir(self.storage.config.home)
+            self.incidents = IncidentCapturer(
+                IncidentStore(incident_dir), process="events")
+            self.incidents.add_source("health", self._health_doc)
+            self.incidents.set_history(self.tsdb, lambda: [
+                "pio_events_ingested_total", "pio_event_insert_seconds_count",
+                "pio_tenant_quota_rejected_total",
+                "pio_circuit_breaker_state",
+            ])
+            if self._ingest is not None:
+                self._ingest.breaker.on_open = (
+                    lambda name: self.incidents.trigger(
+                        "breaker-open", {"breaker": name}))
         self._auth_cache = (AuthCache(self.storage.meta, ttl=auth_cache_ttl)
                             if auth_cache_ttl > 0 else None)
         router = Router()
@@ -289,12 +342,27 @@ class EventServer:
     async def _status(self, req: Request) -> Response:
         return Response.json({"status": "alive"})
 
+    def _health_doc(self) -> Dict[str, Any]:
+        """Sync health snapshot for incident bundles: ingest queue and
+        breaker state without going through the event loop."""
+        doc: Dict[str, Any] = {"instance": self.instance_uid}
+        if self._ingest is not None:
+            doc["ingest"] = {
+                "queueDepth": self._ingest.depth,
+                "breaker": self._ingest.breaker.state,
+                "rejected": self._ingest.rejected,
+                "breakerRejected": self._ingest.breaker_rejected,
+            }
+        return doc
+
     async def _health(self, req: Request) -> Response:
         """Liveness and readiness: ``ok`` when storage is reachable,
         ``degraded`` (still 200: a supervisor must not restart a server
         that sheds correctly) while the ingest storage breaker is open or
         the queue is full."""
         body: Dict[str, Any] = {"status": "ok"}
+        if self.quotas.path:
+            body["tenantQuotas"] = self.quotas.path
         if self._ingest is not None:
             breaker = self._ingest.breaker
             body["ingest"] = {
@@ -334,6 +402,18 @@ class EventServer:
         resp.headers["Retry-After"] = str(max(1, math.ceil(retry_after)))
         return resp
 
+    def _quota_gate(self, app_id: int, n: int) -> Optional[Response]:
+        """Charge ``n`` events to the app's ingest bucket; a refusal is
+        that tenant's OWN 429 — other apps' submits never see it."""
+        ok, retry_after = self.quotas.admit(app_id, n)
+        if ok:
+            return None
+        self._m_quota.inc((app_id,))
+        self._m_events.inc((app_id, 429))
+        return self._throttled(
+            429, f"app {app_id} over its ingest quota "
+                 f"({n} event(s) refused)", retry_after)
+
     @staticmethod
     def _created(eid: str) -> Response:
         # constant-shape 201 body without a json.dumps on the hot path;
@@ -345,7 +425,8 @@ class EventServer:
         return Response.json({"eventId": eid}, status=201)
 
     def _prepare_one(
-        self, obj: Any, app_id: int, allowed: List[str],
+        self, obj: Any, app_id: int, channel_id: Optional[int],
+        allowed: List[str],
     ) -> Tuple[Optional[Event], Optional[Tuple[int, Dict[str, Any]]]]:
         """Parse/validate/authorize one event body WITHOUT inserting.
         Returns (event, None) or (None, (status, error body)); error
@@ -359,10 +440,18 @@ class EventServer:
             self._m_events.inc((app_id, 403))
             return None, (403, {"message": f"event {ev.event!r} not permitted "
                                            "by this key"})
+        for p in self.plugins:
+            verdict = p.input_blocker(ev, app_id, channel_id)
+            if verdict is not None:
+                self._m_events.inc((app_id, 403))
+                return None, (403, {"message": verdict})
         return ev, None
 
-    def _finish_one(self, ev: Event, app_id: int, elapsed: float) -> None:
+    def _finish_one(self, ev: Event, app_id: int, channel_id: Optional[int],
+                    elapsed: float) -> None:
         """Post-commit accounting shared by every insert path."""
+        for p in self.plugins:
+            p.input_sniffer(ev, app_id, channel_id)
         if self.stats:
             self.stats.record(app_id, ev.event, 201)
         self._m_events.inc((app_id, 201))
@@ -371,12 +460,12 @@ class EventServer:
     def _insert_one(self, obj: Any, app_id: int, channel_id: Optional[int],
                     allowed: List[str]) -> Tuple[int, Dict[str, Any]]:
         t0 = time.perf_counter()
-        ev, err = self._prepare_one(obj, app_id, allowed)
+        ev, err = self._prepare_one(obj, app_id, channel_id, allowed)
         if err is not None:
             return err
         with tracing.span("storage.insert", app_id=app_id):
             eid = self.storage.events.insert(ev, app_id, channel_id)
-        self._finish_one(ev, app_id, time.perf_counter() - t0)
+        self._finish_one(ev, app_id, channel_id, time.perf_counter() - t0)
         return 201, {"eventId": eid}
 
     async def _ingest_obj(self, obj: Any, app_id: int,
@@ -385,6 +474,9 @@ class EventServer:
         """One event body → Response, through the group-commit
         coalescer when enabled (ack only after the commit returns),
         else the per-event insert path."""
+        deny = self._quota_gate(app_id, 1)
+        if deny is not None:
+            return deny
         if self._ingest is None:
             status, body = await asyncio.to_thread(
                 self._insert_one, obj, app_id, channel_id, allowed)
@@ -394,7 +486,7 @@ class EventServer:
         t0 = time.perf_counter()
         # parse/authorize inline: pure Python, no storage round trip —
         # keeps the hot path free of a to_thread hop per request
-        ev, err = self._prepare_one(obj, app_id, allowed)
+        ev, err = self._prepare_one(obj, app_id, channel_id, allowed)
         if err is not None:
             status, body = err
             return Response.json(body, status=status)
@@ -417,7 +509,7 @@ class EventServer:
             self._m_events.inc((app_id, 500))
             return Response.json(
                 {"message": f"event insert failed: {e}"}, status=500)
-        self._finish_one(ev, app_id, time.perf_counter() - t0)
+        self._finish_one(ev, app_id, channel_id, time.perf_counter() - t0)
         return self._created(eid)
 
     async def _post_event(self, req: Request) -> Response:
@@ -440,10 +532,13 @@ class EventServer:
             return Response.json(
                 {"message": f"Batch request must have at most {BATCH_LIMIT} events"},
                 status=400)
+        deny = self._quota_gate(app_id, len(payload))
+        if deny is not None:
+            return deny
 
         def run() -> List[Dict[str, Any]]:
             t0 = time.perf_counter()
-            prepared = [self._prepare_one(obj, app_id, allowed)
+            prepared = [self._prepare_one(obj, app_id, channel_id, allowed)
                         for obj in payload]
             if prepared and all(err is None for _, err in prepared):
                 # every event valid and permitted: ONE insert_batch, one
@@ -461,7 +556,7 @@ class EventServer:
                 else:
                     per_event = (time.perf_counter() - t0) / len(events)
                     for ev in events:
-                        self._finish_one(ev, app_id, per_event)
+                        self._finish_one(ev, app_id, channel_id, per_event)
                     return [{"status": 201, "eventId": eid} for eid in ids]
             # mixed validity (or batch-commit failure): event by event,
             # so that one bad item cannot poison its siblings' statuses
@@ -479,7 +574,7 @@ class EventServer:
                     results.append({"status": 500,
                                     "message": f"event insert failed: {e}"})
                     continue
-                self._finish_one(ev, app_id, time.perf_counter() - t1)
+                self._finish_one(ev, app_id, channel_id, time.perf_counter() - t1)
                 results.append({"status": 201, "eventId": eid})
             return results
 
@@ -580,6 +675,12 @@ class EventServer:
     # -- lifecycle -------------------------------------------------------------
 
     async def serve_forever(self) -> None:
+        if self.incidents is not None:
+            from predictionio_tpu_torch.utils.incidents import (
+                install_crash_handlers,
+            )
+
+            install_crash_handlers(self.incidents)
         scraper = asyncio.create_task(
             scrape_loop(self.tsdb, self.scrape_interval),
             name="pio-events-tsdb")

@@ -49,11 +49,13 @@ Each commit is a detached ``ingest.commit`` span that links the trace
 ids of the requests it acknowledges, and the coalescer counts the queued
 events per app (``queued_by_app``, on the event server's ``/health``).
 
+Each commit, and each isolated re-run of one event, passes the
+``ingest.commit`` fault site first: an armed error there is a storage
+outage (the commit fails, nothing lands, and enough failures open the
+breaker).
+
 Left out of the port for now: the branch for a write refused by a
-fenced ex-leader (``FencedWriteError``), which comes with replication,
-and the ``ingest.commit`` fault site on each commit, which comes with
-the rest of tenancy. A test injects a storage failure with a store whose
-``insert_batch`` raises.
+fenced ex-leader (``FencedWriteError``), which comes with replication.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from predictionio_tpu_torch.data.event import Event
-from predictionio_tpu_torch.utils import tracing
+from predictionio_tpu_torch.utils import faults, tracing
 from predictionio_tpu_torch.utils.metrics import REGISTRY
 from predictionio_tpu_torch.utils.resilience import CircuitBreaker
 
@@ -261,6 +263,16 @@ class WriteCoalescer:
             if stop:
                 return
 
+    def _insert_batch_guarded(self, events: List[Event], app_id: int,
+                              channel_id: Optional[int]) -> List[str]:
+        faults.inject("ingest.commit")
+        return self.store.insert_batch(events, app_id, channel_id)
+
+    def _insert_one_guarded(self, event: Event, app_id: int,
+                            channel_id: Optional[int]) -> str:
+        faults.inject("ingest.commit")
+        return self.store.insert(event, app_id, channel_id)
+
     async def _commit(self, items: List[tuple]) -> None:
         """Group by (app, channel), one ``insert_batch`` per group.
         Groups are independent namespaces (separate tables), so a
@@ -298,7 +310,8 @@ class WriteCoalescer:
                                    link_traces=links) as sp:
             try:
                 ids = await loop.run_in_executor(
-                    ex, self.store.insert_batch, events, app_id, channel_id)
+                    ex, self._insert_batch_guarded, events, app_id,
+                    channel_id)
                 if len(ids) != len(events):
                     raise RuntimeError(
                         f"insert_batch returned {len(ids)} ids for "
@@ -319,7 +332,7 @@ class WriteCoalescer:
                         continue
                     try:
                         eid = await loop.run_in_executor(
-                            ex, self.store.insert, event, app_id,
+                            ex, self._insert_one_guarded, event, app_id,
                             channel_id)
                     except Exception as single_e:
                         if not fut.done():

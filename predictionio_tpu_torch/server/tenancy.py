@@ -17,8 +17,9 @@
     the burster sheds first and quiet tenants keep their seats.
 
 The engine server uses ``FairInflight`` with weights from
-``TenantQuotas``; the event server's ingest quotas and the ``app quota``
-verb come with the rest of tenancy.
+``TenantQuotas``; the event server charges each app's events to its
+``TokenBucket`` (429 with ``Retry-After``), and ``app quota`` writes the
+policy file.
 """
 
 from __future__ import annotations

@@ -32,15 +32,30 @@ Verbs:
 - ``status`` checks the storage backends and the card;
 - ``trace`` reads the span JSONL that ``eventserver`` and ``deploy``
   write with ``--tracing`` (the JAX package's format: either package's
-  ``trace`` reads the other's file).
+  ``trace`` reads the other's file);
+- ``app quota`` shows or sets an app's QoS overrides in ``quotas.json``
+  (ingest rate and burst, fair-share weight), which both servers
+  hot-reload;
+- ``models list|promote|rollback`` read and move the model registry's
+  champion (``<home>/model_registry``, the JAX package's manifest);
+- ``variants status|set-weights`` read and re-split a live ``deploy
+  --variants`` server's arms over HTTP, probe-then-apply;
+- ``incidents list|show|prune`` browse the incident bundles the servers
+  write (``--incident-dir``, on by default under ``<home>/incidents``).
 
 The verbs print the JAX CLI's lines and write the same rows, so either
 package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
 ``deploy``, ``eval`` and ``status`` run on the CUDA card and exit
-non-zero without one; ``--device cpu`` runs them on the CPU instead. The flags are the
-JAX CLI's flags for the options the port has, plus ``--device``; ``app
-quota``, ``--feedback*``, ``--variants`` and ``--incident-dir`` come with
-the rest of the engine server's surface.
+non-zero without one; ``--device cpu`` runs them on the CPU instead. The
+flags are the JAX CLI's flags for the options the port has, plus
+``--device``: ``deploy --variants SPEC --feedback-url URL
+--feedback-accesskey KEY`` serves a champion and a challenger side by
+side and posts every answer back as a ``predict`` event.
+
+Left out for now, each with the module that brings it: ``pio doctor``
+and the router's variant pins (the router and the continuous trainer,
+ROADMAP.md queue 1, item 13), ``--segment-maintenance`` (the native
+event log, item 12).
 """
 
 from __future__ import annotations
@@ -121,6 +136,34 @@ def cmd_app(args: argparse.Namespace) -> None:
         st.events.remove_channel(app.id, ch.id)
         meta.delete_channel(ch.id)
         print(f"[info] Deleted channel {args.channel!r}.")
+    elif args.app_cmd == "quota":
+        # torch-free: writes quotas.json next to the event
+        # data; every server hot-reloads it within ~1s of the edit
+        from predictionio_tpu_torch.server.tenancy import TenantQuotas
+
+        app = meta.get_app_by_name(args.name) or _die(f"no app {args.name!r}")
+        quotas = (TenantQuotas(args.quotas_file) if args.quotas_file
+                  else TenantQuotas.for_home(st.config.home))
+        fields: Dict[str, Any] = {}
+        if args.rate is not None:
+            fields["rate"] = args.rate
+        if args.burst is not None:
+            fields["burst"] = args.burst
+        if args.weight is not None:
+            fields["weight"] = args.weight
+        if args.writer_shards is not None:
+            fields["writer_shards"] = args.writer_shards
+        if args.deadline_ms is not None:
+            fields["deadline_ms"] = args.deadline_ms
+        for k in args.clear or []:
+            fields[k.replace("-", "_")] = None
+        if fields:
+            quotas.set_quota(str(app.id), **fields)
+            print(f"[info] Updated quota overrides for app "
+                  f"{app.name!r} (id {app.id}) in {quotas.path}.")
+        eff = quotas.describe(str(app.id))
+        print(json.dumps({"app": app.name, "appId": app.id,
+                          "effective": eff}, indent=2, sort_keys=True))
 
 
 def cmd_accesskey(args: argparse.Namespace) -> None:
@@ -186,7 +229,9 @@ def make_event_server(args: argparse.Namespace):
                        ingest_queue_depth=args.ingest_queue_depth,
                        auth_cache_ttl=args.auth_cache_ttl,
                        durable_acks=args.durable_acks,
-                       access_log=args.access_log)
+                       access_log=args.access_log,
+                       tenant_quotas=args.tenant_quotas,
+                       incident_dir=_incident_dir(args))
 
 
 def cmd_eventserver(args: argparse.Namespace) -> None:
@@ -209,6 +254,10 @@ def make_server(args: argparse.Namespace):
         instance_id=args.engine_instance_id,
         host=args.ip, port=args.port,
         variant_id=str(variant.get("id", "")),
+        feedback=args.feedback,
+        feedback_url=args.feedback_url,
+        feedback_access_key=args.feedback_accesskey,
+        feedback_channel=args.feedback_channel,
         batching=args.batching,
         batch_max=args.batch_max,
         batch_wait_ms=args.batch_wait_ms,
@@ -217,7 +266,10 @@ def make_server(args: argparse.Namespace):
         query_timeout_ms=args.query_timeout_ms,
         max_inflight=args.max_inflight,
         access_log=args.access_log,
+        variants=args.variants,
+        variant_salt=args.variant_salt,
         tenant_quotas=args.tenant_quotas,
+        incident_dir=_incident_dir(args),
         device=args.device,
     )
 
@@ -238,30 +290,22 @@ def cmd_train(args: argparse.Namespace) -> None:
 def cmd_deploy(args: argparse.Namespace) -> None:
     _configure_tracing(args)
     server = make_server(args)
-    print(f"[info] Engine Server (instance {server.deployed.instance.id}, "
-          f"device {server.deployed.algorithms[0][1].device}) "
-          f"listening on {args.ip}:{args.port}")
+    device = server.deployed.algorithms[0][1].device
+    if args.variants:
+        snap = server._mux.snapshot()
+        arms = ", ".join(
+            f"{n}=gen-{v['generation']:06d}" if v["generation"] is not None
+            else f"{n}={v['state']}"
+            for n, v in snap["variants"].items())
+        print(f"[info] Engine Server ({arms}, device {device}) "
+              f"listening on {args.ip}:{args.port}")
+    else:
+        print(f"[info] Engine Server (instance {server.deployed.instance.id}, "
+              f"device {device}) listening on {args.ip}:{args.port}")
     server.run()
 
 
 # -- eval, evals ------------------------------------------------------------
-
-
-def _resolve(spec: str) -> Any:
-    """``"module.path:attr"`` (or ``"module.path.attr"``) → object."""
-    import importlib
-
-    if ":" in spec:
-        mod_name, attr = spec.split(":", 1)
-    else:
-        mod_name, _, attr = spec.rpartition(".")
-    if not mod_name or not attr:
-        raise ImportError(f"bad spec {spec!r}; expected 'module.path:attr'")
-    mod = importlib.import_module(mod_name)
-    try:
-        return getattr(mod, attr)
-    except AttributeError as e:
-        raise ImportError(f"{mod_name!r} has no attribute {attr!r}") from e
 
 
 def _print_leaderboard(doc: dict, as_json: bool) -> None:
@@ -318,6 +362,7 @@ def cmd_eval(args: argparse.Namespace) -> None:
     from predictionio_tpu_torch.core.workflow import run_evaluation
     from predictionio_tpu_torch.storage import leaderboard as lb
     from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.utils.imports import resolve_spec
 
     if not args.engine_params_generator:
         _die("pio eval needs an engine params generator (module:attr)")
@@ -326,9 +371,9 @@ def cmd_eval(args: argparse.Namespace) -> None:
     except RuntimeError as e:
         _die(str(e))
     sys.path.insert(0, os.path.abspath(args.engine_dir))
-    ev_obj = _resolve(args.evaluation)
+    ev_obj = resolve_spec(args.evaluation)
     evaluation = ev_obj() if isinstance(ev_obj, type) else ev_obj
-    gen_obj = _resolve(args.engine_params_generator)
+    gen_obj = resolve_spec(args.engine_params_generator)
     generator = gen_obj() if isinstance(gen_obj, type) else gen_obj
     instance_id, result = run_evaluation(
         evaluation, generator.engine_params_list,
@@ -416,6 +461,277 @@ def cmd_evals(args: argparse.Namespace) -> None:
 
 
 # -- export, import, status -------------------------------------------------
+
+
+# -- models, variants, incidents ---------------------------------------------
+
+
+def _http_json(url: str, *, method: str = "GET",
+               body: Optional[dict] = None, timeout: float = 10.0) -> dict:
+    """GET/POST JSON over urllib (torch-free ops path). An HTTP error
+    with a JSON body comes back as that body plus ``_status``, so
+    callers can show the replica's own refusal reason instead of a
+    stack trace; transport errors still raise."""
+    import urllib.error
+    import urllib.request
+
+    data = None
+    headers = {}
+    if body is not None:
+        data = json.dumps(body).encode("utf-8")
+        headers["Content-Type"] = "application/json"
+    req = urllib.request.Request(url, data=data, headers=headers,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        try:
+            doc = json.loads(e.read() or b"{}")
+        except ValueError:
+            doc = {}
+        doc["_status"] = e.code
+        return doc
+
+
+def _replica_urls(args: argparse.Namespace) -> List[str]:
+    """--url (repeatable) plus manifest lines (router format: first
+    token is the URL, ``variants=`` annotations ignored here)."""
+    urls = list(args.url or [])
+    if getattr(args, "manifest", None):
+        try:
+            with open(args.manifest, "r", encoding="utf-8") as f:
+                for ln in f:
+                    ln = ln.strip()
+                    if not ln or ln.startswith("#"):
+                        continue
+                    u = ln.split()[0]
+                    urls.append(u if "//" in u else "http://" + u)
+        except OSError as e:
+            _die(f"cannot read manifest {args.manifest!r}: {e}")
+    return urls
+
+
+def cmd_variants(args: argparse.Namespace) -> None:
+    """Operate the live variant split (torch-free: runs on an ops box).
+    ``status`` shows each replica's resident arms with warmup state and
+    online score; ``set-weights`` re-splits traffic fleet-wide with
+    probe-then-apply semantics: every replica must report every named
+    arm serving BEFORE any replica's weights change, so a typo'd arm or
+    a half-warmed challenger can't blackhole traffic on part of the
+    fleet."""
+    urls = _replica_urls(args)
+    if not urls:
+        _die("no replicas: pass --url (repeatable) or --manifest FILE")
+    if args.variants_cmd == "status":
+        out = {}
+        for u in urls:
+            base = u.rstrip("/")
+            try:
+                out[base] = _http_json(f"{base}/variants",
+                                       timeout=args.timeout)
+            except Exception as e:  # noqa: BLE001 — per-replica verdict
+                out[base] = {"error": f"{type(e).__name__}: {e}"}
+        if args.json:
+            print(json.dumps(out, indent=2, sort_keys=True))
+            return
+        for base, doc in out.items():
+            if "variants" not in doc:
+                why = doc.get("error") or f"HTTP {doc.get('_status')}"
+                print(f"[variants] {base}: {why}")
+                continue
+            print(f"[variants] {base} default={doc['default']} "
+                  f"salt={doc['salt']!r} epoch={doc['weightsEpoch']}")
+            for name, arm in sorted(doc["variants"].items()):
+                gen = arm.get("generation")
+                on = arm.get("online") or {}
+                rmse = on.get("onlineRmse")
+                print(f"  {name:<16} "
+                      f"gen={'?' if gen is None else gen}  "
+                      f"state={arm['state']:<8} "
+                      f"w={arm['weight']:g}"
+                      f"→{arm['effectiveWeight']:.3f}  "
+                      f"served={on.get('served', 0)} "
+                      f"ctr={on.get('ctr', 0.0):.3f} "
+                      f"rmse={'-' if rmse is None else f'{rmse:.4f}'}")
+        return
+    # set-weights: probe ALL replicas before writing ANY
+    from predictionio_tpu_torch.server.variants import parse_weights
+
+    try:
+        specs = parse_weights(args.weights)
+    except ValueError as e:
+        _die(str(e))
+    if any(s.gen is not None for s in specs):
+        _die("set-weights re-splits arms already resident — generation "
+             "pins (name@N) belong to `pio deploy --variants`")
+    weights = {s.name: s.weight for s in specs}
+    probed: List[str] = []
+    for u in urls:
+        base = u.rstrip("/")
+        try:
+            doc = _http_json(f"{base}/variants", timeout=args.timeout)
+        except Exception as e:  # noqa: BLE001
+            _die(f"probe {base}/variants failed: {type(e).__name__}: {e} "
+                 "(no weights were changed)")
+        arms = doc.get("variants") or {}
+        missing = sorted(n for n in weights
+                         if (arms.get(n) or {}).get("state") != "ready")
+        if missing:
+            _die(f"{base}: arm(s) not serving: {', '.join(missing)} "
+                 "(no weights were changed)")
+        probed.append(base)
+    failed = False
+    for base in probed:
+        doc = _http_json(f"{base}/variants/weights", method="POST",
+                         body={"weights": weights}, timeout=args.timeout)
+        if "_status" in doc:
+            print(f"[variants] {base}: refused "
+                  f"({doc.get('error') or doc['_status']})")
+            failed = True
+        else:
+            print(f"[variants] {base}: weights applied "
+                  f"(epoch {doc.get('weightsEpoch')})")
+    if failed:
+        raise SystemExit(1)
+
+
+def cmd_models(args: argparse.Namespace) -> None:
+    """Generation-aware model registry verbs. Operator writes carry no
+    fencing token (``token=None`` bypasses the fence deliberately — the
+    human outranks a wedged trainer); meta statuses are re-synced so a
+    plain ``/reload`` lands on the chosen champion."""
+    from predictionio_tpu_torch.storage.models import model_registry
+
+    st = get_storage()
+    reg = model_registry(st)
+    if args.models_cmd == "list":
+        doc = {"championGeneration": (reg.champion() or {}).get("gen"),
+               "fenceToken": reg.fence_token(),
+               "generations": reg.generations()}
+        if args.replica_url:
+            # residency column: which generations each serving replica
+            # actually holds in HBM right now (reads /health, so a
+            # not-ready 503 still yields the variants block)
+            doc["variants"] = {}
+            for u in args.replica_url:
+                base = u.rstrip("/")
+                try:
+                    h = _http_json(f"{base}/health", timeout=5.0)
+                    doc["variants"][base] = h.get("variants") or {}
+                except Exception as e:  # noqa: BLE001
+                    doc["variants"][base] = {
+                        "error": f"{type(e).__name__}: {e}"}
+        if args.json:
+            print(json.dumps(doc, indent=2, sort_keys=True))
+            return
+        champ = doc["championGeneration"]
+        print(f"[models] champion=gen-{champ:06d}" if champ is not None
+              else "[models] champion=(none)")
+        print(f"[models] fence token={doc['fenceToken']}")
+        for e in doc["generations"]:
+            mark = " *champion*" if e["gen"] == champ else ""
+            print(f"  gen-{e['gen']:06d}  {e['status']:<12} "
+                  f"instance={e['instance_id']}  "
+                  f"sha256={e['sha256'][:12]}…{mark}")
+        for base, snap in (doc.get("variants") or {}).items():
+            arms = snap.get("variants") if isinstance(snap, dict) else None
+            if not arms:
+                why = (snap.get("error") or "no variant set resident"
+                       if isinstance(snap, dict) else snap)
+                print(f"  replica {base}: {why}")
+                continue
+            residency = ", ".join(
+                (f"{n}=gen-{a['generation']:06d}[{a['state']}]"
+                 if a.get("generation") is not None
+                 else f"{n}=?[{a['state']}]")
+                for n, a in sorted(arms.items()))
+            print(f"  replica {base}: {residency}")
+        return
+    if args.models_cmd == "promote":
+        try:
+            entry = reg.promote(args.generation)
+        except KeyError as e:
+            _die(str(e))
+        reg.sync_meta(st.meta)
+        print(f"[models] promoted gen-{entry['gen']:06d} "
+              f"(instance {entry['instance_id']}). "
+              "GET /reload on each replica (or `pio router reload "
+              "--rolling`) to swap serving onto it.")
+        return
+    if args.models_cmd == "rollback":
+        try:
+            entry = reg.rollback()
+        except LookupError as e:
+            _die(str(e))
+        reg.sync_meta(st.meta)
+        print(f"[models] rolled back to gen-{entry['gen']:06d} "
+              f"(instance {entry['instance_id']}). "
+              "GET /reload on each replica (or `pio router reload "
+              "--rolling`) to swap serving onto it.")
+
+
+
+
+
+def cmd_incidents(args: argparse.Namespace) -> None:
+    """Browse the incident flight recorder's bundles (torch-free: runs
+    on an ops box against a copied store just as well)."""
+    from predictionio_tpu_torch.storage.registry import StorageConfig
+    from predictionio_tpu_torch.utils import incidents as incmod
+
+    root = args.dir or incmod.default_incident_dir(
+        StorageConfig.from_env().home)
+    store = incmod.IncidentStore(root)
+    if args.inc_cmd == "list":
+        rows = store.list_bundles()
+        if args.json:
+            print(json.dumps(rows, indent=2, sort_keys=True))
+            return
+        if not rows:
+            print(f"[info] no incident bundles under {root}")
+            return
+        print(f"{'ID':<38}{'PROC':<9}{'TRIGGERS':<28}SLOS / ARMED FAULTS")
+        for r in rows:
+            if r.get("incomplete"):
+                print(f"{r['id']:<38}{'?':<9}(incomplete: no manifest)")
+                continue
+            trig = ",".join(r.get("triggers") or [r.get("trigger") or "?"])
+            tail = "  ".join((r.get("sloFastBurning") or [])
+                             + [f"fault:{s}" for s in r.get("faults") or []])
+            print(f"{r['id']:<38}{r.get('process') or '?':<9}"
+                  f"{trig:<28}{tail}")
+        return
+    if args.inc_cmd == "show":
+        iid = args.id or (store.ids() or [None])[0]
+        if not iid:
+            _die(f"no incident bundles under {root}")
+        bundle = store.load_bundle(iid)
+        if bundle is None:
+            _die(f"incident {iid!r} not found (or incomplete) under {root}")
+        if args.json:
+            print(json.dumps(bundle, indent=2, sort_keys=True))
+            return
+        m = bundle["manifest"]
+        print(f"incident {iid}  process={m.get('process')}  "
+              f"at={m.get('capturedAt')}")
+        for t in m.get("triggers", []):
+            print(f"  trigger {t.get('trigger')}  "
+                  f"detail={json.dumps(t.get('detail') or {}, sort_keys=True)}")
+        if m.get("sloFastBurning"):
+            print(f"  fast-burning SLOs: {', '.join(m['sloFastBurning'])}")
+        if m.get("faults"):
+            print(f"  armed fault sites: {', '.join(sorted(m['faults']))}")
+        ex = m.get("exemplars") or []
+        if ex:
+            print(f"  pinned exemplars: {len(ex)} "
+                  f"(worst {ex[0].get('valueMs')}ms in "
+                  f"{ex[0].get('series')}, trace {ex[0].get('traceId')})")
+        print(f"  files: {', '.join(m.get('files', []))}")
+        return
+    removed = store.prune(args.retain)
+    print(f"[info] removed {len(removed)} bundle(s); "
+          f"{len(store.ids())} retained under {root}")
 
 
 def _app_id_for(args: argparse.Namespace) -> int:
@@ -547,16 +863,31 @@ def _add_observability_flags(sp: argparse.ArgumentParser) -> None:
                          "'pio.access' logger")
 
 
+def _add_incident_flags(sp: argparse.ArgumentParser) -> None:
+    """Incident flight-recorder flags shared by the long-lived server
+    verbs (eventserver, deploy)."""
+    sp.add_argument("--incident-dir", default="auto", metavar="PATH",
+                    help="incident-bundle store directory (default: "
+                         "<storage home>/incidents)")
+    sp.add_argument("--no-incidents", action="store_true",
+                    help="disable automatic postmortem capture")
+
+
+def _incident_dir(args: argparse.Namespace) -> Optional[str]:
+    return None if args.no_incidents else args.incident_dir
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.tools.cli",
         description="PredictionIO on PyTorch and CUDA. Verbs: app, "
                     "accesskey, eventserver, import, export, train, deploy, "
-                    "eval, evals, status, trace.")
+                    "eval, evals, status, trace, models, variants, "
+                    "incidents.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ap = sub.add_parser("app", aliases=["apps"],
-                        help="manage apps and channels")
+                        help="manage apps, channels, and QoS quotas")
     aps = ap.add_subparsers(dest="app_cmd", required=True)
     x = aps.add_parser("new"); x.add_argument("name")
     x.add_argument("--description"); x.add_argument("--access-key")
@@ -567,6 +898,32 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--channel")
     x = aps.add_parser("channel-new"); x.add_argument("name"); x.add_argument("channel")
     x = aps.add_parser("channel-delete"); x.add_argument("name"); x.add_argument("channel")
+    x = aps.add_parser(
+        "quota",
+        help="show or set per-app QoS overrides (quotas.json; "
+             "hot-reloaded by every server within ~1s)")
+    x.add_argument("name", help="app name (overrides key on the app id)")
+    x.add_argument("--rate", type=float,
+                   help="sustained ingest events/second (0 = unlimited)")
+    x.add_argument("--burst", type=float,
+                   help="ingest bucket depth (0 = rate for 1s, min 1)")
+    x.add_argument("--weight", type=float,
+                   help="weighted share of engine-server inflight and of "
+                        "the router retry budget at saturation")
+    x.add_argument("--writer-shards", type=int,
+                   help="ACTIVE-segment writer shards for this app's "
+                        "event namespaces (hot-partition relief)")
+    x.add_argument("--deadline-ms", type=float,
+                   help="router deadline cap for this app's queries "
+                        "(0 = router default)")
+    x.add_argument("--clear", action="append", metavar="FIELD",
+                   choices=["rate", "burst", "weight", "writer-shards",
+                            "deadline-ms"],
+                   help="drop one override, back to the fleet default "
+                        "(repeatable)")
+    x.add_argument("--quotas-file",
+                   help="explicit quotas.json path (default: "
+                        "<storage home>/quotas.json)")
     ap.set_defaults(fn=cmd_app)
 
     ak = sub.add_parser("accesskey", help="manage access keys")
@@ -597,7 +954,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="access-key/channel auth cache TTL seconds "
                          "(0 disables; in-process key mutations "
                          "invalidate immediately regardless)")
+    es.add_argument("--tenant-quotas", metavar="PATH", default=None,
+                    help="per-app QoS policy file (default: "
+                         "<storage home>/quotas.json, managed by "
+                         "'app quota'; hot-reloaded)")
     _add_observability_flags(es)
+    _add_incident_flags(es)
     es.set_defaults(fn=cmd_eventserver)
     tp = sub.add_parser("train", help="train an engine instance")
     tp.add_argument("--engine-dir", default=".")
@@ -614,6 +976,15 @@ def build_parser() -> argparse.ArgumentParser:
     dp.add_argument("--ip", default="0.0.0.0")
     dp.add_argument("--port", type=int, default=8000)
     dp.add_argument("--engine-instance-id")
+    dp.add_argument("--feedback", action="store_true")
+    dp.add_argument("--feedback-url",
+                    help="Event Server base URL (e.g. http://host:7070); "
+                         "feedback then posts through its authenticated "
+                         "HTTP API instead of writing storage directly")
+    dp.add_argument("--feedback-accesskey",
+                    help="access key for --feedback-url")
+    dp.add_argument("--feedback-channel",
+                    help="optional channel name for feedback events")
     dp.add_argument("--batching", action="store_true",
                     help="micro-batch concurrent queries into one dispatch")
     dp.add_argument("--batch-max", type=int, default=64)
@@ -638,6 +1009,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="concurrent query cap; excess requests are shed "
                          "immediately with 503 + Retry-After "
                          "(0 = unlimited)")
+    dp.add_argument("--variants", default=None, metavar="SPEC",
+                    help="multi-model serving: keep several registry "
+                         "generations resident and split traffic by a "
+                         "deterministic sticky hash, e.g. "
+                         "'champion:9,challenger:1' (name[@gen]:weight; "
+                         "'champion' = registry champion, an unpinned "
+                         "other name = newest non-champion generation). "
+                         "The first arm is the default and absorbs a "
+                         "failed arm's weight")
+    dp.add_argument("--variant-salt", default="pio",
+                    help="salt for the sticky split hash; change it to "
+                         "reshuffle which entities land on which arm")
     dp.add_argument("--tenant-quotas", metavar="PATH", default=None,
                     help="per-app QoS policy file driving weighted-fair "
                          "admission under --max-inflight (default: "
@@ -646,6 +1029,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to serve on (default: cuda; "
                          "'cpu' serves on the CPU)")
     _add_observability_flags(dp)
+    _add_incident_flags(dp)
     dp.set_defaults(fn=cmd_deploy)
 
     ev = sub.add_parser("eval", help="hyperparameter evaluation (grid search)")
@@ -723,6 +1107,91 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print at most the newest N spans (or traces "
                          "with --tree)")
     tc.set_defaults(fn=cmd_trace)
+
+    md = sub.add_parser(
+        "models",
+        help="generation-aware model registry: list the promotion "
+             "history, promote a generation, or roll back the champion")
+    mds = md.add_subparsers(dest="models_cmd", required=True)
+    x = mds.add_parser("list", help="generations, statuses, champion, "
+                                    "fence token")
+    x.add_argument("--json", action="store_true",
+                   help="emit the registry state as one JSON document")
+    x.add_argument("--replica-url", action="append", metavar="URL",
+                   help="also show which generations this serving "
+                        "replica holds resident (repeatable; reads the "
+                        "replica's /health variants block)")
+    x = mds.add_parser("promote",
+                       help="move the champion pointer to a generation "
+                            "(then /reload the fleet to swap serving)")
+    x.add_argument("generation", type=int)
+    x = mds.add_parser("rollback",
+                       help="demote the champion and restore the most "
+                            "recently promoted retired generation")
+    md.set_defaults(fn=cmd_models)
+
+    vt = sub.add_parser(
+        "variants",
+        help="multi-model serving: show resident variant sets or "
+             "re-weight the live traffic split across the replicas "
+             "(probe-then-apply; torch-free)")
+    vts = vt.add_subparsers(dest="variants_cmd", required=True)
+    x = vts.add_parser("status",
+                       help="resident arms, weights, warmup state and "
+                            "online score, per replica")
+    x.add_argument("--url", action="append", metavar="URL",
+                   help="replica base URL, e.g. http://h:8000 "
+                        "(repeatable)")
+    x.add_argument("--manifest",
+                   help="fleet manifest file (router format, one "
+                        "replica per line)")
+    x.add_argument("--json", action="store_true")
+    x.add_argument("--timeout", type=float, default=10.0)
+    x = vts.add_parser(
+        "set-weights",
+        help="re-split live traffic across already-resident arms; every "
+             "replica is probed for every named arm BEFORE any replica "
+             "is changed")
+    x.add_argument("weights", metavar="SPEC",
+                   help='e.g. "champion:8,challenger:2" — same grammar '
+                        "as deploy --variants, minus generation pins")
+    x.add_argument("--url", action="append", metavar="URL",
+                   help="replica base URL (repeatable)")
+    x.add_argument("--manifest",
+                   help="fleet manifest file (router format)")
+    x.add_argument("--timeout", type=float, default=10.0)
+    vt.set_defaults(fn=cmd_variants)
+
+    ic = sub.add_parser(
+        "incidents",
+        help="browse incident flight-recorder bundles (postmortems)")
+    ics = ic.add_subparsers(dest="inc_cmd", required=True)
+    x = ics.add_parser("list", help="resident bundles, newest first")
+    x.add_argument("--dir", metavar="PATH",
+                   help="incident store (default: "
+                        "<storage home>/incidents)")
+    x.add_argument("--json", action="store_true",
+                   help="summary rows as JSON")
+    x.set_defaults(fn=cmd_incidents)
+    x = ics.add_parser("show",
+                       help="one bundle's manifest (default: newest)")
+    x.add_argument("id", nargs="?",
+                   help="bundle id from 'pio incidents list'")
+    x.add_argument("--dir", metavar="PATH",
+                   help="incident store (default: "
+                        "<storage home>/incidents)")
+    x.add_argument("--json", action="store_true",
+                   help="the full bundle (manifest + parsed files) as "
+                        "JSON")
+    x.set_defaults(fn=cmd_incidents)
+    x = ics.add_parser("prune",
+                       help="drop the oldest bundles beyond --retain")
+    x.add_argument("--retain", type=int, default=20,
+                   help="bundles to keep (newest first)")
+    x.add_argument("--dir", metavar="PATH",
+                   help="incident store (default: "
+                        "<storage home>/incidents)")
+    x.set_defaults(fn=cmd_incidents)
     return p
 
 

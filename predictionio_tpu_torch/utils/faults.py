@@ -32,11 +32,25 @@ Sites the port wires so far:
 ``trace.export``        span export (ring and JSONL); fail-open
 ``tsdb.scrape.stall``   the metrics-history scrape tick of each server
 ``tenant.quota.exhausted``  the per-app token bucket reads empty
+``eventsink.send``      feedback sink delivery (Event Server down)
+``ingest.commit``       coalescer group commit (event storage down)
+``variant.assign.skew``  variant-split assignment — the weighted hash
+                        is bypassed and every query lands on the
+                        default arm (a skewed split the per-variant
+                        request series must make visible)
+``variant.reload.partial``  variant swap mid-``/reload`` — the
+                        candidate died after loading but before
+                        publishing; the champion must keep serving and
+                        the split must fall back to 100/0
+``incident.capture.stall``  incident-bundle capture task (every
+                        server) — a wedged/failing capture costs the
+                        postmortem bundle, never the serving path;
+                        watch ``pio_incident_captures_total{result}``
 ======================  ===================================================
 
-The JAX package's table lists the rest (``ingest.commit``, the router,
-trainer, replication and model-store sites); they come with the
-modules that call them.
+The JAX package's table lists the rest (the router, trainer,
+replication, segment and model-store sites); they come with the modules
+that call them.
 """
 
 from __future__ import annotations

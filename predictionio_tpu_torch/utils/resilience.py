@@ -6,8 +6,9 @@ full jitter, and a closed/open/half-open circuit breaker.
 breaker's state machine never blocks, so ``allow``/``admit``/
 ``record_*`` are safe on the event loop. The group-commit coalescer
 (``server/ingest.py``) uses the breaker's decoupled shape (``admit`` at
-enqueue, ``record_*`` at commit); the engine server keeps a
-``feedback_sink`` breaker that ``/health`` reports.
+enqueue, ``record_*`` at commit); the engine server's feedback goes
+through its ``feedback_sink`` breaker, which ``/health`` reports and
+whose ``on_open`` observer triggers an incident bundle.
 
 Breaker state lands on the metrics registry as
 ``pio_circuit_breaker_state{breaker}`` (0 closed, 1 half-open, 2 open)
@@ -265,6 +266,11 @@ class CircuitBreaker:
         self._failures = 0
         self._opened_at = 0.0
         self._half_open_inflight = 0
+        #: optional observer fired (OUTSIDE the lock) with the breaker
+        #: name each time the state transitions to OPEN — the incident
+        #: capture plane hangs its "breaker opened" trigger here. Must
+        #: never raise into the recording caller; exceptions are eaten.
+        self.on_open: Optional[Callable[[str], None]] = None
         from predictionio_tpu_torch.utils.metrics import REGISTRY
 
         self._m_state = REGISTRY.gauge(
@@ -339,6 +345,7 @@ class CircuitBreaker:
                 self._set_state(CLOSED)
 
     def record_failure(self) -> None:
+        opened = False
         with self._lock:
             self._tick()
             if self._half_open_inflight > 0:
@@ -347,12 +354,19 @@ class CircuitBreaker:
                 self._set_state(OPEN)
                 self._opened_at = self._clock()
                 self._failures = self.failure_threshold
+                opened = True
             else:
                 self._failures += 1
                 if (self._state == CLOSED
                         and self._failures >= self.failure_threshold):
                     self._set_state(OPEN)
                     self._opened_at = self._clock()
+                    opened = True
+        if opened and self.on_open is not None:
+            try:
+                self.on_open(self.name)
+            except Exception:
+                pass  # an observer must never fail the recording caller
 
     def reset(self) -> None:
         """Force-close (admin/test hook)."""

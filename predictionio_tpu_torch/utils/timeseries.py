@@ -275,6 +275,25 @@ class TimeSeriesStore:
         return {render_key(s.name, s.labels): s.rings[tier].window(start)
                 for s in self._matching(name, label_filter)}
 
+    def snapshot_window(self, selectors: Sequence[str],
+                        window: float = 900.0,
+                        ts: Optional[float] = None) -> Dict:
+        """One ``history_payload``-shaped snapshot over several selectors
+        at once: the incident bundle's pin of the last 15 min of the
+        firing series. Selectors that parse badly or match nothing are
+        skipped, never raised: a capture degrades to a partial bundle."""
+        if ts is None:
+            ts = self.clock()
+        series: Dict[str, List[List[float]]] = {}
+        for sel in selectors:
+            try:
+                data = self.query(sel, window, ts)
+            except ValueError:
+                continue
+            for key, samples in data.items():
+                series[key] = [[round(t, 3), v] for t, v in samples]
+        return {"windowSeconds": window, "series": series}
+
     def increase(self, selector: str, window: float,
                  ts: Optional[float] = None) -> float:
         """Counter increase over the window, reset-aware, summed over

@@ -40,7 +40,7 @@ import re
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from predictionio_tpu_torch.utils import faults
 from predictionio_tpu_torch.utils.atomic_write import fsync_dir
@@ -246,6 +246,19 @@ class RingBufferExporter:
         with self._lock:
             snap = list(self._buf)
         got = [d for d in snap if d.get("traceId") == trace_id]
+        got.sort(key=lambda d: d.get("startUs", 0))
+        return got
+
+    def export_by_trace_ids(self, trace_ids) -> List[Dict[str, Any]]:
+        """All buffered spans belonging to any of the given trace ids,
+        oldest first: the incident bundle's pin of the traces that the
+        offending latency buckets name through their exemplars."""
+        wanted = set(trace_ids)
+        if not wanted:
+            return []
+        with self._lock:
+            snap = list(self._buf)
+        got = [d for d in snap if d.get("traceId") in wanted]
         got.sort(key=lambda d: d.get("startUs", 0))
         return got
 
@@ -482,6 +495,18 @@ def add_attrs(**attrs: Any) -> None:
     s = _CURRENT.get()
     if s is not None:
         s.attrs.update(attrs)
+
+
+def bind_current(fn: Callable) -> Callable:
+    """Carry the caller's context (current span included) into a plain
+    ``ThreadPoolExecutor``; ``asyncio.to_thread`` does this natively, a
+    raw ``submit`` does not (the engine server's feedback executor)."""
+    ctx = contextvars.copy_context()
+
+    def _bound(*args, **kwargs):
+        return ctx.run(fn, *args, **kwargs)
+
+    return _bound
 
 
 # -- propagation headers -------------------------------------------------------

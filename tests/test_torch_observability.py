@@ -1009,7 +1009,10 @@ def test_every_port_fault_site_is_documented_and_exercised():
     table = set(re.findall(r"^``([a-z_.]+)``", port_faults.__doc__, re.M))
     tests = "".join(p.read_text() for p in (root / "tests").glob("test_torch_*.py"))
     assert wired == table == {"serving.query", "serving.reload", "trace.export",
-                              "tsdb.scrape.stall", "tenant.quota.exhausted"}
+                              "tsdb.scrape.stall", "tenant.quota.exhausted",
+                              "eventsink.send", "ingest.commit",
+                              "variant.assign.skew", "variant.reload.partial",
+                              "incident.capture.stall"}
     assert all(f'"{site}"' in tests for site in wired)
     # every port site is one of the JAX package's documented sites
     assert wired <= set(re.findall(r"^``([a-z_.]+)``", jax_faults.__doc__, re.M))

@@ -76,11 +76,11 @@ LAMBDA_2 = 0.5
 QUERY = {"user": "2", "num": 3}
 
 #: families of the JAX package's registry with a name the compared
-#: prefixes cover that the port does not register yet: the feedback
-#: counter and sink redirects (feedback), the native event log's shard
-#: appends (event-store backends), the ES index of instances (storage)
+#: prefixes cover that the port does not register in this script: the
+#: sink redirects (the port imports its HTTP sink only for a feedback
+#: URL), the native event log's shard appends (event-store backends), the
+#: ES index of instances (storage)
 JAX_ONLY_FAMILIES = {
-    "pio_engine_feedback_total",
     "pio_eventsink_redirects_total",
     "pio_eventlog_shard_appends_total",
     "pio_engine_instances",
@@ -995,15 +995,17 @@ def test_event_server_health_metrics_traces(sides, batching):
 
 
 def test_event_health_reports_tenant_quotas_only_in_the_jax_server(sides):
-    """``tenantQuotas`` (the policy file's path) is the one /health key
-    the port's event server lacks: its ingest quotas are not ported."""
+    """``tenantQuotas`` (the policy file's path) was the one /health key
+    the port's event server lacked; since its ingest quotas are ported,
+    both servers report it, each with its own home's file."""
     out = {}
     for s in sides:
         with ServerThread(s.Events(storage=s.storage, host="127.0.0.1",
                                    port=0)) as t:
             out[s.name] = jcall(t.port, "GET", "/health")[1]
-    assert set(out["jax"]) - set(out["torch"]) == {"tenantQuotas"}
-    assert set(out["torch"]) == {"status"}
+    assert set(out["jax"]) == set(out["torch"]) == {"status", "tenantQuotas"}
+    for s in sides:
+        assert out[s.name]["tenantQuotas"] == os.path.join(s.home, "quotas.json")
 
 
 # -- registry generation, device rule, CLI --------------------------------------
