@@ -9,6 +9,9 @@
     python3 chip_smoke.py --ops      # phases 1, 2, 5, 10 and 11: the engine
                                      # server's operations surface and online
                                      # loop alone (no result line)
+    python3 chip_smoke.py --templates  # phases 1, 2, 5 and 12: the similar-product
+                                       # and e-commerce templates, batchpredict
+                                       # and resume alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -184,6 +187,39 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    until the storage breaker opens, then 503, and none of their events
    lands. Prints the phase's wall, per-arm p50/p99, launches per arm and
    the feedback counts.
+12. the ALS family at ML-20M width, in temporary PIO_HOMEs: phase 5's
+   20,000,263 draws as event-order interactions (every draw a view; for
+   e-commerce each draw rated >= 4.5 also a buy of weight 4; item n in
+   category n % 7), the similar-product and e-commerce templates trained
+   through their algorithms' ``train`` (implicit ALS, rank 64, 10
+   iterations, lambda 0.01 weighted, alpha 1, seed 3): the walls of
+   ``_to_coo``, ``als_prepare`` and the device, the launch counters
+   (zeroed just before) equal to 10 x buckets and 10 x parts, the
+   factors held against their float64 implicit normal equations (64
+   items given the final U, 64 users given the second-to-last V) within
+   1e-3, and a control (the last iteration rerun with the dense head's
+   normal equations summed in f32, the JAX package's formula, both
+   variants timed, its error split between the dense head's entities
+   and the rest) must fail that check; both written as COMPLETED
+   instances and deployed with the port's EngineServer. E-commerce: the store holds the 500 queried users' own
+   views and buys and the items' $sets; 500 known users (drawn among
+   those with at most 200 interactions; a fifth with categories, a
+   whiteList or a blackList) and 20 unknown ones, an item made
+   unavailable and another viewed midway, every answer equal to a float64
+   host reference applying the same rules up to near-ties, score_topk
+   launches equal to the device dispatches and the known-user queries.
+   Similar-product: 300 single-item and 200 multi-item queries, each
+   equal to float64 similar_items up to near-ties with the query items
+   absent, one launch a query. ``batchpredict --device cuda`` through the
+   CLI over phase 5's factors: 20,000 queries in batches of 1,024 (the
+   last 1,000 with num 100), every line against score_topk_ref in float64,
+   one launch a batch. Resume: phase 5's explicit train cut after 6
+   iterations checkpointed every 3 and resumed to 10, bitwise equal to
+   the straight run, each save timed; and ``train --resume`` in a
+   subprocess on a small app cut after its second checkpoint, bitwise
+   equal to a straight train, running only the remaining iterations.
+   Phase 3 also holds score_topk at B = 1,024 (k = 16 and 128, rows_valid
+   1,024 and 544) and phase 4 times it there.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -261,9 +297,11 @@ def synthetic_ml20m(nnz: int, n_users: int, n_items: int, seed: int = 7):
     return users, items, ratings
 
 
-def score_topk_bound_ms(B: int, d: int, np_: int, k: int):
-    flop_s = 2 * B * d * np_ / PEAK_F32_FLOPS
-    byte_s = 4 * (B * d + np_ * d + 2 * B * k) / PEAK_HBM_BYTES
+def score_topk_bound_ms(B: int, d: int, n_valid: int, k: int):
+    """The bound of one launch: only the n_valid item rows count (the
+    pad rows past them are masked, not needed by the function)."""
+    flop_s = 2 * B * d * n_valid / PEAK_F32_FLOPS
+    byte_s = 4 * (B * d + n_valid * d + 2 * B * k) / PEAK_HBM_BYTES
     return max(flop_s, byte_s) * 1e3, ("operations" if flop_s >= byte_s else "bytes")
 
 
@@ -376,6 +414,14 @@ def check_score_topk(torch, ops, dev) -> float:
                         check(torch.equal(v1[0], vals[r])
                               and torch.equal(i1[0], idx[r]),
                               f"row {r} differs between B={B} and B=1")
+        # `pio batchpredict`'s dispatches: B = 1,024, full and a last batch
+        # of 544 rows, at num 10 and 100 (k = 16 and 128)
+        ids = torch.randint(0, N_USERS, (1024,), generator=g, device=dev,
+                            dtype=torch.int32)
+        for B, k in BATCHPREDICT_CELLS:
+            for rows_valid in (1024, 544):
+                topk_case(torch, ops, dev, f"{kind:8s}", U, Vp, k, ids, rows_valid,
+                          N_ITEMS, kind == "integer")
     for spec in TOPK_PATHS.values():
         check_score_topk_path(torch, ops, dev, g, spec)
     return main_err
@@ -851,6 +897,9 @@ def check_chol_solve(torch, ops, dev) -> float:
 #: what served queries with num = 50, 100 and 1,000 reach
 BAR_CELLS = [(B, k) for k in (64, 128, 1024) for B in (1, 8, 64)] + [
     (B, k) for k in (256, 512) for B in (1, 64)]
+#: phase 4's cells of `pio batchpredict` (1,024 queries a dispatch): num 10
+#: and num 100 serve at k = 16 and 128
+BATCHPREDICT_CELLS = [(1024, 16), (1024, 128)]
 
 
 def time_score_topk(torch, ops, dev):
@@ -864,7 +913,7 @@ def time_score_topk(torch, ops, dev):
                     torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
     rows = {}
     shapes = [(B, AOT_TOPK) for B in (1, 2, 4, 8, 16, 32, 64)]
-    shapes += BAR_CELLS
+    shapes += BAR_CELLS + BATCHPREDICT_CELLS
     for B, k in shapes:
         ids = torch.randint(0, N_USERS, (B,), generator=g, device=dev,
                             dtype=torch.int32)
@@ -876,7 +925,7 @@ def time_score_topk(torch, ops, dev):
             U, Vp, k, n_valid=N_ITEMS, rows_valid=B, ids=ids))
         library, library_call = cuda_ms(lambda: torch.topk(
             U[ids.long()] @ Vp[:N_ITEMS].T, k))
-        bound, bound_by = score_topk_bound_ms(B, RANK, N_PAD, k)
+        bound, bound_by = score_topk_bound_ms(B, RANK, N_ITEMS, k)
         rows[B, k] = {"ms": kernel, "plain_ms": plain, "library_ms": library,
                       "bound_ms": bound, "bound_by": bound_by}
         print(f"score_topk time B={B:2d} k={k} device ms: kernel={kernel:.4f} "
@@ -3083,6 +3132,737 @@ def online_loop(torch, ops, dev, home: str, train) -> dict:
             "feedback_per_s": fb_rate}
 
 
+# -- phase 12: the ALS family at ML-20M width ------------------------------------
+
+#: the two implicit templates' params (rank 64, 10 iterations, weighted λ)
+TEMPLATE_ALPHA, TEMPLATE_SEED = 1.0, 3
+CATEGORIES = ("books", "electronics", "garden", "home", "music", "sports", "toys")
+BUY_AT = 4.5                     # draws rated at least this add a buy (weight 4)
+EC_USERS, EC_COLD, EC_MAX_INTERACTIONS = 500, 20, 200
+SP_SINGLE, SP_MULTI = 300, 200
+BP_QUERIES, BP_WIDE, BP_COLD, BP_BATCH = 20_000, 1_000, 50, 1024
+RESUME_EVERY, RESUME_CRASH = 3, 6
+
+
+def implicit_equations_err(torch, dev, self_idx, other_idx, conf, F_other,
+                           X_self, chosen, lam, alpha, head=()):
+    """max|X[e] - x64[e]| / max|x64| over ``chosen``, x64 the float64 solve
+    of the implicit normal equations (FᵀF + Σ α·r·f fᵀ + λ·n_e·I) x =
+    Σ (1 + α·r) f over e's entries of the aggregated COO (r the entry's
+    summed weight, n_e its entry count, F the whole other side). With
+    ``head`` (entity ids), returns (error over ``chosen``, over its
+    entities in ``head``, over the rest), each on the same scale."""
+    import numpy as np
+
+    sel = np.isin(self_idx, chosen)
+    s_idx, o_idx, r = self_idx[sel], other_idx[sel], conf[sel]
+    order = np.argsort(s_idx, kind="stable")
+    s_idx, o_idx, r = s_idx[order], o_idx[order], r[order]
+    F64 = torch.as_tensor(F_other, device=dev).double()
+    G = F64.T @ F64
+    k = F64.shape[1]
+    eye = torch.eye(k, dtype=torch.float64, device=dev)
+    diff, in_head, rest, scale = 0.0, 0.0, 0.0, 0.0
+    for e in chosen:
+        lo, hi = np.searchsorted(s_idx, [e, e + 1])
+        f = F64[torch.as_tensor(o_idx[lo:hi].astype(np.int64), device=dev)]
+        rr = torch.as_tensor(r[lo:hi], device=dev).double()
+        A = G + f.T @ (alpha * rr[:, None] * f) + max(lam * (hi - lo), 1e-8) * eye
+        x = torch.linalg.solve(A, f.T @ (1.0 + alpha * rr))
+        got = torch.as_tensor(X_self[e], device=dev).double()
+        d = (got - x).abs().max().item()
+        diff = max(diff, d)
+        if e in head:
+            in_head = max(in_head, d)
+        else:
+            rest = max(rest, d)
+        scale = max(scale, x.abs().max().item())
+    if not len(head):
+        return diff / scale
+    return diff / scale, in_head / scale, rest / scale
+
+
+def template_data(train):
+    """Phase 12's training data from phase 5's draws (event order): every
+    draw a view; for e-commerce each draw rated >= BUY_AT also a buy of
+    weight 4, after the views. Ids are "u<n>" and "i<n>"; item n's
+    category is CATEGORIES[n % 7]."""
+    import numpy as np
+
+    from predictionio_tpu_torch.templates.ecommercerecommendation import engine as ec
+    from predictionio_tpu_torch.templates.similarproduct import engine as sp
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    coo = train["coo"]
+    user_ids = BiMap.string_int(f"u{i}" for i in range(N_USERS))
+    item_ids = BiMap.string_int(f"i{j}" for j in range(N_ITEMS))
+    cats = {f"i{j}": [CATEGORIES[j % len(CATEGORIES)]] for j in range(N_ITEMS)}
+    sp_td = sp.TrainingData(coo.user_idx, coo.item_idx, user_ids, item_ids, cats)
+    buy = coo.rating >= BUY_AT
+    ec_td = ec.TrainingData(
+        "ShopApp", np.concatenate([coo.user_idx, coo.user_idx[buy]]),
+        np.concatenate([coo.item_idx, coo.item_idx[buy]]),
+        np.concatenate([np.ones(coo.nnz, np.float32),
+                        np.full(int(buy.sum()), 4.0, np.float32)]),
+        user_ids, item_ids, cats)
+    return sp_td, ec_td
+
+
+def train_template(torch, ops, dev, storage, label, algo, td) -> dict:
+    """One template's implicit training on the card through its
+    algorithm's ``train``, with the walls of ``_to_coo``, ``als_prepare``
+    and the rest (upload, device training, fetch), the launch counters
+    zeroed just before and read just after, and the final factors held
+    against their float64 implicit normal equations."""
+    import numpy as np
+
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.models import als
+
+    cls = type(algo)
+    to_coo, prepare = cls._to_coo, als.als_prepare
+    seen, walls = {}, {}
+
+    def timed_coo(pd):
+        t = time.perf_counter()
+        seen["coo"] = to_coo(pd)
+        walls["_to_coo"] = time.perf_counter() - t
+        return seen["coo"]
+
+    def timed_prepare(coo):
+        t = time.perf_counter()
+        seen["prep"] = prepare(coo)
+        walls["als_prepare"] = time.perf_counter() - t
+        return seen["prep"]
+
+    algo.device = dev
+    ctx = WorkflowContext(storage=storage, device=dev)
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    with mock.patch.object(cls, "_to_coo", staticmethod(timed_coo)), \
+            mock.patch.object(als, "als_prepare", timed_prepare):
+        model = algo.train(ctx, td)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = read_counters(ops)
+    coo, prep = seen["coo"], seen["prep"]
+    walls["device"] = total - walls["_to_coo"] - walls["als_prepare"]
+    p = cls._als_params(algo.params)
+    parts = sum(len(s.buckets) + (s.dense is not None) for s in (prep.u_side, prep.i_side))
+    buckets = len(prep.u_side.buckets) + len(prep.i_side.buckets)
+    print(f"{label}: {td.n} interactions -> {coo.nnz} (user, item) entries, "
+          f"weights {coo.rating.min():.0f}..{coo.rating.max():.0f}; _to_coo "
+          f"{walls['_to_coo']:.2f} s, als_prepare {walls['als_prepare']:.2f} s, "
+          f"device (upload, {p.iterations} iterations, fetch) {walls['device']:.3f} s; "
+          f"kernel launches {launches} (buckets {buckets}, parts {parts})", flush=True)
+    check(launches["gather_gram"] == p.iterations * buckets,
+          f"{label}: gather_gram launched {launches['gather_gram']} times, not "
+          f"{p.iterations} x {buckets} buckets")
+    check(launches["chol_solve"] == p.iterations * parts,
+          f"{label}: chol_solve launched {launches['chol_solve']} times, not "
+          f"{p.iterations} x {parts} parts")
+    V = model.V
+    check(np.isfinite(V).all(), f"{label}: non-finite factors")
+    # the second-to-last V, and U from it (the final U half-step again)
+    _, V9 = als.als_train_prepared(prep, dataclasses.replace(p, iterations=p.iterations - 1),
+                                   device=dev)
+    U, _ = als.als_train_prepared(prep, dataclasses.replace(p, iterations=0),
+                                  device=dev, V0=V9)
+    if hasattr(model, "U"):
+        check(np.array_equal(U, model.U), f"{label}: the U half-step rerun is not "
+              "bitwise the trained U")
+    rng = np.random.default_rng(SEED + 12)
+    items_chk = oracle_entities(prep.i_side, rng)
+    users_chk = oracle_entities(prep.u_side, rng)
+    err_v = implicit_equations_err(torch, dev, coo.item_idx, coo.user_idx, coo.rating,
+                                   U, V, items_chk, p.reg, p.alpha)
+    err_u = implicit_equations_err(torch, dev, coo.user_idx, coo.item_idx, coo.rating,
+                                   V9, U, users_chk, p.reg, p.alpha)
+    print(f"{label}: float64 implicit normal equations: {len(items_chk)} items given "
+          f"the final U {err_v:.3e}, {len(users_chk)} users given the second-to-last V "
+          f"{err_u:.3e} (limit {ORACLE_TOL})", flush=True)
+    check(err_v <= ORACLE_TOL, f"{label}: items off their normal equations: {err_v:.3e}")
+    check(err_u <= ORACLE_TOL, f"{label}: users off their normal equations: {err_u:.3e}")
+    implicit_control(torch, dev, label, prep, p, coo, V9, items_chk, users_chk)
+    return {"model": model, "coo": coo, "launches": launches, "walls": walls,
+            "err": max(err_v, err_u)}
+
+
+def implicit_control(torch, dev, label, prep, p, coo, V9, items_chk, users_chk) -> None:
+    """Phase 12 control: the last iteration rerun from the second-to-last
+    V with the dense head's normal equations summed in f32, the JAX
+    package's formula (every ``.double()`` of the half-step a no-op),
+    must fail the float64 check that the port's float64-accumulated
+    dense head passes; each variant of that iteration timed (best of 3,
+    upload and fetch included)."""
+    from predictionio_tpu_torch.models import als
+
+    one = dataclasses.replace(p, iterations=1)
+    f32_head = mock.patch.object(torch.Tensor, "double", lambda self: self)
+    walls = {}
+    for name, ctx in (("float64", contextlib.nullcontext), ("f32", lambda: f32_head)):
+        best = None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ctx():
+                Uc, Vc = als.als_train_prepared(prep, one, device=dev, V0=V9)
+            torch.cuda.synchronize()
+            best = min(best or 1e9, time.perf_counter() - t)
+        walls[name] = best
+    def head(side):
+        return set(side.perm[:side.dense.nb].tolist()) if side.dense is not None else {-1}
+
+    err_v, head_v, rest_v = implicit_equations_err(
+        torch, dev, coo.item_idx, coo.user_idx, coo.rating, Uc, Vc, items_chk, p.reg,
+        p.alpha, head=head(prep.i_side))
+    err_u, head_u, rest_u = implicit_equations_err(
+        torch, dev, coo.user_idx, coo.item_idx, coo.rating, V9, Uc, users_chk, p.reg,
+        p.alpha, head=head(prep.u_side))
+    print(f"{label}: control (dense head summed in f32): float64 implicit normal "
+          f"equations, items {err_v:.3e} (dense head {head_v:.3e}, the rest "
+          f"{rest_v:.3e}), users {err_u:.3e} (dense head {head_u:.3e}, the rest "
+          f"{rest_u:.3e}) (limit {ORACLE_TOL}); one iteration from the second-to-last "
+          f"V {walls['float64']:.4f} s with the float64 dense head, {walls['f32']:.4f} s "
+          f"with the f32 one", flush=True)
+    check(max(err_v, err_u) > ORACLE_TOL,
+          f"{label}: control (f32 dense head) passes the float64 check: it cannot tell "
+          f"the float64 accumulation from f32")
+
+
+def write_template_instance(storage, factory: str, algo_name: str, algo, model,
+                            ds_params) -> str:
+    """A COMPLETED instance of ``model`` through the port's storage and
+    the algorithm's save_model."""
+    from predictionio_tpu_torch.controller import params_to_json
+    from predictionio_tpu_torch.storage import EngineInstance
+    from predictionio_tpu_torch.storage.meta import utcnow
+
+    iid = storage.meta.new_instance_id()
+    storage.models.put(iid, pickle.dumps([algo.save_model(model, None)]))
+    now = utcnow()
+    storage.meta.insert_engine_instance(EngineInstance(
+        id=iid, status="COMPLETED", start_time=now, end_time=now,
+        engine_factory=factory, engine_variant="default", batch="chip_smoke",
+        env={}, mesh_conf={},
+        data_source_params=json.dumps(params_to_json(ds_params)),
+        preparator_params="{}",
+        algorithms_params=json.dumps([{"name": algo_name,
+                                       "params": params_to_json(algo.params)}]),
+        serving_params="{}"))
+    return iid
+
+
+@contextlib.contextmanager
+def running_server(dev, storage, factory: str):
+    """The port's EngineServer for ``factory`` (micro-batching, the AOT
+    ladder) on a free port in this process; yields the port."""
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+
+    server = EngineServer(engine_factory=factory, storage=storage,
+                          host="127.0.0.1", port=0, batching=True,
+                          batch_max=BATCH_MAX, aot_buckets="auto",
+                          aot_topk=AOT_TOPK, device=dev)
+    check(server._warmup.wait(600) and server._warmup.ready,
+          f"AOT warmup did not finish: {server._warmup.progress()}")
+    loop = asyncio.new_event_loop()
+    serve = threading.Thread(target=loop.run_until_complete,
+                             args=(server.serve_forever(),), daemon=True)
+    serve.start()
+    deadline = time.time() + 60
+    while server.http._server is None:
+        check(time.time() < deadline and serve.is_alive(), "server did not start")
+        time.sleep(0.05)
+    try:
+        yield server.http.bound_port
+    finally:
+        urllib.request.urlopen(f"http://127.0.0.1:{server.http.bound_port}/stop",
+                               timeout=10).read()
+        serve.join(30)
+        loop.close()
+    check(not serve.is_alive(), "server did not stop")
+
+
+def ranked_agrees(answer, ref_items, ref_scores, score_of, eligible) -> bool:
+    """An answer equals a reference ranking up to near-ties: as long, its
+    items distinct and each eligible under the query's rules, and its
+    scores, position by position, within TOL (relative to the largest)
+    of the reference's, which are float64 and sorted descending;
+    ``score_of(item)`` is an item's float64 score."""
+    items = [s["item"] for s in answer]
+    if len(items) != len(ref_items) or len(set(items)) != len(items):
+        return False
+    if not all(eligible(it) for it in items):
+        return False
+    tol = TOL * max(1.0, max((abs(s) for s in ref_scores), default=1.0))
+    for a, it, want in zip(answer, items, ref_scores):
+        if abs(score_of(it) - want) > tol or abs(a["score"] - want) > tol:
+            return False
+    return True
+
+
+def ecommerce_serving(torch, ops, dev, storage, ec, model) -> dict:
+    """Phase 12, e-commerce: the instance deployed with the port's
+    EngineServer; the store holds the queried users' own events and the
+    items' $sets; 500 known users (a fifth with a rule) and 20 unknown
+    ones, the live rules flipped midway, every answer against a float64
+    host reference applying the same rules."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.server import aot
+
+    td = ec["td"]
+    app = storage.meta.create_app("ShopApp")
+    storage.events.init_channel(app.id)
+    counts = np.bincount(td.user_idx, minlength=N_USERS)
+    rng = np.random.default_rng(SEED + 21)
+    users = rng.choice(np.nonzero((counts >= 1) & (counts <= EC_MAX_INTERACTIONS))[0],
+                       EC_USERS, replace=False)
+    t0 = time.perf_counter()
+    mine = np.isin(td.user_idx, users)
+    evs = [Event(event="view" if w == 1.0 else "buy", entity_type="user",
+                 entity_id=f"u{u}", target_entity_type="item", target_entity_id=f"i{i}")
+           for u, i, w in zip(td.user_idx[mine].tolist(), td.item_idx[mine].tolist(),
+                              td.weight[mine].tolist())]
+    evs += [Event(event="$set", entity_type="item", entity_id=f"i{j}",
+                  properties={"categories": [CATEGORIES[j % len(CATEGORIES)]]})
+            for j in range(N_ITEMS)]
+    for s in range(0, len(evs), 10_000):
+        storage.events.insert_batch(evs[s:s + 10_000], app.id)
+    seen = {int(u): set() for u in users}
+    for u, i in zip(td.user_idx[mine].tolist(), td.item_idx[mine].tolist()):
+        seen[u].add(i)
+    print(f"e-commerce store: {len(evs)} events ({int(mine.sum())} views and buys "
+          f"of {EC_USERS} users, {N_ITEMS} item $sets) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    U64 = torch.as_tensor(model.U, device=dev).double()
+    V64 = torch.as_tensor(model.V, device=dev).double()
+    s32 = torch.as_tensor(model.U[users], device=dev) @ torch.as_tensor(model.V, device=dev).T
+    top200 = s32.topk(200, dim=1).indices.cpu().numpy()
+    queries = []
+    for j, u in enumerate(users):
+        q = {"user": f"u{u}", "num": 10}
+        if j % 5 == 4:
+            rule = (j // 5) % 3
+            if rule == 0:
+                q["categories"] = [CATEGORIES[int(rng.integers(len(CATEGORIES)))]]
+            elif rule == 1:
+                q["whiteList"] = [f"i{i}" for i in np.concatenate([
+                    rng.choice(top200[j], 30, replace=False),
+                    rng.integers(0, N_ITEMS, 30)])]
+            else:
+                q["blackList"] = [f"i{i}" for i in rng.choice(top200[j][:20], 5,
+                                                             replace=False)]
+        queries.append(q)
+    queries += [{"user": f"nobody{c}", "num": 10} for c in range(EC_COLD)]
+    order = rng.permutation(len(queries))
+    first = [queries[j] for j in order[: len(queries) // 2]]
+    second = [queries[j] for j in order[len(queries) // 2:]]
+    pop_order = np.argsort(-model.popularity)
+
+    def reference(q, unavailable):
+        u = q["user"]
+        uidx = model.user_ids.get(u)
+        banned = set(unavailable) | {model.item_ids[i] for i in q.get("blackList", [])}
+        if uidx is not None:
+            banned |= seen.get(int(u[1:]), set())
+        white = {model.item_ids[i] for i in q.get("whiteList", [])}
+        cats = set(q.get("categories", []))
+
+        def eligible(it):
+            i = model.item_ids[it]
+            return (i not in banned and (not white or i in white)
+                    and (not cats or CATEGORIES[i % len(CATEGORIES)] in cats))
+
+        if uidx is None:
+            ranked = [int(i) for i in pop_order]
+            score = {int(i): float(model.popularity[i]) for i in ranked}
+        else:
+            s64 = (V64 @ U64[uidx]).cpu().numpy()
+            fetch = min(N_ITEMS, q["num"] + len(banned) + 50)
+            ranked = np.lexsort((np.arange(N_ITEMS), -s64))[:fetch].tolist()
+            score = {i: float(s64[i]) for i in ranked}
+        out = [i for i in ranked if eligible(f"i{i}")][: q["num"]]
+        return ([f"i{i}" for i in out], [score[i] for i in out],
+                lambda it: score.get(model.item_ids[it], float("nan")), eligible)
+
+    def off_reference(queries, outs, unavailable) -> int:
+        """How many answers are not the reference's (the store as it is now)."""
+        bad = 0
+        for q, (status, a) in zip(queries, outs):
+            items, scores, score_of, eligible = reference(q, unavailable)
+            if status != 200 or not ranked_agrees(a["itemScores"], items, scores,
+                                                  score_of, eligible):
+                bad += 1
+        return bad
+
+    from predictionio_tpu_torch.core.workflow import ECOMMERCE_FACTORY
+
+    with running_server(dev, storage, ECOMMERCE_FACTORY) as port:
+        reset_counters(ops)
+        dispatches0 = sum(aot._DISPATCHES._values.values())
+        t0 = time.perf_counter()
+        out1 = post_all(port, "/queries.json", [json.dumps(q) for q in first], 8)
+        t1 = time.perf_counter() - t0
+        bad = off_reference(first, out1, set())
+        # the live rules flip: one user's first answer becomes unavailable,
+        # another user views their first answer
+        known = [(q, a) for q, (_, a) in zip(first, out1)
+                 if model.user_ids.get(q["user"]) is not None and a["itemScores"]]
+        (qa, aa), (qb, ab) = known[0], known[1]
+        gone, viewed = aa["itemScores"][0]["item"], ab["itemScores"][0]["item"]
+        storage.events.insert(Event(event="$set", entity_type="constraint",
+                                    entity_id="unavailableItems",
+                                    properties={"items": [gone]}), app.id)
+        storage.events.insert(Event(event="view", entity_type="user", entity_id=qb["user"],
+                                    target_entity_type="item", target_entity_id=viewed),
+                              app.id)
+        seen[int(qb["user"][1:])].add(model.item_ids[viewed])
+        second = second + [{"user": qa["user"], "num": 10}, {"user": qb["user"], "num": 10}]
+        t0 = time.perf_counter()
+        out2 = post_all(port, "/queries.json", [json.dumps(q) for q in second], 8)
+        t2 = time.perf_counter() - t0
+        launches = read_counters(ops)
+        dispatches = int(sum(aot._DISPATCHES._values.values()) - dispatches0)
+    bad += off_reference(second, out2, {model.item_ids[gone]})
+    n_known = sum(model.user_ids.get(q["user"]) is not None for q in first + second)
+    dropped = (all(gone not in {s["item"] for s in a["itemScores"]} for _, a in out2)
+               and viewed not in {s["item"] for s in out2[-1][1]["itemScores"]})
+    n = len(first) + len(second)
+    print(f"e-commerce: {n} queries ({n_known} known users, {n - n_known} unknown) from "
+          f"8 clients in {t1 + t2:.2f} s ({n / (t1 + t2):.1f} q/s); midway {gone} made "
+          f"unavailable and {viewed} viewed by {qb['user']}: dropped from every later "
+          f"answer: {dropped}; answers off the float64 reference: {bad}; score_topk "
+          f"launches {launches['score_topk']}, device dispatches {dispatches}", flush=True)
+    check(bad == 0, f"e-commerce: {bad} of {n} answers off the float64 reference")
+    check(dropped, "e-commerce: a live rule did not reach the next answers")
+    check(launches["score_topk"] == n_known == dispatches,
+          f"e-commerce: score_topk launched {launches['score_topk']} times over "
+          f"{dispatches} dispatches for {n_known} known-user queries")
+    return {"launches": launches["score_topk"], "queries": n}
+
+
+def similar_serving(torch, ops, dev, storage, model) -> dict:
+    """Phase 12, similar-product: 300 single-item and 200 multi-item
+    queries (num 10 and 50, a quarter with a category) over HTTP, each
+    against float64 similar_items with the query items absent; one
+    score_topk launch a query."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import SIMILARPRODUCT_FACTORY
+
+    V64 = torch.as_tensor(model.V, device=dev).double()
+    Vn64 = V64 / V64.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    live = np.nonzero(np.linalg.norm(model.V, axis=1) > 0)[0]
+    rng = np.random.default_rng(SEED + 22)
+    queries = []
+    for j in range(SP_SINGLE + SP_MULTI):
+        n_q = 1 if j < SP_SINGLE else int(rng.integers(2, 6))
+        q = {"items": [f"i{i}" for i in rng.choice(live, n_q, replace=False)],
+             "num": 10 if j % 2 == 0 else 50}
+        if j % 4 == 3:
+            q["categories"] = [CATEGORIES[int(rng.integers(len(CATEGORIES)))]]
+        queries.append(q)
+
+    def reference(q):
+        idx = [model.item_ids[i] for i in q["items"]]
+        qv = Vn64[torch.as_tensor(idx, device=dev)].mean(0)
+        s64 = (Vn64 @ (qv / qv.norm().clamp_min(1e-12))).cpu().numpy()
+        s64[idx] = -np.inf
+        fetch = min(N_ITEMS, q["num"] + len(idx) + 50)
+        ranked = np.lexsort((np.arange(N_ITEMS), -s64))[:fetch]
+        cats = set(q.get("categories", []))
+        out = [int(i) for i in ranked
+               if not cats or CATEGORIES[i % len(CATEGORIES)] in cats][: q["num"]]
+
+        def eligible(it):
+            i = model.item_ids[it]
+            return i not in idx and (not cats or CATEGORIES[i % len(CATEGORIES)] in cats)
+
+        return ([f"i{i}" for i in out], [float(s64[i]) for i in out],
+                lambda it: float(s64[model.item_ids[it]]), eligible)
+
+    with running_server(dev, storage, SIMILARPRODUCT_FACTORY) as port:
+        reset_counters(ops)
+        t0 = time.perf_counter()
+        outs = post_all(port, "/queries.json", [json.dumps(q) for q in queries], 8)
+        wall = time.perf_counter() - t0
+        launches = read_counters(ops)
+    bad = absent = 0
+    for q, (status, a) in zip(queries, outs):
+        items, scores, score_of, eligible = reference(q)
+        if status != 200 or not ranked_agrees(a["itemScores"], items, scores, score_of,
+                                              eligible):
+            bad += 1
+        if set(q["items"]) & {s["item"] for s in a["itemScores"]}:
+            absent += 1
+    print(f"similar-product: {len(queries)} queries ({SP_SINGLE} single-item, {SP_MULTI} "
+          f"of 2-5 items) from 8 clients in {wall:.2f} s ({len(queries) / wall:.1f} q/s); "
+          f"answers off the float64 reference: {bad}; answers holding a query item: "
+          f"{absent}; score_topk launches {launches['score_topk']}", flush=True)
+    check(bad == 0 and absent == 0,
+          f"similar-product: {bad} answers off the reference, {absent} with a query item")
+    check(launches["score_topk"] == len(queries),
+          f"similar-product: score_topk launched {launches['score_topk']} times for "
+          f"{len(queries)} queries")
+    return {"launches": launches["score_topk"], "queries": len(queries)}
+
+
+def batchpredict_through_cli(torch, ops, dev, home: str, train) -> dict:
+    """Phase 12, `pio batchpredict --device cuda` in a subprocess over a
+    Recommendation instance of phase 5's factors: 20,000 queries (num 10,
+    the last 1,000 num 100, users drawn with the generator's skew, 50
+    unknown) in batches of 1,024, every line against score_topk_ref on
+    the card in float64 up to near-ties, one launch a batch."""
+    import numpy as np
+
+    U, V = train["U"], train["V"]
+    write_instance(home, U, V)
+    rng = np.random.default_rng(SEED + 23)
+    users = train["coo"].user_idx[rng.integers(0, train["coo"].nnz, BP_QUERIES)]
+    queries = [{"user": f"u{u}", "num": 10} for u in users]
+    for j in range(BP_QUERIES - BP_WIDE, BP_QUERIES):
+        queries[j]["num"] = 100
+    for j in rng.choice(BP_QUERIES - BP_WIDE, BP_COLD, replace=False):
+        queries[j]["user"] = f"nobody{j}"
+    src, dst = os.path.join(home, "queries.jsonl"), os.path.join(home, "predictions.jsonl")
+    with open(src, "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in queries)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        CLI + ["batchpredict", "--engine-dir",
+               os.path.join(repo, "predictionio_tpu_torch", "templates", "recommendation"),
+               "--input", src, "--output", dst, "--batch-size", str(BP_BATCH),
+               "--device", "cuda"],
+        cwd=repo, env=dict(os.environ, PIO_HOME=home), capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    print(proc.stdout.strip(), flush=True)
+    check(proc.returncode == 0, f"batchpredict failed ({proc.returncode}):\n"
+                                f"{proc.stderr[-4000:]}")
+    launches = int(re.search(r"score_topk=(\d+)", proc.stdout).group(1))
+    with open(dst) as f:
+        lines = [json.loads(ln) for ln in f]
+    check(len(lines) == BP_QUERIES and [ln["query"] for ln in lines] == queries,
+          "batchpredict: the output lines are not the queries in order")
+    known = [j for j, q in enumerate(queries) if not q["user"].startswith("nobody")]
+    check(all(lines[j]["prediction"] == {"itemScores": []} for j in range(BP_QUERIES)
+              if queries[j]["user"].startswith("nobody")),
+          "batchpredict: an unknown user got items")
+    Ud = torch.as_tensor(U, device=dev)
+    Vp = torch.cat([torch.as_tensor(V, device=dev),
+                    torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
+    bad = 0
+    for s in range(0, len(known), 2048):
+        rows = known[s:s + 2048]
+        ids = torch.tensor([int(queries[j]["user"][1:]) for j in rows], device=dev,
+                           dtype=torch.int32)
+        rv, ri = ops.score_topk_ref(Ud, Vp, 100, n_valid=N_ITEMS, ids=ids)
+        s64 = Ud[ids.long()].double() @ Vp.double().T
+        s64[:, N_ITEMS:] = -3.0e38
+        for r, j in enumerate(rows):
+            n = queries[j]["num"]
+            got = lines[j]["prediction"]["itemScores"]
+            if len(got) != n:
+                bad += 1
+                continue
+            gi = torch.tensor([int(it["item"][1:]) for it in got], device=dev)
+            gv = torch.tensor([it["score"] for it in got], device=dev)
+            if not topk_agrees(gv[None], gi[None], rv[r:r + 1, :n], ri[r:r + 1, :n],
+                               s64[r:r + 1]):
+                bad += 1
+    n_batches = -(-BP_QUERIES // BP_BATCH)
+    print(f"batchpredict: {BP_QUERIES} lines in {wall:.2f} s of subprocess wall "
+          f"({BP_QUERIES / wall:.1f} lines/s, start-up and model load included); "
+          f"{n_batches} batches of {BP_BATCH} (the last {BP_QUERIES % BP_BATCH} rows "
+          f"padded to {BP_BATCH}); score_topk launches {launches}; lines off the "
+          f"reference: {bad}", flush=True)
+    check(bad == 0, f"batchpredict: {bad} lines off score_topk_ref")
+    check(launches == n_batches,
+          f"batchpredict: score_topk launched {launches} times for {n_batches} batches")
+    return {"launches": launches, "wall": wall}
+
+
+def resume_on_card(torch, ops, dev, home: str, train) -> dict:
+    """Phase 12, mid-train checkpoints on the card: phase 5's explicit
+    layout and params trained straight, then a run of 6 iterations
+    checkpointing every 3 (the "crash"), then a resumed run of 10 from the
+    same checkpointer, which must equal the straight run bitwise; then one
+    resume through `pio train --resume` in a subprocess on a small app."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models.als import ALSParams, als_train_prepared
+    from predictionio_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    prep = train["prep"]
+    p = ALSParams(rank=RANK, iterations=ITERATIONS, reg=LAMBDA, weighted_reg=True,
+                  implicit=False, seed=SEED)
+    U_ref, V_ref = als_train_prepared(prep, p, device=dev)
+    saves = []
+    ck = TrainCheckpointer(os.path.join(home, "als"))
+    save = ck.save
+
+    def timed_save(step, state):
+        t = time.perf_counter()
+        save(step, state)
+        saves.append((step, time.perf_counter() - t))
+
+    ck.save = timed_save
+    als_train_prepared(prep, dataclasses.replace(p, iterations=RESUME_CRASH), device=dev,
+                       checkpointer=ck, checkpoint_every=RESUME_EVERY)
+    check(ck.latest_step() == RESUME_CRASH, f"no checkpoint at step {RESUME_CRASH}")
+    reset_counters(ops)
+    U, V = als_train_prepared(prep, p, device=dev, checkpointer=ck,
+                              checkpoint_every=RESUME_EVERY)
+    launches = read_counters(ops)
+    n_bytes = sum(a.nbytes for a in (U, V))
+    bitwise = np.array_equal(U, U_ref) and np.array_equal(V, V_ref)
+    rel = max(np.abs(U - U_ref).max() / np.abs(U_ref).max(),
+              np.abs(V - V_ref).max() / np.abs(V_ref).max())
+    print(f"resume: {RESUME_CRASH} iterations saved every {RESUME_EVERY}, then "
+          f"{ITERATIONS} resumed from step {RESUME_CRASH} ({launches['gather_gram']} "
+          f"gather_gram launches); saves (step, s) "
+          f"{[(s, round(t, 4)) for s, t in saves]} of {n_bytes / 1e6:.1f} MB of U and V "
+          f"each; resumed factors bitwise the straight run's: {bitwise} (max rel diff "
+          f"{rel:.3e})", flush=True)
+    check(bitwise, f"resumed factors differ from the straight run: {rel:.3e}")
+    check([s for s, _ in saves] == [3, 6, 9, 10], f"saves at steps {saves}")
+    return {"saves": saves, "bitwise": bitwise}
+
+
+def resume_through_cli(ops, home: str) -> int:
+    """Phase 12: `pio train --resume` in a subprocess on a small app whose
+    train was cut after its second checkpoint in this process: it
+    continues from that step (launches of the remaining iterations only),
+    equals a straight train bitwise and removes its checkpoints."""
+    import io
+
+    import numpy as np
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.utils import checkpoint
+
+    storage = Storage(StorageConfig(home=home))
+    app = storage.meta.create_app("ResumeApp")
+    storage.events.init_channel(app.id)
+    users, items, ratings = synthetic_ml20m(APP_EVENTS // 10, APP_USERS // 10, APP_ITEMS // 10)
+    storage.events.insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u}", target_entity_type="item",
+              target_entity_id=f"i{i}", properties={"rating": float(r)})
+        for u, i, r in zip(users.tolist(), items.tolist(), ratings.tolist())], app.id)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    variant = {"id": "resume", "engineFactory": workflow.RECOMMENDATION_FACTORY,
+               "datasource": {"params": {"appName": "ResumeApp"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": 16, "numIterations": 6, "lambda": 0.05, "seed": 3,
+                   "checkpointEvery": 2}}]}
+    vpath = os.path.join(home, "resume.json")
+    with open(vpath, "w") as f:
+        json.dump(variant, f)
+    reset_counters(ops)
+    straight = workflow.run_train(workflow.RECOMMENDATION_FACTORY, variant=variant,
+                                  storage=storage)
+    straight_launches = read_counters(ops)["gather_gram"]
+    save = checkpoint.TrainCheckpointer.save
+    n = [0]
+
+    def cut(self, step, state):
+        save(self, step, state)
+        n[0] += 1
+        if n[0] == 2:
+            raise RuntimeError("simulated preemption after the second checkpoint")
+
+    with mock.patch.object(checkpoint.TrainCheckpointer, "save", cut):
+        try:
+            workflow.run_train(workflow.RECOMMENDATION_FACTORY, variant=variant,
+                               storage=storage)
+        except RuntimeError:
+            pass
+    root = workflow._ckpt_root(storage, workflow.RECOMMENDATION_FACTORY, "resume")
+    check(checkpoint.TrainCheckpointer(os.path.join(root, "als")).latest_step() == 4,
+          "the cut train left no checkpoint at step 4")
+    t0 = time.perf_counter()
+    proc = subprocess.run(CLI + ["train", "--engine-dir", repo, "-e", vpath, "--resume"],
+                          cwd=repo, env=dict(os.environ, PIO_HOME=home),
+                          capture_output=True, text=True, timeout=600)
+    print(proc.stdout.strip(), flush=True)
+    check(proc.returncode == 0, f"train --resume failed:\n{proc.stderr[-4000:]}")
+    iid = re.search(r"engine instance (\S+)", proc.stdout).group(1)
+    resumed_launches = int(re.search(r"gather_gram=(\d+)", proc.stdout).group(1))
+
+    def factors(instance_id):
+        blob = pickle.loads(storage.models.get(instance_id))[0]
+        d = pickle.loads(blob)
+        z = np.load(io.BytesIO(d["npz"]))
+        return z["U"], z["V"]
+
+    (Us, Vs), (Ur, Vr) = factors(straight), factors(iid)
+    bitwise = np.array_equal(Us, Ur) and np.array_equal(Vs, Vr)
+    gone = not os.path.exists(root)
+    print(f"train --resume (subprocess, {time.perf_counter() - t0:.2f} s): continued "
+          f"from step 4 of 6 with {resumed_launches} gather_gram launches (the straight "
+          f"train {straight_launches}); factors bitwise the straight train's: {bitwise}; "
+          f"checkpoints removed: {gone}", flush=True)
+    check(3 * resumed_launches == straight_launches,
+          "train --resume: did not run only the last 2 of 6 iterations")
+    check(bitwise, "train --resume: factors differ from the straight train")
+    check(gone, "train --resume: the completed run left its checkpoints")
+    return resumed_launches
+
+
+def templates_full_width(torch, ops, dev, train) -> dict:
+    """Phase 12: the ALS family at ML-20M width (see the module docstring)."""
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.templates.ecommercerecommendation import engine as ec
+    from predictionio_tpu_torch.templates.similarproduct import engine as sp
+    from predictionio_tpu_torch.core.workflow import ECOMMERCE_FACTORY, SIMILARPRODUCT_FACTORY
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sp_td, ec_td = template_data(train)
+    print(f"template data from phase 5's draws in {time.perf_counter() - t0:.2f} s: "
+          f"similar-product {sp_td.n} views, e-commerce {ec_td.n} views and buys",
+          flush=True)
+    launches = {name: 0 for name in ("gather_gram", "chol_solve", "score_topk")}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_templates_") as home:
+        storage = Storage(StorageConfig(home=home))
+        out = {}
+        for label, algo, td, factory, name, ds in (
+                ("similar-product", sp.ALSAlgorithm(sp.ALSAlgorithmParams(
+                    rank=RANK, num_iterations=ITERATIONS, lambda_=LAMBDA,
+                    alpha=TEMPLATE_ALPHA, seed=TEMPLATE_SEED)), sp_td,
+                 SIMILARPRODUCT_FACTORY, "als", sp.DataSourceParams(app_name="ShopApp")),
+                ("e-commerce", ec.ECommAlgorithm(ec.ECommAlgorithmParams(
+                    rank=RANK, num_iterations=ITERATIONS, lambda_=LAMBDA,
+                    alpha=TEMPLATE_ALPHA, seed=TEMPLATE_SEED)), ec_td,
+                 ECOMMERCE_FACTORY, "ecomm", ec.DataSourceParams(app_name="ShopApp"))):
+            res = train_template(torch, ops, dev, storage, label, algo, td)
+            for k in ("gather_gram", "chol_solve"):
+                launches[k] += res["launches"][k]
+            t0 = time.perf_counter()
+            write_template_instance(storage, factory, name, algo, res["model"], ds)
+            print(f"{label}: instance written in {time.perf_counter() - t0:.2f} s", flush=True)
+            out[label] = dict(res, td=td)
+        ecs = ecommerce_serving(torch, ops, dev, storage, out["e-commerce"],
+                                out["e-commerce"]["model"])
+        sps = similar_serving(torch, ops, dev, storage, out["similar-product"]["model"])
+        launches["score_topk"] += ecs["launches"] + sps["launches"]
+    with tempfile.TemporaryDirectory(prefix="pio_chip_batchpredict_") as home:
+        bp = batchpredict_through_cli(torch, ops, dev, home, train)
+        launches["score_topk"] += bp["launches"]
+    with tempfile.TemporaryDirectory(prefix="pio_chip_resume_") as home:
+        resume_on_card(torch, ops, dev, home, train)
+        resume_through_cli(ops, home)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 12: {wall:.1f} s wall; launches {launches}", flush=True)
+    return {"launches": launches, "wall": wall}
+
+
 def main(argv) -> int:
     import torch
 
@@ -3095,6 +3875,7 @@ def main(argv) -> int:
     quick = "--quick" in argv
     topk_only = "--topk" in argv
     ops_only = "--ops" in argv
+    templates_only = "--templates" in argv
     dev = torch.device("cuda", 0)
 
     phase("1. card")
@@ -3119,6 +3900,14 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if templates_only:
+        phase("5. full-width training (ML-20M shape, rank 64)")
+        train = train_full_width(torch, ops, dev)
+        phase("12. the ALS family at ML-20M width")
+        templates_full_width(torch, ops, dev, train)
+        phase("done")
+        return 0
 
     if ops_only:
         phase("5. full-width training (ML-20M shape, rank 64)")
@@ -3197,6 +3986,8 @@ def main(argv) -> int:
     phase("11. the engine server's online loop at ML-20M width")
     with tempfile.TemporaryDirectory(prefix="pio_chip_online_") as home:
         online = online_loop(torch, ops, dev, home, train)
+    phase("12. the ALS family at ML-20M width")
+    family = templates_full_width(torch, ops, dev, train)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -3213,14 +4004,19 @@ def main(argv) -> int:
         "launches_phase10_load": surface["load_launches"],
         "launches_phase10_reload": surface["reload_launches"],
         "launches_phase11": online["launches_phase11"],
+        "launches_phase12": family["launches"]["score_topk"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
+        "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            for B, k in BATCHPREDICT_CELLS],
     }, {
         "name": "gather_gram", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/gather_gram.cu",
         "replaces": "predictionio_tpu/ops/gram.py:203",
         "launches": train["launches"]["gather_gram"],
-        "launches_eval": evals["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches_eval": evals["launches"]["gather_gram"],
+        "launches_phase12": family["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -3229,7 +4025,8 @@ def main(argv) -> int:
         "source": "predictionio_tpu_torch/csrc/chol_solve.cu",
         "replaces": "predictionio_tpu/ops/cholesky.py:315",
         "launches": train["launches"]["chol_solve"],
-        "launches_eval": evals["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches_eval": evals["launches"]["chol_solve"],
+        "launches_phase12": family["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],

@@ -11,6 +11,7 @@ package's train rebuilds the same params in the other's deploy.
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from dataclasses import dataclass, field, is_dataclass
 from typing import Any, Dict, Optional, Type, TypeVar
@@ -78,19 +79,27 @@ class WorkflowContext:
     ``storage`` gives data sources the event and meta repositories;
     ``device`` is the torch device the algorithms train on (None: CUDA,
     raising when there is no card, ``utils/device.resolve_device``);
-    per-phase wall-clock seconds land in ``timings``."""
+    per-phase wall-clock seconds land in ``timings``.
+    ``checkpoint_dir`` is where iterative trainers keep mid-train
+    checkpoints (``run_train`` points it at a per-(factory, variant)
+    directory; None turns checkpointing off)."""
 
     storage: Storage = field(default_factory=get_storage)
     device: Optional[torch.device] = None
     verbose: int = 0
     timings: Dict[str, float] = field(default_factory=dict)
     instance_id: str = ""
+    checkpoint_dir: Optional[str] = None
 
     def log(self, msg: str) -> None:
         if self.verbose:
             print(f"[workflow {self.instance_id or '-'}] {msg}", flush=True)
 
-    def checkpointer(self, name: str) -> None:
-        """Mid-train checkpoints are not ported yet: always None, so an
-        algorithm's ``checkpoint_every`` parses but does nothing."""
-        return None
+    def checkpointer(self, name: str):
+        """A TrainCheckpointer under ``checkpoint_dir/name`` (None when
+        checkpointing is off for this run)."""
+        if not self.checkpoint_dir:
+            return None
+        from predictionio_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+        return TrainCheckpointer(os.path.join(self.checkpoint_dir, name))

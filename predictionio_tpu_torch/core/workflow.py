@@ -4,7 +4,9 @@ Equivalent of the reference's ``CoreWorkflow`` / ``CreateServer.prepareDeploy``
 (SURVEY.md §3.1–3.2) and of the JAX package's ``core/workflow``:
 
 - :func:`run_train` — INIT row → TRAINING → ``Engine.train`` on the
-  device → persist the per-algorithm model blobs → COMPLETED (or FAILED);
+  device (mid-train checkpoints under ``train_ckpt_torch/``, resumed with
+  ``resume=True``) → persist the per-algorithm model blobs → COMPLETED
+  (or FAILED);
 - :func:`prepare_deploy` — load the latest COMPLETED instance for (engine
   factory, variant), or a given one, rebuild its params from the
   recorded JSON, and restore each algorithm's model onto the serving
@@ -27,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import shutil
 import traceback
 import warnings
 from dataclasses import dataclass
@@ -52,12 +55,26 @@ from predictionio_tpu_torch.utils.device import resolve_device
 
 RECOMMENDATION_FACTORY = "predictionio_tpu_torch.templates.recommendation.engine:engine_factory"
 JAX_RECOMMENDATION_FACTORY = "predictionio_tpu.templates.recommendation.engine:engine_factory"
+SIMILARPRODUCT_FACTORY = "predictionio_tpu_torch.templates.similarproduct.engine:engine_factory"
+JAX_SIMILARPRODUCT_FACTORY = "predictionio_tpu.templates.similarproduct.engine:engine_factory"
+ECOMMERCE_FACTORY = "predictionio_tpu_torch.templates.ecommercerecommendation.engine:engine_factory"
+JAX_ECOMMERCE_FACTORY = "predictionio_tpu.templates.ecommercerecommendation.engine:engine_factory"
 
 #: engine factory recorded in an instance → the port's factory serving it
 FACTORIES = {
     JAX_RECOMMENDATION_FACTORY: RECOMMENDATION_FACTORY,
     RECOMMENDATION_FACTORY: RECOMMENDATION_FACTORY,
+    JAX_SIMILARPRODUCT_FACTORY: SIMILARPRODUCT_FACTORY,
+    SIMILARPRODUCT_FACTORY: SIMILARPRODUCT_FACTORY,
+    JAX_ECOMMERCE_FACTORY: ECOMMERCE_FACTORY,
+    ECOMMERCE_FACTORY: ECOMMERCE_FACTORY,
 }
+
+#: the port's mid-train checkpoints, under the storage home. Never the
+#: JAX package's ``train_ckpt``: its run_train wipes that directory at
+#: start and at completion, and holds Orbax checkpoints the port cannot
+#: read.
+CKPT_DIR = "train_ckpt_torch"
 
 def recorded_factory(port: str) -> str:
     """The factory an instance the port trains records: the JAX
@@ -77,6 +94,16 @@ def port_factory(engine_factory: str) -> str:
             f"predictionio_tpu_torch; it serves: {sorted(FACTORIES)}") from None
 
 
+def _ckpt_root(storage: Storage, engine_factory: str, variant_id: str) -> str:
+    """The port's checkpoint directory of one (factory, variant): the
+    factory as an instance records it, so the port's and the JAX
+    package's name of a template resume the same run."""
+    factory = recorded_factory(port_factory(engine_factory))
+    safe = "".join(ch if ch.isalnum() else "_"
+                   for ch in f"{factory}_{variant_id}")
+    return os.path.join(storage.config.home, CKPT_DIR, safe)
+
+
 def run_train(
     engine_factory: str,
     variant: Optional[Dict[str, Any]] = None,
@@ -86,6 +113,7 @@ def run_train(
     verbose: int = 0,
     batch: str = "",
     device=None,
+    resume: bool = False,
 ) -> str:
     """Train and persist one engine instance on ``device`` (CUDA unless
     the caller passes ``"cpu"``; raises when there is no card and no CPU
@@ -95,7 +123,13 @@ def run_train(
     supplies the parameters (variant = parsed engine.json dict). The
     instance row, the params JSON and the model blob (a pickle of the
     per-algorithm blobs) are the JAX package's, so its deploy serves
-    what this wrote."""
+    what this wrote.
+
+    Iterative trainers checkpoint under ``<home>/train_ckpt_torch/
+    <factory>_<variant>``: a fresh run clears that directory,
+    ``resume=True`` (``pio train --resume``) keeps it so the trainer
+    restores its newest checkpoint and continues, and a completed run
+    removes it."""
     from predictionio_tpu_torch.utils import tracing
 
     device = resolve_device(device)
@@ -128,8 +162,11 @@ def run_train(
         serving_params=json.dumps(params_to_json(engine_params.serving_params)),
     )
     storage.meta.insert_engine_instance(ei)
+    ckpt_root = _ckpt_root(storage, port, ei.engine_variant)
+    if not resume:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     ctx = WorkflowContext(storage=storage, device=device, verbose=verbose,
-                          instance_id=instance_id)
+                          instance_id=instance_id, checkpoint_dir=ckpt_root)
     try:
         with tracing.root_span("train.run", engine_factory=engine_factory,
                                instance_id=instance_id):
@@ -154,6 +191,8 @@ def run_train(
             ei.status = "COMPLETED"
             ei.end_time = utcnow()
             storage.meta.update_engine_instance(ei)
+            # the run completed: its mid-train checkpoints are consumed
+            shutil.rmtree(ckpt_root, ignore_errors=True)
             return instance_id
     except Exception:
         ei.status = "FAILED"

@@ -22,6 +22,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.data.event import (
     Event,
+    PropertyMap,
+    aggregate_properties,
     format_event_time,
     parse_event_time,
     validate_event,
@@ -88,6 +90,30 @@ class EventStore(ABC):
         """Scan events ordered by eventTime asc (desc when ``reversed``).
         ``start_time`` inclusive, ``until_time`` exclusive; ``limit=None``
         (or negative) means no limit."""
+
+    # -- derived ---------------------------------------------------------------
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+    ) -> Dict[str, PropertyMap]:
+        """Fold $set/$unset/$delete into per-entity snapshots.
+
+        Reference: [U] PEvents.aggregateProperties / PEventAggregator.
+        """
+        evs = self.find(
+            app_id,
+            channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            event_names=["$set", "$unset", "$delete"],
+        )
+        return aggregate_properties(evs)
 
 
 def _match(

@@ -3,7 +3,10 @@
 The port's copy of the JAX package's ``data/store.py`` for the training
 read: :func:`resolve_app_channel` (app and channel names → ids),
 :func:`find` (the bulk scan) and :func:`read_training_interactions` on
-the generic two-pass path (``data/pipeline.read_interactions``). The
+the generic two-pass path (``data/pipeline.read_interactions``), and
+for the serving-time business rules :func:`aggregate_properties` (an
+entity type's folded property snapshots) and :func:`find_by_entity`
+(one entity's events, newest first). The
 port's stores have no native columnar scan yet, so there is no native
 path and no snapshot cache; both give the same arrays and vocabularies
 as this path in the JAX package.
@@ -14,9 +17,9 @@ from __future__ import annotations
 import datetime as _dt
 import math as _math
 import re as _re
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import Event, PropertyMap
 from predictionio_tpu_torch.storage.registry import Storage, get_storage
 
 # The rating-value grammar the JAX package shares with its native scan:
@@ -86,6 +89,21 @@ def find(
     )
 
 
+def aggregate_properties(
+    app_name: str,
+    entity_type: str,
+    channel_name: Optional[str] = None,
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    storage: Optional[Storage] = None,
+) -> Dict[str, PropertyMap]:
+    st = storage or get_storage()
+    app_id, channel_id = resolve_app_channel(app_name, channel_name, st)
+    return st.events.aggregate_properties(
+        app_id, entity_type, channel_id, start_time=start_time, until_time=until_time
+    )
+
+
 def read_training_interactions(
     app_name: str,
     channel_name: Optional[str] = None,
@@ -131,4 +149,39 @@ def read_training_interactions(
         value_fn=(value_fn
                   if (value_spec or value_key or default_spec != 1.0)
                   else None),
+    )
+
+
+def find_by_entity(
+    app_name: str,
+    entity_type: str,
+    entity_id: str,
+    channel_name: Optional[str] = None,
+    event_names: Optional[Sequence[str]] = None,
+    target_entity_type: Optional[str] = None,
+    target_entity_id: Optional[str] = None,
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    limit: Optional[int] = None,
+    latest: bool = True,
+    storage: Optional[Storage] = None,
+) -> List[Event]:
+    """Serving-time point lookup (reference: LEventStore.findByEntity;
+    `latest` mirrors its newest-first default)."""
+    st = storage or get_storage()
+    app_id, channel_id = resolve_app_channel(app_name, channel_name, st)
+    return list(
+        st.events.find(
+            app_id,
+            channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            entity_id=entity_id,
+            event_names=event_names,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id,
+            limit=limit,
+            reversed=latest,
+        )
     )

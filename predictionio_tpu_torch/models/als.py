@@ -15,15 +15,20 @@ one gather → score → top-k launch of the ``score_topk`` kernel
   with the JAX package (same numpy draws, so seeded factors agree);
 - :class:`RatingsCOO`, :class:`ALSParams`, :func:`als_prepare` — ratings,
   parameters and the host layout, copied from the JAX package;
-- :func:`als_train`, :func:`als_train_prepared` — training on a device;
+- :func:`als_train`, :func:`als_train_prepared` — training on a device,
+  optionally in checkpointed blocks that a restart resumes;
 - :func:`als_train_many`, :func:`als_train_scored`,
   :func:`als_sweep_program` — ``pio eval``'s grid: many candidates over
   one prepared, uploaded layout, serially or as sweep programs that
   score the held-out fold on the device;
-- :func:`predict_ratings`, :func:`recommend` — host numpy scoring for
-  small catalogs;
+- :func:`predict_ratings`, :func:`recommend`, :func:`similar_items` —
+  host numpy scoring for small catalogs;
 - :class:`ResidentScorer` — U and tile-padded V resident on the device,
-  batches padded to the AOT bucket ladder, exclusions over-fetched;
+  batches padded to the AOT bucket ladder, exclusions over-fetched; a
+  query vector in place of a row of U (:meth:`recommend_vector`);
+- :func:`similar_items_device` — :func:`similar_items` from a
+  ``ResidentScorer(Vn, Vn)`` of the normalised V, one ``score_topk``
+  launch a query;
 - :func:`serve_on_device`, :func:`maybe_resident_scorer`,
   :func:`serve_topk_batch` — the serving policy the templates share.
 """
@@ -432,16 +437,25 @@ def _make_half(k: int, implicit: bool, weighted_reg: bool,
         return A
 
     def dense_equations(F, dense, G, reg, alpha):
-        """The heaviest entities: two matmuls over the whole other side."""
+        """The heaviest entities: two matmuls over the whole other side.
+
+        Implicit weights accumulate in float64 and round to f32 once:
+        the heaviest entities' confidences reach millions, and an f32
+        sum over the whole other side (with VᵀV added) lost up to 2e-3
+        of the float64 solution at ML-20M width, against 4e-5 with the
+        float64 sum (PERF.md)."""
         w_cnt, w_val, cnt = dense
-        if implicit:
-            wo_m, wb_m = alpha * w_val, w_cnt + alpha * w_val
-        else:
-            wo_m, wb_m = w_cnt, w_val
         n_other = F.shape[0]
+        if implicit:
+            F64 = F.double()
+            FF = (F64[:, :, None] * F64[:, None, :]).reshape(n_other, k * k)
+            A = torch.matmul((alpha * w_val).double(), FF).reshape(-1, k, k)
+            A = A.add_(F64.T @ F64).float()
+            b = torch.matmul((w_cnt + alpha * w_val).double(), F64).float()
+            return ridge(A, cnt, None, reg), b
         FF = (F[:, :, None] * F[:, None, :]).reshape(n_other, k * k)
-        A = torch.matmul(wo_m, FF).reshape(-1, k, k)
-        b = torch.matmul(wb_m, F)
+        A = torch.matmul(w_cnt, FF).reshape(-1, k, k)
+        b = torch.matmul(w_val, F)
         return ridge(A, cnt, G, reg), b
 
     def seg_equations(F_g, bufs, nb, slab, G, reg, alpha):
@@ -527,19 +541,70 @@ def _train_permuted(prep: ALSPrepared, p: ALSParams, bufs: tuple,
 
 def als_train_prepared(prep: ALSPrepared, p: ALSParams, device=None,
                        V0: Optional[np.ndarray] = None,
+                       checkpointer=None, checkpoint_every: int = 0,
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Train from a prepared layout on ``device`` (CUDA unless the caller
     passes ``"cpu"``); returns (U, V) in ORIGINAL entity order as numpy
     arrays. Training starts from ``init_factors(n_items, rank, seed)``, or
     from ``V0`` (original order) when given — with ``iterations=0`` that
-    recovers U from converged item factors."""
+    recovers U from converged item factors.
+
+    With ``checkpointer`` (a ``utils/checkpoint.TrainCheckpointer``) and
+    ``checkpoint_every > 0`` the iterations run in blocks of
+    ``checkpoint_every``, one :func:`_train_permuted` call each, and the
+    permuted U and V are saved after each block (they come to the host
+    once a block). A restart with the same checkpointer restores the
+    newest compatible step and runs only the remaining iterations, which
+    gives the straight run's factors (V alone determines the next
+    iteration); a run that died after its final save recovers without
+    retraining; a checkpoint of another geometry is wiped with a
+    RuntimeWarning and training starts over. The JAX package's block
+    loop, on the port's checkpoint format."""
     device = resolve_device(device)
     if V0 is None:
         V0 = init_factors(prep.n_items, p.rank, p.seed)
-    V0p = torch.as_tensor(np.ascontiguousarray(
-        np.asarray(V0, np.float32)[prep.i_side.perm])).to(device)
+    V0p = np.ascontiguousarray(np.asarray(V0, np.float32)[prep.i_side.perm])
+    start, U0 = 0, None
+    if checkpointer is not None and checkpointer.latest_step() is not None:
+        from predictionio_tpu_torch.utils.checkpoint import CheckpointGeometryError
+
+        template = {"U": np.zeros((prep.n_users, p.rank), np.float32),
+                    "V": np.zeros_like(V0p)}
+        try:
+            state, step = checkpointer.restore_latest_compatible(template)
+            V0p, U0 = state["V"], state["U"]
+            start = min(int(step), p.iterations)
+        except CheckpointGeometryError:
+            # confirmed stale (another geometry or rank): wipe, or the
+            # fresh run's lower steps stay shadowed by the stale latest
+            # step. Transient read errors propagate instead.
+            import warnings
+
+            warnings.warn(
+                "ALS checkpoints are stale (geometry/format change) — wiped; "
+                "training restarts from scratch", RuntimeWarning)
+            checkpointer.clear()
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+    bufs = _device_buffers(prep, device)
     with _full_f32():
-        U, V = _train_permuted(prep, p, _device_buffers(prep, device), V0p)
+        if start >= p.iterations and U0 is not None:
+            # died between the final save and persistence: nothing to train
+            U, V = put(U0), put(V0p)
+        elif checkpointer is None or checkpoint_every <= 0 or p.iterations == 0:
+            U, V = _train_permuted(
+                prep, dataclasses.replace(p, iterations=p.iterations - start),
+                bufs, put(V0p))
+        else:
+            V, it = put(V0p), start
+            while it < p.iterations:
+                n = min(checkpoint_every, p.iterations - it)
+                U, V = _train_permuted(
+                    prep, dataclasses.replace(p, iterations=n), bufs, V)
+                it += n
+                checkpointer.save(it, {"U": U.cpu().numpy(), "V": V.cpu().numpy()})
     # un-permute on the device and fetch U and V as one packed array
     inv_u = torch.as_tensor(prep.u_side.inv_perm.astype(np.int64)).to(device)
     inv_v = torch.as_tensor(prep.i_side.inv_perm.astype(np.int64)).to(device)
@@ -549,9 +614,13 @@ def als_train_prepared(prep: ALSPrepared, p: ALSParams, device=None,
 
 
 def als_train(coo: RatingsCOO, params: ALSParams, device=None,
+              checkpointer=None, checkpoint_every: int = 0,
               ) -> Tuple[np.ndarray, np.ndarray]:
-    """Train ALS on ``device``; returns (U [n_users, k], V [n_items, k])."""
-    return als_train_prepared(als_prepare(coo), params, device=device)
+    """Train ALS on ``device``; returns (U [n_users, k], V [n_items, k]).
+    ``checkpointer``/``checkpoint_every``: see :func:`als_train_prepared`."""
+    return als_train_prepared(als_prepare(coo), params, device=device,
+                              checkpointer=checkpointer,
+                              checkpoint_every=checkpoint_every)
 
 
 def als_train_many(coo: RatingsCOO, params_list, device=None) -> list:
@@ -646,6 +715,55 @@ def recommend(
     top = np.argpartition(-scores, num - 1)[:num]
     top = top[np.argsort(-scores[top])]
     return top, scores[top]
+
+
+def similar_items(
+    V: np.ndarray, item_indices: np.ndarray, num: int,
+    exclude_self: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Top-``num`` items by cosine similarity to the given items' mean
+    direction (similar-product template behavior), on the host."""
+    norms = np.linalg.norm(V, axis=1, keepdims=True)
+    Vn = V / np.maximum(norms, 1e-12)
+    q = Vn[item_indices].mean(axis=0)
+    qn = q / max(np.linalg.norm(q), 1e-12)
+    scores = Vn @ qn
+    if exclude_self:
+        scores = scores.copy()
+        scores[item_indices] = -np.inf
+    num = min(num, scores.shape[0])
+    top = np.argpartition(-scores, num - 1)[:num]
+    top = top[np.argsort(-scores[top])]
+    return top, scores[top]
+
+
+def normalized_rows(V: np.ndarray) -> np.ndarray:
+    """V's rows scaled to unit length (a zero row stays zero): the item
+    factors cosine similarity scores against."""
+    V = np.asarray(V, np.float32)
+    return V / np.maximum(np.linalg.norm(V, axis=1, keepdims=True), 1e-12)
+
+
+def similar_items_device(scorer: "ResidentScorer", Vn: np.ndarray,
+                         item_indices: np.ndarray, num: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`similar_items`'s answer from a :class:`ResidentScorer`
+    built on the normalised factors (``ResidentScorer(Vn, Vn)``,
+    ``Vn = normalized_rows(V)``): ONE ``score_topk`` launch of the query
+    items' normalised mean direction against the resident rows, the
+    query items left out (and appended at -inf, in index order, only
+    when the rest of the catalog cannot fill ``num``)."""
+    idx = np.asarray(item_indices, np.int64)
+    q = Vn[idx].mean(axis=0)
+    qn = (q / max(np.linalg.norm(q), 1e-12)).astype(np.float32)
+    excl = np.unique(idx)
+    num = min(num, scorer.n_items)
+    top, vals = scorer.recommend_vector(qn, num, exclude=excl)
+    if top.size < num:
+        fill = excl[:num - top.size]
+        top = np.concatenate([top, fill])
+        vals = np.concatenate([vals, np.full(fill.size, -np.inf, np.float32)])
+    return top, vals
 
 
 def _gather_score_topk(U: torch.Tensor, Vp: torch.Tensor, ids: torch.Tensor,
@@ -943,6 +1061,26 @@ class ResidentScorer:
                 iv, vv = iv[keep], vv[keep]
             out.append((iv[:num], vv[:num]))
         return out
+
+    def recommend_vector(self, q: np.ndarray, num: int,
+                         exclude: Optional[np.ndarray] = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-``num`` items for a query vector ``q`` (shape (d,)) in
+        place of a row of U: one launch of (1, d) against the resident
+        V, k bucketed and over-fetched for ``exclude`` as in
+        :meth:`recommend_batch`."""
+        excl = np.asarray([] if exclude is None else exclude, np.int64)
+        num = min(num, self.n_items)
+        k = min(_bucket_k(num + excl.size), self.n_items)
+        Q = torch.as_tensor(np.asarray(q, np.float32).reshape(1, self.rank)).to(self.device)
+        out = (torch.empty((1, k), dtype=torch.float32, device=self.device),
+               torch.empty((1, k), dtype=torch.int32, device=self.device))
+        _gather_score_topk(Q, self._V_padded, torch.zeros(1, dtype=torch.int32,
+                                                          device=self.device),
+                           k=k, n_valid=self.n_items, rows_valid=1, out=out)
+        vals, top = out[0][0].cpu().numpy(), out[1][0].cpu().numpy().astype(np.int64)
+        keep = ~np.isin(top, excl)
+        return top[keep][:num], vals[keep][:num]
 
     def recommend(self, user: int, num: int,
                   exclude: Optional[np.ndarray] = None):

@@ -196,8 +196,8 @@ class ALSAlgorithmParams:
     seed: Optional[int] = None
     implicit_prefs: bool = False
     alpha: float = 1.0
-    # mid-train checkpoint cadence: parsed for the JAX package's variants;
-    # mid-train checkpoints are not ported yet, so it does nothing here
+    # mid-train checkpoint cadence (`pio train --resume`): save every N
+    # iterations under the workflow's checkpoint dir (0 = off)
     checkpoint_every: int = 5
     # bf16 factor gathers (see models/als.py ALSParams.bf16_gather)
     bf16_gather: bool = False
@@ -300,7 +300,12 @@ class ALSAlgorithm(Algorithm):
         """Train on ``self.device`` (set by Engine.train from the
         workflow context; CUDA unless the run asked for the CPU)."""
         coo, user_ids, item_ids = self._to_coo(pd)
-        U, V = als_train(coo, self._als_params(self.params), device=self.device)
+        U, V = als_train(
+            coo, self._als_params(self.params), device=self.device,
+            # restart-from-checkpoint (run_train --resume): save U and V
+            # every checkpoint_every iterations under the workflow's dir
+            checkpointer=ctx.checkpointer("als"),
+            checkpoint_every=self.params.checkpoint_every)
         return ALSModel(U, V, user_ids, item_ids, device=self.device)
 
     def predict(self, model: ALSModel, query: Dict[str, Any]) -> Dict[str, Any]:

@@ -21,7 +21,11 @@ Verbs:
 - ``import`` and ``export`` move an app's events from and to JSONL;
 - ``train`` trains the engine named in the engine directory's
   ``engine.json`` (or ``--variant``) on the app's events and records a
-  COMPLETED instance;
+  COMPLETED instance; ``--resume`` continues an interrupted train from
+  the port's own mid-train checkpoints (``<home>/train_ckpt_torch``);
+- ``batchpredict`` answers a JSONL file of queries with the latest
+  COMPLETED instance (or ``--engine-instance-id``) into a JSONL file of
+  ``{"query", "prediction"}`` lines, ``--batch-size`` queries a dispatch;
 - ``deploy`` serves the latest COMPLETED instance (one the JAX
   package's ``pio train`` wrote into the same ``PIO_HOME`` included);
 - ``eval`` runs an Evaluation over a generator's grid, serially or
@@ -45,8 +49,9 @@ Verbs:
 
 The verbs print the JAX CLI's lines and write the same rows, so either
 package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
-``deploy``, ``eval`` and ``status`` run on the CUDA card and exit
-non-zero without one; ``--device cpu`` runs them on the CPU instead. The
+``deploy``, ``batchpredict``, ``eval`` and ``status`` run on the CUDA
+card and exit non-zero without one; ``--device cpu`` runs them on the
+CPU instead. The
 flags are the JAX CLI's flags for the options the port has, plus
 ``--device``: ``deploy --variants SPEC --feedback-url URL
 --feedback-accesskey KEY`` serves a champion and a challenger side by
@@ -55,7 +60,8 @@ side and posts every answer back as a ``predict`` event.
 Left out for now, each with the module that brings it: ``pio doctor``
 and the router's variant pins (the router and the continuous trainer,
 ROADMAP.md queue 1, item 13), ``--segment-maintenance`` (the native
-event log, item 12).
+event log, item 12), ``batchpredict --shards`` above 1 (the ANN
+retrieval mesh, items 9 and 14).
 """
 
 from __future__ import annotations
@@ -275,16 +281,21 @@ def make_server(args: argparse.Namespace):
 
 
 def cmd_train(args: argparse.Namespace) -> None:
-    from predictionio_tpu_torch import ops
     from predictionio_tpu_torch.core.workflow import run_train
 
     variant = _load_variant_file(args.engine_dir, args.variant)
     factory = variant.get("engineFactory") or _die("engine.json missing engineFactory")
     iid = run_train(factory, variant=variant, batch=args.batch,
-                    verbose=args.verbose, device=args.device)
-    launches = ", ".join(f"{c.__name__}={c.launches}" for c in ops.LAUNCH_COUNTERS)
+                    verbose=args.verbose, device=args.device,
+                    resume=args.resume)
     print(f"[info] Training completed: engine instance {iid} "
-          f"(kernel launches: {launches})")
+          f"(kernel launches: {_launch_counts()})")
+
+
+def _launch_counts() -> str:
+    from predictionio_tpu_torch import ops
+
+    return ", ".join(f"{c.__name__}={c.launches}" for c in ops.LAUNCH_COUNTERS)
 
 
 def cmd_deploy(args: argparse.Namespace) -> None:
@@ -303,6 +314,24 @@ def cmd_deploy(args: argparse.Namespace) -> None:
         print(f"[info] Engine Server (instance {server.deployed.instance.id}, "
               f"device {device}) listening on {args.ip}:{args.port}")
     server.run()
+
+
+def cmd_batchpredict(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch.core.batchpredict import run_batch_predict
+    from predictionio_tpu_torch.core.workflow import prepare_deploy
+
+    variant = _load_variant_file(args.engine_dir, args.variant)
+    factory = variant.get("engineFactory") or _die("engine.json missing engineFactory")
+    deployed = prepare_deploy(engine_factory=factory,
+                              instance_id=args.engine_instance_id,
+                              variant_id=str(variant.get("id", "")),
+                              device=args.device)
+    with open(args.input, "r", encoding="utf-8") as src, \
+         open(args.output, "w", encoding="utf-8") as out:
+        n = run_batch_predict(deployed, src, out, batch_size=args.batch_size,
+                              shards=args.shards)
+    print(f"[info] Batch predicted {n} queries → {args.output}")
+    print(f"[info] kernel launches: {_launch_counts()}")
 
 
 # -- eval, evals ------------------------------------------------------------
@@ -969,6 +998,11 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--device", default=None,
                     help="torch device to train on (default: cuda; "
                          "'cpu' trains on the CPU)")
+    tp.add_argument("--resume", action="store_true",
+                    help="resume an interrupted train from its latest "
+                         "mid-train checkpoint (the port's own checkpoints "
+                         "under <home>/train_ckpt_torch only; the JAX "
+                         "package's Orbax checkpoints are not read)")
     tp.set_defaults(fn=cmd_train)
     dp = sub.add_parser("deploy", help="serve the latest trained instance")
     dp.add_argument("--engine-dir", default=".")
@@ -1070,6 +1104,21 @@ def build_parser() -> argparse.ArgumentParser:
     evw.add_argument("instance_id")
     evw.add_argument("--json", action="store_true")
     evs.set_defaults(fn=cmd_evals)
+
+    bp = sub.add_parser("batchpredict", help="bulk predictions from a JSONL file")
+    bp.add_argument("--engine-dir", default=".")
+    bp.add_argument("-e", "--variant")
+    bp.add_argument("--input", required=True)
+    bp.add_argument("--output", required=True)
+    bp.add_argument("--engine-instance-id")
+    bp.add_argument("--batch-size", type=int, default=1024)
+    bp.add_argument("--shards", type=int, default=0,
+                    help="the JAX package's item-sharded ANN retrieval; not "
+                         "ported: only 0 and 1 run")
+    bp.add_argument("--device", default=None,
+                    help="torch device to serve on (default: cuda; "
+                         "'cpu' scores on the CPU)")
+    bp.set_defaults(fn=cmd_batchpredict)
 
     ex = sub.add_parser("export", help="export events to JSONL")
     ex.add_argument("--appid", type=int)
