@@ -12,6 +12,8 @@
     python3 chip_smoke.py --templates  # phases 1, 2, 5 and 12: the similar-product
                                        # and e-commerce templates, batchpredict
                                        # and resume alone (no result line)
+    python3 chip_smoke.py --ann      # phases 1, 2 and 13: ANN and the two-tower
+                                     # template alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -220,6 +222,38 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    equal to a straight train, running only the remaining iterations.
    Phase 3 also holds score_topk at B = 1,024 (k = 16 and 128, rows_valid
    1,024 and 544) and phase 4 times it there.
+13. ANN and the two-tower template at full width, in temporary
+   PIO_HOMEs. Two-tower: phase 5's 20,000,263 draws as (user, item) view
+   pairs, the template's engine.json widths (embed 32, hidden [64], out
+   32, batch 1,024, lr 0.01, temperature 0.1) for 1 epoch (the cut: 5 →
+   1), trained through ``run_train`` (the data source's read returns the
+   draws); steps/s and the epoch loss printed; the card's first 50 steps,
+   each from the CPU's state before it, held against the port's CPU run
+   of the same steps (same seeded init, same batches): in float64 and
+   f32 every entry of each gradient and of each parameter after the step
+   within 1e-4 of its leaf's max |value|, each gradient within 1e-4 in
+   its leaf's norm, the entries a ReLU switched between the runs
+   reaches masked and the switches counted; a TF32 control and a
+   temperature control must fail that gate; the free runs' drift
+   printed (see ``tt_step_check``). Deployed
+   with the port's EngineServer: 500 users sequentially and from 8
+   clients, every answer equal to a float64 top 10 of user_embeds ·
+   item_embedsᵀ up to near-ties within 1e-5, score_topk launches equal
+   to the dispatches. With ``ann: true`` (annM 8, annK 256, annShortlist
+   128), once plain and once with annOpq, each through ``run_train``
+   reusing the trained towers (only the index is built): the build time
+   split into Lloyd, encode and OPQ, every answer equal to a host float64
+   replay of the ADC → shortlist → re-rank from the index up to near-ties
+   within 1e-5, 0 score_topk launches, recall@10 against the exact path
+   printed. Similar-product: phase 12's implicit train (rank 64) with
+   ``ann: true`` (annM 8, annK 256) through ``run_train``, the index
+   sidecars beside model.bin, 500 single-item queries each against the
+   same replay, 0 score_topk launches. The 10M catalog: an ANNScorer over
+   10,000,000 × 32 normalised Gaussian items (seeded), the index build
+   timed, ANN dispatches at B = 1, 8 and 64 (k 16, k′ 128) against the
+   exact score_topk over the same corpus (CUDA events) beside the ANN
+   bytes bound (codes N·m + the B·k′·d re-rank rows over HBM), 8 rows'
+   shortlists held against a float64 replay.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -3354,12 +3388,13 @@ def write_template_instance(storage, factory: str, algo_name: str, algo, model,
 
 
 @contextlib.contextmanager
-def running_server(dev, storage, factory: str):
+def running_server(dev, storage, factory: str, instance_id=None):
     """The port's EngineServer for ``factory`` (micro-batching, the AOT
-    ladder) on a free port in this process; yields the port."""
+    ladder) on a free port in this process, serving its latest COMPLETED
+    instance or ``instance_id``; yields the port."""
     from predictionio_tpu_torch.server.engine_server import EngineServer
 
-    server = EngineServer(engine_factory=factory, storage=storage,
+    server = EngineServer(engine_factory=factory, instance_id=instance_id, storage=storage,
                           host="127.0.0.1", port=0, batching=True,
                           batch_max=BATCH_MAX, aot_buckets="auto",
                           aot_topk=AOT_TOPK, device=dev)
@@ -3863,6 +3898,695 @@ def templates_full_width(torch, ops, dev, train) -> dict:
     return {"launches": launches, "wall": wall}
 
 
+# -- phase 13: ANN and the two-tower template at full width ----------------------
+
+#: the cut of phase 13: the two-tower template's 5 epochs → 1
+TT_EPOCHS = 1
+TT_CHECK_STEPS = 50        # the card's first steps held against the CPU's
+TT_STEP_TOL = 1e-4         # of each leaf's max |value|, and of its norm
+TT_MAX_FLIP_SHARE = 1e-5   # switched ReLUs, of the check's hidden units
+TT_F32_FACTOR = 4.0        # f32: the card's error, of the CPU's own
+TT_CONTROL_TEMP = 1e-3     # the temperature control's relative offset
+TT_SERVED = 500            # users sent to each two-tower server
+ANN_M, ANN_K, ANN_SHORTLIST = 8, 256, 128
+SP_ANN_QUERIES = 500
+BIG_N, BIG_D, BIG_K = 10_000_000, 32, 16
+BIG_BATCHES = (1, 8, 64)
+BIG_CHECK_ROWS = 8
+
+
+def tt_variant(**algo) -> dict:
+    """The two-tower template's engine.json, its epochs cut to
+    TT_EPOCHS, with ``algo`` over its algorithm params."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "predictionio_tpu_torch", "templates", "twotower", "engine.json")
+    with open(path, encoding="utf-8") as f:
+        v = json.load(f)
+    params = v["algorithms"][0]["params"]
+    params.update(epochs=TT_EPOCHS, **algo)
+    v["id"] = "ann" if params.get("ann") else "exact"
+    if params.get("annOpq"):
+        v["id"] = "opq"
+    return v
+
+
+def _relu_flip_masks(pre_ref: dict, pre_got: dict, ids: dict):
+    """The entries a switched ReLU reaches, and the count of switches.
+
+    ``pre_*`` map (tower, hidden layer) to that layer's (B, width) input
+    to its ReLU in one step's forward, ``ids`` each tower's (B,) rows. A
+    unit whose input lies within rounding of 0 can switch between two
+    summation orders: its output is about 0 either way, but its gradient
+    jumps between 0 and the full upstream value, so the step of that
+    sample's embedding row, of the unit's weight row and bias, and of
+    every layer below it differs by a whole term. Returns ({leaf: [index,
+    ...]} to leave out, number of switched units)."""
+    import numpy as np
+
+    masks, flips = {}, 0
+    for (side, layer), a in pre_ref.items():
+        switched = (a > 0) != (pre_got[(side, layer)] > 0)
+        flips += int(switched.sum())
+        if not switched.any():
+            continue
+        samples, units = np.nonzero(switched)
+        masks.setdefault(f"{side}.embed.weight", []).append(np.unique(ids[side][samples]))
+        masks.setdefault(f"{side}.hidden.{layer}.weight", []).append(np.unique(units))
+        masks.setdefault(f"{side}.hidden.{layer}.bias", []).append(np.unique(units))
+        for below in range(layer):
+            for leaf in ("weight", "bias"):
+                masks.setdefault(f"{side}.hidden.{below}.{leaf}", []).append(slice(None))
+    return masks, flips
+
+
+def _leaf_errors(ref: dict, got: dict, masks: dict) -> dict:
+    """{leaf: (worst entry of |got − ref| over the leaf's max |ref|,
+    ‖got − ref‖ / ‖ref‖)}, the ``masks`` entries left out of both."""
+    import numpy as np
+
+    out = {}
+    for leaf, r in ref.items():
+        r = r.astype(np.float64)
+        d = np.abs(got[leaf].astype(np.float64) - r)
+        scale = max(float(np.abs(r).max()), 1e-30)
+        if leaf in masks:
+            d, r = d.copy(), r.copy()
+            for index in masks[leaf]:
+                d[index] = 0.0
+                r[index] = 0.0
+        out[leaf] = (float(d.max()) / scale,
+                     float(np.linalg.norm(d)) / max(float(np.linalg.norm(r)), 1e-30))
+    return out
+
+
+def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
+    """The card's first TT_CHECK_STEPS training steps against the port's
+    CPU run of the same steps (the same seeded initialisation, the same
+    batches: epoch 0's permutation). Each card step starts from the CPU's
+    state before that step (parameters, Adam moments, step count).
+
+    float64: every entry of each leaf's gradient and of each parameter
+    after the Adam step within TT_STEP_TOL of the leaf's max |value| of
+    the CPU's step, and each leaf within TT_STEP_TOL in its norm.
+
+    f32, the training precision, cannot meet that: some of its steps are
+    ill-conditioned. The output bias's gradient is a sum over the batch
+    that nearly cancels, and Adam divides a component's moment by its
+    root mean square, so a row whose gradient is tiny moves by about lr
+    whichever way rounding tips it. So the f32 step of the card and the
+    CPU's f32 step are each held against the float64 step from the same
+    state (on the CPU): for each leaf, gradient and parameters, the
+    card's worst entry and its norm error must be within TT_STEP_TOL or
+    within TT_F32_FACTOR times the CPU's own. Two controls must fail that
+    gate: the card's step with TF32 matrix products, and with the
+    temperature off by TT_CONTROL_TEMP.
+
+    In every comparison the entries a ReLU that switched between the two
+    runs reaches are left out (``_relu_flip_masks``); the switches are
+    counted and must stay under TT_MAX_FLIP_SHARE of the hidden units.
+
+    A free f32 run of the card, and of the CPU on one thread, is printed,
+    not gated: differences of 1e-7 grow to a good part of the weights
+    within 50 steps between ANY two summation orders, the CPU's own at
+    another thread count included."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import two_tower as tt
+    from predictionio_tpu_torch.models.als import _full_f32
+
+    p = tt.TwoTowerParams(embed_dim=params["embedDim"], hidden=list(params["hidden"]),
+                          out_dim=params["outDim"], batch_size=params["batchSize"],
+                          learning_rate=params["learningRate"],
+                          temperature=params["temperature"], seed=0)
+    B = p.batch_size
+    uv, iv = tt.init_variables(N_USERS, N_ITEMS, p)
+    perm = np.random.default_rng(p.seed).permutation(len(uu))[:TT_CHECK_STEPS * B]
+    bu = torch.from_numpy(uu[perm].reshape(TT_CHECK_STEPS, B).astype(np.int64))
+    bi = torch.from_numpy(ii[perm].reshape(TT_CHECK_STEPS, B).astype(np.int64))
+    bu_d, bi_d = bu.to(dev), bi.to(dev)
+    cpu_dev = torch.device("cpu")
+
+    def trainer(device, dtype, hooked=True):
+        tr = tt.TwoTowerTrainer(uv, iv, p, device)
+        tr.user.to(dtype)
+        tr.item.to(dtype)
+        tr.pre = {}
+        if hooked:
+            for side in ("user", "item"):
+                for layer, lin in enumerate(getattr(tr, side).hidden):
+                    lin.register_forward_hook(
+                        lambda m, i, o, key=(side, layer), pre=tr.pre:
+                        pre.__setitem__(key, o.detach().cpu().numpy()))
+        return tr
+
+    def leaves(tr, grad: bool) -> dict:
+        return {f"{side}.{n}": (t.grad if grad else t).detach().cpu().numpy()
+                for side, n, t in tr._named()}
+
+    def as64(state):
+        if isinstance(state, dict):
+            return {k: as64(v) for k, v in state.items()}
+        return state.astype(np.float64) if state.dtype == np.float32 else state
+
+    def run(tr, state, j, on_card, tf32=False):
+        tr.load_state(state)
+        if tf32:
+            torch.set_float32_matmul_precision("high")
+        try:
+            loss = float(tr.step(bu_d[j] if on_card else bu[j],
+                                 bi_d[j] if on_card else bi[j]))
+            if on_card:
+                torch.cuda.synchronize()
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        return loss
+
+    def accumulate(acc, name, ref_tr, tr, ids, refs):
+        masks, n = _relu_flip_masks(ref_tr.pre, tr.pre, ids)
+        acc.setdefault(name, {"flips": 0, "grad": {}, "param": {}})
+        acc[name]["flips"] += n
+        for what, grad in (("grad", True), ("param", False)):
+            for leaf, (e, f) in _leaf_errors(refs[what], leaves(tr, grad), masks).items():
+                old = acc[name][what].get(leaf, (0.0, 0.0))
+                acc[name][what][leaf] = (max(old[0], e), max(old[1], f))
+
+    def worst(a: dict) -> tuple:
+        """(worst gradient entry, worst gradient norm, worst parameter
+        entry), each (error, leaf)."""
+        return tuple(max((a[what][leaf][k], leaf) for leaf in a[what])
+                     for what, k in (("grad", 0), ("grad", 1), ("param", 0)))
+
+    def limit_share(a: dict, cpu: dict) -> tuple:
+        """The f32 gate: (highest error over its limit, where)."""
+        return max((a[what][leaf][k] / max(TT_STEP_TOL, TT_F32_FACTOR * cpu[what][leaf][k]),
+                    f"{leaf} {what} {('entry', 'norm')[k]}")
+                   for what in ("grad", "param") for leaf in a[what] for k in (0, 1))
+
+    def said(a: dict) -> str:
+        g, n, q = worst(a)
+        return (f"gradient worst entry {g[0]:.3e} ({g[1]}), worst norm {n[0]:.3e} "
+                f"({n[1]}), parameters' worst entry {q[0]:.3e} ({q[1]}), "
+                f"{a['flips']} ReLU switches")
+
+    units = 2 * TT_CHECK_STEPS * B * sum(p.hidden)
+    with _full_f32():
+        acc64: dict = {}
+        cpu, card = trainer(cpu_dev, torch.float64), trainer(dev, torch.float64)
+        for j in range(TT_CHECK_STEPS):
+            state = cpu.state()
+            run(cpu, state, j, False)
+            run(card, state, j, True)
+            refs = {"grad": leaves(cpu, True), "param": leaves(cpu, False)}
+            accumulate(acc64, "card", cpu, card, {"user": bu[j].numpy(), "item": bi[j].numpy()},
+                       refs)
+        acc32: dict = {}
+        cpu, truth = trainer(cpu_dev, torch.float32), trainer(cpu_dev, torch.float64)
+        runs = {"card": trainer(dev, torch.float32), "tf32": trainer(dev, torch.float32),
+                "temperature": trainer(dev, torch.float32)}
+        runs["temperature"].temperature *= 1.0 + TT_CONTROL_TEMP
+        losses, t_cpu, t_card = [], 0.0, 0.0
+        for j in range(TT_CHECK_STEPS):
+            state = cpu.state()
+            ids = {"user": bu[j].numpy(), "item": bi[j].numpy()}
+            run(truth, as64(state), j, False)
+            refs = {"grad": leaves(truth, True), "param": leaves(truth, False)}
+            for name, tr in runs.items():
+                t0 = time.perf_counter()
+                loss = run(tr, state, j, True, tf32=name == "tf32")
+                if name == "card":
+                    t_card += time.perf_counter() - t0
+                    card_loss = loss
+                accumulate(acc32, name, truth, tr, ids, refs)
+            t0 = time.perf_counter()
+            losses.append((run(cpu, state, j, False), card_loss))
+            t_cpu += time.perf_counter() - t0
+            accumulate(acc32, "cpu", truth, cpu, ids, refs)
+            accumulate(acc32, "card vs cpu", cpu, runs["card"], ids,
+                       {"grad": leaves(cpu, True), "param": leaves(cpu, False)})
+        free = trainer(dev, torch.float32, hooked=False)
+        for j in range(TT_CHECK_STEPS):
+            free.step(bu_d[j], bi_d[j])
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            one = trainer(cpu_dev, torch.float32, hooked=False)
+            for j in range(TT_CHECK_STEPS):
+                one.step(bu[j], bi[j])
+        finally:
+            torch.set_num_threads(threads)
+    ref32 = leaves(cpu, False)
+    free_err = max((e, leaf) for leaf, (e, _) in _leaf_errors(ref32, leaves(free, False),
+                                                               {}).items())
+    one_err = max((e, leaf) for leaf, (e, _) in _leaf_errors(ref32, leaves(one, False),
+                                                              {}).items())
+    share = {name: limit_share(acc32[name], acc32["cpu"])
+             for name in ("card", "tf32", "temperature")}
+    loss_err = max(abs(a - b) for a, b in losses)
+    print(f"two-tower: the first {TT_CHECK_STEPS} steps on the card, each from the CPU's "
+          f"state before it (same init and batches; {units:,} hidden units in all; "
+          f"entries a switched ReLU reaches masked). float64 against the CPU's float64 "
+          f"step (limit {TT_STEP_TOL}): {said(acc64['card'])}. f32 against the float64 step "
+          f"from the same state (limit per leaf the larger of {TT_STEP_TOL} and "
+          f"{TT_F32_FACTOR} x the CPU's f32 error): the card {said(acc32['card'])}; the CPU "
+          f"{said(acc32['cpu'])}; the card's highest share of its limit {share['card'][0]:.3f} "
+          f"({share['card'][1]}). The card's f32 step against the CPU's, not gated: "
+          f"{said(acc32['card vs cpu'])}. f32 losses {losses[0][1]:.5f} -> "
+          f"{losses[-1][1]:.5f} (max |d| {loss_err:.3e}); f32 CPU {t_cpu:.2f} s, card "
+          f"{t_card:.2f} s", flush=True)
+    print(f"two-tower step controls, which must fail the f32 gate: TF32 products "
+          f"{said(acc32['tf32'])}, share of its limit {share['tf32'][0]:.3f} "
+          f"({share['tf32'][1]}); temperature x (1 + {TT_CONTROL_TEMP}) "
+          f"{said(acc32['temperature'])}, share {share['temperature'][0]:.3f} "
+          f"({share['temperature'][1]})", flush=True)
+    print(f"two-tower free f32 runs after {TT_CHECK_STEPS} steps, not gated (worst entry "
+          f"of its max |value|): the card {free_err[0]:.3e} ({free_err[1]}); the CPU on "
+          f"one thread against {threads} threads {one_err[0]:.3e} ({one_err[1]})",
+          flush=True)
+    g, n, q = worst(acc64["card"])
+    check(max(g[0], n[0], q[0]) <= TT_STEP_TOL
+          and max(e[1] for e in acc64["card"]["param"].values()) <= TT_STEP_TOL
+          and acc64["card"]["flips"] <= TT_MAX_FLIP_SHARE * units,
+          f"two-tower: float64 card steps off the CPU's: {said(acc64['card'])}")
+    check(share["card"][0] <= 1.0 and acc32["card"]["flips"] <= TT_MAX_FLIP_SHARE * units,
+          f"two-tower: f32 card steps off the float64 step: {said(acc32['card'])}, "
+          f"share of its limit {share['card'][0]:.3f} ({share['card'][1]})")
+    for name in ("tf32", "temperature"):
+        check(share[name][0] > 1.0, f"two-tower: the {name} control passed the f32 step "
+              f"gate: {said(acc32[name])}")
+    return {"err": share["card"][0], "first_loss": losses[0][1]}
+
+
+def prefetch_check(torch, dev, uu, ii) -> None:
+    """The streaming trainer's input path on the card: (G, B) step groups
+    of phase 5's draws through ``DevicePrefetcher`` (pinned buffers, a
+    side stream, depth 2) arrive whole, in order, bitwise the host's."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.pipeline import DevicePrefetcher
+
+    G, B = 64, 1024
+    n = min(40, len(uu) // (G * B))
+    groups = [(uu[j * G * B:(j + 1) * G * B].reshape(G, B),
+               ii[j * G * B:(j + 1) * G * B].reshape(G, B)) for j in range(n)]
+    t0 = time.perf_counter()
+    bad = 0
+    with DevicePrefetcher(iter(groups), device=dev) as pf:
+        for (hu, hi), (du, di) in zip(groups, pf):
+            check(torch.as_tensor(du).device.type == "cuda",
+                  "prefetched group not on the card")
+            bad += int(not (np.array_equal(torch.as_tensor(du).cpu().numpy(), hu)
+                            and np.array_equal(torch.as_tensor(di).cpu().numpy(), hi)))
+    print(f"DevicePrefetcher: {n} groups of (64, 1,024) pairs to the card in "
+          f"{time.perf_counter() - t0:.2f} s; groups off the host's: {bad}", flush=True)
+    check(bad == 0, f"DevicePrefetcher: {bad} groups off the host's")
+
+
+def profile_two_tower(torch, dev, uu, ii, params: dict) -> None:
+    """``--profile``: device and host time by op of 50 f32 training steps
+    at the template's widths (torch.profiler), after 20 warm steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from predictionio_tpu_torch.models import two_tower as tt
+    from predictionio_tpu_torch.models.als import _full_f32
+
+    p = tt.TwoTowerParams(embed_dim=params["embedDim"], hidden=list(params["hidden"]),
+                          out_dim=params["outDim"], batch_size=params["batchSize"],
+                          learning_rate=params["learningRate"],
+                          temperature=params["temperature"], seed=0)
+    B = p.batch_size
+    bu = torch.from_numpy(uu[:70 * B].reshape(70, B).astype(np.int64)).to(dev)
+    bi = torch.from_numpy(ii[:70 * B].reshape(70, B).astype(np.int64)).to(dev)
+    tr = tt.TwoTowerTrainer(*tt.init_variables(N_USERS, N_ITEMS, p), p, dev)
+    with _full_f32():
+        for j in range(20):
+            tr.step(bu[j], bi[j])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for j in range(20, 70):
+                tr.step(bu[j], bi[j])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    # the table footer's sum: kernels, not the optimizer's annotation
+    dev_us = sum(r.self_device_time_total for r in rows
+                 if r.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(r, "is_user_annotation", False)) / 50
+    launches = sum(r.count for r in rows if r.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                      "cudaLaunchKernelExC"))
+    print(f"two-tower --profile: 50 steps in {wall * 1e3 / 50:.3f} ms a step (host clock, "
+          f"profiler on), device {dev_us / 1e3:.3f} ms a step, {launches / 50:.1f} kernel "
+          f"launches a step", flush=True)
+    print(rows.table(sort_by="self_cuda_time_total", row_limit=12), flush=True)
+
+
+def ann_replay(q64, index, corpus64, kprime: int):
+    """Host float64 replay of one ANN query: the ADC scores of every
+    item against ``index`` (the query rotated first with OPQ), the top
+    k′ by (score descending, item ascending), and the exact scores of
+    that shortlist. Returns (adc, shortlist, exact)."""
+    import numpy as np
+
+    m, _, dsub = index.codebooks.shape
+    qr = q64 @ index.rotation.astype(np.float64) if index.rotation is not None else q64
+    lut = np.einsum("md,mkd->mk", qr.reshape(m, dsub), index.codebooks.astype(np.float64))
+    adc = np.zeros(index.n_items)
+    for mi in range(m):
+        adc += lut[mi][index.codes[:, mi]]
+    shortlist = np.lexsort((np.arange(index.n_items), -adc))[:kprime]
+    return adc, shortlist, corpus64[shortlist] @ q64
+
+
+def ann_reference(q64, index, corpus64, kprime: int, num: int, exclude=()):
+    """``ranked_agrees`` arguments for an ANN answer: the replay's
+    re-ranked shortlist (equal exact scores in shortlist order, the
+    excluded items left out) cut to ``num``; an item is eligible when
+    its float64 ADC score reaches the k′-th one within TOL (a near-tie
+    at the shortlist's edge) and it is not excluded."""
+    import numpy as np
+
+    adc, shortlist, exact = ann_replay(q64, index, corpus64, kprime)
+    order = np.lexsort((np.arange(len(shortlist)), -exact))
+    ranked = [int(shortlist[j]) for j in order if int(shortlist[j]) not in exclude][:num]
+    edge = adc[shortlist[-1]] - TOL * max(1.0, abs(adc[shortlist[0]]))
+    scores = {int(j): float(s) for j, s in zip(shortlist, exact)}
+
+    def score_of(it):
+        j = int(it[1:])
+        return scores.get(j, float(corpus64[j] @ q64))
+
+    def eligible(it):
+        j = int(it[1:])
+        return adc[j] >= edge and j not in exclude
+
+    return ([f"i{j}" for j in ranked], [scores[j] for j in ranked], score_of, eligible)
+
+
+def serve_and_check(torch, ops, dev, storage, factory, iid, bodies, reference,
+                    label: str) -> dict:
+    """POST ``bodies`` to an EngineServer of instance ``iid``, once from
+    one client and once from 8; every answer checked by ``reference(i)``
+    (``ranked_agrees`` arguments). Returns the launches, the dispatches
+    and the answers of the 8-client run."""
+    from predictionio_tpu_torch.server import aot
+
+    out = {}
+    with running_server(dev, storage, factory, instance_id=iid) as port:
+        for clients in (1, 8):
+            reset_counters(ops)
+            d0 = sum(aot._DISPATCHES._values.values())
+            t0 = time.perf_counter()
+            answers = post_all(port, "/queries.json", bodies, clients)
+            wall = time.perf_counter() - t0
+            launches = read_counters(ops)["score_topk"]
+            dispatches = int(sum(aot._DISPATCHES._values.values()) - d0)
+            bad = sum(1 for j, (status, a) in enumerate(answers)
+                      if status != 200 or not ranked_agrees(a["itemScores"], *reference(j)))
+            print(f"{label}: {len(bodies)} queries from {clients} client(s) in "
+                  f"{wall:.2f} s ({len(bodies) / wall:.1f} q/s); answers off the "
+                  f"float64 reference: {bad}; device dispatches {dispatches}, "
+                  f"score_topk launches {launches}", flush=True)
+            check(bad == 0, f"{label}: {bad} answers off the float64 reference")
+            out[clients] = {"launches": launches, "dispatches": dispatches,
+                            "answers": answers}
+    return out
+
+
+def twotower_full_width(torch, ops, dev, coo, profile: bool = False) -> dict:
+    """Phase 13, two-tower: trained through run_train on phase 5's draws,
+    served exact and with ANN (plain PQ and OPQ)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ann import index as ann_index
+    from predictionio_tpu_torch.core.workflow import TWOTOWER_FACTORY, run_train
+    from predictionio_tpu_torch.data.pipeline import InteractionData
+    from predictionio_tpu_torch.models import two_tower as tt_model
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.templates.twotower import engine as tt
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    uu, ii = coo.user_idx, coo.item_idx
+    data = InteractionData(BiMap.string_int(f"u{i}" for i in range(N_USERS)),
+                           BiMap.string_int(f"i{j}" for j in range(N_ITEMS)),
+                           lambda: iter([(uu, ii, np.ones(len(uu), np.float32))]),
+                           len(uu))
+    td = tt.TrainingData(data, stream=False)
+    read = mock.patch.object(tt.TTDataSource, "read_training", lambda self, ctx: td)
+    base = tt_variant()
+    steps = tt_step_check(torch, dev, uu, ii, base["algorithms"][0]["params"])
+    prefetch_check(torch, dev, uu, ii)
+    if profile:
+        profile_two_tower(torch, dev, uu, ii, base["algorithms"][0]["params"])
+    launches = {"score_topk": 0}
+    stats, trained, built = {}, {}, {}
+    train_fn, build_fn = tt.two_tower_train, ann_index.build_index
+
+    def timed_train(*args, **kw):
+        trained["vars"] = train_fn(*args, **dict(kw, stats=stats))
+        return trained["vars"]
+
+    def capture_build(*args, **kw):
+        built["index"] = build_fn(*args, **kw)
+        return built["index"]
+
+    with tempfile.TemporaryDirectory(prefix="pio_chip_twotower_") as home:
+        storage = Storage(StorageConfig(home=home))
+        t0 = time.perf_counter()
+        with read, mock.patch.object(tt, "two_tower_train", timed_train):
+            exact_id = run_train(TWOTOWER_FACTORY, variant=base, storage=storage, device=dev)
+        wall = time.perf_counter() - t0
+        losses = stats["epoch_losses"]
+        print(f"two-tower: run_train of {len(uu)} pairs ({N_USERS} x {N_ITEMS}), "
+              f"{TT_EPOCHS} epoch(s) of {stats['steps']} steps at batch "
+              f"{base['algorithms'][0]['params']['batchSize']}: {stats['train_sec']:.2f} s "
+              f"of training ({stats['steps'] / stats['train_sec']:.1f} steps/s), "
+              f"{wall:.2f} s of run_train; epoch loss first {losses[0]:.5f}, last "
+              f"{losses[-1]:.5f}", flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < steps["first_loss"],
+              f"two-tower: epoch losses {losses} not below the first step's "
+              f"{steps['first_loss']:.5f}")
+        uv, iv = trained["vars"]
+        UE = tt_model.two_tower_embed_users(uv, N_USERS, None)
+        IE = tt_model.two_tower_embed_items(iv, N_ITEMS, None)
+        UE64, IE64 = UE.astype(np.float64), IE.astype(np.float64)
+        rng = np.random.default_rng(SEED + 31)
+        users = rng.choice(N_USERS, TT_SERVED, replace=False)
+        bodies = [json.dumps({"user": f"u{u}", "num": 10}) for u in users]
+        S64 = (torch.as_tensor(UE64[users], device=dev)
+               @ torch.as_tensor(IE64, device=dev).T).cpu().numpy()
+
+        def exact_ref(j):
+            s = S64[j]
+            top = np.lexsort((np.arange(N_ITEMS), -s))[:10]
+            return ([f"i{t}" for t in top], [float(s[t]) for t in top],
+                    lambda it: float(s[int(it[1:])]), lambda it: True)
+
+        ex = serve_and_check(torch, ops, dev, storage, TWOTOWER_FACTORY, exact_id,
+                             bodies, exact_ref, "two-tower exact")
+        for c in (1, 8):
+            check(ex[c]["launches"] == ex[c]["dispatches"] > 0,
+                  f"two-tower exact: {ex[c]['launches']} score_topk launches for "
+                  f"{ex[c]['dispatches']} dispatches")
+            launches["score_topk"] += ex[c]["launches"]
+        exact_items = [[s["item"] for s in a["itemScores"]] for _, a in ex[8]["answers"]]
+
+        for label, extra in (("plain PQ", {}), ("OPQ", {"annOpq": True})):
+            v = tt_variant(ann=True, annM=ANN_M, annK=ANN_K, annShortlist=ANN_SHORTLIST,
+                           **extra)
+            with read, mock.patch.object(tt, "two_tower_train",
+                                         lambda *a, **kw: trained["vars"]), \
+                    mock.patch.object(ann_index, "build_index", capture_build):
+                t0 = time.perf_counter()
+                iid = run_train(TWOTOWER_FACTORY, variant=v, storage=storage, device=dev)
+                wall = time.perf_counter() - t0
+            index = built["index"]
+            meta = index.meta
+            print(f"two-tower ANN ({label}): run_train reusing the trained towers "
+                  f"{wall:.2f} s; index build {meta['build_sec']:.3f} s (Lloyd "
+                  f"{meta['lloyd_sec']:.3f} s, encode {meta['encode_sec']:.3f} s, OPQ "
+                  f"{meta['opq_sec']:.3f} s), M={index.m} K={index.k} over "
+                  f"{index.n_items} items, rotation {index.rotation is not None}", flush=True)
+            refs = [ann_reference(UE64[u], index, IE64, ANN_SHORTLIST, 10) for u in users]
+            res = serve_and_check(torch, ops, dev, storage, TWOTOWER_FACTORY, iid, bodies,
+                                  lambda j: refs[j], f"two-tower ANN ({label})")
+            for c in (1, 8):
+                check(res[c]["launches"] == 0 and res[c]["dispatches"] > 0,
+                      f"two-tower ANN ({label}): {res[c]['launches']} score_topk launches "
+                      f"on the ANN path")
+            hits = sum(len(set(e) & {s["item"] for s in a["itemScores"]})
+                       for e, (_, a) in zip(exact_items, res[8]["answers"]))
+            print(f"two-tower ANN ({label}): recall@10 against the exact path "
+                  f"{hits / (10 * len(users)):.4f} (not gated: the pairs are random)",
+                  flush=True)
+    return launches
+
+
+def similar_ann_full_width(torch, ops, dev, coo) -> dict:
+    """Phase 13, similar-product with ``ann: true``: phase 12's implicit
+    train (rank 64) through run_train, then single-item queries each
+    against the float64 replay of its ADC shortlist and re-rank."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ann import index as ann_index
+    from predictionio_tpu_torch.core.workflow import SIMILARPRODUCT_FACTORY, run_train
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.templates.similarproduct import engine as sp
+
+    sp_td, _ = template_data({"coo": coo})
+    built, build_fn = {}, ann_index.build_index
+
+    def capture_build(*args, **kw):
+        built["Vn"] = np.asarray(args[0])
+        built["index"] = build_fn(*args, **kw)
+        return built["index"]
+
+    variant = {"id": "ann", "engineFactory": SIMILARPRODUCT_FACTORY,
+               "datasource": {"params": {"appName": "ShopApp"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": RANK, "numIterations": ITERATIONS, "lambda": LAMBDA,
+                   "alpha": TEMPLATE_ALPHA, "seed": TEMPLATE_SEED, "ann": True,
+                   "annM": ANN_M, "annK": ANN_K}}]}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_similar_ann_") as home:
+        storage = Storage(StorageConfig(home=home))
+        reset_counters(ops)
+        t0 = time.perf_counter()
+        with mock.patch.object(sp.SimilarProductDataSource, "read_training",
+                               lambda self, ctx: sp_td), \
+                mock.patch.object(ann_index, "build_index", capture_build):
+            iid = run_train(SIMILARPRODUCT_FACTORY, variant=variant, storage=storage,
+                            device=dev)
+        wall = time.perf_counter() - t0
+        train_launches = read_counters(ops)
+        index, Vn = built["index"], built["Vn"]
+        meta = index.meta
+        print(f"similar-product ANN: run_train {wall:.2f} s, kernel launches "
+              f"{train_launches}; index build {meta['build_sec']:.3f} s (Lloyd "
+              f"{meta['lloyd_sec']:.3f} s, encode {meta['encode_sec']:.3f} s) over the "
+              f"normalised V, M={index.m} K={index.k}", flush=True)
+        for k in ("gather_gram", "chol_solve"):
+            check(train_launches[k] > 0, f"similar-product ANN: train made no {k} launch")
+        algo_dir = os.path.join(storage.models.model_dir(iid), "als")
+        check(os.path.isfile(os.path.join(algo_dir, ann_index.INDEX_BASENAME))
+              and os.path.isfile(os.path.join(algo_dir, ann_index.MANIFEST_BASENAME)),
+              "similar-product ANN: no index sidecar beside model.bin")
+        Vn64 = Vn.astype(np.float64)
+        live = np.nonzero(np.linalg.norm(Vn, axis=1) > 0)[0]
+        rng = np.random.default_rng(SEED + 32)
+        items = rng.choice(live, SP_ANN_QUERIES, replace=False)
+        bodies = [json.dumps({"items": [f"i{j}"], "num": 10}) for j in items]
+        refs = [ann_reference(Vn64[j], index, Vn64, ANN_SHORTLIST, 10, exclude={int(j)})
+                for j in items]
+        res = serve_and_check(torch, ops, dev, storage, SIMILARPRODUCT_FACTORY, iid, bodies,
+                              lambda j: refs[j], "similar-product ANN")
+        for c in (1, 8):
+            check(res[c]["launches"] == 0 and res[c]["dispatches"] == SP_ANN_QUERIES,
+                  f"similar-product ANN: {res[c]['launches']} score_topk launches, "
+                  f"{res[c]['dispatches']} dispatches for {SP_ANN_QUERIES} queries")
+    return {k: train_launches[k] for k in ("gather_gram", "chol_solve")}
+
+
+def ann_10m(torch, ops, dev) -> dict:
+    """Phase 13, the 10M catalog: an ANNScorer over BIG_N normalised
+    Gaussian items, the index build timed, ANN dispatches against the
+    exact score_topk over the same corpus (CUDA events), BIG_CHECK_ROWS
+    rows' shortlists against a float64 replay."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ann import ANNScorer, build_index
+    from predictionio_tpu_torch.ops.topk import adc_shortlist, rerank_topk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    Vt = torch.randn(BIG_N, BIG_D, generator=g, device=dev)
+    Vt /= Vt.norm(dim=1, keepdim=True)
+    Qt = torch.randn(max(BIG_BATCHES), BIG_D, generator=g, device=dev)
+    Qt /= Qt.norm(dim=1, keepdim=True)
+    V, U = Vt.cpu().numpy(), Qt.cpu().numpy()
+    del Vt, Qt
+    print(f"10M catalog: {BIG_N} x {BIG_D} normalised Gaussian items made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    index = build_index(V, ANN_M, ANN_K, device=dev)
+    meta = index.meta
+    print(f"10M catalog: index build {meta['build_sec']:.3f} s (Lloyd "
+          f"{meta['lloyd_sec']:.3f} s over a {min(BIG_N, 65536)}-row sample, encode "
+          f"{meta['encode_sec']:.3f} s); codes {index.code_bytes() / 1e6:.1f} MB, "
+          f"V {BIG_N * BIG_D * 4 / 1e9:.2f} GB", flush=True)
+    t0 = time.perf_counter()
+    scorer = ANNScorer(U, V, index, shortlist=ANN_SHORTLIST, device=dev)
+    torch.cuda.synchronize()
+    print(f"10M catalog: ANNScorer placed in {time.perf_counter() - t0:.2f} s", flush=True)
+    rows = {}
+    for B in BIG_BATCHES:
+        Q = scorer._U[:B].contiguous()
+        ids = torch.arange(B, dtype=torch.int32, device=dev)
+        out = (torch.empty(B, BIG_K, device=dev),
+               torch.empty(B, BIG_K, device=dev, dtype=torch.int32))
+
+        def ann():
+            _, sidx = adc_shortlist(Q, scorer._codebooks, scorer._codesT, ANN_SHORTLIST)
+            return rerank_topk(Q, scorer._V, sidx, BIG_K)
+
+        ann_ms, ann_call = cuda_ms(ann, iters=10, warmup=2)
+        exact_ms, exact_call = cuda_ms(lambda: ops.score_topk(
+            scorer._U, scorer._V, BIG_K, ids=ids, out=out), iters=10, warmup=2)
+        bound = (BIG_N * ANN_M + B * ANN_SHORTLIST * BIG_D * 4) / PEAK_HBM_BYTES * 1e3
+        exact_bound, exact_by = score_topk_bound_ms(B, BIG_D, BIG_N, BIG_K)
+        t0 = time.perf_counter()
+        scorer.recommend_batch(np.arange(B), 10)
+        dispatch = (time.perf_counter() - t0) * 1e3
+        rows[B] = {"ann_ms": ann_ms, "exact_ms": exact_ms, "bound_ms": bound}
+        print(f"10M catalog B={B:2d} k={BIG_K} k'={ANN_SHORTLIST}: ANN device ms "
+              f"{ann_ms:.4f} (per call {ann_call:.4f}; one whole dispatch, host clock, "
+              f"{dispatch:.3f}), bound {bound:.5f} (bytes: codes N*m + the B*k'*d re-rank "
+              f"rows); exact score_topk {exact_ms:.4f} (per call {exact_call:.4f}), its "
+              f"bound {exact_bound:.5f} ({exact_by})", flush=True)
+    # float64 replay of BIG_CHECK_ROWS rows' shortlists, on the card
+    Q = scorer._U[:BIG_CHECK_ROWS].contiguous()
+    vals, idx = adc_shortlist(Q, scorer._codebooks, scorer._codesT, ANN_SHORTLIST)
+    m, K, dsub = index.codebooks.shape
+    lut = torch.bmm(Q.double().reshape(-1, m, dsub).transpose(0, 1),
+                    scorer._codebooks.double().transpose(1, 2))
+    adc = torch.zeros(BIG_CHECK_ROWS, BIG_N, dtype=torch.float64, device=dev)
+    for mi in range(m):
+        adc += lut[mi][:, scorer._codesT[mi].long()]
+    ref = torch.sort(adc, dim=1, descending=True, stable=True)
+    kth = ref.values[:, ANN_SHORTLIST - 1:ANN_SHORTLIST]
+    got = adc.gather(1, idx.long())
+    tol = TOL * max(1.0, float(ref.values[:, 0].abs().max()))
+    val_err = float((vals.double() - got).abs().max())
+    edge_ok = bool((got >= kth - tol).all())
+    differ = sum(len(set(idx[r].tolist()) ^ set(ref.indices[r, :ANN_SHORTLIST].tolist())) // 2
+                 for r in range(BIG_CHECK_ROWS))
+    print(f"10M catalog: {BIG_CHECK_ROWS} rows' shortlists against the float64 replay: "
+          f"scores within {val_err:.3e} (limit {tol:.1e}), every item at or above the "
+          f"k'-th float64 score less the limit: {edge_ok}; items swapped at the edge: "
+          f"{differ}", flush=True)
+    check(val_err <= tol and edge_ok, "10M catalog: shortlists off the float64 replay")
+    del adc, scorer
+    return rows
+
+
+def ann_full_width(torch, ops, dev, train, profile: bool = False) -> dict:
+    """Phase 13: ANN and the two-tower template at full width (see the
+    module docstring)."""
+    from predictionio_tpu_torch.models.als import RatingsCOO
+
+    t_phase = time.perf_counter()
+    if train is None:
+        t0 = time.perf_counter()
+        coo = RatingsCOO(*synthetic_ml20m(N_RATINGS, N_USERS, N_ITEMS), N_USERS, N_ITEMS)
+        print(f"phase 5's draws made again in {time.perf_counter() - t0:.1f} s", flush=True)
+    else:
+        coo = train["coo"]
+    launches = twotower_full_width(torch, ops, dev, coo, profile)
+    launches.update(similar_ann_full_width(torch, ops, dev, coo))
+    big = ann_10m(torch, ops, dev)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 13: {wall:.1f} s wall; launches {launches}", flush=True)
+    return {"launches": launches, "big": big, "wall": wall}
+
+
 def main(argv) -> int:
     import torch
 
@@ -3876,6 +4600,7 @@ def main(argv) -> int:
     topk_only = "--topk" in argv
     ops_only = "--ops" in argv
     templates_only = "--templates" in argv
+    ann_only = "--ann" in argv
     dev = torch.device("cuda", 0)
 
     phase("1. card")
@@ -3900,6 +4625,12 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if ann_only:
+        phase("13. ANN and the two-tower template at full width")
+        ann_full_width(torch, ops, dev, None, "--profile" in argv)
+        phase("done")
+        return 0
 
     if templates_only:
         phase("5. full-width training (ML-20M shape, rank 64)")
@@ -3988,6 +4719,8 @@ def main(argv) -> int:
         online = online_loop(torch, ops, dev, home, train)
     phase("12. the ALS family at ML-20M width")
     family = templates_full_width(torch, ops, dev, train)
+    phase("13. ANN and the two-tower template at full width")
+    ann = ann_full_width(torch, ops, dev, train, "--profile" in argv)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -4005,6 +4738,7 @@ def main(argv) -> int:
         "launches_phase10_reload": surface["reload_launches"],
         "launches_phase11": online["launches_phase11"],
         "launches_phase12": family["launches"]["score_topk"],
+        "launches_phase13": ann["launches"]["score_topk"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
         "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
@@ -4016,7 +4750,8 @@ def main(argv) -> int:
         "replaces": "predictionio_tpu/ops/gram.py:203",
         "launches": train["launches"]["gather_gram"],
         "launches_eval": evals["launches"]["gather_gram"],
-        "launches_phase12": family["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches_phase12": family["launches"]["gather_gram"],
+        "launches_phase13": ann["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -4026,7 +4761,8 @@ def main(argv) -> int:
         "replaces": "predictionio_tpu/ops/cholesky.py:315",
         "launches": train["launches"]["chol_solve"],
         "launches_eval": evals["launches"]["chol_solve"],
-        "launches_phase12": family["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches_phase12": family["launches"]["chol_solve"],
+        "launches_phase13": ann["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],

@@ -59,6 +59,8 @@ SIMILARPRODUCT_FACTORY = "predictionio_tpu_torch.templates.similarproduct.engine
 JAX_SIMILARPRODUCT_FACTORY = "predictionio_tpu.templates.similarproduct.engine:engine_factory"
 ECOMMERCE_FACTORY = "predictionio_tpu_torch.templates.ecommercerecommendation.engine:engine_factory"
 JAX_ECOMMERCE_FACTORY = "predictionio_tpu.templates.ecommercerecommendation.engine:engine_factory"
+TWOTOWER_FACTORY = "predictionio_tpu_torch.templates.twotower.engine:engine_factory"
+JAX_TWOTOWER_FACTORY = "predictionio_tpu.templates.twotower.engine:engine_factory"
 
 #: engine factory recorded in an instance → the port's factory serving it
 FACTORIES = {
@@ -68,6 +70,8 @@ FACTORIES = {
     SIMILARPRODUCT_FACTORY: SIMILARPRODUCT_FACTORY,
     JAX_ECOMMERCE_FACTORY: ECOMMERCE_FACTORY,
     ECOMMERCE_FACTORY: ECOMMERCE_FACTORY,
+    JAX_TWOTOWER_FACTORY: TWOTOWER_FACTORY,
+    TWOTOWER_FACTORY: TWOTOWER_FACTORY,
 }
 
 #: the port's mid-train checkpoints, under the storage home. Never the

@@ -11,14 +11,17 @@ The port's copy of the generic path of the JAX package's
   order, pass 2 re-streams yielding index-mapped chunks
   (:class:`InteractionData`);
 - :func:`subset_columnar` — a fold's rows with both vocabularies trimmed
-  to the entities present (the eval-fold cold-entity rule).
+  to the entities present (the eval-fold cold-entity rule);
+- :class:`DevicePrefetcher` — double-buffered host → device transfer
+  over an iterator of host arrays (the streaming trainer's input).
 
-The native columnar scan, its snapshot cache and the device prefetcher
-are not ported yet.
+The native columnar scan and its snapshot cache are not ported yet.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -173,3 +176,124 @@ def subset_columnar(
             BiMap({u_inv[int(u)]: int(j) for j, u in enumerate(uniq_u)}),
             BiMap({i_inv[int(i)]: int(j) for j, i in enumerate(uniq_i)}),
             *(v[mask] for v in values))
+
+
+PREFETCH_DEPTH = 2
+
+
+class DevicePrefetcher:
+    """Double-buffered host → device transfer over an iterator.
+
+    A background thread pulls the next item (a numpy array or a tuple of
+    them) and, for a CUDA ``device``, copies it into pinned host buffers
+    and on to the card ``non_blocking`` on a side CUDA stream, while the
+    consumer computes on the current item. The consumer's stream waits on
+    that copy before an item is handed out, so it is safe to use at once.
+    With ``PREFETCH_DEPTH`` items in flight the device never waits on host
+    decode unless the host is genuinely slower end to end. ``device`` is CUDA
+    unless the caller names another (raising without a card); on the
+    CPU the items pass through as the host arrays they are.
+
+    Iterate it, or use as a context manager to guarantee the thread
+    shuts down on early exit. Exceptions from the source re-raise at the
+    consumer.
+    """
+
+    _DONE = object()
+
+    def __init__(self, source: Iterator, device: Any = None) -> None:
+        import torch
+
+        from predictionio_tpu_torch.utils.device import resolve_device
+
+        self._source = source
+        self._device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="pio-prefetch")
+        self._thread.start()
+
+    def _put_device(self, item):
+        """(item on the device, the copy's CUDA event or None)."""
+        import torch
+
+        if self._stream is None:
+            return item, None
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+                self._device, non_blocking=True)
+
+        with torch.cuda.stream(self._stream):
+            out = (tuple(put(a) for a in item) if isinstance(item, tuple)
+                   else put(item))
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    def _run(self) -> None:
+        try:
+            for item in self._source:
+                if self._stop.is_set():
+                    return
+                item = self._put_device(item)
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+            self._q.put(self._DONE)
+        except BaseException as e:  # propagate to the consumer
+            # retried like the success path: dropping the exception when
+            # the queue is momentarily full would end the thread with
+            # neither the error nor the DONE sentinel, and the consumer
+            # would wait forever
+            while not self._stop.is_set():
+                try:
+                    self._q.put(e, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+
+        got = self._q.get()
+        if got is self._DONE:
+            raise StopIteration
+        if isinstance(got, BaseException):
+            raise got
+        item, event = got
+        if event is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(event)
+            # the caching allocator must not hand these blocks to the
+            # side stream again before the consumer's work on them ends
+            for t in (item if isinstance(item, tuple) else (item,)):
+                t.record_stream(stream)
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        # drain so the producer can observe the stop flag
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self) -> "DevicePrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -883,13 +883,13 @@ class _ServeProgram:
         self._vals_host = torch.empty((B, k), dtype=torch.float32, pin_memory=pin)
         self._idx_host = torch.empty((B, k), dtype=torch.int32, pin_memory=pin)
 
-    def __call__(self, U: torch.Tensor, Vp: torch.Tensor, n_valid: int,
-                 user_ids: np.ndarray, rows_valid: int
-                 ) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, scorer: "ResidentScorer", user_ids: np.ndarray,
+                 rows_valid: int) -> Tuple[np.ndarray, np.ndarray]:
         with self._lock:
             self._ids_host.numpy()[:] = user_ids
             self._ids.copy_(self._ids_host, non_blocking=True)
-            _gather_score_topk(U, Vp, self._ids, k=self.k, n_valid=n_valid,
+            _gather_score_topk(scorer._U, scorer._V_padded, self._ids,
+                               k=self.k, n_valid=scorer.n_items,
                                rows_valid=rows_valid,
                                out=(self._vals, self._idx))
             self._vals_host.copy_(self._vals, non_blocking=True)
@@ -899,24 +899,31 @@ class _ServeProgram:
             return self._vals_host.numpy().copy(), self._idx_host.numpy().copy()
 
 
-class ResidentScorer:
-    """Serving-time scorer with factors resident on the device.
+class LadderScorer:
+    """The serving contract of the device-resident scorers (the exact
+    :class:`ResidentScorer` and the ANN package's ``ANNScorer``): the
+    host arrays a scorer was built from, the AOT bucket ladder and its
+    warmed (B, k) programs, one dispatch with its span and latency
+    label, and ``recommend_batch``'s batch/k bucketing, pad rows and
+    host-side exclusion. ``AOTWarmup``, the micro-batcher and
+    :func:`serve_topk_batch` rely on nothing else.
 
-    U and V live in device memory across requests; each batch is one
-    gather → score → top-k program (the ``score_topk`` kernel on the
-    card, its plain version on the CPU). Exclusions are handled by
-    over-fetching a padded k (bucketed to bound the warmed programs) and
-    filtering host-side. ``device`` defaults to CUDA and raises when
-    there is no card.
+    A subclass names its program class (``_program``, built as
+    ``_program(device, B, k)`` and called as ``prog(scorer, ids,
+    rows_valid)`` → (vals, idx) on the host), its cache key
+    (``_aot_key``), the label of a warmed dispatch (``_path``), and may
+    clamp serving k further (``_serving_k``). ``device`` defaults to
+    CUDA and raises when there is no card.
     """
 
-    _TILE = 2048  # item padding of the resident V
+    _program: type
+    _path = "aot"
 
-    def __init__(self, U: np.ndarray, V: np.ndarray, device=None):
+    def __init__(self, U, V, device=None) -> None:
         self.device = resolve_device(device)
         # weak identity of the host arrays this scorer was built from,
-        # so maybe_resident_scorer can detect a factor swap (weakref,
-        # not id(): a freed array's address can be recycled)
+        # so the maybe_*_scorer helpers can detect a factor swap
+        # (weakref, not id(): a freed array's address can be recycled)
         try:
             self._source = (weakref.ref(U), weakref.ref(V))
         except TypeError:  # non-weakref-able array-likes (e.g. lists)
@@ -924,21 +931,14 @@ class ResidentScorer:
         self.n_users, self.rank = U.shape
         self.n_items = V.shape[0]
         if self.n_items >= 1 << 24:
-            # the JAX package's scorer packs indices into f32 and takes
+            # the JAX package's scorers pack indices into f32 and take
             # only catalogs below 2^24; both packages accept the same ones
-            raise ValueError("ResidentScorer supports catalogs < 2^24 items")
-        self._U = torch.as_tensor(np.asarray(U, np.float32)).to(self.device)
-        # ONE resident copy, padded once at load to the tile; the kernel
-        # masks the pad rows through n_valid
-        pad = -self.n_items % self._TILE
-        Vp = np.asarray(V, np.float32)
-        if pad:
-            Vp = np.concatenate([Vp, np.zeros((pad, self.rank), np.float32)])
-        self._V_padded = torch.as_tensor(Vp).to(self.device)
+            raise ValueError(
+                f"{type(self).__name__} supports catalogs < 2^24 items")
         #: AOT-bucket serving state (server/aot): when a ladder is set,
         #: batch sizes snap to it and warmed buckets run a warmed program
         self.bucket_ladder = None
-        self._aot: dict = {}   # (B, k) -> _ServeProgram
+        self._aot: dict = {}   # (B, k) -> program
 
     def built_from(self, U, V, device=None) -> bool:
         """True iff this scorer was built from exactly these host arrays
@@ -956,10 +956,13 @@ class ResidentScorer:
         ``server/aot.BucketLadder``) instead of the power-of-two rule."""
         self.bucket_ladder = ladder
 
+    def _serving_k(self, want: int) -> int:
+        """Serving k: bucketed to powers of two (bounds the warmed
+        programs), never beyond the catalog."""
+        return min(_bucket_k(want), self.n_items)
+
     def _aot_key(self, B: int, k: int) -> tuple:
-        return ("gather_score_topk", self.n_users, self.rank,
-                int(self._V_padded.shape[0]), self.n_items, B, k,
-                str(self.device))
+        raise NotImplementedError
 
     def _ensure_executable(self, B: int, k: int) -> bool:
         """Warm the serving program for one (batch bucket, k) pair via
@@ -972,9 +975,8 @@ class ResidentScorer:
         was_cold = EXECUTABLES.get(key) is None
 
         def build():
-            prog = _ServeProgram(self.device, B, k)
-            prog(self._U, self._V_padded, self.n_items,
-                 np.zeros(B, np.int32), B)
+            prog = self._program(self.device, B, k)
+            prog(self, np.zeros(B, np.int32), B)
             return prog
 
         self._aot[(B, k)] = EXECUTABLES.get_or_compile(key, build)
@@ -988,8 +990,7 @@ class ResidentScorer:
         compiled = cached = 0
         for B in ladder:
             for k in ks:
-                kk = min(_bucket_k(k), self.n_items)
-                if self._ensure_executable(B, kk):
+                if self._ensure_executable(B, self._serving_k(k)):
                     compiled += 1
                 else:
                     cached += 1
@@ -999,22 +1000,21 @@ class ResidentScorer:
     def _topk(self, user_ids: np.ndarray, k: int, rows: Optional[int] = None):
         """One serving dispatch at an (already bucket-padded) batch.
         ``rows`` = real row count (pad rows masked on device). Warmed
-        buckets run their warmed program; any other shape builds a
-        one-off program (counted as path "jit", the JAX package's label
-        for the same warmup gap)."""
+        buckets run their warmed program under ``_path``; any other
+        shape builds a one-off program (counted as path "jit", the JAX
+        package's label for the same warmup gap)."""
         from predictionio_tpu_torch.server import aot
         from predictionio_tpu_torch.utils import tracing
 
         B = len(user_ids)
         rows_valid = B if rows is None else int(rows)
         prog = self._aot.get((B, k))
-        path = "aot" if prog is not None else "jit"
+        path = self._path if prog is not None else "jit"
         with tracing.span("serving.device", bucket=B, k=k, path=path):
             t0 = time.perf_counter()
             if prog is None:
-                prog = _ServeProgram(self.device, B, k)
-            out = prog(self._U, self._V_padded, self.n_items,
-                       np.asarray(user_ids, np.int32), rows_valid)
+                prog = self._program(self.device, B, k)
+            out = prog(self, np.asarray(user_ids, np.int32), rows_valid)
             aot.record_device_latency(B, time.perf_counter() - t0, path,
                                       trace_exemplar=tracing.exemplar())
         return out
@@ -1034,10 +1034,9 @@ class ResidentScorer:
         exclude = [np.asarray([] if e is None else e, np.int32)
                    for e in exclude]
         max_ex = max((e.size for e in exclude), default=0)
-        # bucket k to powers of two (bounds the warmed programs);
         # over-fetch for exclusions but never more than the catalog
         want = min(num + max_ex, self.n_items)
-        k = min(_bucket_k(want), self.n_items)
+        k = self._serving_k(want)
         # bucket the BATCH dimension too: with an AOT ladder set, batches
         # snap to ITS buckets so every dispatch hits a warmed program;
         # pad rows reuse user 0, are masked on device, and are sliced off
@@ -1062,6 +1061,44 @@ class ResidentScorer:
             out.append((iv[:num], vv[:num]))
         return out
 
+    def recommend(self, user: int, num: int,
+                  exclude: Optional[np.ndarray] = None):
+        [(iv, vv)] = self.recommend_batch(
+            np.asarray([user]), num,
+            [np.asarray(exclude if exclude is not None else [], np.int32)])
+        return iv, vv
+
+
+class ResidentScorer(LadderScorer):
+    """Serving-time scorer with factors resident on the device.
+
+    U and V live in device memory across requests; each batch is one
+    gather → score → top-k program (the ``score_topk`` kernel on the
+    card, its plain version on the CPU). Exclusions are handled by
+    over-fetching a padded k (bucketed to bound the warmed programs) and
+    filtering host-side. ``device`` defaults to CUDA and raises when
+    there is no card.
+    """
+
+    _TILE = 2048  # item padding of the resident V
+    _program = _ServeProgram
+
+    def __init__(self, U: np.ndarray, V: np.ndarray, device=None):
+        super().__init__(U, V, device)
+        self._U = torch.as_tensor(np.asarray(U, np.float32)).to(self.device)
+        # ONE resident copy, padded once at load to the tile; the kernel
+        # masks the pad rows through n_valid
+        pad = -self.n_items % self._TILE
+        Vp = np.asarray(V, np.float32)
+        if pad:
+            Vp = np.concatenate([Vp, np.zeros((pad, self.rank), np.float32)])
+        self._V_padded = torch.as_tensor(Vp).to(self.device)
+
+    def _aot_key(self, B: int, k: int) -> tuple:
+        return ("gather_score_topk", self.n_users, self.rank,
+                int(self._V_padded.shape[0]), self.n_items, B, k,
+                str(self.device))
+
     def recommend_vector(self, q: np.ndarray, num: int,
                          exclude: Optional[np.ndarray] = None
                          ) -> Tuple[np.ndarray, np.ndarray]:
@@ -1081,10 +1118,3 @@ class ResidentScorer:
         vals, top = out[0][0].cpu().numpy(), out[1][0].cpu().numpy().astype(np.int64)
         keep = ~np.isin(top, excl)
         return top[keep][:num], vals[keep][:num]
-
-    def recommend(self, user: int, num: int,
-                  exclude: Optional[np.ndarray] = None):
-        [(iv, vv)] = self.recommend_batch(
-            np.asarray([user]), num,
-            [np.asarray(exclude if exclude is not None else [], np.int32)])
-        return iv, vv

@@ -144,3 +144,127 @@ def score_topk(Q: torch.Tensor, V: torch.Tensor, k: int, *,
 #: kernel launches since the last reset (chip_smoke.py shows the serving
 #: path went through the kernel)
 score_topk.launches = 0
+
+
+# -- PQ asymmetric-distance scan + re-rank (the ann subsystem's math) ---------
+#
+# Plain PyTorch (the JAX package computes these with XLA ops, not a Pallas
+# kernel): ``ann/scorer.py`` runs gather → ADC scan → shortlist → exact
+# re-rank as one serving program per AOT bucket; the math lives here
+# beside the exact path's, and the caller owns residency.
+#
+# Tie order. ``lax.top_k`` gives the lowest index first among equal
+# values, and ADC scores tie EXACTLY whenever two items share a code word;
+# ``torch.topk`` promises no order among ties. So every top-k here runs
+# over a 64-bit key, the score's order-preserving integer image in the
+# high half and the complement of the column in the low half: keys are
+# unique, larger means (score higher, or equal and column lower), and the
+# result is the JAX package's whatever tiling and device.
+
+#: columns per streamed ADC tile in the JAX package, whose one-dense-tile
+#: rule (``N <= 2 * chunk or kprime > chunk``) picks the same shortlist as
+#: any tiling here
+_ADC_CHUNK = 32768
+
+#: elements of the live (B, tile) score set of one streamed tile: the tile
+#: width is this over the batch, never below ``_ADC_CHUNK``
+_ADC_TILE_ELEMS = 1 << 24
+
+
+def _order_keys(s: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """(score descending, column ascending) as one int64 key a row.
+    ``s`` f32 (B, n), ``col`` the int64 columns, (n,) or (B, n)."""
+    bits = s.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    return ordered * (1 << 32) + (0xFFFFFFFF - col)
+
+
+def _topk_ordered(s: torch.Tensor, col: torch.Tensor, k: int):
+    """Positions of the top ``k`` of each row of ``s`` by
+    :func:`_order_keys`, in that order."""
+    return torch.topk(_order_keys(s, col), k, dim=1, sorted=True).indices
+
+
+def _adc_lut(Q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """(m, B, K) table of query-subvector · centroid inner products
+    (subspace-major: each ADC step reads one contiguous (B, K) table)."""
+    B = Q.shape[0]
+    m, K, dsub = codebooks.shape
+    return torch.bmm(Q.reshape(B, m, dsub).transpose(0, 1),
+                     codebooks.transpose(1, 2))
+
+
+def _adc_sum(lut: torch.Tensor, codesT: torch.Tensor) -> torch.Tensor:
+    """Sum LUT entries along each item's code word → (B, n) scores, the
+    subspaces added in order onto zeros (the JAX package's sum)."""
+    idx = codesT.to(torch.int32)
+    scores = torch.zeros((lut.shape[1], codesT.shape[1]), dtype=torch.float32,
+                         device=lut.device)
+    for mi in range(codesT.shape[0]):
+        scores += lut[mi].index_select(1, idx[mi])
+    return scores
+
+
+def adc_scores(Q: torch.Tensor, codebooks: torch.Tensor,
+               codesT: torch.Tensor) -> torch.Tensor:
+    """Asymmetric-distance (inner-product) scores of queries against a
+    product-quantized corpus, dense: (B, N).
+
+    ``Q``: (B, d) f32 queries; ``codebooks``: (m, K, d/m) PQ centroids;
+    ``codesT``: (m, N) uint8 code matrix (transposed so each subspace's
+    codes are contiguous). Materializes the full (B, N) score matrix;
+    the serving path uses :func:`adc_shortlist`, which streams.
+    """
+    return _adc_sum(_adc_lut(Q, codebooks), codesT)
+
+
+def adc_shortlist(Q: torch.Tensor, codebooks: torch.Tensor,
+                  codesT: torch.Tensor, kprime: int,
+                  tile: Optional[int] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-``kprime`` shortlist by ADC score → (vals f32, idx i32), each
+    (B, k′), ordered by score descending, ties to the lower item.
+
+    Streams the corpus in ``tile``-column tiles (default: the width that
+    keeps the live (B, tile) set at ``_ADC_TILE_ELEMS``): each tile keeps
+    its top k′ and one final top k′ over the tile winners merges them.
+    Every global winner wins its own tile under the key order, so the
+    result is a dense top-k′'s, and the JAX package's, for every width.
+    """
+    N = codesT.shape[1]
+    B = Q.shape[0]
+    lut = _adc_lut(Q, codebooks)
+    if tile is None:
+        tile = max(_ADC_CHUNK, _ADC_TILE_ELEMS // max(B, 1))
+    cols = torch.arange(N, dtype=torch.int64, device=Q.device)
+    if N <= tile or kprime > tile:   # one dense tile
+        s = _adc_sum(lut, codesT)
+        pos = _topk_ordered(s, cols, kprime)
+        return s.gather(1, pos), pos.to(torch.int32)
+    vals, idx, keys = [], [], []
+    for lo in range(0, N, tile):
+        s = _adc_sum(lut, codesT[:, lo:lo + tile])
+        key = _order_keys(s, cols[lo:lo + s.shape[1]])
+        kk, pos = torch.topk(key, min(kprime, s.shape[1]), dim=1, sorted=True)
+        keys.append(kk)
+        vals.append(s.gather(1, pos))
+        idx.append(pos + lo)
+    loc = torch.topk(torch.cat(keys, 1), kprime, dim=1, sorted=True).indices
+    return (torch.cat(vals, 1).gather(1, loc),
+            torch.cat(idx, 1).gather(1, loc).to(torch.int32))
+
+
+def rerank_topk(Q: torch.Tensor, V: torch.Tensor, shortlist_idx: torch.Tensor,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-rank of a per-row shortlist against float embeddings.
+
+    Gathers only the (B, k′, d) shortlist rows of ``V`` — never the
+    full corpus — scores them exactly, and returns the top-``k``
+    (vals, idx i32) with ``idx`` mapped back to corpus rows; equal
+    scores keep their shortlist order.
+    """
+    Vs = V[shortlist_idx.long()]                            # (B, k', d)
+    exact = torch.bmm(Vs, Q[:, :, None])[..., 0]
+    pos = _topk_ordered(exact, torch.arange(exact.shape[1], dtype=torch.int64,
+                                            device=exact.device), k)
+    return exact.gather(1, pos), shortlist_idx.gather(1, pos).to(torch.int32)

@@ -210,6 +210,22 @@ def record_device_latency(bucket: int, seconds: float, path: str,
     _DISPATCHES.inc(labels)
 
 
+#: sharded-ANN serving layout, the JAX package's three families: shard
+#: count of the serving mesh, padded item rows resident per device, and
+#: the (k′ · shards) width of the distributed top-k merge. The port
+#: serves ANN unsharded only (``ann/scorer``), so they stay 0; they are
+#: registered so ``/metrics`` has the JAX server's families.
+ANN_SHARDS = REGISTRY.gauge(
+    "pio_ann_shard_count",
+    "Item shards in the sharded ANN serving mesh (0 = unsharded)")
+ANN_SHARD_ITEMS = REGISTRY.gauge(
+    "pio_ann_shard_items_per_device",
+    "Padded item rows resident per device under sharded ANN serving")
+ANN_SHARD_MERGE = REGISTRY.gauge(
+    "pio_ann_shard_merge_candidates",
+    "Distributed shortlist-merge width (k' x shards) per query row")
+
+
 # -- deploy-time warmup orchestration ----------------------------------------
 
 

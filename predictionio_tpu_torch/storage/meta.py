@@ -374,6 +374,12 @@ class MetaStore:
         row = self._q1(q, tuple(args))
         return self._ei_from_row(row) if row else None
 
+    def list_engine_instances(self) -> List[EngineInstance]:
+        """Every engine instance, newest first."""
+        return [self._ei_from_row(r) for r in self._q(
+            f"SELECT {','.join(_EI_COLS)} FROM engine_instances "
+            "ORDER BY startTime DESC")]
+
     # -- evaluation instances --------------------------------------------------
 
     def insert_evaluation_instance(self, vi: EvaluationInstance) -> None:

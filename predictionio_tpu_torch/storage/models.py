@@ -13,7 +13,6 @@ sha256 sidecars): a registry either package writes, the other reads.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import re
@@ -23,30 +22,12 @@ from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional
 
 from predictionio_tpu_torch.utils.atomic_write import atomic_write_bytes
-
-DIGEST_SUFFIX = ".sha256"
-
-
-class IntegrityError(RuntimeError):
-    """A checksummed blob failed verification; the read is refused."""
-
-
-def _sha256_hex(data: bytes) -> str:
-    return hashlib.sha256(data).hexdigest()
-
-
-def _verify_blob(blob: bytes, expected_hex: Optional[str], artifact: str,
-                 what: str = "") -> None:
-    """Verify ``blob`` against a hex digest; None (no sidecar: written
-    before digests existed) is accepted."""
-    if expected_hex is None:
-        return
-    actual = _sha256_hex(blob)
-    if actual != expected_hex.strip():
-        raise IntegrityError(
-            f"{artifact} checksum mismatch{f' for {what}' if what else ''}: "
-            f"expected {expected_hex.strip()[:16]}…, got {actual[:16]}… "
-            f"({len(blob)} bytes) — refusing to serve corrupt data")
+from predictionio_tpu_torch.utils.integrity import (
+    DIGEST_SUFFIX,
+    IntegrityError,  # noqa: F401  (raised by verify_blob; callers catch it here)
+    sha256_hex,
+    verify_blob,
+)
 
 
 def _read_sidecar(path: str) -> Optional[str]:
@@ -120,7 +101,7 @@ class LocalFSModelStore(ModelStore):
             return None
         with open(p, "rb") as f:
             blob = f.read()
-        _verify_blob(blob, _read_sidecar(p), "model", instance_id)
+        verify_blob(blob, _read_sidecar(p), "model", instance_id)
         return blob
 
     def delete(self, instance_id: str) -> bool:
@@ -154,7 +135,7 @@ class LocalFSModelStore(ModelStore):
 def write_artifact(path: str, blob: bytes) -> str:
     """Write ``blob`` at ``path`` with its ``.sha256`` sidecar; returns
     the digest hex."""
-    digest = _sha256_hex(blob)
+    digest = sha256_hex(blob)
     atomic_write_bytes(path, blob)
     atomic_write_bytes(path + DIGEST_SUFFIX,
                        digest.encode("ascii"))
@@ -173,7 +154,7 @@ def read_artifact(path: str, artifact: str,
         return None
     with open(path, "rb") as f:
         blob = f.read()
-    _verify_blob(blob, _read_sidecar(path), artifact, what or path)
+    verify_blob(blob, _read_sidecar(path), artifact, what or path)
     return blob
 
 
@@ -314,7 +295,7 @@ class ModelRegistry:
         p = os.path.join(self.gen_dir(gen), "model.bin")
         with open(p, "rb") as f:
             blob = f.read()
-        _verify_blob(blob, entry.get("sha256"), "model",
+        verify_blob(blob, entry.get("sha256"), "model",
                               f"gen-{gen:06d}")
         return blob
 

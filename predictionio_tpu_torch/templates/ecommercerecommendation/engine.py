@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import io
 import os
-import pickle
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set
 
@@ -49,6 +48,7 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.data import store as event_store
 from predictionio_tpu_torch.models.als import ALSParams, RatingsCOO, als_train, recommend
+from predictionio_tpu_torch.utils import jaxpickle
 from predictionio_tpu_torch.utils.bimap import BiMap
 
 
@@ -160,46 +160,15 @@ JAX_PARAMS_GLOBAL = ("predictionio_tpu.templates.ecommercerecommendation.engine"
                      "ECommAlgorithmParams")
 
 
-class _ParamsPickler(pickle._Pickler):
-    """Writes :class:`ECommAlgorithmParams` under the JAX package's
-    module path. The stock pickler checks a global by importing its
-    module; this one writes the module and name strings for that one
-    class (the pure-Python pickler's ``save_global`` is the hook)."""
-
-    def save_global(self, obj, name=None):
-        if obj is not ECommAlgorithmParams:
-            return super().save_global(obj, name)
-        module, qualname = JAX_PARAMS_GLOBAL
-        self.save(module)
-        self.save(qualname)
-        self.write(pickle.STACK_GLOBAL)
-        self.memoize(obj)
-
-
-class _ParamsUnpickler(pickle.Unpickler):
-    """Maps the JAX package's params class to the port's; refuses any
-    other name of the JAX package (loading it would import JAX)."""
-
-    def find_class(self, module, name):
-        if (module, name) == JAX_PARAMS_GLOBAL:
-            return ECommAlgorithmParams
-        if module == "predictionio_tpu" or module.startswith("predictionio_tpu."):
-            raise pickle.UnpicklingError(
-                f"e-commerce blob names {module}.{name}, which has no "
-                "counterpart in predictionio_tpu_torch")
-        return super().find_class(module, name)
-
-
 def dumps_blob(d: Dict[str, Any]) -> bytes:
     """Pickle the blob dict the way the JAX package's ``pickle.dumps``
     does, with the params class named by its JAX module path."""
-    buf = io.BytesIO()
-    _ParamsPickler(buf, max(pickle.DEFAULT_PROTOCOL, 4)).dump(d)
-    return buf.getvalue()
+    return jaxpickle.dumps(d, ECommAlgorithmParams, JAX_PARAMS_GLOBAL)
 
 
 def loads_blob(blob: bytes) -> Dict[str, Any]:
-    return _ParamsUnpickler(io.BytesIO(blob)).load()
+    return jaxpickle.loads(blob, ECommAlgorithmParams, JAX_PARAMS_GLOBAL,
+                           "e-commerce blob")
 
 
 class ECommModel:

@@ -18,9 +18,17 @@ Serving scores catalogs of at least 2,048 items on the card, one
 JAX package's (a pickled dict), so an instance either package trains
 deploys in the other.
 
-Approximate retrieval (``ann: true``) is not ported: training with it
-raises, and so does loading a blob or instance that carries a PQ index.
-The ANN params still parse, so the JAX package's ``engine.json`` loads.
+Approximate retrieval (``ann: true``, engine.json ``annM``, ``annK``,
+``annShortlist``): training builds a PQ index over the NORMALISED item
+factors (``ann.build_index``, on the training device), so the ADC scan
+and the exact re-rank compute cosine directly. The blob carries the
+index's ``PIOANN01`` bytes, and a store with a directory also gets
+``ann_index.bin`` with its sidecar and manifest beside ``model.bin``
+(what ``pio index status`` reads); load prefers that file, verified. A
+single-item query is one ANN dispatch (``ann.maybe_ann_scorer(Vn,
+Vn)``: ``U[i] · V[j] = cos(v_i, v_j)``); multi-item queries take the
+exact path above. Sharded ANN serving (``annShards`` > 1) is not ported
+and raises at train and at load.
 """
 
 from __future__ import annotations
@@ -54,14 +62,6 @@ from predictionio_tpu_torch.models.als import (
     similar_items_device,
 )
 from predictionio_tpu_torch.utils.bimap import BiMap
-
-#: the JAX package's PQ index file in an instance's algorithm directory
-ANN_INDEX_FILE = "ann_index.bin"
-
-ANN_NOT_PORTED = (
-    "approximate retrieval (ann) is not ported to predictionio_tpu_torch "
-    "yet (ROADMAP.md queue 1, item 9)")
-
 
 @dataclass
 class DataSourceParams:
@@ -154,29 +154,34 @@ class ALSAlgorithmParams:
     lambda_: float = 0.01
     alpha: float = 1.0
     seed: Optional[int] = None
-    # approximate item-to-item retrieval in the JAX package; parsed here
-    # so its engine.json loads, refused at train (not ported yet)
+    # -- approximate item-to-item retrieval (predictionio_tpu_torch/ann):
+    # builds the PQ index over the NORMALIZED item factors at train
+    # time, so the ADC scan + exact re-rank computes cosine directly.
+    # engine.json spelling: ann, annM, annK, annShortlist, annShards.
     ann: bool = False
-    ann_m: int = 5
-    ann_k: int = 256
-    ann_shortlist: int = 128
-    ann_shards: int = 0
+    ann_m: int = 5            # subspaces (must divide rank)
+    ann_k: int = 256          # centroids per subspace
+    ann_shortlist: int = 128  # k′ re-rank candidates
+    ann_shards: int = 0       # serving-mesh width hint (> 1 is not ported)
 
 
 class SimilarProductModel:
     def __init__(self, V: np.ndarray, item_ids: BiMap,
                  item_categories: Dict[str, List[str]],
-                 ann_shortlist: int = 128, ann_shards: int = 0,
+                 ann_index=None, ann_shortlist: int = 128, ann_shards: int = 0,
                  device=None) -> None:
         self.V = V
         self.item_ids = item_ids
         self._inv = item_ids.inverse()
         self.item_categories = item_categories
+        #: optional PQ index over the normalised factors (``ann``)
+        self.ann_index = ann_index
         self.ann_shortlist = ann_shortlist
         self.ann_shards = ann_shards
         self.device = device
         self._Vn = None
         self._scorer = None
+        self._ann_scorer = None
 
     def _device_scorer(self):
         """Lazy device-resident scorer of the normalised factors
@@ -193,6 +198,24 @@ class SimilarProductModel:
                                              device=self.device)
         return self._scorer
 
+    def _ann_device_scorer(self):
+        """Lazy ANN scorer over the normalised corpus with itself as the
+        query table: ``U[i] · V[j] = cos(v_i, v_j)``, so a single-item
+        query is ONE ADC-shortlist dispatch. None without an index, or
+        for a catalog the serving policy keeps on the host."""
+        if self.ann_index is None:
+            return None
+        from predictionio_tpu_torch.ann import maybe_ann_scorer
+        from predictionio_tpu_torch.models.als import normalized_rows
+
+        if self._Vn is None:
+            self._Vn = normalized_rows(self.V)
+        self._ann_scorer = maybe_ann_scorer(
+            self._Vn, self._Vn, self.ann_index, self._ann_scorer,
+            shortlist=self.ann_shortlist, shards=self.ann_shards,
+            device=self.device)
+        return self._ann_scorer
+
     def query(self, items: List[str], num: int,
               categories: Optional[List[str]] = None,
               white_list: Optional[List[str]] = None,
@@ -203,8 +226,10 @@ class SimilarProductModel:
             return []
         # over-fetch so post-filters still fill `num`
         fetch = min(len(self.item_ids), num + idxs.size + 50)
-        scorer = self._device_scorer()
-        if scorer is not None:
+        ann = self._ann_device_scorer() if idxs.size == 1 else None
+        if ann is not None:
+            top, scores = ann.recommend(int(idxs[0]), fetch, exclude=idxs)
+        elif (scorer := self._device_scorer()) is not None:
             top, scores = similar_items_device(scorer, self._Vn, idxs, fetch)
         else:
             top, scores = similar_items(self.V, idxs, fetch)
@@ -246,11 +271,27 @@ class ALSAlgorithm(Algorithm):
 
     @staticmethod
     def _als_params(p: ALSAlgorithmParams) -> ALSParams:
-        if p.ann:
-            raise ValueError(f"ann: true: {ANN_NOT_PORTED}; set ann to false")
+        if p.ann and int(p.ann_shards or 0) > 1:
+            from predictionio_tpu_torch.ann.scorer import SHARDED_NOT_PORTED
+
+            raise ValueError(f"annShards {p.ann_shards}: {SHARDED_NOT_PORTED}")
         return ALSParams(rank=p.rank, iterations=p.num_iterations,
                          reg=p.lambda_, implicit=True, alpha=p.alpha,
                          seed=0 if p.seed is None else p.seed)
+
+    @staticmethod
+    def _maybe_index(V: np.ndarray, p: ALSAlgorithmParams, device):
+        """PQ index over the NORMALIZED factors (cosine = inner product
+        there), built on ``device``; None when ANN is off. A rank that
+        does not split into ``ann_m`` subspaces raises, as in the JAX
+        package."""
+        if not p.ann:
+            return None
+        from predictionio_tpu_torch.ann.index import build_index
+        from predictionio_tpu_torch.models.als import normalized_rows
+
+        return build_index(normalized_rows(V), p.ann_m,
+                           min(p.ann_k, max(2, V.shape[0])), device=device)
 
     @classmethod
     def train_many(cls, ctx: WorkflowContext, pd: TrainingData,
@@ -262,6 +303,7 @@ class ALSAlgorithm(Algorithm):
         als_params = [cls._als_params(p) for p in params_list]
         results = als_train_many(cls._to_coo(pd), als_params, device=ctx.device)
         return [SimilarProductModel(V, pd.item_ids, pd.item_categories,
+                                    ann_index=cls._maybe_index(V, p, ctx.device),
                                     ann_shortlist=p.ann_shortlist,
                                     ann_shards=p.ann_shards, device=ctx.device)
                 for p, (_, V) in zip(params_list, results)]
@@ -271,6 +313,7 @@ class ALSAlgorithm(Algorithm):
         _, V = als_train(self._to_coo(pd), self._als_params(p),
                          device=self.device)
         return SimilarProductModel(V, pd.item_ids, pd.item_categories,
+                                   ann_index=self._maybe_index(V, p, self.device),
                                    ann_shortlist=p.ann_shortlist,
                                    ann_shards=p.ann_shards, device=self.device)
 
@@ -284,29 +327,37 @@ class ALSAlgorithm(Algorithm):
         )}
 
     # the JAX package's blob: a pickled dict of an npz of V, the item id
-    # map, the categories and the ANN serving knobs
+    # map, the categories, the ANN serving knobs and, with ANN, the
+    # index's PIOANN01 bytes (plus the sidecar layout when the model
+    # store has a directory)
     def save_model(self, model: SimilarProductModel, instance_dir: Optional[str]) -> bytes:
         buf = io.BytesIO()
         np.savez_compressed(buf, V=model.V)
-        return pickle.dumps({
+        d = {
             "npz": buf.getvalue(),
             "item_ids": model.item_ids.to_dict(),
             "cats": model.item_categories,
             "ann_shortlist": model.ann_shortlist,
             "ann_shards": model.ann_shards,
-        })
+        }
+        if model.ann_index is not None:
+            from predictionio_tpu_torch.ann.index import save_index
+
+            d["ann_index"] = model.ann_index.to_bytes()
+            if instance_dir:
+                save_index(model.ann_index, instance_dir)
+        return pickle.dumps(d)
 
     def load_model(self, blob: Optional[bytes], instance_dir: Optional[str]) -> SimilarProductModel:
         if blob is None:
             raise ValueError("ALSAlgorithm.load_model needs the model blob")
         d = pickle.loads(blob)
-        if d.get("ann_index") is not None or (
-                instance_dir and os.path.exists(os.path.join(instance_dir, ANN_INDEX_FILE))):
-            raise ValueError(
-                f"this instance carries a PQ index: {ANN_NOT_PORTED}; "
-                "serve it with the JAX package or retrain with ann: false")
         arrs = np.load(io.BytesIO(d["npz"]))
+        from predictionio_tpu_torch.ann.scorer import load_blob_index
+
+        ann_index = load_blob_index(d, instance_dir, d.get("ann_shards", 0))
         return SimilarProductModel(arrs["V"], BiMap(d["item_ids"]), d["cats"],
+                                   ann_index=ann_index,
                                    ann_shortlist=d.get("ann_shortlist", 128),
                                    ann_shards=d.get("ann_shards", 0),
                                    device=self.device)

@@ -45,7 +45,11 @@ Verbs:
 - ``variants status|set-weights`` read and re-split a live ``deploy
   --variants`` server's arms over HTTP, probe-then-apply;
 - ``incidents list|show|prune`` browse the incident bundles the servers
-  write (``--incident-dir``, on by default under ``<home>/incidents``).
+  write (``--incident-dir``, on by default under ``<home>/incidents``);
+- ``index status [--engine-instance-id ID] [--json] [--shards N]``
+  prints a trained instance's PQ index manifests (geometry, bytes, the
+  digest verdict, a per-shard layout) from its files alone, without
+  torch.
 
 The verbs print the JAX CLI's lines and write the same rows, so either
 package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
@@ -61,7 +65,7 @@ Left out for now, each with the module that brings it: ``pio doctor``
 and the router's variant pins (the router and the continuous trainer,
 ROADMAP.md queue 1, item 13), ``--segment-maintenance`` (the native
 event log, item 12), ``batchpredict --shards`` above 1 (the ANN
-retrieval mesh, items 9 and 14).
+retrieval mesh, item 8).
 """
 
 from __future__ import annotations
@@ -490,6 +494,135 @@ def cmd_evals(args: argparse.Namespace) -> None:
 
 
 # -- export, import, status -------------------------------------------------
+
+
+# -- index --------------------------------------------------------------------
+
+
+def _human_bytes(n: Optional[int]) -> str:
+    if n is None:
+        return "?"
+    v = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if v < 1024 or unit == "TiB":
+            return f"{v:.1f} {unit}" if unit != "B" else f"{int(v)} B"
+        v /= 1024
+    raise AssertionError
+
+
+def cmd_index(args: argparse.Namespace) -> None:
+    """ANN retrieval-index status for the deployed (latest COMPLETED)
+    engine instance: geometry, sizes, HBM estimate, build time, digest
+    verdict. Reads only the on-disk artifact manifest + sidecar
+    (torch-free — this verb must work on an ops box with no accelerator
+    stack), so a memory-backed model store has nothing to show. Prints
+    the JAX CLI's text and JSON."""
+    from datetime import datetime, timezone
+
+    from predictionio_tpu_torch.ann.index import (
+        INDEX_BASENAME, MANIFEST_BASENAME, shard_view)
+    from predictionio_tpu_torch.utils.integrity import DIGEST_SUFFIX, sha256_hex
+
+    st = get_storage()
+    iid = args.engine_instance_id
+    if not iid:
+        latest = next((ei for ei in st.meta.list_engine_instances()
+                       if ei.status == "COMPLETED"), None)
+        if latest is None:
+            _die("no COMPLETED engine instance found "
+                 "(train one, or pass --engine-instance-id)")
+        iid = latest.id
+    instance_dir = st.models.model_dir(iid)
+    if instance_dir is None:
+        _die(f"model store {type(st.models).__name__} has no filesystem "
+             "directory — ANN index manifests live beside model.bin "
+             "(LOCALFS)")
+    found = []
+    for algo in sorted(os.listdir(instance_dir)):
+        algo_dir = os.path.join(instance_dir, algo)
+        man_path = os.path.join(algo_dir, MANIFEST_BASENAME)
+        if not os.path.isfile(man_path):
+            continue
+        try:
+            with open(man_path, "r", encoding="utf-8") as f:
+                man = json.load(f)
+        except (OSError, ValueError) as e:
+            found.append({"algorithm": algo, "digest_status": "corrupt",
+                          "detail": f"unreadable manifest: {e}"})
+            continue
+        blob_path = os.path.join(algo_dir, INDEX_BASENAME)
+        digest_status = "missing-blob"
+        if os.path.exists(blob_path):
+            with open(blob_path, "rb") as f:
+                actual = sha256_hex(f.read())
+            side = None
+            try:
+                with open(blob_path + DIGEST_SUFFIX, "r",
+                          encoding="ascii") as f:
+                    side = f.read().strip()
+            except OSError:
+                pass
+            if actual == man.get("sha256") and (side is None
+                                                or side == actual):
+                digest_status = ("verified" if side is not None
+                                 else "unchecksummed")
+            else:
+                digest_status = "MISMATCH"
+        entry = {"algorithm": algo, "digest_status": digest_status,
+                 **{k: man.get(k) for k in (
+                     "m", "k", "dsub", "dim", "n_items", "code_bytes",
+                     "codebook_bytes", "rotation_bytes",
+                     "hbm_estimate_bytes", "shards",
+                     "build_sec", "built_unix", "sha256")}}
+        # per-shard layout math from the manifest alone (the index
+        # module is numpy only — safe on an ops box): size a candidate
+        # serving mesh before any deploy touches a card
+        want_shards = int(getattr(args, "shards", 0) or 0) \
+            or int(man.get("shards") or 0)
+        if want_shards > 1 and man.get("n_items") is not None:
+            entry["shard_view"] = shard_view(man, want_shards)
+        found.append(entry)
+    doc = {"engineInstanceId": iid, "instanceDir": instance_dir,
+           "indexes": found}
+    if args.json:
+        print(json.dumps(doc, indent=2, sort_keys=True))
+        return
+    print(f"[index] engine instance {iid}")
+    if not found:
+        print("[index] no ANN index artifacts (exact retrieval; enable "
+              "with \"ann\": true in engine.json algorithm params)")
+        return
+    for ix in found:
+        print(f"[index] algorithm {ix['algorithm']!r}: "
+              f"status={ix['digest_status']}")
+        if ix.get("detail"):
+            print(f"        {ix['detail']}")
+            continue
+        if ix.get("m") is None:
+            continue
+        print(f"        geometry   M={ix['m']} K={ix['k']} "
+              f"dsub={ix['dsub']} (dim {ix['dim']})")
+        print(f"        corpus     {ix['n_items']:,} items, "
+              f"codes {_human_bytes(ix['code_bytes'])}, "
+              f"codebooks {_human_bytes(ix['codebook_bytes'])}")
+        print(f"        HBM est.   {_human_bytes(ix['hbm_estimate_bytes'])} "
+              "(codes + codebooks + re-rank floats)")
+        sv = ix.get("shard_view")
+        if sv:
+            print(f"        sharded    {sv['shards']}-way mesh: "
+                  f"{sv['rows_per_shard']:,} rows/device "
+                  f"({sv['padded_items'] - ix['n_items']} pad), "
+                  f"codes {_human_bytes(sv['code_bytes_per_shard'])}/dev, "
+                  f"rerank {_human_bytes(sv['rerank_bytes_per_shard'])}/dev")
+            print(f"        HBM/device {_human_bytes(sv['hbm_per_device_bytes'])} "
+                  f"(+ {_human_bytes(sv['replicated_bytes'])} replicated "
+                  "codebooks/rotation)")
+        built = ix.get("built_unix")
+        when = (datetime.fromtimestamp(built, timezone.utc)
+                .strftime("%Y-%m-%d %H:%M:%SZ") if built else "?")
+        print(f"        built      {when} in {ix.get('build_sec', '?')}s, "
+              f"sha256 {str(ix.get('sha256'))[:12]}…")
+
 
 
 # -- models, variants, incidents ---------------------------------------------
@@ -1156,6 +1289,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print at most the newest N spans (or traces "
                          "with --tree)")
     tc.set_defaults(fn=cmd_trace)
+
+    ix = sub.add_parser(
+        "index",
+        help="ANN retrieval index: geometry (M, K, corpus size, code "
+             "bytes, HBM estimate), build time, and digest status of "
+             "the deployed model's PQ index — reads the artifact "
+             "manifest only, torch-free")
+    ixs = ix.add_subparsers(dest="index_cmd", required=True)
+    x = ixs.add_parser("status",
+                       help="inspect the latest COMPLETED instance's "
+                            "ann_index.json manifests")
+    x.add_argument("--engine-instance-id",
+                   help="inspect this instance instead of the latest "
+                        "COMPLETED one")
+    x.add_argument("--json", action="store_true",
+                   help="emit the full report as one JSON document")
+    x.add_argument("--shards", type=int, default=0,
+                   help="also print the per-shard layout (rows, code "
+                        "bytes, per-device HBM) for an N-way serving "
+                        "mesh — pure manifest math, still torch-free")
+    ix.set_defaults(fn=cmd_index)
 
     md = sub.add_parser(
         "models",

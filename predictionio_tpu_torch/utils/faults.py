@@ -46,6 +46,10 @@ Sites the port wires so far:
                         server) — a wedged/failing capture costs the
                         postmortem bundle, never the serving path;
                         watch ``pio_incident_captures_total{result}``
+``ann.index.corrupt``   byte-flip on ANN retrieval-index load
+                        (``PQIndex.from_bytes`` — covers the
+                        ``ann_index.bin`` file and blob-embedded
+                        indexes; the load raises ``IntegrityError``)
 ======================  ===================================================
 
 The JAX package's table lists the rest (the router, trainer,

@@ -1012,7 +1012,7 @@ def test_every_port_fault_site_is_documented_and_exercised():
                               "tsdb.scrape.stall", "tenant.quota.exhausted",
                               "eventsink.send", "ingest.commit",
                               "variant.assign.skew", "variant.reload.partial",
-                              "incident.capture.stall"}
+                              "incident.capture.stall", "ann.index.corrupt"}
     assert all(f'"{site}"' in tests for site in wired)
     # every port site is one of the JAX package's documented sites
     assert wired <= set(re.findall(r"^``([a-z_.]+)``", jax_faults.__doc__, re.M))

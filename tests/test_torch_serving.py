@@ -441,18 +441,29 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch, home):
                      port=0)
 
 
+#: modules the walk below must reach (the ANN package, the two-tower model
+#: and template, the integrity helpers), so a rename cannot drop them
+MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq",
+             "predictionio_tpu_torch.ann.scorer", "predictionio_tpu_torch.models.two_tower",
+             "predictionio_tpu_torch.templates.twotower.engine",
+             "predictionio_tpu_torch.utils.integrity", "predictionio_tpu_torch.utils.jaxpickle",
+             "predictionio_tpu_torch.data.pipeline")
+
+
 def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "import predictionio_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke, serving_ab\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'predictionio_tpu'\n"
-        "       or m.startswith('predictionio_tpu.')]\n"
-        "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "       or m.startswith('predictionio_tpu.') or m.split('.')[0] in ('flax', 'optax')]\n"
+        f"missing = [m for m in {MUST_WALK!r} if m not in names]\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

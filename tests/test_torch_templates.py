@@ -24,7 +24,9 @@ On it:
   ``run_evaluation`` equal the JAX package's;
 - ``similar_items`` on the device path (a CPU tensor takes the plain
   version) equals the host path, and the host path the JAX package's;
-- ANN is refused at train and at load, with its params still parsed.
+- with ``ann: true`` both packages train the PQ index and serve each
+  other's instances alike; sharded ANN serving is refused at train and
+  at load.
 
 Data crosses between the packages as numpy arrays, SQLite rows and
 pickled blobs.
@@ -394,26 +396,59 @@ def test_the_port_loads_a_jax_ecommerce_blob_without_the_jax_package(home, tmp_p
     assert proc.stdout.startswith("8 (20, 8)")
 
 
-def test_ann_is_refused_at_train_and_at_load(home, tmp_path):
-    home, ids = home
-    pf = SIMILARPRODUCT_FACTORY
-    with pytest.raises(ValueError, match="ann"):
-        run_train(pf, variant=_variant("sp", pf, ann=True, annM=4),
-                  storage=_port_storage(home), device="cpu")
+def test_ann_is_refused_at_train_and_at_load(tmp_path, monkeypatch):
+    """ANN on the similar-product template (the name dates from when the
+    port refused it; only sharded serving is refused now, at train and at
+    load): both packages train ``ann: true`` on a home of their own (rank
+    8, annM 4, the index over the normalised factors, its sidecar beside
+    model.bin);
+    each package serves each instance, single-item queries through the
+    ANN scorer, with the JAX package's answers on its own instance up to
+    near-ties, and the blob's index bytes serve without the sidecar."""
+    from predictionio_tpu_torch.ann import ANNScorer, INDEX_BASENAME
+
+    home = str(tmp_path / "ann_home")
+    seed_views(_jax_storage(home), APPS["sp"])
+    monkeypatch.setenv("PIO_ALS_SERVE", "device")
+    pf, jf = SIMILARPRODUCT_FACTORY, JAX_SIMILARPRODUCT_FACTORY
+    ann = dict(ann=True, annM=4)
+    ids = {"jax": jax_run_train(jf, variant=dict(_variant("sp", jf, **ann), id="ann"),
+                                storage=_jax_storage(home), use_mesh=False),
+           "port": run_train(pf, variant=dict(_variant("sp", pf, **ann), id="ann"),
+                             storage=_port_storage(home), device="cpu")}
+    for iid in ids.values():
+        algo_dir = os.path.join(_port_storage(home).models.model_dir(iid), "als")
+        assert os.path.isfile(os.path.join(algo_dir, INDEX_BASENAME))
+    ref = {q: _deployed(home, ids["jax"], "jax").query({"items": [q], "num": 5})
+           for q in ("i2", "i13", "i7")}
+    for iid in ids.values():
+        for package in ("jax", "port"):
+            dep = _deployed(home, iid, package)
+            if package == "port":
+                assert dep.models[0].ann_index is not None
+                assert isinstance(dep.models[0]._ann_device_scorer(), ANNScorer)
+            for q, want in ref.items():
+                got = dep.query({"items": [q], "num": 5})
+                assert same_answers(got, want, TOL), (iid, package, got, want)
+                assert q not in {s["item"] for s in got["itemScores"]}
+            multi = {"items": ["i2", "i3"], "num": 5}
+            assert same_answers(dep.query(multi),
+                                _deployed(home, ids["jax"], "jax").query(multi), TOL)
     # the JAX package's engine.json (ANN params included) parses
     with open(os.path.join(REPO, "predictionio_tpu", "templates", "similarproduct",
                            "engine.json")) as f:
         ep = port_sp.engine_factory().params_from_variant(json.load(f))
     assert ep.algorithms_params[0][1].ann_shortlist == 128
-    blob = pickle.loads(_port_storage(home).models.get(ids["sp", "port"]))[0]
-    d = pickle.loads(blob)
+    blob = pickle.loads(_port_storage(home).models.get(ids["port"]))[0]
     algo = port_sp.ALSAlgorithm(port_sp.ALSAlgorithmParams())
-    assert algo.load_model(blob, None).V.shape == (20, 8)
-    with pytest.raises(ValueError, match="PQ index"):
-        algo.load_model(pickle.dumps(dict(d, ann_index=b"PIOANN01")), None)
-    (tmp_path / port_sp.ANN_INDEX_FILE).write_bytes(b"PIOANN01")
-    with pytest.raises(ValueError, match="PQ index"):
-        algo.load_model(blob, str(tmp_path))
+    algo.device = "cpu"
+    model = algo.load_model(blob, None)          # the blob's own index bytes
+    assert model.V.shape == (20, 8) and model.ann_index is not None
+    with pytest.raises(ValueError, match="item 8"):
+        algo.load_model(pickle.dumps(dict(pickle.loads(blob), ann_shards=2)), None)
+    with pytest.raises(ValueError, match="item 8"):
+        run_train(pf, variant=_variant("sp", pf, ann=True, annM=4, annShards=2),
+                  storage=_port_storage(home), device="cpu")
 
 
 def test_similar_items_device_path_equals_host_path(monkeypatch):
