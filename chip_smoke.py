@@ -14,6 +14,11 @@
                                        # and resume alone (no result line)
     python3 chip_smoke.py --ann      # phases 1, 2 and 13: ANN and the two-tower
                                      # template alone (no result line)
+    python3 chip_smoke.py --classification  # phases 1, 2 and 14: the classification,
+                                            # text and e2 slice alone, with LR's
+                                            # one-thread CPU witness (no result line);
+                                            # with --profile, each step's busy time
+                                            # on the card (torch.profiler)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -254,6 +259,46 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    exact score_topk over the same corpus (CUDA events) beside the ANN
    bytes bound (codes N·m + the B·k′·d re-rank rows over HBM), 8 rows'
    shortlists held against a float64 replay.
+
+14. classification and e2 at full width, in temporary PIO_HOMEs; no
+   kernel of the port runs (the four counters, zeroed first, must read
+   0). A Covertype-shaped table (``synthetic_covertype``: 581,012 rows ×
+   54 attributes, 7 classes at Covertype's counts, seed 7) trains the
+   classification template's algorithms at their defaults on the card:
+   NB multinomial (λ 1) and bernoulli, each log table within 1e-5 of a
+   float64 numpy fit; LR (100 L-BFGS steps) at reg 0 and 1e-3, the
+   latter held against the port's CPU run: the card takes each of the
+   CPU's 100 steps from the CPU's state (point and memory), each within
+   1e-5 of the CPU's next point (of its max |W|), and the free runs
+   after 10 steps within 1e-4 (after 100 their gap and both float64
+   losses are printed); the same steps with TF32 products, a control,
+   must fail that limit; under ``--classification`` the CPU's 100 steps
+   on one thread are printed against the run on every core; RF (16
+   trees, depth 5, 16 thresholds, feature fraction 0.7), whose first 4 trees grown again on
+   the CPU from the same draws must split alike, except where a level's
+   two picks have float64 Gini within 1e-6 relative, with leaf_probs
+   within 1e-6. Each training accuracy is printed. The NB, LR and RF
+   instances are served by the port's EngineServer, 1,000 POST
+   /queries.json each, every label equal to the float64 prediction from
+   the stored arrays up to near-ties within 1e-5; ``pio eval`` of a
+   DefaultGrid-shaped grid (NB λ 0.5 and 1.0, LR, RF; evalK 2) over every
+   10th row (the cut: 58,102 rows, since the serial path answers each
+   held-out row in Python), serially and distributed, every fold
+   accuracy equal. The CLI: 20,000 ``$set`` entities (attr0..2 and the
+   label) through the port's event server, ``train`` from the template's
+   engine.json and ``deploy`` answering 50 queries as the instance does
+   in-process. The text template on a corpus of 20 Newsgroups' shape
+   (18,846 documents, 20 labels, 50–400 tokens from a Zipf vocabulary of
+   30,000 words) in the event store: ``run_train`` of NB and of LR
+   (hashBits 12, ngrams 2; the hashing's host time apart), 500 queries
+   served to each on the float64 predictions. The Markov chain over
+   phase 5's draws (each user's consecutive items, S = 26,744): counts
+   equal to ``np.bincount``, probabilities within 1e-6 of float64,
+   ``predict_top_k`` of 100 states a top 10 of numpy's sort. Categorical
+   NB over 1,000,000 points × 10 positions (vocabularies 2–1,000): the
+   counts equal numpy's. Every timed step prints its wall; with
+   ``--profile`` it runs under torch.profiler and also prints the card's
+   busy time in it (kernels and copies), and the phase prints the sums.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -1061,10 +1106,10 @@ def precision_controls(torch, dev, prep, p, coo, U, V9, items_chk, users_chk):
     out = {}
     for name, params, guard in (
             ("bf16 gathers", dataclasses.replace(p, iterations=1, bf16_gather=True),
-             als._full_f32),
+             als.full_f32),
             ("TF32 dense head, guard removed", dataclasses.replace(p, iterations=1),
              contextlib.nullcontext)):
-        with tf32_matmuls(torch), mock.patch.object(als, "_full_f32", guard):
+        with tf32_matmuls(torch), mock.patch.object(als, "full_f32", guard):
             Uc, Vc = als.als_train_prepared(prep, params, device=dev, V0=V9)
         err_v = normal_equations_err(torch, dev, coo.item_idx, coo.user_idx,
                                      coo.rating, Uc, Vc, items_chk, LAMBDA)
@@ -4012,7 +4057,7 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
     import numpy as np
 
     from predictionio_tpu_torch.models import two_tower as tt
-    from predictionio_tpu_torch.models.als import _full_f32
+    from predictionio_tpu_torch.utils.device import full_f32
 
     p = tt.TwoTowerParams(embed_dim=params["embedDim"], hidden=list(params["hidden"]),
                           out_dim=params["outDim"], batch_size=params["batchSize"],
@@ -4089,7 +4134,7 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
                 f"{a['flips']} ReLU switches")
 
     units = 2 * TT_CHECK_STEPS * B * sum(p.hidden)
-    with _full_f32():
+    with full_f32():
         acc64: dict = {}
         cpu, card = trainer(cpu_dev, torch.float64), trainer(dev, torch.float64)
         for j in range(TT_CHECK_STEPS):
@@ -4208,7 +4253,7 @@ def profile_two_tower(torch, dev, uu, ii, params: dict) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from predictionio_tpu_torch.models import two_tower as tt
-    from predictionio_tpu_torch.models.als import _full_f32
+    from predictionio_tpu_torch.utils.device import full_f32
 
     p = tt.TwoTowerParams(embed_dim=params["embedDim"], hidden=list(params["hidden"]),
                           out_dim=params["outDim"], batch_size=params["batchSize"],
@@ -4218,7 +4263,7 @@ def profile_two_tower(torch, dev, uu, ii, params: dict) -> None:
     bu = torch.from_numpy(uu[:70 * B].reshape(70, B).astype(np.int64)).to(dev)
     bi = torch.from_numpy(ii[:70 * B].reshape(70, B).astype(np.int64)).to(dev)
     tr = tt.TwoTowerTrainer(*tt.init_variables(N_USERS, N_ITEMS, p), p, dev)
-    with _full_f32():
+    with full_f32():
         for j in range(20):
             tr.step(bu[j], bi[j])
         torch.cuda.synchronize()
@@ -4587,6 +4632,805 @@ def ann_full_width(torch, ops, dev, train, profile: bool = False) -> dict:
     return {"launches": launches, "big": big, "wall": wall}
 
 
+# -- phase 14: classification and e2 at full width --------------------------------
+
+#: UCI Covertype's class counts (Spruce/Fir, Lodgepole Pine, Ponderosa Pine,
+#: Cottonwood/Willow, Aspen, Douglas-fir, Krummholz): 581,012 rows
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+#: the classes from low to high on the planted rule (their elevation order)
+COVTYPE_ORDER = (3, 2, 5, 4, 1, 0, 6)
+COVTYPE_ROWS, COVTYPE_ATTRS = sum(COVTYPE_COUNTS), 54
+NB64_TOL = 1e-5     # NB's log tables against a float64 numpy fit, absolute
+LR_CPU_TOL = 1e-4   # LR's free run on the card against the port's CPU run, of max |W|
+LR_STEP_TOL = 1e-5  # one LR step on the card from the CPU's state, of max |W|: a
+                    # step with TF32 products must fail it (3.6e-5 on the H100)
+LR_FREE_STEPS = 10  # the free runs are held from here; past it f32 drifts
+RF_TOL = 1e-6       # leaf_probs, card against CPU
+GINI_TIE = 1e-6     # two picks' float64 Gini within this, relative: a near-tie
+LABEL_TIE = 1e-5    # served labels: top two float64 scores within this, relative
+RF_CPU_TREES = 4    # trees also grown on the CPU from the same draws
+SERVE_QUERIES, SERVE_CLIENTS = 1_000, 8
+EVAL_EVERY = 10     # the eval's cut: every 10th row (58,102 rows)
+CLI_ENTITIES = 20_000
+TEXT_DOCS, TEXT_LABELS, TEXT_VOCAB, TEXT_QUERIES = 18_846, 20, 30_000, 500
+CAT_POINTS, CAT_POSITIONS = 1_000_000, 10
+
+
+def synthetic_covertype(n_rows: int = COVTYPE_ROWS, seed: int = 7):
+    """A table of UCI Covertype's shape, drawn from ``seed`` (nothing is
+    downloaded): 10 non-negative continuous attributes at Covertype's
+    ranges (elevation, aspect, slope, the distances, the three hillshades;
+    the vertical distance to water shifted by +173 m to be non-negative),
+    a one-of-4 wilderness group and a one-of-40 soil group, 54 columns in
+    all. Labels come from a planted non-linear rule with noise: the rows
+    ranked on it are cut into the 7 classes at Covertype's counts, lowest
+    class first in ``COVTYPE_ORDER``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = n_rows
+    elev = rng.normal(2960, 280, n).clip(1859, 3858)
+    aspect = rng.uniform(0, 360, n)
+    slope = rng.gamma(3.0, 4.7, n).clip(0, 66)
+    hhyd = rng.gamma(1.3, 210, n).clip(0, 1397)
+    vhyd = (rng.normal(46, 58, n) + 173).clip(0, 774)
+    hroad = rng.gamma(1.8, 1300, n).clip(0, 7117)
+    hs9 = (255 - rng.gamma(2.2, 16, n)).clip(0, 254)
+    hsn = (255 - rng.gamma(3.0, 9, n)).clip(0, 254)
+    hs3 = rng.normal(143, 38, n).clip(0, 254)
+    hfire = rng.gamma(1.7, 1170, n).clip(0, 7173)
+    wild = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = np.minimum(rng.zipf(1.4, n) - 1 + rng.integers(0, 8, n), 39)
+    X = np.zeros((n, COVTYPE_ATTRS), np.float32)
+    X[:, :10] = np.stack([elev, aspect, slope, hhyd, vhyd, hroad, hs9, hsn, hs3,
+                          hfire], 1)
+    X[np.arange(n), 10 + wild] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    z = ((elev - 2960) / 280 + 0.35 * np.sin(np.radians(aspect)) * slope / 20
+         - 0.25 * (hhyd / 400) * (vhyd > 250) + 0.3 * (wild == 2) - 0.4 * (wild == 3)
+         + 0.05 * (soil % 7) + 0.2 * np.cos(hroad / 900) + rng.normal(0, 0.35, n))
+    counts = np.round(np.asarray(COVTYPE_COUNTS) * n / COVTYPE_ROWS).astype(int)
+    counts[1] += n - counts.sum()
+    order = np.argsort(z, kind="stable")
+    y = np.empty(n, np.int32)
+    start = 0
+    for c in COVTYPE_ORDER:
+        y[order[start:start + counts[c]]] = c
+        start += counts[c]
+    return X, y
+
+
+STEP_TIMES = []  # phase 14's (label, wall s, card busy s or None) of each timed step
+PROFILE_STEPS = False  # --profile: take the card's busy time in each timed step
+
+
+def timed(torch, dev, label: str, fn):
+    """Run ``fn`` once and print its wall (host clock). With PROFILE_STEPS
+    it runs under torch.profiler and also prints the card's busy time in
+    it: the sum of the kernel, copy and memset durations the profiler
+    records (CUPTI), and their count. Appends to STEP_TIMES; returns
+    (result, wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    busy, note = None, ""
+    t0 = time.perf_counter()
+    if PROFILE_STEPS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            out = fn()
+            torch.cuda.synchronize(dev)
+    else:
+        out = fn()
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if PROFILE_STEPS:
+        rows = [r for r in prof.key_averages()
+                if r.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(r, "is_user_annotation", False)]
+        busy = sum(r.self_device_time_total for r in rows) / 1e6
+        note = (f" (profiler on), the card busy {busy * 1e3:.2f} ms in "
+                f"{sum(r.count for r in rows)} kernels and copies (torch.profiler)")
+    STEP_TIMES.append((label, wall, busy))
+    print(f"{label}: {wall:.3f} s wall{note}", flush=True)
+    return out, wall
+
+
+def near_tie(scores, rtol: float):
+    """Rows whose top two float64 scores lie within ``rtol`` relative."""
+    import numpy as np
+
+    top2 = np.sort(scores, 1)[:, -2:]
+    return np.abs(top2[:, 1] - top2[:, 0]) <= rtol * np.abs(top2).max(1)
+
+
+def scores64(kind: str, arrays: dict, X):
+    """Float64 scores of ``X`` under a stored ClassificationModel's arrays."""
+    import numpy as np
+
+    X = np.asarray(X, np.float64)
+    if kind == "nb":
+        lt = arrays["log_theta"].astype(np.float64)
+        lp = arrays["log_prior"].astype(np.float64)
+        if arrays["model_type"][0]:
+            Xb = (X > 0).astype(np.float64)
+            theta = np.exp(lt)
+            log_neg = np.log1p(-np.clip(theta, 1e-12, 1 - 1e-12))
+            return Xb @ lt.T + (1.0 - Xb) @ log_neg.T + lp
+        return X @ lt.T + lp
+    if kind == "lr":
+        return X @ arrays["W"].astype(np.float64) + arrays["b"].astype(np.float64)
+    feats, thrs = arrays["feats"], arrays["thrs"]
+    T, D = feats.shape
+    leaf = np.zeros((T, X.shape[0]), np.int64)
+    for dep in range(D):
+        leaf = leaf * 2 + (X[:, feats[:, dep]].T > thrs[:, dep, None]).astype(np.int64)
+    return arrays["leaf_probs"].astype(np.float64)[np.arange(T)[:, None], leaf].mean(0)
+
+
+def nb_fit64(X, y, C: int, lam: float, bernoulli: bool):
+    """The NB smoothing formulas in float64 numpy."""
+    import numpy as np
+
+    X = (X > 0).astype(np.float64) if bernoulli else X.astype(np.float64)
+    class_count = np.bincount(y, minlength=C).astype(np.float64)
+    feat_sum = np.zeros((C, X.shape[1]))
+    for c in range(C):
+        feat_sum[c] = X[y == c].sum(0)
+    log_prior = np.log(class_count + lam) - np.log(class_count.sum() + C * lam)
+    if bernoulli:
+        return log_prior, np.log(feat_sum + lam) - np.log(class_count[:, None] + 2 * lam)
+    return log_prior, (np.log(feat_sum + lam)
+                       - np.log(feat_sum.sum(1, keepdims=True) + X.shape[1] * lam))
+
+
+def lr_loss64(W, b, X, y, reg: float) -> float:
+    """The logistic loss in float64 numpy."""
+    import numpy as np
+
+    z = X.astype(np.float64) @ W.astype(np.float64) + b.astype(np.float64)
+    zmax = z.max(1, keepdims=True)
+    lse = np.log(np.exp(z - zmax).sum(1)) + zmax[:, 0]
+    return float((lse - z[np.arange(len(y)), y]).mean()
+                 + 0.5 * reg * (W.astype(np.float64) ** 2).sum())
+
+
+def lr_cpu_trace(torch, vg, x, iters: int):
+    """``iters`` L-BFGS steps of the port on the CPU from ``x``, keeping
+    each step's (point, state); returns (trace, seconds)."""
+    from predictionio_tpu_torch.models import lbfgs
+
+    state = lbfgs.lbfgs_init(x)
+    trace = []
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trace.append((x, state))
+        x, state, _, _ = lbfgs.lbfgs_step(vg, x, state)
+    trace.append((x, state))
+    return trace, time.perf_counter() - t0
+
+
+def lr_card_against_cpu(torch, dev, X, y, C: int, reg: float, W_card, b_card,
+                        witness: bool = False) -> dict:
+    """Logistic regression at ``reg``, the card against the port's CPU run:
+    the CPU runs the template's 100 L-BFGS steps, keeping each step's
+    state; the card then takes each step from the CPU's state (the same
+    point and memory), and every result must be within LR_STEP_TOL of the
+    CPU's next point (of its max |W|). The same steps with TF32 products
+    (the f32 guard taken out) are a control that must fail that limit.
+    The free runs are held after LR_FREE_STEPS steps; the 100-step free
+    runs' gap and float64 losses are printed. ``witness`` also runs the
+    CPU's 100 steps on one thread and prints how far they end from the
+    run on every core: the drift of two summation orders, no card in it."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import lbfgs, linear
+
+    d = X.shape[1]
+    iters = linear.LogisticRegressionParams().iterations
+    Xc, yc = torch.from_numpy(X), torch.from_numpy(y.astype(np.int64))
+    x0 = torch.zeros(d * C + C)
+    threads = torch.get_num_threads()
+    trace, t_cpu = lr_cpu_trace(torch, linear.loss_and_grad(Xc, yc, C, reg), x0, iters)
+    Xd = torch.as_tensor(X).to(dev)
+    yd = torch.as_tensor(y.astype(np.int64)).to(dev)
+    vg = linear.loss_and_grad(Xd, yd, C, reg)
+
+    def on_card(st):
+        return lbfgs.LBFGSState(st.count, *(getattr(st, f).to(dev) for f in (
+            "params", "updates", "diff_params", "diff_updates", "weights")))
+
+    def rel(a, ref):
+        return float(np.abs(a - ref).max() / np.abs(ref[:d * C]).max())
+
+    def each_step():
+        worst, worst_k, ls_steps = 0.0, -1, 0
+        t0 = time.perf_counter()
+        for k in range(iters):
+            xk, sk = trace[k]
+            xn, _, _, ls = lbfgs.lbfgs_step(vg, xk.to(dev), on_card(sk))
+            err = rel(xn.cpu().numpy(), trace[k + 1][0].numpy())
+            ls_steps += ls.count
+            if err > worst:
+                worst, worst_k = err, k
+        return worst, worst_k, ls_steps, time.perf_counter() - t0
+
+    worst, worst_k, ls_steps, t_steps = each_step()
+    with tf32_matmuls(torch), mock.patch.object(linear, "full_f32", contextlib.nullcontext):
+        tf32_worst, tf32_k, _, _ = each_step()
+    W_free, b_free = linear.logreg_train(X, y, linear.LogisticRegressionParams(
+        num_classes=C, iterations=LR_FREE_STEPS, reg=reg), device=dev)
+    free_err = rel(np.concatenate([W_free.ravel(), b_free]), trace[LR_FREE_STEPS][0].numpy())
+    xf = trace[-1][0].numpy()
+    W_cpu, b_cpu = xf[:d * C].reshape(d, C), xf[d * C:]
+    gap = rel(np.concatenate([W_card.ravel(), b_card]), xf)
+    loss_card, loss_cpu = lr_loss64(W_card, b_card, X, y, reg), lr_loss64(W_cpu, b_cpu, X, y, reg)
+    print(f"LR reg {reg:g}, card against the CPU: the CPU's {iters} steps on "
+          f"{threads} threads {t_cpu:.1f} s; each card step from the CPU's state: worst "
+          f"{worst:.3e} of max|W| (step {worst_k}; limit {LR_STEP_TOL}), "
+          f"{ls_steps} line-search evaluations, {t_steps:.2f} s; free runs after "
+          f"{LR_FREE_STEPS} steps {free_err:.3e} (limit {LR_CPU_TOL}); after "
+          f"{iters}: {gap:.3e} apart, float64 loss card {loss_card!r} CPU "
+          f"{loss_cpu!r}", flush=True)
+    print(f"LR control, which must fail the step limit: each card step with TF32 "
+          f"products, worst {tf32_worst:.3e} of max|W| (step {tf32_k}; limit "
+          f"{LR_STEP_TOL})", flush=True)
+    check(worst <= LR_STEP_TOL, f"an LR step on the card is {worst:.3e} off the CPU's")
+    check(tf32_worst > LR_STEP_TOL, "the LR step limit does not tell TF32 steps apart")
+    check(free_err <= LR_CPU_TOL, f"LR after {LR_FREE_STEPS} steps {free_err:.3e} off the CPU's")
+    check(np.isfinite(loss_card), f"the card's LR loss is {loss_card}")
+    out = {"step_err": worst, "tf32_step_err": tf32_worst, "free_err": free_err,
+           "gap100": gap, "loss_card": loss_card, "loss_cpu": loss_cpu}
+    if witness:
+        torch.set_num_threads(1)
+        try:
+            one, t_one = lr_cpu_trace(torch, linear.loss_and_grad(Xc, yc, C, reg), x0, iters)
+        finally:
+            torch.set_num_threads(threads)
+        x1 = one[-1][0].numpy()
+        gap10 = rel(one[LR_FREE_STEPS][0].numpy(), trace[LR_FREE_STEPS][0].numpy())
+        gap1 = rel(x1, xf)
+        loss_one = lr_loss64(x1[:d * C].reshape(d, C), x1[d * C:], X, y, reg)
+        print(f"LR witness, the CPU on 1 thread against {threads} ({t_one:.1f} s): after "
+              f"{LR_FREE_STEPS} steps {gap10:.3e} of max|W| apart, after {iters} "
+              f"{gap1:.3e}; float64 loss 1 thread {loss_one!r}, {threads} threads "
+              f"{loss_cpu!r}", flush=True)
+        out.update(thread_gap10=gap10, thread_gap100=gap1, loss_one_thread=loss_one)
+    return out
+
+
+def gini64(X, y, C: int, boot, splits, f: int, t: float) -> float:
+    """The float64 Gini score of split (f, t) below the ``splits`` before it."""
+    import numpy as np
+
+    leaf = np.zeros(len(y), np.int64)
+    for ff, tt in splits:
+        leaf = leaf * 2 + (X[:, ff] > tt)
+    L = 1 << (len(splits) + 1)
+    w = np.asarray(boot, np.float64)
+    above = X[:, f] > t
+    score = 0.0
+    for side in (above, ~above):
+        h = np.bincount(leaf[side] * C + y[side], weights=w[side],
+                        minlength=L * C).reshape(L, C)
+        s = h.sum(1)
+        p = h / np.maximum(s, 1e-9)[:, None]
+        score += float((s * (1.0 - (p * p).sum(1))).sum())
+    return score
+
+
+def forest_card_against_cpu(X, y, p, model) -> dict:
+    """The card's first RF_CPU_TREES trees against the same trees grown on
+    the CPU from the same draws: equal splits, except where a level's two
+    picks have float64 Gini scores within GINI_TIE relative (the tree
+    differs from there on, and its leaves are not compared); leaf_probs
+    within RF_TOL."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from predictionio_tpu_torch.models import forest
+
+    boot, keep = forest.forest_draws(X.shape[0], X.shape[1], p)
+    q = dc.replace(p, n_trees=RF_CPU_TREES)
+    t0 = time.perf_counter()
+    cpu = forest.forest_train_drawn(X, y, q, boot[:RF_CPU_TREES], keep[:RF_CPU_TREES],
+                                    device="cpu")
+    t_cpu = time.perf_counter() - t0
+    C = int(y.max()) + 1
+    ties, worst = [], 0.0
+    for t in range(RF_CPU_TREES):
+        splits = []
+        for dep in range(p.max_depth):
+            a = (int(model.feats[t, dep]), float(model.thrs[t, dep]))
+            b = (int(cpu.feats[t, dep]), float(cpu.thrs[t, dep]))
+            if a != b:
+                ga = gini64(X, y, C, boot[t].numpy(), splits, *a)
+                gb = gini64(X, y, C, boot[t].numpy(), splits, *b)
+                check(abs(ga - gb) <= GINI_TIE * max(abs(ga), abs(gb)),
+                      f"tree {t} level {dep}: the card splits on {a}, the CPU on {b}, "
+                      f"float64 Gini {ga!r} against {gb!r}")
+                ties.append((t, dep, ga, gb))
+                break
+            splits.append(a)
+        else:
+            worst = max(worst, float(np.abs(model.leaf_probs[t] - cpu.leaf_probs[t]).max()))
+    print(f"RF card against the CPU from the same draws: {RF_CPU_TREES} trees on the "
+          f"CPU {t_cpu:.1f} s; splits equal in {RF_CPU_TREES - len(ties)} trees, "
+          f"near-ties {ties}; leaf_probs within {worst:.3e} (limit {RF_TOL})", flush=True)
+    check(worst <= RF_TOL, f"leaf_probs {worst:.3e} off the CPU's")
+    return {"ties": len(ties), "leaf_err": worst}
+
+
+def serve_classification(dev, storage, iid: str, kind: str, arrays: dict, Xq,
+                         label: str) -> dict:
+    """``len(Xq)`` POST /queries.json to the port's EngineServer serving
+    instance ``iid``; every label must equal the float64 prediction from
+    the stored arrays, except on near-ties within LABEL_TIE."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import CLASSIFICATION_FACTORY
+
+    bodies = [json.dumps({f"attr{j}": float(v) for j, v in enumerate(row)})
+              for row in Xq]
+    with running_server(dev, storage, CLASSIFICATION_FACTORY, iid) as port:
+        t0 = time.perf_counter()
+        answers = post_all(port, "/queries.json", bodies, SERVE_CLIENTS)
+        wall = time.perf_counter() - t0
+    check(all(st == 200 for st, _ in answers),
+          f"{label}: answers not 200: {[a for a in answers if a[0] != 200][:3]}")
+    s = scores64(kind, arrays, Xq)
+    want = np.argmax(s, 1)
+    got = np.asarray([int(a["label"]) for _, a in answers])
+    ties = near_tie(s, LABEL_TIE)
+    off = int(((got != want) & ~ties).sum())
+    print(f"{label}: {len(bodies)} POST /queries.json from {SERVE_CLIENTS} clients "
+          f"{wall:.2f} s ({len(bodies) / wall:.0f} q/s); {int((got == want).sum())} "
+          f"labels equal the float64 prediction, {int(ties.sum())} near-ties, "
+          f"{off} off", flush=True)
+    check(off == 0, f"{label}: {off} served labels off the float64 prediction")
+    return {"qps": len(bodies) / wall, "off": off}
+
+
+def covertype_full_width(torch, dev, home: str, X, y, witness: bool = False) -> dict:
+    """Phase 14's classification template on the Covertype-shaped table:
+    NB (multinomial and bernoulli), LR (reg 0 and 1e-3) and RF trained
+    through the template's algorithms at its defaults, each checked; the
+    three instances served; the eval grid serially and distributed."""
+    import numpy as np
+
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import JAX_CLASSIFICATION_FACTORY
+    from predictionio_tpu_torch.models.forest import ForestModel, ForestParams
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.templates.classification import engine as tmpl
+
+    C = int(y.max()) + 1
+    print(f"class shares {np.round(np.bincount(y) / len(y) * 100, 2).tolist()} %",
+          flush=True)
+    attrs = [f"attr{j}" for j in range(COVTYPE_ATTRS)]
+    data = tmpl.LabeledData(X, y, attrs)
+    storage = Storage(StorageConfig(home=home))
+    ctx = WorkflowContext(storage=storage, device=dev)
+    out = {}
+
+    def train(label, algo_cls, params):
+        algo = algo_cls(params)
+        algo.device = dev
+        model, wall = timed(torch, dev, f"train {label}", lambda: algo.train(ctx, data))
+        s = scores64(model.kind, model.arrays, X)
+        acc = float((np.argmax(s, 1) == y).mean())
+        print(f"{label}: training accuracy {acc:.4f}", flush=True)
+        out[label] = {"wall": wall, "accuracy": acc}
+        return algo, model
+
+    models = {}
+    for bern in (False, True):
+        label = "NB " + ("bernoulli" if bern else "multinomial")
+        algo, m = train(label, tmpl.NaiveBayesAlgorithm, tmpl.NBAlgoParams(
+            model_type="bernoulli" if bern else "multinomial"))
+        lp64, lt64 = nb_fit64(X, y, C, algo.params.lambda_, bern)
+        err = max(float(np.abs(m.arrays["log_prior"] - lp64).max()),
+                  float(np.abs(m.arrays["log_theta"] - lt64).max()))
+        print(f"{label}: log tables within {err:.3e} of float64 (limit {NB64_TOL})",
+              flush=True)
+        check(err <= NB64_TOL, f"{label} {err:.3e} off float64")
+        models[label] = (algo, m)
+    for reg in (0.0, 1e-3):
+        label = f"LR reg {reg:g}"
+        models[label] = train(label, tmpl.LogisticRegressionAlgorithm,
+                              tmpl.LRAlgoParams(reg=reg))
+    W, b = models["LR reg 0.001"][1].arrays["W"], models["LR reg 0.001"][1].arrays["b"]
+    out["lr_cpu"] = lr_card_against_cpu(torch, dev, X, y, C, 1e-3, W, b, witness)
+    models["RF"] = train("RF", tmpl.RandomForestAlgorithm, tmpl.RFAlgoParams())
+    rp = tmpl.RFAlgoParams()
+    fp = ForestParams(n_trees=rp.num_trees, max_depth=rp.max_depth,
+                      n_thresholds=rp.n_thresholds, feature_frac=rp.feature_frac,
+                      seed=rp.seed)
+    a = models["RF"][1].arrays
+    out["rf_cpu"] = forest_card_against_cpu(
+        X, y, fp, ForestModel(a["feats"], a["thrs"], a["leaf_probs"], C))
+
+    ds = tmpl.DataSourceParams(app_name="covertype", attrs=attrs)
+    rows = np.random.default_rng(SEED + 14).choice(len(y), SERVE_QUERIES, replace=False)
+    for label, name in (("NB multinomial", "naive"), ("LR reg 0.001", "lr"), ("RF", "forest")):
+        algo, m = models[label]
+        iid = write_template_instance(storage, JAX_CLASSIFICATION_FACTORY, name, algo,
+                                      m, ds)
+        out["serve " + label] = serve_classification(
+            dev, storage, iid, m.kind, m.arrays, X[rows], f"served {label}")
+    out["eval"] = covertype_eval(torch, dev, home, X[::EVAL_EVERY], y[::EVAL_EVERY],
+                                 attrs)
+    return out
+
+
+def covertype_eval(torch, dev, home: str, X, y, attrs) -> dict:
+    """``pio eval`` of a DefaultGrid-shaped grid (NB λ 0.5 and 1.0, LR, RF;
+    evalK 2) over every EVAL_EVERY-th row, behind a data source whose read
+    returns them: serially and distributed, every fold accuracy equal."""
+    from predictionio_tpu_torch.controller import (Engine, EngineParams, Evaluation,
+                                                   FirstServing, IdentityPreparator)
+    from predictionio_tpu_torch.core.workflow import run_evaluation
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.storage import leaderboard as lb
+    from predictionio_tpu_torch.templates.classification import engine as tmpl
+
+    data = tmpl.LabeledData(X, y, attrs)
+    serial = []  # the serial run's fold accuracies, candidate by candidate
+
+    class TableSource(tmpl.ClassificationDataSource):
+        def _read(self, ctx):
+            return data
+
+    class FoldAccuracy(tmpl.Accuracy):
+        def calculate(self, ctx, eval_data):
+            serial.append([super(FoldAccuracy, self).calculate(ctx, [fold])
+                           for fold in eval_data])
+            return super().calculate(ctx, eval_data)
+
+    class TableEvaluation(Evaluation):
+        engine_factory = staticmethod(lambda: Engine(
+            TableSource, IdentityPreparator,
+            {"naive": tmpl.NaiveBayesAlgorithm, "lr": tmpl.LogisticRegressionAlgorithm,
+             "forest": tmpl.RandomForestAlgorithm}, FirstServing))
+        metric = FoldAccuracy()
+
+    ds = tmpl.DataSourceParams(app_name="covertype", attrs=attrs, eval_k=2)
+    grid = [EngineParams(data_source_params=ds,
+                         algorithms_params=[("naive", tmpl.NBAlgoParams(lambda_=lam))])
+            for lam in (0.5, 1.0)] + [
+        EngineParams(data_source_params=ds, algorithms_params=[("lr", tmpl.LRAlgoParams())]),
+        EngineParams(data_source_params=ds,
+                     algorithms_params=[("forest", tmpl.RFAlgoParams())])]
+    storage = Storage(StorageConfig(home=home))
+    docs = {}
+    for dist in (False, True):
+        (iid, res), _ = timed(torch, dev, f"run_evaluation over {len(y)} rows "
+                              f"({'distributed' if dist else 'serial'})",
+                              lambda: run_evaluation(TableEvaluation(), grid,
+                                                     storage=storage, distributed=dist,
+                                                     device=dev))
+        docs[dist] = lb.read(home, iid)
+    serial = serial[:len(grid)]  # the distributed run's fallback appended more
+    dist = [e["foldScores"] for e in sorted(docs[True]["entries"], key=lambda e: e["index"])]
+    print(f"eval fold accuracies, serial {serial}; distributed {dist} "
+          f"(vmapped {docs[True]['vmapped']}, serial fallback {docs[True]['serial']}, "
+          f"dispatches {docs[True]['dispatches']})", flush=True)
+    check(serial == dist, "distributed fold accuracies differ from the serial run's")
+    check(lb.digest(docs[False]) == lb.digest(docs[True]), "leaderboards differ")
+    return {"fold_scores": dist}
+
+
+def classification_cli(dev, X, y) -> dict:
+    """CLI_ENTITIES ``$set`` entities of the template's attr0..2 layout (the
+    table's first three attributes and label) through the port's event
+    server, then the port's CLI: ``train`` from the template's engine.json
+    on the card, and ``deploy`` answering queries equal to the instance
+    served in-process."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import CLASSIFICATION_FACTORY, prepare_deploy
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    engine_dir = os.path.join(repo, "predictionio_tpu_torch", "templates", "classification")
+    with open(os.path.join(engine_dir, "engine.json")) as f:
+        app_name = json.load(f)["datasource"]["params"]["appName"]
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="pio_chip_cls_cli_") as home:
+        env = dict(os.environ, PIO_HOME=home)
+
+        def cli(*args) -> str:
+            t0 = time.perf_counter()
+            proc = subprocess.run(CLI + list(args), cwd=repo, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"cli {' '.join(args)} failed "
+                                        f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+            print(f"-- cli {' '.join(args[:2])}: {time.perf_counter() - t0:.2f} s wall",
+                  flush=True)
+            return proc.stdout
+
+        def serve(*args):
+            log = os.path.join(home, f"{args[0]}.log")
+            with open(log, "w") as out:
+                proc = subprocess.Popen(CLI + list(args), cwd=repo, env=env,
+                                        stdout=out, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            return proc, log
+
+        try:
+            key = re.search(r"Access Key: (\S+)", cli("app", "new", app_name)).group(1)
+            es_port = free_port()
+            es, es_log = serve("eventserver", "--ip", "127.0.0.1", "--port", str(es_port),
+                               "--ingest-batching")
+            wait_until(lambda: http_json(es_port, "GET", "/") == (200, {"status": "alive"}),
+                       es, es_log, 120)
+            events = [{"event": "$set", "entityType": "user", "entityId": f"u{j}",
+                       "properties": {"attr0": float(X[j, 0]), "attr1": float(X[j, 1]),
+                                      "attr2": float(X[j, 2]), "label": int(y[j])}}
+                      for j in range(CLI_ENTITIES)]
+            batches = [json.dumps(events[s:s + BATCH_EVENTS])
+                       for s in range(0, len(events), BATCH_EVENTS)]
+            t0 = time.perf_counter()
+            answers = post_all(es_port, "/batch/events.json?accessKey=" + key, batches,
+                               BATCH_CLIENTS)
+            dt = time.perf_counter() - t0
+            ok = sum(it["status"] == 201 for st, body in answers if st == 200 for it in body)
+            print(f"{CLI_ENTITIES} $set entities in {len(batches)} batches: {dt:.2f} s, "
+                  f"{ok} answered 201", flush=True)
+            check(ok == CLI_ENTITIES, f"{CLI_ENTITIES - ok} $set events not 201")
+            es.send_signal(2)
+            es.wait(timeout=60)
+            out = cli("train", "--engine-dir", engine_dir)
+            check("Training completed" in out, f"cli train printed {out[-500:]}")
+            port = free_port()
+            dp, dp_log = serve("deploy", "--engine-dir", engine_dir, "--ip", "127.0.0.1",
+                               "--port", str(port))
+            wait_until(lambda: http_json(port, "GET", "/")[0] == 200, dp, dp_log, 300)
+            rng = np.random.default_rng(SEED + 15)
+            qs = [{"attr0": float(a), "attr1": float(b), "attr2": float(c)}
+                  for a, b, c in X[rng.choice(len(y), 50, replace=False), :3]]
+            t0 = time.perf_counter()
+            got = [http_json(port, "POST", "/queries.json", q) for q in qs]
+            wall = time.perf_counter() - t0
+            check(all(st == 200 for st, _ in got), f"deploy answers {got[:3]}")
+            eng = prepare_deploy(CLASSIFICATION_FACTORY,
+                                 storage=Storage(StorageConfig(home=home)), device=dev)
+            want = [eng.query(q) for q in qs]
+            check([a for _, a in got] == want, "deploy's answers differ from in-process")
+            print(f"cli deploy: 50 POST /queries.json {wall:.2f} s, equal to instance "
+                  f"{eng.instance.id} served in-process; labels "
+                  f"{sorted(set(int(a['label']) for a in want))}", flush=True)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+    return {"entities": CLI_ENTITIES}
+
+
+def synthetic_corpus(seed: int = 7):
+    """A corpus of 20 Newsgroups' shape: TEXT_DOCS documents over
+    TEXT_LABELS labels, 50-400 tokens each from a Zipf vocabulary of
+    TEXT_VOCAB words; a label draws 30% of its tokens from 200 words of
+    its own."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray([f"w{j}" for j in range(TEXT_VOCAB)])
+    topics = rng.integers(0, TEXT_VOCAB, size=(TEXT_LABELS, 200))
+    labels = rng.integers(0, TEXT_LABELS, TEXT_DOCS)
+    docs = []
+    for lab, n in zip(labels, rng.integers(50, 401, TEXT_DOCS)):
+        ids = np.minimum(rng.zipf(1.1, n) - 1, TEXT_VOCAB - 1)
+        own = rng.random(n) < 0.3
+        ids[own] = topics[lab, rng.integers(0, 200, int(own.sum()))]
+        docs.append(" ".join(vocab[ids].tolist()))
+    return docs, labels.astype(np.int32)
+
+
+def text_full_width(torch, dev, home: str) -> dict:
+    """The text template on the synthetic corpus through the event store:
+    ``run_train`` of NB and of LR (hashBits 12, ngrams 2; the hashing's
+    host time printed apart), TEXT_QUERIES queries served to each, every
+    label equal to the float64 prediction from the stored arrays."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import (TEXTCLASSIFICATION_FACTORY,
+                                                      prepare_deploy, run_train)
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.templates.textclassification import engine as tmpl
+
+    (docs, labels), _ = timed(torch, dev, f"corpus of {TEXT_DOCS} documents",
+                              synthetic_corpus)
+    storage = Storage(StorageConfig(home=home))
+    app = storage.meta.create_app("Newsgroups")
+    storage.events.init_channel(app.id)
+    _, _ = timed(torch, dev, f"{TEXT_DOCS} $set documents into the event store",
+                 lambda: storage.events.insert_batch(
+                     [Event(event="$set", entity_type="doc", entity_id=f"d{j}",
+                            properties={"text": t, "label": int(lab)})
+                      for j, (t, lab) in enumerate(zip(docs, labels))], app.id))
+    hashing = [0.0]
+    hash_features = tmpl.hash_features
+
+    def timed_hash(texts, cfg):
+        t0 = time.perf_counter()
+        out = hash_features(texts, cfg)
+        hashing[0] += time.perf_counter() - t0
+        return out
+
+    rng = np.random.default_rng(SEED + 16)
+    qrows = rng.choice(TEXT_DOCS, TEXT_QUERIES, replace=False)
+    cfg = tmpl.HashingConfig(12, 2)
+    Xq = hash_features([docs[j] for j in qrows], cfg)
+    out = {}
+    for name, params in (("naive", {"lambda": 1.0}), ("lr", {})):
+        variant = {"id": f"text-{name}", "engineFactory": TEXTCLASSIFICATION_FACTORY,
+                   "datasource": {"params": {"appName": "Newsgroups", "hashBits": 12,
+                                             "ngrams": 2}},
+                   "algorithms": [{"name": name, "params": params}]}
+        hashing[0] = 0.0
+        with mock.patch.object(tmpl, "hash_features", timed_hash):
+            iid, wall = timed(torch, dev, f"text {name}: run_train",
+                              lambda: run_train(TEXTCLASSIFICATION_FACTORY, variant=variant,
+                                                storage=storage, device=dev))
+        model = prepare_deploy(instance_id=iid, storage=storage, device=dev).models[0]
+        kind = "nb" if name == "naive" else "lr"
+        s = scores64(kind, model.arrays, Xq)
+        acc = float((np.argmax(scores64(kind, model.arrays,
+                                        hash_features(docs[:2000], cfg)), 1)
+                     == labels[:2000]).mean())
+        print(f"text {name}: hashing {hashing[0]:.2f} s of the train's {wall:.2f} s "
+              f"(host); training accuracy on the first 2,000 documents {acc:.4f}",
+              flush=True)
+        bodies = [json.dumps({"text": docs[j]}) for j in qrows]
+        with running_server(dev, storage, TEXTCLASSIFICATION_FACTORY, iid) as port:
+            t0 = time.perf_counter()
+            answers = post_all(port, "/queries.json", bodies, SERVE_CLIENTS)
+            qwall = time.perf_counter() - t0
+        check(all(st == 200 for st, _ in answers), f"text {name}: answers not 200")
+        got = np.asarray([int(a["label"]) for _, a in answers])
+        ties = near_tie(s, LABEL_TIE)
+        off = int(((got != np.argmax(s, 1)) & ~ties).sum())
+        print(f"text {name}: {TEXT_QUERIES} POST /queries.json {qwall:.2f} s; {off} labels "
+              f"off the float64 prediction, {int(ties.sum())} near-ties", flush=True)
+        check(off == 0, f"text {name}: {off} served labels off float64")
+        out[name] = {"hash_s": hashing[0], "train_s": wall, "accuracy": acc}
+    return out
+
+
+def markov_full_width(torch, dev, coo=None) -> dict:
+    """The Markov chain over ML-20M's items: the consecutive items of each
+    user in ``synthetic_ml20m``'s draw order (seed 7) as pairs; counts
+    equal to ``np.bincount``, probabilities within 1e-6 of float64,
+    ``predict_top_k`` of 100 states a top 10 of a numpy sort."""
+    import numpy as np
+
+    from predictionio_tpu_torch.e2.markov import markov_chain_train, transition_counts
+
+    if coo is None:
+        users, items, _ = synthetic_ml20m(N_RATINGS, N_USERS, N_ITEMS)
+    else:  # phase 5's draws, in their order
+        users, items = coo.user_idx, coo.item_idx
+    order = np.argsort(users, kind="stable")
+    u, it = users[order], items[order]
+    same = u[1:] == u[:-1]
+    pairs = np.stack([it[:-1][same], it[1:][same]], 1)
+    S = N_ITEMS
+    print(f"Markov: {len(pairs)} pairs over {S} states", flush=True)
+    counts, _ = timed(torch, dev, "transition_counts", lambda: transition_counts(pairs, S, dev))
+    flat = pairs[:, 0].astype(np.int64) * S + pairs[:, 1]
+    ref = torch.from_numpy(np.bincount(flat, minlength=S * S)).to(dev)
+    check(torch.equal(counts.view(-1), ref.to(torch.float32)),
+          "Markov counts differ from np.bincount")
+    total = int(counts.double().sum())
+    del counts
+    model, _ = timed(torch, dev, "markov_chain_train", lambda: markov_chain_train(pairs, S, dev))
+    ref = ref.view(S, S).double()
+    p64 = ref / ref.sum(1, keepdim=True).clamp(min=1.0)
+    err = float((torch.from_numpy(model.transitions).to(dev).double() - p64).abs().max())
+    del ref, p64
+    check(err <= 1e-6, f"Markov probabilities {err:.3e} off float64")
+    states = np.random.default_rng(SEED + 17).choice(S, 100, replace=False)
+    for s in states.tolist():
+        # a top 10 by numpy's sort: its probabilities in order, each the
+        # row's own, no state twice (which of tied states is free)
+        row = model.transitions[s]
+        want = np.sort(row)[::-1][:10]
+        got = model.predict_top_k(s, 10)
+        check([p for _, p in got] == want[want > 0].tolist()
+              and all(float(row[i]) == p for i, p in got)
+              and len({i for i, _ in got}) == len(got),
+              f"predict_top_k({s}) is not numpy's top 10")
+    print(f"Markov: counts equal np.bincount ({total} transitions), "
+          f"probabilities within {err:.3e} of float64, predict_top_k of 100 states "
+          f"a top 10 of numpy's sort", flush=True)
+    return {"pairs": int(len(pairs)), "prob_err": err}
+
+
+def categorical_nb_full_width(torch, dev) -> dict:
+    """Categorical NB over CAT_POINTS points x CAT_POSITIONS positions with
+    vocabularies of 2-1,000 values (Zipf-skewed): the counts on the card
+    equal numpy's, and the trained tables hold them."""
+    import math
+
+    import numpy as np
+
+    from predictionio_tpu_torch.e2 import LabeledPoint, categorical_naive_bayes_train
+    from predictionio_tpu_torch.e2.naivebayes import count_tables
+
+    rng = np.random.default_rng(SEED + 18)
+    sizes = np.unique(np.geomspace(2, 1000, CAT_POSITIONS).astype(int)).tolist()
+    sizes += [1000] * (CAT_POSITIONS - len(sizes))
+    labels = rng.integers(0, 5, CAT_POINTS)
+    ids = [np.minimum(rng.zipf(1.3, CAT_POINTS) - 1 + labels * (v // 7), v - 1)
+           for v in sizes]
+    cols = [np.asarray([f"p{p}v{j}" for j in range(v)])[i].tolist()
+            for p, (v, i) in enumerate(zip(sizes, ids))]
+    lab_names = [f"l{c}" for c in labels.tolist()]
+    points = [LabeledPoint(lab, feats) for lab, feats in zip(lab_names, zip(*cols))]
+    (label_counts, mats), _ = timed(
+        torch, dev, f"count_tables ({CAT_POINTS} x {CAT_POSITIONS})",
+        lambda: count_tables(labels, ids, 5, sizes, dev))
+    check(np.array_equal(label_counts, np.bincount(labels, minlength=5)),
+          "label counts differ from numpy")
+    for v, i, m in zip(sizes, ids, mats):
+        check(np.array_equal(m, np.bincount(labels * v + i, minlength=5 * v).reshape(5, v)),
+              f"counts of a {v}-value position differ from numpy")
+    model, _ = timed(torch, dev, "categorical_naive_bayes_train",
+                     lambda: categorical_naive_bayes_train(points, 1.0, device=dev))
+    # a table entry against its count: vocabularies sort the value strings
+    p, lab = 3, 2
+    vocab = sorted(set(cols[p]))
+    j = vocab[len(vocab) // 2]
+    cnt = int(np.sum((labels == lab) & (np.asarray(cols[p]) == j)))
+    want = math.log((np.float32(cnt) + 1.0) / (np.float32((labels == lab).sum())
+                                                 + 1.0 * len(vocab)))
+    check(model.likelihoods[f"l{lab}"][p][j] == want, "a likelihood is off its count")
+    print(f"categorical NB: vocabularies {sizes}; counts equal numpy's", flush=True)
+    return {"sizes": sizes}
+
+
+def classification_full_width(torch, ops, dev, coo=None, witness: bool = False) -> dict:
+    """Phase 14: classification and e2 at full width (see the module
+    docstring). No kernel of the port runs here: the counters, zeroed
+    first, must read 0. ``witness`` adds LR's one-thread CPU run."""
+    t_phase = time.perf_counter()
+    reset_counters(ops)
+    STEP_TIMES.clear()
+    if PROFILE_STEPS:
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA],
+                                    acc_events=True):
+            torch.cuda.synchronize(dev)
+        print(f"torch.profiler start-up {time.perf_counter() - t0:.2f} s (outside every "
+              f"step's wall)", flush=True)
+    out = {}
+    (X, y), _ = timed(torch, dev, f"Covertype-shaped table ({COVTYPE_ROWS} x "
+                      f"{COVTYPE_ATTRS}, seed 7)", synthetic_covertype)
+    with tempfile.TemporaryDirectory(prefix="pio_chip_cls_") as home:
+        out["covertype"] = covertype_full_width(torch, dev, home, X, y, witness)
+        out["cli"] = classification_cli(dev, X, y)
+        out["text"] = text_full_width(torch, dev, home)
+    out["markov"] = markov_full_width(torch, dev, coo)
+    out["categorical"] = categorical_nb_full_width(torch, dev)
+    launches = read_counters(ops)
+    wall = time.perf_counter() - t_phase
+    busy = ""
+    if PROFILE_STEPS:
+        busy = (f"; the card busy {sum(b for _, _, b in STEP_TIMES):.3f} s over the "
+                f"{len(STEP_TIMES)} timed steps ({sum(w for _, w, _ in STEP_TIMES):.1f} s "
+                f"of their wall; not profiled: the CPU checks, serving, the CLI's "
+                f"processes)")
+    print(f"phase 14: {wall:.1f} s wall{busy}; kernel launches {launches}", flush=True)
+    check(sum(launches.values()) == 0, f"phase 14 launched {launches}")
+    out["wall"] = wall
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -4601,6 +5445,9 @@ def main(argv) -> int:
     ops_only = "--ops" in argv
     templates_only = "--templates" in argv
     ann_only = "--ann" in argv
+    classification_only = "--classification" in argv
+    global PROFILE_STEPS
+    PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
 
     phase("1. card")
@@ -4625,6 +5472,12 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if classification_only:
+        phase("14. classification and e2 at full width")
+        classification_full_width(torch, ops, dev, witness=True)
+        phase("done")
+        return 0
 
     if ann_only:
         phase("13. ANN and the two-tower template at full width")
@@ -4721,6 +5574,8 @@ def main(argv) -> int:
     family = templates_full_width(torch, ops, dev, train)
     phase("13. ANN and the two-tower template at full width")
     ann = ann_full_width(torch, ops, dev, train, "--profile" in argv)
+    phase("14. classification and e2 at full width")
+    classification_full_width(torch, ops, dev, train["coo"])
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]

@@ -79,8 +79,7 @@ def train_codebooks(V, m: int, k: int, *, iters: int = 8, seed: int = 0,
     """
     import torch
 
-    from predictionio_tpu_torch.models.als import _full_f32
-    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.utils.device import full_f32, resolve_device
 
     dev = resolve_device(device)
     V = np.asarray(V, np.float32)
@@ -112,7 +111,7 @@ def train_codebooks(V, m: int, k: int, *, iters: int = 8, seed: int = 0,
     S = Xs.shape[1] // T
     Xc = np.ascontiguousarray(
         Xs.reshape(m, S, T, dsub).transpose(1, 0, 2, 3))
-    with _full_f32():
+    with full_f32():
         C = _lloyd(torch.from_numpy(Xc).to(dev),
                    torch.from_numpy(w.reshape(S, T)).to(dev),
                    torch.from_numpy(np.ascontiguousarray(C0, np.float32)).to(dev),
@@ -184,8 +183,7 @@ def encode(V, codebooks: np.ndarray, device=None) -> np.ndarray:
     ``device``, in chunks of rows."""
     import torch
 
-    from predictionio_tpu_torch.models.als import _full_f32
-    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.utils.device import full_f32, resolve_device
 
     dev = resolve_device(device)
     V = np.asarray(V, np.float32)
@@ -197,7 +195,7 @@ def encode(V, codebooks: np.ndarray, device=None) -> np.ndarray:
     Ct = C.transpose(1, 2)                                    # (m, dsub, K)
     cn = (C * C).sum(-1)                                      # (m, K)
     out = np.empty((n, m), np.uint8)
-    with _full_f32():
+    with full_f32():
         for lo in range(0, n, _ENCODE_CHUNK):
             x = torch.from_numpy(V[lo:lo + _ENCODE_CHUNK]).to(dev)
             x = x.reshape(-1, m, dsub).transpose(0, 1)        # (m, T, dsub)

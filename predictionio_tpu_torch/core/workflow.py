@@ -51,7 +51,7 @@ from predictionio_tpu_torch.storage.meta import (
     utcnow,
 )
 from predictionio_tpu_torch.storage.registry import Storage, get_storage
-from predictionio_tpu_torch.utils.device import resolve_device
+from predictionio_tpu_torch.utils.device import check_mesh, resolve_device
 
 RECOMMENDATION_FACTORY = "predictionio_tpu_torch.templates.recommendation.engine:engine_factory"
 JAX_RECOMMENDATION_FACTORY = "predictionio_tpu.templates.recommendation.engine:engine_factory"
@@ -61,6 +61,14 @@ ECOMMERCE_FACTORY = "predictionio_tpu_torch.templates.ecommercerecommendation.en
 JAX_ECOMMERCE_FACTORY = "predictionio_tpu.templates.ecommercerecommendation.engine:engine_factory"
 TWOTOWER_FACTORY = "predictionio_tpu_torch.templates.twotower.engine:engine_factory"
 JAX_TWOTOWER_FACTORY = "predictionio_tpu.templates.twotower.engine:engine_factory"
+CLASSIFICATION_FACTORY = "predictionio_tpu_torch.templates.classification.engine:engine_factory"
+JAX_CLASSIFICATION_FACTORY = "predictionio_tpu.templates.classification.engine:engine_factory"
+TEXTCLASSIFICATION_FACTORY = (
+    "predictionio_tpu_torch.templates.textclassification.engine:engine_factory")
+JAX_TEXTCLASSIFICATION_FACTORY = (
+    "predictionio_tpu.templates.textclassification.engine:engine_factory")
+VANILLA_FACTORY = "predictionio_tpu_torch.templates.vanilla.engine:engine_factory"
+JAX_VANILLA_FACTORY = "predictionio_tpu.templates.vanilla.engine:engine_factory"
 
 #: engine factory recorded in an instance → the port's factory serving it
 FACTORIES = {
@@ -72,6 +80,12 @@ FACTORIES = {
     ECOMMERCE_FACTORY: ECOMMERCE_FACTORY,
     JAX_TWOTOWER_FACTORY: TWOTOWER_FACTORY,
     TWOTOWER_FACTORY: TWOTOWER_FACTORY,
+    JAX_CLASSIFICATION_FACTORY: CLASSIFICATION_FACTORY,
+    CLASSIFICATION_FACTORY: CLASSIFICATION_FACTORY,
+    JAX_TEXTCLASSIFICATION_FACTORY: TEXTCLASSIFICATION_FACTORY,
+    TEXTCLASSIFICATION_FACTORY: TEXTCLASSIFICATION_FACTORY,
+    JAX_VANILLA_FACTORY: VANILLA_FACTORY,
+    VANILLA_FACTORY: VANILLA_FACTORY,
 }
 
 #: the port's mid-train checkpoints, under the storage home. Never the
@@ -165,6 +179,7 @@ def run_train(
             for n, p in engine_params.algorithms_params]),
         serving_params=json.dumps(params_to_json(engine_params.serving_params)),
     )
+    check_mesh(ei.mesh_conf)
     storage.meta.insert_engine_instance(ei)
     ckpt_root = _ckpt_root(storage, port, ei.engine_variant)
     if not resume:

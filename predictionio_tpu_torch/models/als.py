@@ -35,7 +35,6 @@ one gather → score → top-k launch of the ``score_topk`` kernel
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import threading
@@ -48,7 +47,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch import ops
-from predictionio_tpu_torch.utils.device import resolve_device
+from predictionio_tpu_torch.utils.device import full_f32, resolve_device
 
 
 def init_factors(n: int, rank: int, seed: int) -> np.ndarray:
@@ -507,18 +506,6 @@ def _make_half(k: int, implicit: bool, weighted_reg: bool,
     return half
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """f32 matrix products at full precision (no TF32) for the duration:
-    the dense head's normal equations must not lose ten mantissa bits."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def _train_permuted(prep: ALSPrepared, p: ALSParams, bufs: tuple,
                     V0p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The iteration loop on permuted device factors, from V0p."""
@@ -589,7 +576,7 @@ def als_train_prepared(prep: ALSPrepared, p: ALSParams, device=None,
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
     bufs = _device_buffers(prep, device)
-    with _full_f32():
+    with full_f32():
         if start >= p.iterations and U0 is not None:
             # died between the final save and persistence: nothing to train
             U, V = put(U0), put(V0p)
@@ -652,7 +639,7 @@ def als_train_scored(prep: ALSPrepared, p0: ALSParams):
 
     def one(hyper, u_bufs, i_bufs, V0p, uq, iq, rq, valid):
         p = dataclasses.replace(p0, reg=float(hyper[0]), alpha=float(hyper[1]))
-        with _full_f32():
+        with full_f32():
             U, V = _train_permuted(prep, p, (u_bufs, i_bufs), V0p)
         pred = (U[uq] * V[iq]).sum(-1)
         err = torch.where(valid, (pred - rq) ** 2, torch.zeros_like(pred))

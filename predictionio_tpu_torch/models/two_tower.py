@@ -287,8 +287,7 @@ def two_tower_train(
     tests carry the JAX package's initial weights in). ``stats`` (a
     dict) receives ``epoch_losses`` (each run epoch's mean loss),
     ``steps`` and ``train_sec`` (the epochs' wall, synchronised)."""
-    from predictionio_tpu_torch.models.als import _full_f32
-    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.utils.device import full_f32, resolve_device
 
     dev = resolve_device(device)
     p = params
@@ -340,7 +339,7 @@ def two_tower_train(
     epoch_losses: List[float] = []
     steps = 0
     t0 = time.perf_counter()
-    with _full_f32():
+    with full_f32():
         for epoch in range(start_epoch, p.epochs):
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             epoch_steps = 0

@@ -8,6 +8,9 @@ PyTorch version.
 - :mod:`.rows_gram` — weighted Gram over a pre-gathered block (the op
   entry point of the JAX package's ``rows_gram``).
 
+:mod:`.segment` (segment sums, counts and means for the e2 helpers) is
+plain PyTorch, as its JAX counterpart is plain XLA: no kernel, no counter.
+
 Which path runs is decided by the device of the tensors alone: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
 raises. There is no switch.

@@ -163,11 +163,11 @@ JAX_PARAMS_GLOBAL = ("predictionio_tpu.templates.ecommercerecommendation.engine"
 def dumps_blob(d: Dict[str, Any]) -> bytes:
     """Pickle the blob dict the way the JAX package's ``pickle.dumps``
     does, with the params class named by its JAX module path."""
-    return jaxpickle.dumps(d, ECommAlgorithmParams, JAX_PARAMS_GLOBAL)
+    return jaxpickle.dumps(d, {ECommAlgorithmParams: JAX_PARAMS_GLOBAL})
 
 
 def loads_blob(blob: bytes) -> Dict[str, Any]:
-    return jaxpickle.loads(blob, ECommAlgorithmParams, JAX_PARAMS_GLOBAL,
+    return jaxpickle.loads(blob, {ECommAlgorithmParams: JAX_PARAMS_GLOBAL},
                            "e-commerce blob")
 
 

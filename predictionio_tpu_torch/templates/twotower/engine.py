@@ -228,11 +228,11 @@ JAX_PARAMS_GLOBAL = ("predictionio_tpu.models.two_tower", "TwoTowerParams")
 def dumps_blob(d: Dict[str, Any]) -> bytes:
     """Pickle the blob dict the way the JAX package's ``pickle.dumps``
     does, with the params class named by its JAX module path."""
-    return jaxpickle.dumps(d, TwoTowerParams, JAX_PARAMS_GLOBAL)
+    return jaxpickle.dumps(d, {TwoTowerParams: JAX_PARAMS_GLOBAL})
 
 
 def loads_blob(blob: bytes) -> Dict[str, Any]:
-    return jaxpickle.loads(blob, TwoTowerParams, JAX_PARAMS_GLOBAL,
+    return jaxpickle.loads(blob, {TwoTowerParams: JAX_PARAMS_GLOBAL},
                            "two-tower blob")
 
 

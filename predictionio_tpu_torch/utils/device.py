@@ -1,10 +1,17 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution and the device rules shared by every entry point of
+the port."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Any, Dict, Optional, Union
 
 import torch
+
+#: why a mesh of more than one device is refused: the port has none yet
+MESH_NOT_PORTED = (
+    "a device mesh of more than one device is not ported to "
+    "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8)")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -20,3 +27,27 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def check_mesh(mesh_conf: Optional[Dict[str, Any]]) -> None:
+    """Refuse an engine.json ``meshConf`` block whose ``mesh`` axes
+    (``{"mesh": {"data": 8}}``) ask for more than one device."""
+    want = 1
+    for size in ((mesh_conf or {}).get("mesh") or {}).values():
+        want *= int(size)
+    if want > 1:
+        raise ValueError(f"meshConf {mesh_conf} asks for {want} devices: "
+                         f"{MESH_NOT_PORTED}")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 matrix products at full precision (no TF32) for the duration:
+    normal equations, Gram sums and losses must not lose ten mantissa
+    bits."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

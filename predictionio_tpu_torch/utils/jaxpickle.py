@@ -1,12 +1,12 @@
 """Template blobs pickled under the JAX package's class names.
 
-A template's model blob is a pickled dict that holds its params
-dataclass. The JAX package pickles that class under its own module
-path, so a blob either package writes names the JAX class. The port
-writes its own dataclass under that name without importing the JAX
-package, and maps the name back to its dataclass on load, so blobs
-load in both directions. Any other name of the JAX package is refused:
-loading it would import JAX.
+A template's model blob pickles classes of the JAX package: a params
+dataclass inside a dict, or the model object itself. The JAX package
+pickles them under its own module paths, so a blob either package writes
+names the JAX classes. The port writes its own classes under those names
+without importing the JAX package, and maps the names back to its classes
+on load, so blobs load in both directions. Any other name of the JAX
+package is refused: loading it would import JAX.
 """
 
 from __future__ import annotations
@@ -15,17 +15,21 @@ import io
 import pickle
 from typing import Any, Dict, Tuple
 
+#: the port's class → the JAX package's (module, qualified name) of it
+Names = Dict[type, Tuple[str, str]]
 
-def dumps(d: Dict[str, Any], cls: type, jax_global: Tuple[str, str]) -> bytes:
-    """Pickle ``d`` as the JAX package's ``pickle.dumps`` does, with
-    ``cls`` named by ``jax_global`` (module, qualified name)."""
+
+def dumps(obj: Any, names: Names) -> bytes:
+    """Pickle ``obj`` as the JAX package's ``pickle.dumps`` does, with each
+    class of ``names`` named by its JAX (module, qualified name)."""
 
     class _Pickler(pickle._Pickler):
         # the stock pickler checks a global by importing its module;
-        # this one writes the module and name strings for ``cls`` (the
-        # pure-Python pickler's ``save_global`` is the hook)
+        # this one writes the module and name strings for the mapped
+        # classes (the pure-Python pickler's ``save_global`` is the hook)
         def save_global(self, obj, name=None):
-            if obj is not cls:
+            jax_global = names.get(obj) if isinstance(obj, type) else None
+            if jax_global is None:
                 return super().save_global(obj, name)
             module, qualname = jax_global
             self.save(module)
@@ -34,18 +38,20 @@ def dumps(d: Dict[str, Any], cls: type, jax_global: Tuple[str, str]) -> bytes:
             self.memoize(obj)
 
     buf = io.BytesIO()
-    _Pickler(buf, max(pickle.DEFAULT_PROTOCOL, 4)).dump(d)
+    _Pickler(buf, max(pickle.DEFAULT_PROTOCOL, 4)).dump(obj)
     return buf.getvalue()
 
 
-def loads(blob: bytes, cls: type, jax_global: Tuple[str, str],
-          what: str) -> Dict[str, Any]:
-    """Unpickle ``blob`` with ``jax_global`` mapped to ``cls``; any other
-    name of the JAX package raises ``UnpicklingError`` naming ``what``."""
+def loads(blob: bytes, names: Names, what: str) -> Any:
+    """Unpickle ``blob`` with each JAX global of ``names`` mapped to its
+    port class; any other name of the JAX package raises
+    ``UnpicklingError`` naming ``what``."""
+    classes = {jax_global: cls for cls, jax_global in names.items()}
 
     class _Unpickler(pickle.Unpickler):
         def find_class(self, module, name):
-            if (module, name) == jax_global:
+            cls = classes.get((module, name))
+            if cls is not None:
                 return cls
             if module == "predictionio_tpu" or module.startswith("predictionio_tpu."):
                 raise pickle.UnpicklingError(

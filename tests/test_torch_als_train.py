@@ -180,7 +180,7 @@ def test_full_f32_precision_is_restored():
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
-        with port_als._full_f32():
+        with port_als.full_f32():
             assert torch.get_float32_matmul_precision() == "highest"
         assert torch.get_float32_matmul_precision() == "high"
     finally:

@@ -264,7 +264,7 @@ def test_localfs_refuses_corrupt_blob(tmp_path):
 
 def test_unknown_factory_raises(home):
     with pytest.raises(ValueError, match="no counterpart"):
-        prepare_deploy("predictionio_tpu.templates.classification.engine:engine_factory",
+        prepare_deploy("predictionio_tpu.templates.universal.engine:engine_factory",
                        storage=_port_storage(home), device="cpu")
 
 
@@ -442,12 +442,21 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch, home):
 
 
 #: modules the walk below must reach (the ANN package, the two-tower model
-#: and template, the integrity helpers), so a rename cannot drop them
+#: and template, the integrity helpers, the classification slice and e2),
+#: so a rename cannot drop them
 MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq",
              "predictionio_tpu_torch.ann.scorer", "predictionio_tpu_torch.models.two_tower",
              "predictionio_tpu_torch.templates.twotower.engine",
              "predictionio_tpu_torch.utils.integrity", "predictionio_tpu_torch.utils.jaxpickle",
-             "predictionio_tpu_torch.data.pipeline")
+             "predictionio_tpu_torch.data.pipeline",
+             "predictionio_tpu_torch.ops.segment", "predictionio_tpu_torch.models.naive_bayes",
+             "predictionio_tpu_torch.models.lbfgs", "predictionio_tpu_torch.models.linear",
+             "predictionio_tpu_torch.models.forest",
+             "predictionio_tpu_torch.templates.classification.engine",
+             "predictionio_tpu_torch.templates.textclassification.engine",
+             "predictionio_tpu_torch.templates.vanilla.engine",
+             "predictionio_tpu_torch.e2.naivebayes", "predictionio_tpu_torch.e2.markov",
+             "predictionio_tpu_torch.e2.external")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
