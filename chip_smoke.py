@@ -19,6 +19,8 @@
                                             # one-thread CPU witness (no result line);
                                             # with --profile, each step's busy time
                                             # on the card (torch.profiler)
+    python3 chip_smoke.py --universal  # phases 1, 2 and 15: the universal and
+                                       # sequential templates alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -86,9 +88,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    gather_gram on the same rows;
 7. the quickstart through the port's CLI and HTTP alone, in one
    temporary PIO_HOME: ``app new``; ``eventserver --ingest-batching``
-   taking 200,000 rate events (2,000 single POSTs from 64 clients, the
-   rest in batches of 50 from 16), every one answered 201, and a few
-   users' events read back as posted; ``export`` (200,000 lines),
+   taking 50,000 rate events (2,000 single POSTs from 64 clients, the
+   rest in batches of 50 from 16; cut from 200,000 to keep the whole run
+   in its time), every one answered 201, and a few
+   users' events read back as posted; ``export`` (50,000 lines),
    ``import`` into a second app and its ``export``, equal lines; ``train``
    on the card (it must launch gather_gram and chol_solve); ``deploy
    --batching --aot-buckets auto`` on the card, 20 HTTP answers checked
@@ -156,7 +159,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    as its size, the span file is not empty and ``pio trace --tree``
    prints one such trace. Phase 7 also
    reads the event server's ``/health``, ``/metrics`` (its
-   pio_events_ingested_total must count the 200,000 events) and
+   pio_events_ingested_total must count the 50,000 events) and
    ``/traces``.
 11. the engine server's online loop at ML-20M width, in a temporary
    PIO_HOME: phase 10's two instances registered as model-registry
@@ -228,10 +231,11 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    Phase 3 also holds score_topk at B = 1,024 (k = 16 and 128, rows_valid
    1,024 and 544) and phase 4 times it there.
 13. ANN and the two-tower template at full width, in temporary
-   PIO_HOMEs. Two-tower: phase 5's 20,000,263 draws as (user, item) view
-   pairs, the template's engine.json widths (embed 32, hidden [64], out
-   32, batch 1,024, lr 0.01, temperature 0.1) for 1 epoch (the cut: 5 →
-   1), trained through ``run_train`` (the data source's read returns the
+   PIO_HOMEs. Two-tower: the first 10,000,000 of phase 5's 20,000,263
+   draws as (user, item) view pairs, the template's engine.json widths
+   (embed 32, hidden [64], out 32, batch 1,024, lr 0.01, temperature
+   0.1) for 1 epoch (the cuts: 5 epochs to 1, and the draws halved to
+   keep the whole run in its time), trained through ``run_train`` (the data source's read returns the
    draws); steps/s and the epoch loss printed; the card's first 50 steps,
    each from the CPU's state before it, held against the port's CPU run
    of the same steps (same seeded init, same batches): in float64 and
@@ -299,6 +303,48 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    counts equal numpy's. Every timed step prints its wall; with
    ``--profile`` it runs under torch.profiler and also prints the card's
    busy time in it (kernels and copies), and the phase prints the sums.
+15. the universal recommender and sequential recommendation at full
+   width, in temporary PIO_HOMEs; no kernel of the port runs (the four
+   counters, zeroed first, must read 0). Universal: phase 5's draws as
+   events of the ML-20M geometry (138,493 users x 26,744 items), a buy
+   (the primary event) for each draw rated >= 4.5 and a view for each
+   draw; ``URAlgorithm._prepare`` and the same ``cco_indicators`` call as
+   ``URAlgorithm.train`` (50 indicators an item, LLR threshold 0.0) with
+   the dense crossover raised to 4,096 MB so that C (2.86 GB an event)
+   is built on the card; the walls of the call's stages (downsampling
+   and CSR on the host, the slabs, the
+   products, the LLR with its top-k; the card synchronised at each
+   stage's end). For 256 sampled primary rows the counts against both
+   events, computed on the card by ``_cooccurrence`` from the rows' own
+   primary CSR, equal a host count bitwise (the views' CSR built for the
+   rows' buyers alone, as the downsampling keeps them); for the primary
+   event (the diagonal masked) their LLR lies within 1e-6 of the term
+   scale 2·n·ln n of the port's CPU f32 LLR of the same counts, their gap
+   to float64 ``_llr_values`` is printed, and their indicator lists
+   equal the CPU's up to near-tie swaps within that tolerance (the views'
+   LLR and lists are not checked: their column counts need the views'
+   whole CSR again, about 15 s of host time). The model served by the port's EngineServer: 1,000 user
+   queries (users with at most 500 views; a third with eventBoosts, every
+   fifth with a blackList of its top three), 100 item queries and 50
+   cold users, each answer equal to a float64 host replay of
+   ``score_user`` with the popularity fallback and the bans up to
+   near-ties within 1e-5 relative; p50 printed. Sequential: the same
+   draws as per-user sequences in draw order, the template's engine.json
+   widths (hidden 64, 2 blocks, 2 heads, seqLen 64, batch 128) for one
+   epoch (cut from 20); the card's first three steps, each from the CPU's
+   state, within 1e-5 of the CPU's loss and of each leaf's max |g|, and
+   the parameters after the step within 1e-4 of each leaf's max |value|
+   (both steps' distance from a float64 step printed); a TF32 control
+   must fail the gradient check; steps/s printed (with ``--profile`` 20
+   steps also run under torch.profiler: the card's busy time); 500
+   ``{"history": ...}`` queries served, each top 10 equal to the port's
+   CPU scores up to near-ties. Through the CLI: 20,000 buy and view
+   events through the port's event server in batches of 50, ``train``
+   from each template's engine.json, ``deploy``, 50 queries to each
+   answered as the same instance in-process answers (live-history
+   ``user`` queries included), ``eval`` of UREvaluation over DefaultGrid
+   with MAP@10 and MAP@1 printed. Every time printed stands beside the
+   card's name and power limit.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -333,7 +379,7 @@ SEED = 0
 # full-width training: the template's defaults at BASELINE.md's rank
 N_RATINGS, ITERATIONS, LAMBDA = 20_000_263, 10, 0.01
 # `pio train` through the CLI: a small app from the same generator
-APP_EVENTS, APP_USERS, APP_ITEMS = 200_000, 10_000, 2_000
+APP_EVENTS, APP_USERS, APP_ITEMS = 50_000, 10_000, 2_000
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -1802,7 +1848,7 @@ def wait_until(ready, proc, log: str, timeout: float) -> None:
 
 def quickstart_through_cli(torch, ops, dev) -> None:
     """Phase 7: the quickstart through the port's CLI and HTTP alone: `app
-    new`, the event server with group commit taking the app's 200,000
+    new`, the event server with group commit taking the app's 50,000
     events, `export` and an `import` round trip, `train` and `deploy` on
     the card, 20 answers over HTTP held against the plain reference, and
     `status`."""
@@ -3830,7 +3876,7 @@ def resume_through_cli(ops, home: str) -> int:
     storage = Storage(StorageConfig(home=home))
     app = storage.meta.create_app("ResumeApp")
     storage.events.init_channel(app.id)
-    users, items, ratings = synthetic_ml20m(APP_EVENTS // 10, APP_USERS // 10, APP_ITEMS // 10)
+    users, items, ratings = synthetic_ml20m(20_000, 1_000, 200)
     storage.events.insert_batch([
         Event(event="rate", entity_type="user", entity_id=f"u{u}", target_entity_type="item",
               target_entity_id=f"i{i}", properties={"rating": float(r)})
@@ -3947,6 +3993,7 @@ def templates_full_width(torch, ops, dev, train) -> dict:
 
 #: the cut of phase 13: the two-tower template's 5 epochs → 1
 TT_EPOCHS = 1
+TT_PAIRS = 10_000_000      # the draws two-tower trains on (cut from 20,000,263)
 TT_CHECK_STEPS = 50        # the card's first steps held against the CPU's
 TT_STEP_TOL = 1e-4         # of each leaf's max |value|, and of its norm
 TT_MAX_FLIP_SHARE = 1e-5   # switched ReLUs, of the check's hidden units
@@ -4371,7 +4418,7 @@ def twotower_full_width(torch, ops, dev, coo, profile: bool = False) -> dict:
     from predictionio_tpu_torch.templates.twotower import engine as tt
     from predictionio_tpu_torch.utils.bimap import BiMap
 
-    uu, ii = coo.user_idx, coo.item_idx
+    uu, ii = coo.user_idx[:TT_PAIRS], coo.item_idx[:TT_PAIRS]
     data = InteractionData(BiMap.string_int(f"u{i}" for i in range(N_USERS)),
                            BiMap.string_int(f"i{j}" for j in range(N_ITEMS)),
                            lambda: iter([(uu, ii, np.ones(len(uu), np.float32))]),
@@ -5431,6 +5478,798 @@ def classification_full_width(torch, ops, dev, coo=None, witness: bool = False) 
     return out
 
 
+# -- phase 15: the universal recommender and sequential recommendation ---------
+
+UR_DENSE_MB = 4096     # the card's dense path: C is 26,744² f32, 2.86 GB an event
+UR_CHECK_ROWS = 256    # primary rows whose counts and LLR are held on the host
+UR_LLR_TOL = 1e-6      # card LLR against the port's CPU f32 LLR, of the term scale 2·n·ln n
+UR_USERS, UR_ITEM_QUERIES, UR_COLD, UR_MAX_VIEWS = 1_000, 100, 50, 500
+SR_CHECK_STEPS = 3     # the card's first steps, each from the CPU's state
+SR_GRAD_TOL = 1e-5     # card loss and gradients against the CPU's, of each leaf's max |g|
+SR_STEP_TOL = 1e-4     # parameters after the step against the CPU's, of each leaf's max |value|
+SR_SERVED = 500
+SR_CLI_EVENTS, SR_CLI_USERS, SR_CLI_ITEMS = 20_000, 1_000, 400
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
+
+
+def ur_training_data(users, items, ratings):
+    """The universal template's training data from phase 5's draws: a buy
+    (the primary event) for each draw rated >= BUY_AT, a view for each
+    draw; ids "u<n>" and "i<n>" over the whole ML-20M geometry."""
+    from predictionio_tpu_torch.templates.universal import engine as ur
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    buy = ratings >= BUY_AT
+    return ur.TrainingData(
+        "URApp", {"buy": (users[buy], items[buy]), "view": (users, items)},
+        BiMap.string_int(f"u{i}" for i in range(N_USERS)),
+        BiMap.string_int(f"i{j}" for j in range(N_ITEMS)))
+
+
+def rows_csr(prim, rows):
+    """The primary CSR restricted to the items ``rows`` (sorted),
+    renumbered 0..len(rows)-1: its co-occurrence with S is C[rows]."""
+    import numpy as np
+
+    indptr, idx = prim
+    n_users = len(indptr) - 1
+    sel = np.isin(idx, rows)
+    ent_user = np.repeat(np.arange(n_users), np.diff(indptr))
+    sub = np.zeros_like(indptr)
+    np.cumsum(np.bincount(ent_user[sel], minlength=n_users), out=sub[1:])
+    return sub, np.searchsorted(rows, idx[sel]).astype(np.int32)
+
+
+def downsampled_csr_of(users, items, keep_users, cap: int, n_users: int, n_b: int):
+    """The CSR of ``_downsample_per_user(users, items, cap)`` (seed 0)
+    restricted to the users ``keep_users``, computed for those users
+    alone: each user keeps the ``cap`` events of lowest random priority,
+    the priorities drawn for every event in order, as there."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import cco
+
+    pri = np.random.default_rng(0).random(users.size)
+    kept = np.zeros(n_users, bool)
+    kept[keep_users] = True
+    sel = kept[users]
+    us, its, pr = users[sel], items[sel], pri[sel]
+    order = np.lexsort((pr, us))
+    u_sorted = us[order]
+    starts = np.concatenate(([0], np.cumsum(np.bincount(u_sorted, minlength=n_users))))
+    within = np.arange(u_sorted.size) - starts[u_sorted]
+    keep = order[within < cap]
+    return cco._csr_from_pairs(us[keep], its[keep], n_users, n_b)
+
+
+def host_counts(prim, sec, rows, n_b: int):
+    """Rows ``rows`` of C = PᵀS counted on the host from the two CSRs."""
+    import numpy as np
+
+    p_indptr, p_idx = prim
+    s_indptr, s_idx = sec
+    ent_user = np.repeat(np.arange(len(p_indptr) - 1), np.diff(p_indptr))
+    sel = np.isin(p_idx, rows)
+    us, row_of = ent_user[sel], np.searchsorted(rows, p_idx[sel])
+    lens = s_indptr[us + 1] - s_indptr[us]
+    rep = np.repeat(np.arange(len(us)), lens)
+    within = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
+    cols = s_idx[s_indptr[us][rep] + within]
+    flat = row_of[rep].astype(np.int64) * n_b + cols
+    return np.bincount(flat, minlength=len(rows) * n_b).reshape(len(rows), n_b).astype(np.float32)
+
+
+def llr_lists_agree(got, want, tol: float, threshold: float) -> int:
+    """Indicator rows (idx, val) equal up to rounding: values within ``tol``
+    position by position where both are finite; an entry finite in one
+    and -inf in the other lies within ``tol`` of the threshold; where the
+    columns differ, the two are near-tied (within 2·tol) in ``want``, or
+    the other's column was cut at ``want``'s last. Returns the swaps."""
+    import numpy as np
+
+    (gi, gv), (wi, wv) = got, want
+    gf, wf = np.isfinite(gv), np.isfinite(wv)
+    both = gf & wf
+    check(np.abs(gv[both] - wv[both]).max(initial=0.0) <= tol,
+          f"indicator values {np.abs(gv[both] - wv[both]).max():.3e} apart")
+    for v in (gv[gf & ~wf], wv[wf & ~gf]):
+        check(np.all(np.abs(v - threshold) <= tol), "an indicator past the threshold's rounding")
+    swaps = 0
+    for r, c in zip(*np.nonzero((gi != wi) & both)):
+        where = np.nonzero((wi[r] == gi[r, c]) & wf[r])[0]
+        ref = wv[r, where[0]] if where.size else wv[r][wf[r]][-1]
+        check(abs(ref - wv[r, c]) <= 2 * tol or abs(ref - gv[r, c]) <= 2 * tol,
+              f"row {r}: column {gi[r, c]} for {wi[r, c]}, not a near-tie")
+        swaps += 1
+    return swaps
+
+
+def ur_indicators_full_width(torch, dev, td) -> dict:
+    """The template's training at ML-20M width: ``URAlgorithm._prepare``,
+    then the same ``cco_indicators`` call as ``URAlgorithm.train`` with the
+    dense crossover raised to UR_DENSE_MB, its stages' walls printed.
+    Checks, on UR_CHECK_ROWS sampled primary rows: their counts against
+    both events, computed on the card by ``_cooccurrence`` from the rows'
+    primary CSR, equal a host count bitwise (the views' CSR built for the
+    rows' buyers alone, as the downsampling keeps them); for the primary
+    event (the same space: the diagonal masked) their LLR against the
+    port's CPU f32 LLR of the same counts and against float64, and their
+    indicator lists against the CPU's."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import cco
+    from predictionio_tpu_torch.ops.topk import _order_keys
+    from predictionio_tpu_torch.templates.universal.engine import URAlgorithm
+
+    card = card_line()
+    t0 = time.perf_counter()
+    (primary, user_ids, item_ids, n_items, event_pairs, user_history,
+     popularity) = URAlgorithm._prepare(td)
+    t_prepare = time.perf_counter() - t0
+    n_users = len(user_ids)
+    p = cco.CCOParams(max_indicators_per_item=50, llr_threshold=0.0,
+                      dense_c_max_mb=UR_DENSE_MB)
+    walls = {}
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    ind = cco.cco_indicators(event_pairs[primary], event_pairs, n_users, n_items,
+                             {name: n_items for name in event_pairs}, p, device=dev,
+                             timings=walls)
+    wall = time.perf_counter() - t0
+    print(f"UR train at {n_users} x {n_items} ({len(event_pairs[primary][0])} buys, "
+          f"{len(event_pairs['view'][0])} views): _prepare {t_prepare:.2f} s; "
+          f"cco_indicators {wall:.2f} s wall: downsampling and CSR "
+          f"{walls['downsample_csr']:.2f} s (host), slabs {walls['slabs']:.3f} s, products "
+          f"{walls['products']:.3f} s, LLR and top-k {walls['llr_topk']:.3f} s (walls, the "
+          f"card synchronised at each stage's end) ({card})", flush=True)
+
+    t0 = time.perf_counter()
+    cap = p.max_interactions_per_user
+    rows = np.sort(np.random.default_rng(SEED + 20).choice(n_items, UR_CHECK_ROWS,
+                                                          replace=False))
+    prim = cco._csr_from_pairs(*cco._downsample_per_user(*event_pairs[primary], cap),
+                               n_users, n_items)
+    rc = np.bincount(prim[1], minlength=n_items).astype(np.float32)
+    sub = rows_csr(prim, rows)
+    buyers = np.nonzero(np.diff(sub[0]))[0]
+    secs = {primary: prim,
+            "view": downsampled_csr_of(*event_pairs["view"], buyers, cap, n_users, n_items)}
+    print(f"UR checks: {UR_CHECK_ROWS} primary rows with {buyers.size} buyers, CSRs "
+          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
+    scale = 2.0 * n_users * np.log(n_users)
+    out = {"wall": wall, "prepare": t_prepare, **walls}
+    card_rows = {}
+    for name, sec in secs.items():
+        t0 = time.perf_counter()
+        Cr = cco._cooccurrence(sub, sec, n_users, UR_CHECK_ROWS, n_items, p.user_chunk, dev)
+        card_rows[name] = Cr
+        want = host_counts(prim, sec, rows, n_items)
+        check(np.array_equal(Cr.cpu().numpy(), want),
+              f"{name}: counts of the sampled rows differ from the host's")
+        print(f"UR {name}: the {UR_CHECK_ROWS} rows' counts on the card equal the host's "
+              f"({time.perf_counter() - t0:.2f} s, {int(want.sum())} co-occurrences)",
+              flush=True)
+    # the primary event's LLR of those rows: card, the port's CPU, float64
+    Cr = card_rows[primary]
+    card_llr = cco._llr_block(Cr, torch.as_tensor(rc[rows], device=dev),
+                              torch.as_tensor(rc, device=dev), n_users, -np.inf, None)
+    Cr = Cr.cpu()
+    cpu_llr = cco._llr_block(Cr, torch.from_numpy(rc[rows]), torch.from_numpy(rc),
+                             n_users, -np.inf, None)
+    got, ref = card_llr.cpu().numpy(), cpu_llr.numpy()
+    live = np.isfinite(ref)
+    check(np.array_equal(np.isfinite(got), live), "live LLR entries differ")
+    err = float(np.abs(got[live] - ref[live]).max()) / scale
+    counts = Cr.numpy()
+    v64 = cco._llr_values(counts[live], np.broadcast_to(rc[rows][:, None], counts.shape)[live],
+                          np.broadcast_to(rc[None, :], counts.shape)[live], n_users)
+    gap = np.abs(got[live].astype(np.float64) - v64)
+    flips = int(np.sum((got[live] >= 0.0) != (v64 >= 0.0)))
+    print(f"UR {primary}: LLR of those rows, card against the port's CPU f32 {err:.3e} of "
+          f"2·n·ln n = {scale:.4g} (limit {UR_LLR_TOL}); f32 against float64 _llr_values: "
+          f"max gap {gap.max():.4g} ({gap.max() / scale:.3e} of the term scale) over "
+          f"{live.sum()} live entries, {flips} on the other side of the 0.0 threshold",
+          flush=True)
+    check(err <= UR_LLR_TOL, f"card LLR {err:.3e} off the CPU's")
+    # the CPU's indicator lists of those rows, the diagonal masked
+    cpu_llr[np.arange(len(rows)), rows] = -np.inf
+    cpu_llr = torch.where(cpu_llr >= p.llr_threshold, cpu_llr, -torch.inf)
+    pos = torch.topk(_order_keys(cpu_llr, torch.arange(n_items)),
+                     p.max_indicators_per_item, dim=1).indices
+    swaps = llr_lists_agree((ind[primary][0][rows], ind[primary][1][rows]),
+                            (pos.numpy(), cpu_llr.gather(1, pos).numpy()),
+                            UR_LLR_TOL * scale, p.llr_threshold)
+    print(f"UR {primary}: the card's indicator lists of those rows equal the CPU's, "
+          f"{swaps} near-tie swaps", flush=True)
+    out |= {"llr_err": err, "gap64": float(gap.max()), "flips": flips, "swaps": swaps}
+    return out | {"primary": primary, "user_history": user_history,
+                  "popularity": popularity, "indicators": ind, "item_ids": item_ids,
+                  "user_ids": user_ids, "params": p}
+
+
+def ur_replay64(model, inverted, hist: dict, boosts, banned, num: int):
+    """The float64 host replay of one user query: score_user's sum over the
+    inverted indicator lists, the popularity fallback, the bans, then the
+    top ``num`` with score > 0 (ties to the lower item)."""
+    import numpy as np
+
+    n = len(model.item_ids)
+    scores = np.zeros(n, np.float64)
+    for name, (indptr, rows, vals) in inverted.items():
+        h = np.unique(np.asarray(hist.get(name, []), np.int64))
+        if h.size == 0:
+            continue
+        lo, hi = indptr[h], indptr[h + 1]
+        take = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)] or [[]]).astype(np.int64)
+        part = np.zeros(n, np.float64)
+        np.add.at(part, rows[take], vals[take])
+        scores += float(np.float32((boosts or {}).get(name, 1.0))) * part
+    if not (scores > 0).any():
+        scores = model.popularity.astype(np.float64)
+    order = np.lexsort((np.arange(n), -scores))
+    keep = [int(i) for i in order if scores[i] > 0 and int(i) not in banned][:num]
+    return keep, scores
+
+
+def invert_indicators(indicators):
+    """event → (indptr over history items, indicator rows, values) of the
+    finite entries, for the replay."""
+    import numpy as np
+
+    out = {}
+    for name, (idx, val) in indicators.items():
+        fin = np.isfinite(val)
+        h, r = idx[fin].astype(np.int64), np.nonzero(fin)[0]
+        order = np.argsort(h, kind="stable")
+        indptr = np.zeros(idx.shape[0] + 1, np.int64)
+        np.cumsum(np.bincount(h, minlength=idx.shape[0]), out=indptr[1:])
+        out[name] = (indptr, r[order], val[fin][order].astype(np.float64))
+    return out
+
+
+def ur_serving(dev, storage, fit: dict, views_per_user) -> dict:
+    """The UR instance served by the port's EngineServer: UR_USERS user
+    queries (a third with eventBoosts, every fifth with a blackList of its
+    top three), UR_ITEM_QUERIES item queries and UR_COLD unknown users,
+    each against the float64 replay."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import UNIVERSAL_FACTORY
+    from predictionio_tpu_torch.templates.universal import engine as ur
+
+    algo = ur.URAlgorithm(ur.URAlgorithmParams())
+    algo.device = dev
+    model = ur.URModel(fit["indicators"], fit["user_history"], fit["item_ids"],
+                       fit["primary"], algo.params, fit["popularity"], device=dev)
+    t0 = time.perf_counter()
+    iid = write_template_instance(storage, UNIVERSAL_FACTORY, "ur", algo, model,
+                                  ur.DataSourceParams(app_name="URApp"))
+    t_write = time.perf_counter() - t0
+    inverted = invert_indicators(model.indicators)
+    inv = model.item_ids.inverse()
+    rng = np.random.default_rng(SEED + 21)
+    pool = np.nonzero((views_per_user > 0) & (views_per_user <= UR_MAX_VIEWS))[0]
+    users = rng.choice(pool, UR_USERS, replace=False)
+    queries, refs = [], []
+    for j, u in enumerate(users.tolist()):
+        hist = model.user_history.get(f"u{u}", {})
+        boosts = ({"view": 0.5}, {"buy": 2.0, "view": 0.25})[j % 2] if j % 3 == 0 else None
+        banned = set(hist.get(model.primary_event, []))
+        q = {"user": f"u{u}", "num": 10}
+        if boosts:
+            q["eventBoosts"] = boosts
+        if j % 5 == 4:
+            top, _ = ur_replay64(model, inverted, hist, boosts, banned, 3)
+            q["blackList"] = [inv[i] for i in top]
+            banned |= set(top)
+        queries.append(q)
+        refs.append(ur_replay64(model, inverted, hist, boosts, banned, 10))
+    items_q = rng.choice(N_ITEMS, UR_ITEM_QUERIES, replace=False)
+    for i in items_q.tolist():
+        queries.append({"item": f"i{i}", "num": 10})
+    pop_order = np.lexsort((np.arange(N_ITEMS), -model.popularity))
+    for c in range(UR_COLD):
+        q = {"user": f"cold{c}", "num": 10}
+        if c % 2:
+            q["blackList"] = [inv[int(i)] for i in pop_order[:c % 7]]
+        queries.append(q)
+    lat, answers = [], []
+    t_load = time.perf_counter()
+    with running_server(dev, storage, UNIVERSAL_FACTORY, iid) as port:
+        t_load = time.perf_counter() - t_load
+        for q in queries:
+            t0 = time.perf_counter()
+            st, body = http_json(port, "POST", "/queries.json", q)
+            lat.append(time.perf_counter() - t0)
+            check(st == 200, f"query {q} answered {st}: {body}")
+            answers.append(body["itemScores"])
+    for q, a, (keep, scores) in zip(queries, answers, refs):
+        check(ranked_agrees(a, keep, [scores[i] for i in keep],
+                            lambda it: scores[model.item_ids[it]],
+                            lambda it: model.item_ids[it] not in
+                            set(model.user_history.get(q["user"], {}).get("buy", []))
+                            | {model.item_ids[b] for b in q.get("blackList", [])}),
+              f"{q}: {a[:3]} is not the float64 replay's {keep[:3]}")
+    idx, val = model.indicators[model.primary_event]
+    for i, a in zip(items_q.tolist(), answers[UR_USERS:UR_USERS + UR_ITEM_QUERIES]):
+        want = [{"item": inv[int(j)], "score": float(v)}
+                for j, v in zip(idx[i], val[i]) if np.isfinite(v)][:10]
+        check(a == want, f"item query i{i}: {a[:2]} is not its indicator list")
+    for q, a in zip(queries[-UR_COLD:], answers[-UR_COLD:]):
+        banned = set(q.get("blackList", []))
+        want = [inv[int(i)] for i in pop_order if inv[int(i)] not in banned][:10]
+        check([s["item"] for s in a] == want, f"cold {q}: not the popularity order")
+    p50 = float(np.percentile(lat[:UR_USERS], 50)) * 1e3
+    boosted = sum("eventBoosts" in q for q in queries)
+    print(f"UR served: {UR_USERS} user queries ({boosted} with eventBoosts, "
+          f"{sum('blackList' in q for q in queries[:UR_USERS])} with a blackList), "
+          f"{UR_ITEM_QUERIES} item queries and {UR_COLD} cold users, every answer on "
+          f"the float64 replay up to near-ties within {TOL} relative; user query p50 "
+          f"{p50:.3f} ms (sequential HTTP); instance written in {t_write:.2f} s, loaded "
+          f"in {t_load:.2f} s ({card_line()})", flush=True)
+    return {"p50_ms": p50, "write_s": t_write, "load_s": t_load}
+
+
+def seqrec_sequences(users, items):
+    """Phase 5's draws as per-user sequences in draw order (1-based item
+    ids), each cut to its last seq_len + 1 items — all that
+    make_training_batches keeps — and the raw histories' users."""
+    import numpy as np
+
+    order = np.argsort(users, kind="stable")
+    u, it = users[order], items[order] + 1
+    bounds = np.concatenate(([0], np.nonzero(np.diff(u))[0] + 1, [u.size]))
+    keep = 65
+    seqs = [it[max(lo, hi - keep):hi].tolist() for lo, hi in zip(bounds[:-1], bounds[1:])]
+    return seqs
+
+
+def seqrec_switch_masks(pre_ref, pre_got, xb, paths, tol: float):
+    """What a switched ReLU reaches in one SeqRec step, and the switches.
+
+    ``pre_*`` are each block's (B, S, 4d) input to its ReLU in the two
+    runs of the step, ``xb`` the batch's item ids. A unit whose input lies
+    within rounding of 0 can switch between two summation orders: its
+    output is about 0 either way, but its gradient jumps between 0 and
+    the full upstream value, and the jump flows to every leaf below it:
+    the block's own leaves but its ``w2`` and ``b2``, every earlier
+    block, the position table and the item table's rows of the switched
+    sequences. Checks that every switched input is within ``tol`` of 0
+    (of the layer's max |input|). Returns ({path: index to leave out},
+    the number of switched units)."""
+    import numpy as np
+
+    masks, flips = {}, 0
+    for blk, (a, g) in enumerate(zip(pre_ref, pre_got)):
+        switched = (a > 0) != (g > 0)
+        if not switched.any():
+            continue
+        flips += int(switched.sum())
+        near = np.abs(a[switched]).max() / max(float(np.abs(a).max()), 1e-30)
+        check(near <= tol, f"a ReLU of block {blk} switched at {near:.3e} of its "
+                           f"layer's max |input|: not a rounding near-tie")
+        rows = np.unique(xb[np.nonzero(switched.any(axis=2))[0]])
+        for path in paths:
+            if path == ("item_emb",):
+                masks[path] = np.union1d(masks.get(path, rows), rows)
+            elif path == ("pos_emb",) or (path[0] == "blocks" and (
+                    int(path[1]) < blk or (int(path[1]) == blk
+                                           and path[2] not in ("w2", "b2")))):
+                masks[path] = slice(None)
+    return masks, flips
+
+
+def seqrec_step_check(torch, dev, X, Y, params0, hp) -> dict:
+    """The card's first SR_CHECK_STEPS steps, each taken from the CPU's
+    state (parameters, Adam moments and count) before it, against the
+    CPU's step from that state: the loss and every gradient within
+    SR_GRAD_TOL (of the leaf's max |g|), the parameters after the step
+    within SR_STEP_TOL (of the leaf's max |value|), the entries a ReLU
+    switched between the two runs reaches left out and the switches
+    counted (``seqrec_switch_masks``). Adam divides each gradient by its
+    root mean square, so a step carries the gradients' rounding further
+    than the gradients do; a float64 step from the same state, on the
+    card, shows how far each f32 step is from the exact one. A control
+    takes step 0 again with TF32 products, after the checked steps, and
+    must fail the gradient check."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import seq_rec as sr
+    from predictionio_tpu_torch.utils.device import full_f32
+
+    cpu = sr.SeqRecNet(params0, hp, "cpu")
+    cpu_opt = sr.Adam(cpu.leaves(), hp.lr)
+
+    def snapshot():
+        return ([t.detach().clone() for t in cpu.leaves()], [t.clone() for t in cpu_opt.mu],
+                [t.clone() for t in cpu_opt.nu], cpu_opt.count)
+
+    def on_card(state, dtype):
+        leaves, mu, nu, count = state
+        net = sr.SeqRecNet(params0, hp, dev).to(dtype)
+        opt = sr.Adam(net.leaves(), hp.lr)
+        with torch.no_grad():
+            for dst, src in ((net.leaves(), leaves), (opt.mu, mu), (opt.nu, nu)):
+                for a, b in zip(dst, src):
+                    a.copy_(b)
+        opt.count = count
+        return net, opt
+
+    def grads(net, b, f32=True):
+        """(loss, gradients, each block's ReLU input as numpy)."""
+        xb = torch.as_tensor(X[b].astype(np.int64), device=net.leaf("item_emb").device)
+        yb = torch.as_tensor(Y[b].astype(np.int64), device=xb.device)
+        pre, relu = [], torch.relu
+
+        def recording_relu(x):
+            pre.append(x.detach().cpu().numpy())
+            return relu(x)
+
+        with (full_f32() if f32 else contextlib.nullcontext()), \
+                mock.patch.object(torch, "relu", recording_relu):
+            loss = sr._loss(net, xb, yb)
+            return loss.detach(), torch.autograd.grad(loss, net.leaves()), pre
+
+    def errs(got, want, masks=None):
+        out = []
+        for path, a, b in zip(cpu.paths, got, want):
+            d = (a.detach().cpu().double() - b.detach().cpu().double()).abs()
+            scale = max(float(b.detach().abs().max()), 1e-30)
+            if masks and path in masks:
+                d[masks[path]] = 0.0
+            out.append(float(d.max()) / scale)
+        return out
+
+    def worst(e):
+        return max(zip(e, ("/".join(path) for path in cpu.paths)))
+
+    worst_g, worst_l, worst_cc, worst_64 = 0.0, 0.0, 0.0, (0.0, 0.0)
+    switches = []
+    first = snapshot()
+    g_first = None
+    for b in range(SR_CHECK_STEPS):
+        state = snapshot()
+        card, card_opt = on_card(state, torch.float32)
+        lc, gc, pre_c = grads(card, b)
+        l0, g0, pre_0 = grads(cpu, b)
+        if b == 0:
+            g_first = g0
+        masks, flips = seqrec_switch_masks(pre_0, pre_c, X[b], cpu.paths, SR_GRAD_TOL)
+        switches.append(flips)
+        eg = errs(gc, g0, masks)
+        worst_l = max(worst_l, abs(float(lc) - float(l0)) / abs(float(l0)))
+        worst_g = max(worst_g, max(eg))
+        # the float64 step from the same state, on the card
+        net64, opt64 = on_card(state, torch.float64)
+        _, g64, _ = grads(net64, b)
+        opt64.step(list(g64))
+        card_opt.step(list(gc))
+        cpu_opt.step(list(g0))
+        e_card = errs(card.leaves(), net64.leaves(), masks)
+        e_cpu = errs(cpu.leaves(), net64.leaves(), masks)
+        e_cc = errs(card.leaves(), cpu.leaves(), masks)
+        worst_64 = (max(worst_64[0], max(e_card)), max(worst_64[1], max(e_cpu)))
+        worst_cc = max(worst_cc, max(e_cc))
+        print(f"SeqRec step {b}: {flips} switched ReLUs ({len(masks)} leaves masked in part "
+              f"or whole); gradients card against CPU worst {worst(eg)[0]:.3e} "
+              f"({worst(eg)[1]}); after the step against float64: card worst "
+              f"{worst(e_card)[0]:.3e} ({worst(e_card)[1]}), CPU worst {worst(e_cpu)[0]:.3e} "
+              f"({worst(e_cpu)[1]}); card against CPU {max(e_cc):.3e}", flush=True)
+        del net64, opt64, g64, card, card_opt
+    # the control: step 0 again with TF32 products
+    card, _ = on_card(first, torch.float32)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        _, gt, _ = grads(card, 0, f32=False)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    control = max(errs(gt, g_first))
+    print(f"SeqRec step check, {SR_CHECK_STEPS} card steps each from the CPU's state: "
+          f"loss {worst_l:.3e} relative, gradients {worst_g:.3e} of each leaf's max |g| "
+          f"(limit {SR_GRAD_TOL}); parameters after the step {worst_cc:.3e} of each leaf's "
+          f"max |value| (limit {SR_STEP_TOL}), against the float64 step card "
+          f"{worst_64[0]:.3e} and CPU {worst_64[1]:.3e}; switched ReLUs by step "
+          f"{switches}; TF32 control gradients {control:.3e} (must exceed {SR_GRAD_TOL}) "
+          f"({card_line()})", flush=True)
+    check(worst_l <= SR_GRAD_TOL and worst_g <= SR_GRAD_TOL,
+          f"card gradients {worst_g:.3e} (loss {worst_l:.3e}) off the CPU's")
+    check(worst_cc <= SR_STEP_TOL, f"card step {worst_cc:.3e} off the CPU's")
+    check(control > SR_GRAD_TOL, f"the TF32 control passed the gradient check ({control:.3e})")
+    return {"grad_err": worst_g, "loss_err": worst_l, "step_err": worst_cc,
+            "step_card_64": worst_64[0], "step_cpu_64": worst_64[1], "switches": switches,
+            "tf32_control": control}
+
+
+def seqrec_profile(torch, dev, X, Y, params0, hp, n: int = 20) -> None:
+    """``n`` training steps under torch.profiler after two warm ones: the
+    wall, the card's busy time (kernels, copies and memsets) and its
+    count."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from predictionio_tpu_torch.models import seq_rec as sr
+    from predictionio_tpu_torch.utils.device import full_f32
+
+    net = sr.SeqRecNet(params0, hp, dev)
+    opt = sr.Adam(net.leaves(), hp.lr)
+    Xd = torch.as_tensor(X[:n].astype(np.int64), device=dev)
+    Yd = torch.as_tensor(Y[:n].astype(np.int64), device=dev)
+    with full_f32():
+        sr.train_steps(net, opt, Xd[:2], Yd[:2])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            sr.train_steps(net, opt, Xd, Yd)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(r, "is_user_annotation", False)]
+    busy = sum(r.self_device_time_total for r in rows) / 1e6
+    top = sorted(rows, key=lambda r: -r.self_device_time_total)[:5]
+    print(f"SeqRec profiled: {n} steps {wall:.3f} s wall (profiler on), the card busy "
+          f"{busy:.3f} s in {sum(r.count for r in rows)} kernels and copies, "
+          f"{busy / wall:.1%} of the wall (torch.profiler); the largest: " + "; ".join(
+              f"{r.key[:60]} {r.self_device_time_total / 1e3:.1f} ms" for r in top)
+          + f" ({card_line()})", flush=True)
+
+
+def seqrec_full_width(torch, dev, storage, users, items) -> dict:
+    """Sequential recommendation at full width: phase 5's draws as per-user
+    sequences, the template's engine.json widths, one epoch on the card,
+    the step check, and SR_SERVED history queries through the port's
+    EngineServer against the port's CPU scores."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import SEQUENTIALREC_FACTORY
+    from predictionio_tpu_torch.models import seq_rec as sr
+    from predictionio_tpu_torch.templates.sequentialrec import engine as se
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    t0 = time.perf_counter()
+    seqs = seqrec_sequences(users, items)
+    ap = se.SeqRecAlgorithmParams(epochs=1)
+    hp = sr.SeqRecParams(hidden=ap.hidden, num_blocks=ap.num_blocks, num_heads=ap.num_heads,
+                         seq_len=ap.seq_len, epochs=ap.epochs, lr=ap.lr,
+                         batch_size=ap.batch_size, seed=ap.seed)
+    X, Y = sr.make_training_batches(seqs, hp, seed=hp.seed)
+    t_batches = time.perf_counter() - t0
+    params0 = sr.init_params(N_ITEMS, hp)
+    t0 = time.perf_counter()
+    check_out = seqrec_step_check(torch, dev, X, Y, params0, hp)
+    print(f"SeqRec step check {time.perf_counter() - t0:.2f} s", flush=True)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    params, losses = sr.seq_rec_train(seqs, N_ITEMS, hp, device=dev)
+    wall = time.perf_counter() - t0
+    steps = X.shape[0]
+    check(np.isfinite(losses).all() and losses.shape == (1,), f"losses {losses}")
+    if PROFILE_STEPS:
+        seqrec_profile(torch, dev, X, Y, params0, hp)
+    print(f"SeqRec train: {len(seqs)} sequences, {steps} steps of {hp.batch_size} x "
+          f"{hp.seq_len} (one epoch; the template's 20 cut to 1), sequences and batches "
+          f"{t_batches:.2f} s (host), train {wall:.2f} s wall, {steps / wall:.1f} steps/s, "
+          f"loss {float(losses[0]):.4f} ({card_line()})", flush=True)
+
+    item_ids = BiMap.string_int(f"i{j}" for j in range(N_ITEMS))
+    model = se.SeqRecModel(params, item_ids, "SeqApp", hp, ap, losses, device=dev)
+    algo = se.SeqRecAlgorithm(ap)
+    algo.device = dev
+    iid = write_template_instance(storage, SEQUENTIALREC_FACTORY, "seqrec", algo, model,
+                                  se.DataSourceParams(app_name="SeqApp"))
+    cpu = sr.seq_rec_params_from_jax(params, hp)
+    rng = np.random.default_rng(SEED + 22)
+    picks = rng.choice(len(seqs), SR_SERVED, replace=False)
+    queries = [{"history": [f"i{j - 1}" for j in seqs[k][-int(rng.integers(1, 65)):]],
+                "num": 10} for k in picks.tolist()]
+    lat, answers = [], []
+    with running_server(dev, storage, SEQUENTIALREC_FACTORY, iid) as port:
+        for q in queries:
+            t0 = time.perf_counter()
+            st, body = http_json(port, "POST", "/queries.json", q)
+            lat.append(time.perf_counter() - t0)
+            check(st == 200, f"history query answered {st}: {body}")
+            answers.append(body["itemScores"])
+    for q, a in zip(queries, answers):
+        s = sr.seq_rec_scores(cpu, [item_ids[i] + 1 for i in q["history"]], hp).astype(np.float64)
+        top = np.lexsort((np.arange(s.size), -s))[:10]
+        check(ranked_agrees(a, [f"i{j - 1}" for j in top], [s[j] for j in top],
+                            lambda it: s[item_ids[it] + 1], lambda it: True),
+              f"history query: {a[:3]} is not the CPU's top 10")
+    p50 = float(np.percentile(lat, 50)) * 1e3
+    print(f"SeqRec served: {SR_SERVED} history queries, every top 10 the port's CPU "
+          f"scores' up to near-ties within {TOL} relative; p50 {p50:.3f} ms "
+          f"(sequential HTTP) ({card_line()})", flush=True)
+    return check_out | {"steps_per_s": steps / wall, "train_s": wall, "steps": steps,
+                        "p50_ms": p50}
+
+
+def ur_seqrec_cli(dev) -> dict:
+    """A small app of SR_CLI_EVENTS buy and view events through the port's
+    event server in batches of 50; ``train`` from each template's
+    engine.json, ``deploy``, 50 queries to each instance answered as the
+    same instance in-process answers (with live-history ``user`` queries
+    for the sequential template); ``eval`` of UREvaluation with
+    DefaultGrid, MAP@10 and MAP@1 printed."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import (SEQUENTIALREC_FACTORY,
+                                                      UNIVERSAL_FACTORY, prepare_deploy)
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tpl = os.path.join(repo, "predictionio_tpu_torch", "templates")
+    dirs = {"ur": os.path.join(tpl, "universal"), "sr": os.path.join(tpl, "sequentialrec")}
+    with open(os.path.join(dirs["ur"], "engine.json")) as f:
+        app_name = json.load(f)["datasource"]["params"]["appName"]
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="pio_chip_ur_cli_") as home:
+        env = dict(os.environ, PIO_HOME=home)
+
+        def cli(*args, extra_env=None) -> str:
+            t0 = time.perf_counter()
+            proc = subprocess.run(CLI + list(args), cwd=repo, env=dict(env, **(extra_env or {})),
+                                  capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"cli {' '.join(args)} failed "
+                                        f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+            print(f"-- cli {' '.join(args[:3])}: {time.perf_counter() - t0:.2f} s wall",
+                  flush=True)
+            return proc.stdout
+
+        def serve(*args):
+            log = os.path.join(home, f"{args[0]}_{len(procs)}.log")
+            with open(log, "w") as out:
+                proc = subprocess.Popen(CLI + list(args), cwd=repo, env=env,
+                                        stdout=out, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            return proc, log
+
+        try:
+            key = re.search(r"Access Key: (\S+)", cli("app", "new", app_name)).group(1)
+            es_port = free_port()
+            es, es_log = serve("eventserver", "--ip", "127.0.0.1", "--port", str(es_port),
+                               "--ingest-batching")
+            wait_until(lambda: http_json(es_port, "GET", "/") == (200, {"status": "alive"}),
+                       es, es_log, 120)
+            users, items, ratings = synthetic_ml20m(SR_CLI_EVENTS, SR_CLI_USERS, SR_CLI_ITEMS,
+                                                    seed=SEED + 23)
+            events = [{"event": "buy" if r >= BUY_AT else "view", "entityType": "user",
+                       "entityId": f"u{u}", "targetEntityType": "item",
+                       "targetEntityId": f"i{i}",
+                       "eventTime": f"2026-01-01T{j // 3600:02d}:{j // 60 % 60:02d}:"
+                                    f"{j % 60:02d}.000Z"}
+                      for j, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(),
+                                                        ratings.tolist()))]
+            batches = [json.dumps(events[s:s + BATCH_EVENTS])
+                       for s in range(0, len(events), BATCH_EVENTS)]
+            t0 = time.perf_counter()
+            answers = post_all(es_port, "/batch/events.json?accessKey=" + key, batches,
+                               BATCH_CLIENTS)
+            ok = sum(it["status"] == 201 for st, body in answers if st == 200 for it in body)
+            print(f"{SR_CLI_EVENTS} buy and view events in {len(batches)} batches: "
+                  f"{time.perf_counter() - t0:.2f} s, {ok} answered 201", flush=True)
+            check(ok == SR_CLI_EVENTS, f"{SR_CLI_EVENTS - ok} events not 201")
+            es.send_signal(2)
+            es.wait(timeout=60)
+            t0 = time.perf_counter()
+            trains = {name: subprocess.Popen(
+                CLI + ["train", "--engine-dir", dirs[name], "--device", dev.type], cwd=repo,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for name in dirs}
+            for name, proc in trains.items():
+                out, err = proc.communicate(timeout=600)
+                check(proc.returncode == 0 and "Training completed" in out,
+                      f"cli train {name} failed ({proc.returncode}):\n{err[-4000:]}")
+            print(f"-- cli train of both templates side by side: "
+                  f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+            # eval beside the deploys: it trains its own candidates
+            mod = "predictionio_tpu_torch.templates.universal.engine"
+            res = os.path.join(home, "ur_eval.json")
+            t_eval = time.perf_counter()
+            ev = subprocess.Popen(
+                CLI + ["eval", f"{mod}:UREvaluation", f"{mod}:DefaultGrid", "--engine-dir",
+                       dirs["ur"], "--output", res, "--device", dev.type], cwd=repo,
+                env=dict(env, PIO_EVAL_APP_NAME=app_name), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            procs.append(ev)
+            ports = {name: free_port() for name in dirs}
+            servers = {name: serve("deploy", "--engine-dir", dirs[name], "--ip", "127.0.0.1",
+                                   "--port", str(ports[name]), "--device", dev.type)
+                       for name in dirs}
+            rng = np.random.default_rng(SEED + 24)
+            us = [f"u{u}" for u in rng.choice(np.unique(users), 40, replace=False)]
+            its = [f"i{i}" for i in rng.choice(np.unique(items), 10, replace=False)]
+            qs = {"ur": [{"user": u, "num": 10, **({"eventBoosts": {"view": 0.5}} if j % 3 == 0
+                                                    else {})} for j, u in enumerate(us)]
+                  + [{"item": i, "num": 5} for i in its],
+                  "sr": [{"user": u, "num": 10} for u in us[:25]]
+                  + [{"history": [f"i{i}" for i in rng.choice(SR_CLI_ITEMS, 8)], "num": 10}
+                     for _ in range(25)]}
+            storage = Storage(StorageConfig(home=home))
+            for name, factory in (("ur", UNIVERSAL_FACTORY), ("sr", SEQUENTIALREC_FACTORY)):
+                proc, log = servers[name]
+                wait_until(lambda: http_json(ports[name], "GET", "/")[0] == 200, proc, log, 300)
+                got = [http_json(ports[name], "POST", "/queries.json", q) for q in qs[name]]
+                check(all(st == 200 for st, _ in got), f"{name} deploy answers {got[:3]}")
+                eng = prepare_deploy(factory, storage=storage, device=dev)
+                want = [eng.query(q) for q in qs[name]]
+                check([a for _, a in got] == want, f"{name}: deploy's answers differ "
+                                                   "from in-process")
+                check(all(a["itemScores"] for q, a in zip(qs[name], want) if "item" not in q),
+                      f"{name}: an empty answer to a user or history query")
+                print(f"cli deploy {name}: 50 POST /queries.json equal to instance "
+                      f"{eng.instance.id} served in-process", flush=True)
+            out, err = ev.communicate(timeout=600)
+            check(ev.returncode == 0, f"cli eval failed ({ev.returncode}):\n{err[-4000:]}")
+            print(f"-- cli eval UREvaluation DefaultGrid (beside the deploys): "
+                  f"{time.perf_counter() - t_eval:.2f} s wall", flush=True)
+            with open(res) as f:
+                doc = json.load(f)
+            maps = [(c["engineParams"]["algorithmsParams"][0]["params"]["llr_threshold"],
+                     c["score"], c["otherScores"][0]) for c in doc["candidates"]]
+            check(len(maps) == 2 and all(np.isfinite(m) for _, *ms in maps for m in ms),
+                  f"eval candidates {maps}")
+            print("cli eval UREvaluation/DefaultGrid: " + "; ".join(
+                f"llrThreshold {t}: MAP@10 {m10:.6f} MAP@1 {m1:.6f}" for t, m10, m1 in maps),
+                flush=True)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+    return {"maps": maps}
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def universal_sequential_full_width(torch, ops, dev, coo=None) -> dict:
+    """Phase 15: the universal recommender and sequential recommendation
+    at full width (see the module docstring). No kernel of the port runs
+    here: the counters, zeroed first, must read 0."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    reset_counters(ops)
+    if coo is None:
+        users, items, ratings = synthetic_ml20m(N_RATINGS, N_USERS, N_ITEMS)
+    else:  # phase 5's draws, in their order
+        users, items, ratings = coo.user_idx, coo.item_idx, coo.rating
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_ur_") as home:
+        from predictionio_tpu_torch.storage import Storage, StorageConfig
+
+        storage = Storage(StorageConfig(home=home))
+        fit = ur_indicators_full_width(torch, dev, ur_training_data(users, items, ratings))
+        out["ur"] = {k: v for k, v in fit.items() if isinstance(v, (int, float, dict))
+                     and k not in ("indicators", "user_history")}
+        out["ur_serving"] = ur_serving(dev, storage, fit,
+                                       np.bincount(users, minlength=N_USERS))
+        del fit
+        out["seqrec"] = seqrec_full_width(torch, dev, storage, users, items)
+    t0 = time.perf_counter()
+    out["cli"] = ur_seqrec_cli(dev)
+    print(f"UR and SeqRec through the CLI: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = read_counters(ops)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 15: {wall:.1f} s wall; kernel launches {launches} ({card_line()})",
+          flush=True)
+    check(sum(launches.values()) == 0, f"phase 15 launched {launches}")
+    out["wall"] = wall
+    out["launches"] = launches
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -5446,6 +6285,7 @@ def main(argv) -> int:
     templates_only = "--templates" in argv
     ann_only = "--ann" in argv
     classification_only = "--classification" in argv
+    universal_only = "--universal" in argv
     global PROFILE_STEPS
     PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
@@ -5472,6 +6312,12 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if universal_only:
+        phase("15. the universal and sequential templates at full width")
+        universal_sequential_full_width(torch, ops, dev)
+        phase("done")
+        return 0
 
     if classification_only:
         phase("14. classification and e2 at full width")
@@ -5576,6 +6422,8 @@ def main(argv) -> int:
     ann = ann_full_width(torch, ops, dev, train, "--profile" in argv)
     phase("14. classification and e2 at full width")
     classification_full_width(torch, ops, dev, train["coo"])
+    phase("15. the universal and sequential templates at full width")
+    universal = universal_sequential_full_width(torch, ops, dev, train["coo"])
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -5594,6 +6442,7 @@ def main(argv) -> int:
         "launches_phase11": online["launches_phase11"],
         "launches_phase12": family["launches"]["score_topk"],
         "launches_phase13": ann["launches"]["score_topk"],
+        "launches_phase15": universal["launches"]["score_topk"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
         "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
@@ -5606,7 +6455,8 @@ def main(argv) -> int:
         "launches": train["launches"]["gather_gram"],
         "launches_eval": evals["launches"]["gather_gram"],
         "launches_phase12": family["launches"]["gather_gram"],
-        "launches_phase13": ann["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches_phase13": ann["launches"]["gather_gram"],
+        "launches_phase15": universal["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -5617,7 +6467,8 @@ def main(argv) -> int:
         "launches": train["launches"]["chol_solve"],
         "launches_eval": evals["launches"]["chol_solve"],
         "launches_phase12": family["launches"]["chol_solve"],
-        "launches_phase13": ann["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches_phase13": ann["launches"]["chol_solve"],
+        "launches_phase15": universal["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],
@@ -5625,7 +6476,8 @@ def main(argv) -> int:
         "name": "rows_gram", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/rows_gram.cu",
         "replaces": "predictionio_tpu/ops/gram.py:73",
-        "launches": rows["launches"], "max_abs_err": rows_err,
+        "launches": rows["launches"],
+        "launches_phase15": universal["launches"]["rows_gram"], "max_abs_err": rows_err,
         "ms": rows["ms"], "plain_ms": rows["plain_ms"],
         "bound_ms": rows["bound_ms"], "bound_by": rows["bound_by"],
         "library_ms": rows["library_ms"],

@@ -69,6 +69,10 @@ JAX_TEXTCLASSIFICATION_FACTORY = (
     "predictionio_tpu.templates.textclassification.engine:engine_factory")
 VANILLA_FACTORY = "predictionio_tpu_torch.templates.vanilla.engine:engine_factory"
 JAX_VANILLA_FACTORY = "predictionio_tpu.templates.vanilla.engine:engine_factory"
+UNIVERSAL_FACTORY = "predictionio_tpu_torch.templates.universal.engine:engine_factory"
+JAX_UNIVERSAL_FACTORY = "predictionio_tpu.templates.universal.engine:engine_factory"
+SEQUENTIALREC_FACTORY = "predictionio_tpu_torch.templates.sequentialrec.engine:engine_factory"
+JAX_SEQUENTIALREC_FACTORY = "predictionio_tpu.templates.sequentialrec.engine:engine_factory"
 
 #: engine factory recorded in an instance → the port's factory serving it
 FACTORIES = {
@@ -86,6 +90,10 @@ FACTORIES = {
     TEXTCLASSIFICATION_FACTORY: TEXTCLASSIFICATION_FACTORY,
     JAX_VANILLA_FACTORY: VANILLA_FACTORY,
     VANILLA_FACTORY: VANILLA_FACTORY,
+    JAX_UNIVERSAL_FACTORY: UNIVERSAL_FACTORY,
+    UNIVERSAL_FACTORY: UNIVERSAL_FACTORY,
+    JAX_SEQUENTIALREC_FACTORY: SEQUENTIALREC_FACTORY,
+    SEQUENTIALREC_FACTORY: SEQUENTIALREC_FACTORY,
 }
 
 #: the port's mid-train checkpoints, under the storage home. Never the

@@ -10,6 +10,9 @@ The port's copy of the generic path of the JAX package's
   rating]) training data: pass 1 builds the id vocabularies in first-seen
   order, pass 2 re-streams yielding index-mapped chunks
   (:class:`InteractionData`);
+- :func:`read_event_groups` — the multi-event two-pass reader (the
+  Universal Recommender's shape): several named streams over ONE shared
+  vocabulary pair, demuxed by event name;
 - :func:`subset_columnar` — a fold's rows with both vocabularies trimmed
   to the entities present (the eval-fold cold-entity rule);
 - :class:`DevicePrefetcher` — double-buffered host → device transfer
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -144,6 +147,64 @@ def read_interactions(
             yield u, i, vals[keep]
 
     return InteractionData(user_ids, item_ids, chunk_factory, n_events)
+
+
+def read_event_groups(
+    find: Callable[[], Iterator],
+    names: Sequence[str],
+    chunk_size: int = 65536,
+) -> Tuple[Dict[str, Tuple[np.ndarray, np.ndarray]], BiMap, BiMap]:
+    """Multi-event streaming read with ONE SHARED vocabulary pair —
+    the Universal-Recommender shape: several named event streams over
+    the same user/item spaces, index-mapped consistently.
+
+    ``find`` is a zero-argument callable returning a FRESH iterator
+    over ALL the named events (two combined scans total — vocabulary
+    pass + data pass — demuxed by ``e.event``; per-name finds would
+    cost 2·N scans of the log). Returns ``({name: (user_idx,
+    item_idx)}, user_ids, item_ids)`` with ids assigned in
+    encounter order. Memory is O(chunk + vocabulary) transient plus
+    the 8 B/event columnar outputs."""
+    wanted = set(names)
+    users: Dict[str, int] = {}
+    items: Dict[str, int] = {}
+    for e in find():
+        if not e.target_entity_id or e.event not in wanted:
+            continue
+        if e.entity_id not in users:
+            users[e.entity_id] = len(users)
+        if e.target_entity_id not in items:
+            items[e.target_entity_id] = len(items)
+    user_ids = BiMap(users)
+    item_ids = BiMap(items)
+
+    bufs: Dict[str, Tuple[List[str], List[str]]] = \
+        {n: ([], []) for n in names}
+    parts: Dict[str, Tuple[list, list]] = {n: ([], []) for n in names}
+
+    def flush(name: str) -> None:
+        ents, tgts = bufs[name]
+        if ents:
+            u, i, _keep = _map_chunk(users, items, ents, tgts)
+            parts[name][0].append(u)
+            parts[name][1].append(i)
+            bufs[name] = ([], [])
+
+    for e in find():
+        if not e.target_entity_id or e.event not in wanted:
+            continue
+        ents, tgts = bufs[e.event]
+        ents.append(e.entity_id)
+        tgts.append(e.target_entity_id)
+        if len(ents) == chunk_size:
+            flush(e.event)
+    out: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    for n in names:
+        flush(n)
+        us, is_ = parts[n]
+        out[n] = ((np.concatenate(us) if us else np.zeros(0, np.int32)),
+                  (np.concatenate(is_) if is_ else np.zeros(0, np.int32)))
+    return out, user_ids, item_ids
 
 
 def subset_columnar(

@@ -2,8 +2,10 @@
 
 The port's copy of the JAX package's ``data/store.py`` for the training
 read: :func:`resolve_app_channel` (app and channel names → ids),
-:func:`find` (the bulk scan) and :func:`read_training_interactions` on
-the generic two-pass path (``data/pipeline.read_interactions``), and
+:func:`find` (the bulk scan), :func:`read_training_interactions` on
+the generic two-pass path (``data/pipeline.read_interactions``) and
+:func:`read_training_event_groups` (``data/pipeline.read_event_groups``),
+and
 for the serving-time business rules :func:`aggregate_properties` (an
 entity type's folded property snapshots) and :func:`find_by_entity`
 (one entity's events, newest first). The
@@ -150,6 +152,29 @@ def read_training_interactions(
                   if (value_spec or value_key or default_spec != 1.0)
                   else None),
     )
+
+
+def read_training_event_groups(
+    app_name: str,
+    names: Sequence[str],
+    channel_name: Optional[str] = None,
+    entity_type: Optional[str] = "user",
+    target_entity_type: Optional[str] = "item",
+    chunk_size: int = 65536,
+    storage: Optional[Storage] = None,
+):
+    """Multi-event grouped read with one shared vocabulary pair (the
+    Universal-Recommender shape) through the generic two-scan
+    :func:`~predictionio_tpu_torch.data.pipeline.read_event_groups`.
+    Returns ``({name: (user_idx, item_idx)}, user_ids, item_ids)``."""
+    from predictionio_tpu_torch.data.pipeline import read_event_groups
+
+    return read_event_groups(
+        lambda: find(
+            app_name, channel_name, entity_type=entity_type,
+            target_entity_type=target_entity_type,
+            event_names=list(names), storage=storage),
+        names, chunk_size=chunk_size)
 
 
 def find_by_entity(

@@ -13,15 +13,31 @@ from __future__ import annotations
 
 import io
 import pickle
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 #: the port's class → the JAX package's (module, qualified name) of it
 Names = Dict[type, Tuple[str, str]]
 
 
-def dumps(obj: Any, names: Names) -> bytes:
+def dumps(obj: Any, names: Names, plain: Sequence[Any] = ()) -> bytes:
     """Pickle ``obj`` as the JAX package's ``pickle.dumps`` does, with each
-    class of ``names`` named by its JAX (module, qualified name)."""
+    class of ``names`` named by its JAX (module, qualified name).
+
+    The pickler that can rename classes is the pure-Python one, which is
+    slow on large containers. Each object of ``plain`` (found by
+    identity inside ``obj``: a container of built-in values and arrays,
+    with no cycles and no class of ``names``, such as a dict of lists of
+    ints) is written by the C pickler instead, with no memo: the same
+    value on load, its inner shared references written out in full."""
+
+    plain_ids = {id(o) for o in plain}
+
+    class _Plain(pickle.Pickler):
+        def reducer_override(self, o):
+            if isinstance(o, type) and o in names or type(o) in names:
+                raise pickle.PicklingError(
+                    f"{type(o).__name__} inside an object passed as plain")
+            return NotImplemented
 
     class _Pickler(pickle._Pickler):
         # the stock pickler checks a global by importing its module;
@@ -36,6 +52,17 @@ def dumps(obj: Any, names: Names) -> bytes:
             self.save(qualname)
             self.write(pickle.STACK_GLOBAL)
             self.memoize(obj)
+
+        def save(self, obj, save_persistent_id=True):
+            if id(obj) not in plain_ids:
+                return super().save(obj, save_persistent_id)
+            # protocol 3 has no frames: its opcodes between the header
+            # and STOP push the object in any protocol-4 stream
+            buf = io.BytesIO()
+            p = _Plain(buf, 3)
+            p.fast = True
+            p.dump(obj)
+            self.write(buf.getvalue()[2:-1])
 
     buf = io.BytesIO()
     _Pickler(buf, max(pickle.DEFAULT_PROTOCOL, 4)).dump(obj)

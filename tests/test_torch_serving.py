@@ -264,7 +264,7 @@ def test_localfs_refuses_corrupt_blob(tmp_path):
 
 def test_unknown_factory_raises(home):
     with pytest.raises(ValueError, match="no counterpart"):
-        prepare_deploy("predictionio_tpu.templates.universal.engine:engine_factory",
+        prepare_deploy("predictionio_tpu.templates.no_such_template.engine:engine_factory",
                        storage=_port_storage(home), device="cpu")
 
 
@@ -442,8 +442,9 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch, home):
 
 
 #: modules the walk below must reach (the ANN package, the two-tower model
-#: and template, the integrity helpers, the classification slice and e2),
-#: so a rename cannot drop them
+#: and template, the integrity helpers, the classification slice, e2, CCO
+#: with the universal template and sequential rec with its attention and
+#: template), so a rename cannot drop them
 MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq",
              "predictionio_tpu_torch.ann.scorer", "predictionio_tpu_torch.models.two_tower",
              "predictionio_tpu_torch.templates.twotower.engine",
@@ -456,7 +457,12 @@ MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq"
              "predictionio_tpu_torch.templates.textclassification.engine",
              "predictionio_tpu_torch.templates.vanilla.engine",
              "predictionio_tpu_torch.e2.naivebayes", "predictionio_tpu_torch.e2.markov",
-             "predictionio_tpu_torch.e2.external")
+             "predictionio_tpu_torch.e2.external",
+             "predictionio_tpu_torch.models.cco",
+             "predictionio_tpu_torch.templates.universal.engine",
+             "predictionio_tpu_torch.parallel.ring_attention",
+             "predictionio_tpu_torch.models.seq_rec",
+             "predictionio_tpu_torch.templates.sequentialrec.engine")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
