@@ -21,6 +21,8 @@
                                             # on the card (torch.profiler)
     python3 chip_smoke.py --universal  # phases 1, 2 and 15: the universal and
                                        # sequential templates alone (no result line)
+    python3 chip_smoke.py --eventlog   # phases 1, 2 and 16: the EVENTLOG backend
+                                       # alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -117,8 +119,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    its dispatches per (bucket, k, path), p50 and loss;
 9. ``pio eval`` at ML-20M width: phase 5's COO as the template's training
    data, ``run_evaluation(distributed=True)`` on the card over evalK 2,
-   rank 64, 10 iterations, lambda 0.01 / 0.03 / 0.1 / 0.3 (one bucket a
-   fold); every fold score held against a float64 recomputation, the
+   rank 64, 10 iterations, lambda 0.01 and 0.1 (cut from four lambdas to
+   keep the whole run in its time; one bucket a fold); every fold score held against a float64 recomputation, the
    launch counters (zeroed just before) against candidates x iterations
    x (buckets + parts) of the fold layouts, the best candidate's fold-0
    factors against their float64 normal equations; the walls of
@@ -231,10 +233,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    Phase 3 also holds score_topk at B = 1,024 (k = 16 and 128, rows_valid
    1,024 and 544) and phase 4 times it there.
 13. ANN and the two-tower template at full width, in temporary
-   PIO_HOMEs. Two-tower: the first 10,000,000 of phase 5's 20,000,263
+   PIO_HOMEs. Two-tower: the first 5,000,000 of phase 5's 20,000,263
    draws as (user, item) view pairs, the template's engine.json widths
    (embed 32, hidden [64], out 32, batch 1,024, lr 0.01, temperature
-   0.1) for 1 epoch (the cuts: 5 epochs to 1, and the draws halved to
+   0.1) for 1 epoch (the cuts: 5 epochs to 1, and the draws quartered to
    keep the whole run in its time), trained through ``run_train`` (the data source's read returns the
    draws); steps/s and the epoch loss printed; the card's first 50 steps,
    each from the CPU's state before it, held against the port's CPU run
@@ -338,13 +340,43 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    must fail the gradient check; steps/s printed (with ``--profile`` 20
    steps also run under torch.profiler: the card's busy time); 500
    ``{"history": ...}`` queries served, each top 10 equal to the port's
-   CPU scores up to near-ties. Through the CLI: 20,000 buy and view
-   events through the port's event server in batches of 50, ``train``
+   CPU scores up to near-ties. Through the CLI (with ``--universal``
+   only; the whole run leaves it out to keep in its time): 20,000 buy
+   and view events through the port's event server in batches of 50, ``train``
    from each template's engine.json, ``deploy``, 50 queries to each
    answered as the same instance in-process answers (live-history
    ``user`` queries included), ``eval`` of UREvaluation over DefaultGrid
    with MAP@10 and MAP@1 printed. Every time printed stands beside the
    card's name and power limit.
+16. the EVENTLOG backend at ML-20M width, in a temporary PIO_HOME whose
+   EVENTDATA is the native event log (``PIO_STORAGE_REPOSITORIES_
+   EVENTDATA_SOURCE=EVENTLOG``, 64 MiB segments): the port's C++ engine
+   built with g++ (its time printed); phase 5's draws (all 20,000,263
+   with ``--eventlog``; the whole run cuts them to the first 10,000,000
+   to keep in its time, and prints the vocabularies' sizes) as ``rate`` events,
+   one eventTime a second, fed to ``append_jsonl`` in ~8 MB NDJSON chunks
+   (built by worker processes), the wall and events/s printed; ``pio
+   import`` of a 1,000,000-line file, ``pio export`` (the engine's NDJSON
+   path: the round trip's apps are kept to one active segment each) and
+   the export imported into a second app, whose columnar scan must equal
+   the first's;
+   the Recommendation template's training read three times, cold (cache
+   ``miss:cold``, writing the snapshot), warm (``hit``) and after 100,000
+   more events (``hit:delta``), each read's vocabularies, indices and
+   ratings bitwise equal to numpy's first-seen arrays of the draws; ``pio
+   segments compact``, then a read without the cache (``--no-scan-cache``)
+   served by the sidecars, equal again; ``pio fsck`` of the home, exit 0,
+   and of a small home with one flipped byte in a sealed segment's frames
+   (2, and 2 after ``--repair``: frames are report-only) and in its
+   compaction sidecar (2, then 3 with ``--repair``, then 0); ``pio
+   train`` of the template at rank 64, 10 iterations, lambda 0.01 on the
+   card, its gather_gram and chol_solve launches printed beside phase 5's
+   (counters zeroed just before), 64 items' factors held against the
+   float64 normal equations of the raw events given the final U (limit
+   1e-3); the instance deployed with the port's EngineServer and 200
+   queries from 8 clients, every answer equal to score_topk_ref up to
+   float64 near-ties (score_topk's counter zeroed just before, and it must
+   grow). The CLI verbs run in this process on the phase's Storage.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -355,6 +387,7 @@ printed. Without a CUDA card the script exits non-zero at once.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1278,8 +1311,8 @@ def eval_full_width(torch, ops, dev, train) -> dict:
     `_read` returns it, so `read_eval` (the seeded fold draw, `subset`'s
     trimmed vocabularies, the query dicts), `sweep_programs` and the sweep
     run as they do on an event store. `run_evaluation(distributed=True)`
-    evaluates rank 64, 10 iterations, seed 3, lambda 0.01 / 0.03 / 0.1 /
-    0.3 over evalK 2: one bucket a fold, four candidates. Checks: every
+    evaluates rank 64, 10 iterations, seed 3, lambda 0.01 and 0.1 over
+    evalK 2: one bucket a fold, two candidates. Checks: every
     candidate's fold scores equal a float64 recomputation (the candidate
     trained again with `als_train_prepared` on that fold's layout, the
     held-out pairs drawn again in numpy) within EVAL_TOL, with the same
@@ -1328,7 +1361,7 @@ def eval_full_width(torch, ops, dev, train) -> dict:
             ML20MSource, rec.RecPreparator, {"als": rec.ALSAlgorithm}, FirstServing))
         metric = rec.NegRMSE()
 
-    lams, eval_k, seed = (0.01, 0.03, 0.1, 0.3), 2, 3
+    lams, eval_k, seed = (0.01, 0.1), 2, 3
     cands = [EngineParams(
         data_source_params=rec.DataSourceParams(app_name="ml20m", eval_k=eval_k),
         algorithms_params=[("als", rec.ALSAlgorithmParams(
@@ -3993,7 +4026,7 @@ def templates_full_width(torch, ops, dev, train) -> dict:
 
 #: the cut of phase 13: the two-tower template's 5 epochs → 1
 TT_EPOCHS = 1
-TT_PAIRS = 10_000_000      # the draws two-tower trains on (cut from 20,000,263)
+TT_PAIRS = 5_000_000       # the draws two-tower trains on (cut from 20,000,263)
 TT_CHECK_STEPS = 50        # the card's first steps held against the CPU's
 TT_STEP_TOL = 1e-4         # of each leaf's max |value|, and of its norm
 TT_MAX_FLIP_SHARE = 1e-5   # switched ReLUs, of the check's hidden units
@@ -6233,10 +6266,11 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def universal_sequential_full_width(torch, ops, dev, coo=None) -> dict:
+def universal_sequential_full_width(torch, ops, dev, coo=None, cli: bool = True) -> dict:
     """Phase 15: the universal recommender and sequential recommendation
-    at full width (see the module docstring). No kernel of the port runs
-    here: the counters, zeroed first, must read 0."""
+    at full width (see the module docstring); ``cli`` adds the CLI round
+    trip. No kernel of the port runs here: the counters, zeroed first,
+    must read 0."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -6257,9 +6291,10 @@ def universal_sequential_full_width(torch, ops, dev, coo=None) -> dict:
                                        np.bincount(users, minlength=N_USERS))
         del fit
         out["seqrec"] = seqrec_full_width(torch, dev, storage, users, items)
-    t0 = time.perf_counter()
-    out["cli"] = ur_seqrec_cli(dev)
-    print(f"UR and SeqRec through the CLI: {time.perf_counter() - t0:.1f} s", flush=True)
+    if cli:
+        t0 = time.perf_counter()
+        out["cli"] = ur_seqrec_cli(dev)
+        print(f"UR and SeqRec through the CLI: {time.perf_counter() - t0:.1f} s", flush=True)
     launches = read_counters(ops)
     wall = time.perf_counter() - t_phase
     print(f"phase 15: {wall:.1f} s wall; kernel launches {launches} ({card_line()})",
@@ -6267,6 +6302,407 @@ def universal_sequential_full_width(torch, ops, dev, coo=None) -> dict:
     check(sum(launches.values()) == 0, f"phase 15 launched {launches}")
     out["wall"] = wall
     out["launches"] = launches
+    return out
+
+
+# phase 16: the EVENTLOG backend at ML-20M width
+EVENTLOG_DRAWS = N_RATINGS          # phase 5's draws as `rate` events (--eventlog)
+EVENTLOG_RUN_DRAWS = 10_000_000     # the whole run's cut, to keep it in its time
+EVENTLOG_CHUNK_LINES = 48_000       # ~8 MB of NDJSON a chunk, the size `pio import` reads
+EVENTLOG_MORE = 100_000             # events appended after the snapshot: a delta read
+EVENTLOG_IMPORT = 1_000_000         # lines of the `pio import` / `pio export` round trip
+EVENTLOG_QUERIES = 200
+EVENTLOG_T0 = 1_577_836_800         # 2020-01-01T00:00:00Z, one eventTime a second
+RATING_TEXT = [repr(k / 2) for k in range(11)]
+
+
+def ndjson_chunk(task) -> bytes:
+    """NDJSON `rate` lines of draws ``lo ...``: one eventTime a second from
+    EVENTLOG_T0 (a worker process builds them while the store appends)."""
+    import numpy as np
+
+    lo, users, items, halves = task
+    times = np.datetime_as_string(
+        np.datetime64(EVENTLOG_T0, "s") + np.arange(lo, lo + len(users)), unit="s")
+    return "".join([
+        f'{{"event":"rate","entityType":"user","entityId":"u{u}",'
+        f'"targetEntityType":"item","targetEntityId":"i{i}",'
+        f'"properties":{{"rating":{RATING_TEXT[r]}}},"eventTime":"{t}Z"}}\n'
+        for u, i, r, t in zip(users.tolist(), items.tolist(), halves.tolist(),
+                              times.tolist())]).encode()
+
+
+def ndjson_chunks(users, items, ratings, first_time: int):
+    """(lo, n, bytes) of every chunk in order, built by a pool of worker
+    processes at most 16 chunks ahead of the consumer."""
+    import multiprocessing
+
+    import numpy as np
+    from concurrent.futures import ProcessPoolExecutor
+
+    halves = np.rint(np.asarray(ratings) * 2).astype(np.int64)
+    starts = range(0, len(users), EVENTLOG_CHUNK_LINES)
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                             multiprocessing.get_context("spawn")) as pool:
+        ahead = collections.deque()
+        for lo in starts:
+            hi = lo + EVENTLOG_CHUNK_LINES
+            ahead.append((lo, min(hi, len(users)), pool.submit(
+                ndjson_chunk, (first_time + lo, users[lo:hi], items[lo:hi],
+                               halves[lo:hi]))))
+            if len(ahead) >= 16:
+                lo0, hi0, fut = ahead.popleft()
+                yield lo0, hi0 - lo0, fut.result()
+        while ahead:
+            lo0, hi0, fut = ahead.popleft()
+            yield lo0, hi0 - lo0, fut.result()
+
+
+def first_seen(keys):
+    """(vocabulary in first-seen order, each key's index in it) in numpy."""
+    import numpy as np
+
+    uniq, first = np.unique(keys, return_index=True)
+    vocab = uniq[np.argsort(first, kind="stable")]
+    lut = np.zeros(int(uniq.max()) + 1, np.int32)
+    lut[vocab] = np.arange(len(vocab), dtype=np.int32)
+    return vocab, lut[keys]
+
+
+def bimap_keys(bimap) -> list:
+    keys = [None] * len(bimap)
+    for k, v in bimap.to_dict().items():
+        keys[v] = k
+    return keys
+
+
+def run_cli(cli, argv) -> tuple:
+    """One verb of the port's CLI in this process: (exit code, stdout)."""
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(list(argv))
+        code = 0
+    except SystemExit as e:
+        code = e.code or 0
+    print(f"-- cli {' '.join(argv[:2])}: exit {code}, "
+          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    return code, out.getvalue()
+
+
+def fsck_drill(cli, home: str) -> dict:
+    """`pio fsck` on a small EVENTLOG home with one flipped byte: in a
+    sealed segment's frames (exit 2; frames are report-only, so
+    `--repair` leaves 2) and in a sealed segment's compaction sidecar
+    (exit 2, then 3 with `--repair`, then 0)."""
+    import datetime
+    import shutil
+
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.filestore import NativeEventLogStore
+
+    base = os.path.join(home, "small")
+    store = NativeEventLogStore(os.path.join(base, "eventlog"))
+    store.segment_bytes = 16_384
+    t0 = 1_767_225_600
+    for lo in range(0, 3_000, 500):
+        store.insert_batch([Event(
+            event="rate", entity_type="user", entity_id=f"u{j % 97}",
+            target_entity_type="item", target_entity_id=f"i{j % 31}",
+            properties={"rating": float(j % 5 + 1)},
+            event_time=datetime.datetime.fromtimestamp(t0 + j, datetime.timezone.utc))
+            for j in range(lo, lo + 500)], 1)
+    ns = store._ns(1, None)
+    for seg in list(ns.sealed):
+        ns.compact(seg)
+    ns.finalize_all()
+    store.close()
+    codes = {"clean": run_cli(cli, ["fsck", "--home", base])[0]}
+    for kind, suffix in (("frame", ".pel"), ("sidecar", ".cols.npz")):
+        d = os.path.join(home, kind)
+        shutil.copytree(base, d)
+        seg_dir = os.path.join(d, "eventlog", "events_1.peld")
+        path = os.path.join(seg_dir, sorted(f for f in os.listdir(seg_dir)
+                                            if f.endswith(suffix))[0])
+        blob = bytearray(open(path, "rb").read())
+        blob[len(blob) // 2] ^= 0xFF
+        open(path, "wb").write(blob)
+        codes[kind] = [run_cli(cli, ["fsck", "--home", d] + extra)[0]
+                       for extra in ([], ["--repair"], [])]
+    print(f"fsck on a small home: clean {codes['clean']}; a flipped byte in a "
+          f"sealed segment's frames {codes['frame']} (fsck, --repair, fsck); in "
+          f"its compaction sidecar {codes['sidecar']}", flush=True)
+    check(codes == {"clean": 0, "frame": [2, 2, 2], "sidecar": [2, 3, 0]},
+          f"fsck exit codes {codes}")
+    return codes
+
+
+def eventlog_full_width(torch, ops, dev, coo=None, draws: int = EVENTLOG_DRAWS) -> dict:
+    """Phase 16: the EVENTLOG backend at ML-20M width (see the module
+    docstring)."""
+    import numpy as np
+
+    from predictionio_tpu_torch import native
+    from predictionio_tpu_torch.core.workflow import RECOMMENDATION_FACTORY, prepare_deploy
+    from predictionio_tpu_torch.data import store as event_store
+    from predictionio_tpu_torch.storage import registry
+    from predictionio_tpu_torch.tools import cli
+
+    t_phase = time.perf_counter()
+    reset_counters(ops)
+    out = {}
+    t0 = time.perf_counter()
+    native.eventlog_library()
+    info = native.BUILD_INFO.get("eventlog")
+    print(f"native engine: {native.library_path('eventlog').name}, g++ "
+          + (f"{info['seconds']:.2f} s" if info else "not run (library on disk)")
+          + f" ({' '.join(native.GXX_FLAGS)}); loaded in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if coo is None:
+        users, items, ratings = synthetic_ml20m(N_RATINGS, N_USERS, N_ITEMS)
+    else:  # phase 5's draws, in their order
+        users, items, ratings = coo.user_idx, coo.item_idx, coo.rating
+    users, items, ratings = users[:draws], items[:draws], ratings[:draws]
+    n = len(users)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    engine_dir = os.path.join(repo, "predictionio_tpu_torch", "templates", "recommendation")
+    with tempfile.TemporaryDirectory(prefix="pio_chip_eventlog_") as home:
+        env = {"PIO_HOME": home,
+               "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EVENTLOG",
+               "PIO_STORAGE_SOURCES_EVENTLOG_TYPE": "EVENTLOG"}
+        storage = registry.Storage(registry.StorageConfig.from_env(env))
+        check(storage.config.eventdata_type == "EVENTLOG", "EVENTDATA is not EVENTLOG")
+        registry.set_storage(storage)
+        try:
+            check(run_cli(cli, ["app", "new", "ML20M"])[0] == 0, "app new failed")
+            app_id = storage.meta.get_app_by_name("ML20M").id
+            events = storage.events
+            segment_bytes = events.segment_bytes
+            events.init_channel(app_id)
+            print(f"home {home}: EVENTDATA on EVENTLOG, {events.segment_bytes} B "
+                  f"segments", flush=True)
+
+            # 3. the draws through append_jsonl in ~8 MB chunks
+            t0 = time.perf_counter()
+            nbytes = chunks = 0
+            for lo, n_lines, blob in ndjson_chunks(users, items, ratings, 0):
+                appended, fallback = events.append_jsonl(blob, n_lines, app_id)
+                check(appended == n_lines and not fallback,
+                      f"append_jsonl took {appended} of {n_lines} lines at {lo}")
+                nbytes += len(blob)
+                chunks += 1
+            t_load = time.perf_counter() - t0
+            ns = events._ns(app_id, None)
+            print(f"loaded {n} rate events ({N_USERS} x {N_ITEMS} draws, {nbytes / 1e9:.3f} GB "
+                  f"of NDJSON in {chunks} chunks of {nbytes / chunks / 2**20:.2f} MiB) through "
+                  f"append_jsonl in {t_load:.2f} s: {n / t_load:.0f} events/s; "
+                  f"{len(ns.sealed)} sealed segments", flush=True)
+            out["load_s"], out["load_events_s"] = t_load, n / t_load
+
+            # 4. pio import, pio export, and the export imported again; the
+            # round trip's apps stay one active segment each, so that export
+            # takes the engine's own NDJSON path (a segmented namespace
+            # exports through the merged find(), the CPU tests' case)
+            events.segment_bytes = 1 << 30
+            path = os.path.join(home, "import.jsonl")
+            m = min(EVENTLOG_IMPORT, n)
+            with open(path, "wb") as f:
+                for _, _, blob in ndjson_chunks(users[:m], items[:m], ratings[:m], 0):
+                    f.write(blob)
+            for name in ("Import1", "Import2"):
+                check(run_cli(cli, ["app", "new", name])[0] == 0, f"app new {name}")
+            code, text = run_cli(cli, ["import", "--app-name", "Import1", "--input", path])
+            check(code == 0 and f"Imported {m} events" in text, f"import: {code} {text}")
+            exported = os.path.join(home, "export.jsonl")
+            code, text = run_cli(cli, ["export", "--app-name", "Import1", "--output", exported])
+            check(code == 0 and f"Exported {m} events" in text, f"export: {code} {text}")
+            code, text = run_cli(cli, ["import", "--app-name", "Import2", "--input", exported])
+            check(code == 0, f"import of the export: {code} {text}")
+            cols = [events.scan_columnar(storage.meta.get_app_by_name(a).id,
+                                         value_key="rating") for a in ("Import1", "Import2")]
+            same = all(np.array_equal(getattr(cols[0], f), getattr(cols[1], f))
+                       for f in ("entity_idx", "target_idx", "name_idx", "values", "times_us"))
+            same &= all(list(getattr(cols[0], f)) == list(getattr(cols[1], f))
+                        for f in ("entity_ids", "target_ids", "names"))
+            print(f"import {m} lines, export, import of the export: columnar scans "
+                  f"equal {same} ({cols[0].n} rows)", flush=True)
+            check(same and cols[0].n == m, "the re-imported app's columnar scan differs")
+            events.segment_bytes = segment_bytes
+            os.unlink(path)
+            os.unlink(exported)
+
+            # 5. the training read: cold, warm, after more events
+            read = lambda: event_store.read_training_interactions(  # noqa: E731
+                "ML20M", entity_type="user", target_entity_type="item",
+                event_names=["rate", "buy"], value_key="rating",
+                value_spec={"rate": "prop"}, default_spec=4.0, storage=storage)
+
+            def cached(label, want):
+                hits = event_store._SNAP_HITS._values.get((), 0.0)
+                delta = event_store._SNAP_DELTA_ROWS._values.get((), 0.0)
+                misses = dict(event_store._SNAP_MISSES._values)
+                t0 = time.perf_counter()
+                data = read()
+                uu, ii, rr = data.arrays()
+                wall = time.perf_counter() - t0
+                if event_store._SNAP_HITS._values.get((), 0.0) > hits:
+                    result = ("hit:delta" if event_store._SNAP_DELTA_ROWS._values.get(
+                        (), 0.0) > delta else "hit")
+                else:
+                    grew = [k[0] for k, v in event_store._SNAP_MISSES._values.items()
+                            if v > misses.get(k, 0.0)]
+                    result = f"miss:{grew[0]}" if grew else "bypassed"
+                u_vocab, i_vocab, u_idx, i_idx, r_want = want
+                equal = (uu.dtype == np.int32 and ii.dtype == np.int32
+                         and rr.dtype == np.float32 and np.array_equal(uu, u_idx)
+                         and np.array_equal(ii, i_idx) and np.array_equal(rr, r_want)
+                         and bimap_keys(data.user_ids) == [f"u{x}" for x in u_vocab]
+                         and bimap_keys(data.item_ids) == [f"i{x}" for x in i_vocab])
+                print(f"training read ({label}): {wall:.2f} s, cache {result}, "
+                      f"{len(uu)} events, {len(u_vocab)} users x {len(i_vocab)} items, "
+                      f"arrays equal numpy's bitwise {equal}", flush=True)
+                check(equal, f"training read ({label}) differs from numpy's arrays")
+                return result, wall
+
+            def numpy_read(uu, ii, rr):
+                u_vocab, u_idx = first_seen(uu)
+                i_vocab, i_idx = first_seen(ii)
+                return u_vocab, i_vocab, u_idx, i_idx, rr.astype(np.float32)
+
+            want = numpy_read(users, items, ratings)
+            reads = {"cold": cached("cold", want), "warm": cached("warm", want)}
+            more = min(EVENTLOG_MORE, n)
+            for _, n_lines, blob in ndjson_chunks(users[:more], items[:more], ratings[:more], n):
+                check(events.append_jsonl(blob, n_lines, app_id)[0] == n_lines, "append")
+            users = np.concatenate([users, users[:more]])
+            items = np.concatenate([items, items[:more]])
+            ratings = np.concatenate([ratings, ratings[:more]])
+            want = numpy_read(users, items, ratings)
+            reads["delta"] = cached(f"after {more} more events", want)
+            check([reads[k][0] for k in ("cold", "warm", "delta")]
+                  == ["miss:cold", "hit", "hit:delta"],
+                  f"cache outcomes {[reads[k][0] for k in ('cold', 'warm', 'delta')]}")
+            out["reads"] = reads
+
+            # 6. compaction, then a read without the cache, through the sidecars
+            code, text = run_cli(cli, ["segments", "compact", "--json"])
+            doc = json.loads(text)
+            check(code == 0 and ns.sealed and all(seg.meta.cols for seg in ns.sealed),
+                  f"segments compact: exit {code}, {doc.get('compacted')} compacted")
+            prev = event_store.set_scan_cache(False)
+            try:
+                reads["sidecars"] = cached("--no-scan-cache, after compaction", want)
+            finally:
+                event_store.set_scan_cache(prev)
+            sources = collections.Counter(s["source"] for s in
+                                          (ns.last_scan or {}).get("per_segment", []))
+            print(f"segments compact: {doc['compacted']} sealed segments compacted "
+                  f"({len(ns.sealed)} of this app); the uncached read took its "
+                  f"blocks from {dict(sources)}", flush=True)
+            check(reads["sidecars"][0] == "bypassed" and sources.get("columnar", 0)
+                  == len(ns.sealed), f"the read after compaction: {dict(sources)}")
+
+            # 7. fsck of this home, then the drill on a small one
+            t0 = time.perf_counter()
+            code, text = run_cli(cli, ["fsck", "--home", home, "--json"])
+            report = json.loads(text)
+            t_fsck = time.perf_counter() - t0
+            print(f"pio fsck of this home: exit {code} in {t_fsck:.2f} s, checked "
+                  f"{report['checked']} artifacts, clean {report['clean']}, corrupt "
+                  f"{report['corrupt']}", flush=True)
+            check(code == 0 and report["corrupt"] == 0, f"fsck exit {code}")
+            out["fsck_s"] = t_fsck
+            with tempfile.TemporaryDirectory(prefix="pio_chip_fsck_") as small:
+                out["fsck_codes"] = fsck_drill(cli, small)
+
+            # 8. pio train at rank 64, 10 iterations, lambda 0.01
+            vpath = os.path.join(home, "variant.json")
+            with open(vpath, "w") as f:
+                json.dump({"id": "default", "engineFactory": RECOMMENDATION_FACTORY,
+                           "datasource": {"params": {"appName": "ML20M",
+                                                     "eventNames": ["rate", "buy"]}},
+                           "algorithms": [{"name": "als", "params": {
+                               "rank": RANK, "numIterations": ITERATIONS,
+                               "lambda": LAMBDA, "seed": SEED}}]}, f)
+            reset_counters(ops)
+            t0 = time.perf_counter()
+            code, text = run_cli(cli, ["train", "--engine-dir", engine_dir, "-e", vpath,
+                                       "--device", dev.type])
+            t_train = time.perf_counter() - t0
+            launches = read_counters(ops)
+            check(code == 0, f"train: exit {code}")
+            iid = re.search(r"engine instance (\S+)", text).group(1)
+            print(f"pio train on the event log: {t_train:.2f} s wall (the read, the "
+                  f"layout and the train); kernel launches {launches} (phase 5: "
+                  f"gather_gram 110, chol_solve 130)", flush=True)
+            if dev.type == "cuda":
+                for name in ("gather_gram", "chol_solve"):
+                    check(launches[name] > 0, f"pio train did not launch {name}")
+            out["train_s"], out["train_launches"] = t_train, launches
+            eng = prepare_deploy(RECOMMENDATION_FACTORY, instance_id=iid, storage=storage,
+                                 device=dev)
+            model = eng.models[0]
+            rows_u = np.array([int(k[1:]) for k in bimap_keys(model.user_ids)])
+            rows_i = np.array([int(k[1:]) for k in bimap_keys(model.item_ids)])
+            U = np.zeros((N_USERS, RANK), np.float32)
+            V = np.zeros((N_ITEMS, RANK), np.float32)
+            U[rows_u], V[rows_i] = model.U, model.V
+            rng = np.random.default_rng(SEED + 16)
+            counts = np.bincount(items, minlength=N_ITEMS)
+            heavy = np.argsort(-counts, kind="stable")[:8]
+            chosen = np.concatenate([heavy, rng.choice(
+                np.setdiff1d(rows_i, heavy), 56, replace=False)])
+            err = normal_equations_err(torch, dev, items, users, ratings, U, V,
+                                       chosen, LAMBDA)
+            print(f"float64 normal equations: {len(chosen)} items given the final U "
+                  f"{err:.3e} (max|x - x64| / max|x64|, limit {ORACLE_TOL})", flush=True)
+            check(err <= ORACLE_TOL, f"items off their normal equations: {err:.3e}")
+            out["normal_equations_err"] = err
+
+            # 9. deploy: answers equal to score_topk_ref
+            queries = rng.choice(len(rows_u), EVENTLOG_QUERIES, replace=False)
+            bodies = [json.dumps({"user": f"u{rows_u[r]}", "num": 10}) for r in queries]
+            with running_server(dev, storage, RECOMMENDATION_FACTORY, instance_id=iid) as port:
+                reset_counters(ops)
+                t0 = time.perf_counter()
+                answers = post_all(port, "/queries.json", bodies, 8)
+                t_q = time.perf_counter() - t0
+                served = read_counters(ops)
+            Ud = torch.as_tensor(model.U, device=dev)
+            Vd = torch.as_tensor(model.V, device=dev)
+            ids = torch.as_tensor(queries.astype(np.int32), device=dev)
+            rv, ri = ops.score_topk_ref(Ud, Vd, 10, ids=ids)
+            s64 = Ud[ids.long()].double() @ Vd.double().T
+            bad = 0
+            for j, (st, a) in enumerate(answers):
+                got_idx = torch.tensor([model.item_ids[it["item"]]
+                                        for it in a.get("itemScores", [])], device=dev)
+                got_val = torch.tensor([it["score"] for it in a.get("itemScores", [])],
+                                       device=dev)
+                if st != 200 or len(got_idx) != 10 or not topk_agrees(
+                        got_val[None], got_idx[None], rv[j:j + 1], ri[j:j + 1],
+                        s64[j:j + 1]):
+                    bad += 1
+            print(f"deploy: {EVENTLOG_QUERIES} POST /queries.json from 8 clients in "
+                  f"{t_q:.2f} s, {bad} off score_topk_ref; kernel launches {served}",
+                  flush=True)
+            check(bad == 0, f"{bad} answers disagree with score_topk_ref")
+            if dev.type == "cuda":
+                check(served["score_topk"] > 0, "deploy did not launch score_topk")
+            out["serve_launches"] = served
+        finally:
+            registry.set_storage(None)
+            if storage._events is not None:
+                storage._events.close()
+    launches = {name: out["train_launches"][name] + out["serve_launches"][name]
+                for name in out["train_launches"]}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 16: {wall:.1f} s wall; kernel launches {launches} ({card_line()})",
+          flush=True)
+    out["launches"], out["wall"] = launches, wall
     return out
 
 
@@ -6286,6 +6722,7 @@ def main(argv) -> int:
     ann_only = "--ann" in argv
     classification_only = "--classification" in argv
     universal_only = "--universal" in argv
+    eventlog_only = "--eventlog" in argv
     global PROFILE_STEPS
     PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
@@ -6312,6 +6749,12 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if eventlog_only:
+        phase("16. the EVENTLOG backend at ML-20M width")
+        eventlog_full_width(torch, ops, dev)
+        phase("done")
+        return 0
 
     if universal_only:
         phase("15. the universal and sequential templates at full width")
@@ -6423,7 +6866,9 @@ def main(argv) -> int:
     phase("14. classification and e2 at full width")
     classification_full_width(torch, ops, dev, train["coo"])
     phase("15. the universal and sequential templates at full width")
-    universal = universal_sequential_full_width(torch, ops, dev, train["coo"])
+    universal = universal_sequential_full_width(torch, ops, dev, train["coo"], cli=False)
+    phase("16. the EVENTLOG backend at ML-20M width")
+    eventlog = eventlog_full_width(torch, ops, dev, train["coo"], EVENTLOG_RUN_DRAWS)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -6443,6 +6888,7 @@ def main(argv) -> int:
         "launches_phase12": family["launches"]["score_topk"],
         "launches_phase13": ann["launches"]["score_topk"],
         "launches_phase15": universal["launches"]["score_topk"],
+        "launches_phase16": eventlog["launches"]["score_topk"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
         "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
@@ -6456,7 +6902,8 @@ def main(argv) -> int:
         "launches_eval": evals["launches"]["gather_gram"],
         "launches_phase12": family["launches"]["gather_gram"],
         "launches_phase13": ann["launches"]["gather_gram"],
-        "launches_phase15": universal["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches_phase15": universal["launches"]["gather_gram"],
+        "launches_phase16": eventlog["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -6468,7 +6915,8 @@ def main(argv) -> int:
         "launches_eval": evals["launches"]["chol_solve"],
         "launches_phase12": family["launches"]["chol_solve"],
         "launches_phase13": ann["launches"]["chol_solve"],
-        "launches_phase15": universal["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches_phase15": universal["launches"]["chol_solve"],
+        "launches_phase16": eventlog["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],
@@ -6477,7 +6925,8 @@ def main(argv) -> int:
         "source": "predictionio_tpu_torch/csrc/rows_gram.cu",
         "replaces": "predictionio_tpu/ops/gram.py:73",
         "launches": rows["launches"],
-        "launches_phase15": universal["launches"]["rows_gram"], "max_abs_err": rows_err,
+        "launches_phase15": universal["launches"]["rows_gram"],
+        "launches_phase16": eventlog["launches"]["rows_gram"], "max_abs_err": rows_err,
         "ms": rows["ms"], "plain_ms": rows["plain_ms"],
         "bound_ms": rows["bound_ms"], "bound_by": rows["bound_by"],
         "library_ms": rows["library_ms"],

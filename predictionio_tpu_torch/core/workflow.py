@@ -140,6 +140,7 @@ def run_train(
     batch: str = "",
     device=None,
     resume: bool = False,
+    scan_cache: Optional[bool] = None,
 ) -> str:
     """Train and persist one engine instance on ``device`` (CUDA unless
     the caller passes ``"cpu"``; raises when there is no card and no CPU
@@ -155,7 +156,13 @@ def run_train(
     <factory>_<variant>``: a fresh run clears that directory,
     ``resume=True`` (``pio train --resume``) keeps it so the trainer
     restores its newest checkpoint and continues, and a completed run
-    removes it."""
+    removes it.
+
+    ``scan_cache`` pins the columnar snapshot cache for this run: False
+    is a full rescan (``pio train --no-scan-cache``, for when a cached
+    read is suspect), True forces it on, None keeps the process default
+    (``PIO_SCAN_CACHE``, on unless set to 0/false/no/off)."""
+    from predictionio_tpu_torch.data.store import set_scan_cache
     from predictionio_tpu_torch.utils import tracing
 
     device = resolve_device(device)
@@ -194,6 +201,8 @@ def run_train(
         shutil.rmtree(ckpt_root, ignore_errors=True)
     ctx = WorkflowContext(storage=storage, device=device, verbose=verbose,
                           instance_id=instance_id, checkpoint_dir=ckpt_root)
+    prev_scan_cache = (set_scan_cache(scan_cache)
+                       if scan_cache is not None else None)
     try:
         with tracing.root_span("train.run", engine_factory=engine_factory,
                                instance_id=instance_id):
@@ -227,6 +236,9 @@ def run_train(
         storage.meta.update_engine_instance(ei)
         traceback.print_exc()
         raise
+    finally:
+        if scan_cache is not None:
+            set_scan_cache(prev_scan_cache)
 
 
 @dataclass

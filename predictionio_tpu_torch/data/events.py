@@ -1,20 +1,24 @@
 """Event stores: the backend SPI, the in-memory store and the SQLite store.
 
-The port's copy of the JAX package's ``data/events.py`` for the two
-backends training reads here: ``MEMORY`` and ``SQLITE``. The SQLite store
-keeps the reference's table per (app, channel) namespace
+The port's copy of the JAX package's ``data/events.py`` for ``MEMORY``
+and ``SQLITE``; the native event log (``EVENTLOG``) is
+:mod:`predictionio_tpu_torch.data.filestore`. The SQLite store keeps the
+reference's table per (app, channel) namespace
 (``pio_event_<appId>[_<channelId>]``), its schema, its indexes and its
 scan order, so events the JAX package wrote into a ``PIO_HOME`` are read
-by the port and the other way round. The other backends (the native
-event log, segments, replication, remote SQL engines), their bulk paths
-(the native JSONL import and export) and the columnar scan are not
-ported yet.
+by the port and the other way round. It also has the JAX package's
+columnar training read (:meth:`SqliteEventStore.scan_columnar`) with the
+snapshot cache's probes (``cache_identity`` ``sqlite:<abspath>`` and
+:meth:`~SqliteEventStore.creation_stats`), so the default backend takes
+the reference's read path. Replication and the remote SQL engines are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 import json
+import os
 import sqlite3
 import threading
 from abc import ABC, abstractmethod
@@ -32,6 +36,11 @@ from predictionio_tpu_torch.data.event import (
 
 class EventStore(ABC):
     """Backend SPI for event storage (one namespace per app/channel)."""
+
+    # Stable identity of the backing data for the snapshot cache (an
+    # absolute path). None: no durable identity (in-memory stores), so
+    # scans are never snapshot-cached.
+    cache_identity: Optional[str] = None
 
     def init_channel(self, app_id: int, channel_id: Optional[int] = None) -> None:
         """Prepare storage for a namespace (idempotent)."""
@@ -90,6 +99,17 @@ class EventStore(ABC):
         """Scan events ordered by eventTime asc (desc when ``reversed``).
         ``start_time`` inclusive, ``until_time`` exclusive; ``limit=None``
         (or negative) means no limit."""
+
+    def creation_stats(
+        self, app_id: int, channel_id: Optional[int] = None,
+        until_us: Optional[int] = None,
+    ) -> Optional[Tuple[int, Optional[int]]]:
+        """(live event count, max creationTime epoch-µs) over the
+        namespace, optionally restricted to creationTime ≤ ``until_us``:
+        the snapshot cache's watermark and invalidation probe. Returns
+        ``(0, None)`` for an empty namespace and None when the backend
+        cannot answer cheaply (caching is then skipped)."""
+        return None
 
     # -- derived ---------------------------------------------------------------
 
@@ -245,6 +265,10 @@ class SqliteEventStore(EventStore):
 
     def __init__(self, path: str) -> None:
         self._path = path
+        if path != ":memory:":
+            # the snapshot cache's key: the JAX package's SqliteDialect
+            # identity, so one snapshot serves both packages
+            self.cache_identity = "sqlite:" + os.path.abspath(path)
         self._lock = threading.RLock()
         self._local = threading.local()
         self._shared = self._connect() if path == ":memory:" else None
@@ -486,3 +510,106 @@ class SqliteEventStore(EventStore):
                 c.commit()
 
         return stream()
+
+    def scan_columnar(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        target_entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        value_key: Optional[str] = None,
+        created_after_us: Optional[int] = None,
+        created_until_us: Optional[int] = None,
+    ):
+        """Columnar training read (the contract of the EVENTLOG scan,
+        :class:`~predictionio_tpu_torch.data.pipeline.ColumnarEvents`):
+        select only the five columns training needs and accumulate them
+        straight into index arrays and first-seen vocabularies; a row's
+        properties JSON is parsed only when ``value_key`` is set and the
+        text can hold it. Values follow the shared grammar
+        (``data/store._parse_value``), as on the other paths.
+
+        ``created_after_us`` (exclusive) and ``created_until_us``
+        (inclusive) bound creationTime: the snapshot cache's delta
+        window, on the ``{t}_ctime`` index."""
+        from predictionio_tpu_torch.data.pipeline import columnar_from_rows
+
+        t = self._table(app_id, channel_id)
+        clauses, args = [], []
+        for col, op, val in (("eventTime", ">=", start_time), ("eventTime", "<", until_time)):
+            if val is not None:
+                clauses.append(f"{col} {op} ?")
+                args.append(_ts(val))
+        for col, val in (("entityType", entity_type),
+                         ("targetEntityType", target_entity_type)):
+            if val is not None:
+                clauses.append(f"{col} = ?")
+                args.append(val)
+        if event_names is not None:
+            clauses.append(f"event IN ({','.join('?' * len(event_names))})")
+            args.extend(event_names)
+        if created_after_us is not None:
+            clauses.append("creationTime > ?")
+            args.append(int(created_after_us))
+        if created_until_us is not None:
+            clauses.append("creationTime <= ?")
+            args.append(int(created_until_us))
+        clauses = ["targetEntityId IS NOT NULL",
+                   "targetEntityId != ''"] + clauses
+        sql = (f"SELECT event,entityId,targetEntityId,properties,eventTime "
+               f"FROM {t} WHERE {' AND '.join(clauses)} "
+               f"ORDER BY eventTime ASC, creationTime ASC, id ASC")
+        c = self._conn()
+        try:
+            cur = c.cursor()
+            cur.execute(sql, args)
+            rows = cur.fetchmany(8192)
+        except sqlite3.Error as e:
+            if not self._missing_table(c, e):
+                raise
+            rows = []
+
+        def row_iter():
+            nonlocal rows
+            try:
+                while rows:
+                    yield from rows
+                    rows = cur.fetchmany(8192)
+            finally:
+                c.commit()  # end the read transaction
+
+        cols = columnar_from_rows(row_iter(), value_key)
+        if cols is not None:
+            from predictionio_tpu_torch.utils import tracing
+
+            tracing.add_attrs(scan_backend="sql", scan_records=int(cols.n))
+        return cols
+
+    def creation_stats(
+        self, app_id: int, channel_id: Optional[int] = None,
+        until_us: Optional[int] = None,
+    ) -> Optional[Tuple[int, Optional[int]]]:
+        t = self._table(app_id, channel_id)
+        where = ""
+        args: Tuple = ()
+        if until_us is not None:
+            where = " WHERE creationTime <= ?"
+            args = (int(until_us),)
+        c = self._conn()
+        try:
+            cur = c.cursor()
+            cur.execute(f"SELECT COUNT(*), MAX(creationTime) FROM {t}{where}",
+                        args)
+            row = cur.fetchone()
+            c.commit()
+        except sqlite3.Error as e:
+            if self._missing_table(c, e):
+                return (0, None)
+            raise
+        count = int(row[0]) if row and row[0] is not None else 0
+        if count == 0:
+            return (0, None)
+        return (count, int(row[1]))

@@ -37,7 +37,10 @@ and other apps never see it. ``/health`` names the policy file in
 ``input_blocker`` refuses an event with 403, and ``input_sniffer`` sees
 every event after its commit. Incident capture (``incident_dir``): the
 ingest storage breaker opening writes a postmortem bundle, and
-``serve_forever`` installs the SIGQUIT and crash handlers.
+``serve_forever`` installs the SIGQUIT and crash handlers. On the
+EVENTLOG backend ``quotas.json``'s ``writer_shards`` sets each app's
+writer shards (``set_shard_policy``), and ``segment_maintenance`` starts
+the background compaction and cold-tier thread.
 
 Left out of the port for now, each with the part of the JAX server that
 brings it: writer sharding and segment maintenance (the native event
@@ -207,6 +210,7 @@ class EventServer:
         auth_cache_ttl: float = 30.0,
         durable_acks: bool = False,
         access_log: bool = False,
+        segment_maintenance: bool = False,
         tenant_quotas: Optional[Any] = None,
         scrape_interval: float = 10.0,
         incident_dir: Optional[str] = None,
@@ -221,6 +225,16 @@ class EventServer:
             self.quotas = TenantQuotas(str(tenant_quotas))
         else:
             self.quotas = TenantQuotas.for_home(self.storage.config.home)
+        if hasattr(self.storage.events, "set_shard_policy"):
+            # writer shards of the native event log: the policy names how
+            # many active writer shards each app's namespaces fan appends
+            # across (quotas.json's writer_shards; no-op elsewhere)
+            self.storage.events.set_shard_policy(self.quotas.writer_shards)
+        if segment_maintenance and hasattr(self.storage.events,
+                                           "start_maintenance"):
+            # background compaction of sealed segments and cold-tier
+            # shipping (EVENTLOG only)
+            self.storage.events.start_maintenance()
         if durable_acks:
             # 201 then means on disk (fsync), not just committed to the
             # page cache; with ingest batching the coalescer amortizes

@@ -10,7 +10,7 @@ resolves the app (and channel) named in the variant; serving loads the
 latest COMPLETED instance for (engine factory, variant) — the
 reference's ``EngineInstances.getLatestCompleted``; ``pio eval`` records
 one evaluation instance per grid search, which ``pio evals`` lists.
-Left out: the remote SQL dialects (with the event-store backends).
+Left out: the remote SQL dialects (with ``storage/sqldialect.py``).
 """
 
 from __future__ import annotations

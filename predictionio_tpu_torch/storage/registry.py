@@ -2,8 +2,11 @@
 
 The port's copy of the JAX package's ``storage/registry.py``, limited to
 the backends the port has: the meta repository (SQLITE or MEMORY),
-the event repository (SQLITE or MEMORY) and the model repository
-(LOCALFS or MEMORY). It honours the same
+the event repository (SQLITE, EVENTLOG or MEMORY) and the model
+repository (LOCALFS or MEMORY). EVENTLOG is the native C++ log under
+``<home>/eventlog`` (:mod:`predictionio_tpu_torch.data.filestore`); its
+engine is built with g++ when the store is first opened, and a failed
+build raises. It honours the same
 ``PIO_STORAGE_REPOSITORIES_*`` / ``PIO_STORAGE_SOURCES_*`` variables and
 the same defaults — everything under ``$PIO_HOME or ~/.pio_store`` — so
 the two packages share one storage home.
@@ -93,10 +96,18 @@ def _ensure(home: str) -> str:
     return home
 
 
+def _eventlog_factory(cfg: StorageConfig) -> EventStore:
+    # lazy import: the C++ engine is built only when EVENTLOG is selected
+    from predictionio_tpu_torch.data.filestore import NativeEventLogStore
+
+    return NativeEventLogStore(os.path.join(_ensure(cfg.home), "eventlog"))
+
+
 _EVENT_BACKENDS: Dict[str, Callable[[StorageConfig], EventStore]] = {
     "MEMORY": lambda cfg: MemoryEventStore(),
     "SQLITE": lambda cfg: SqliteEventStore(
         os.path.join(_ensure(cfg.home), "events.db")),
+    "EVENTLOG": _eventlog_factory,
 }
 _MODEL_BACKENDS: Dict[str, Callable[[StorageConfig], ModelStore]] = {
     "MEMORY": lambda cfg: MemoryModelStore(),

@@ -84,6 +84,9 @@ class TTDataSource(DataSource):
             p.app_name, entity_type="user", target_entity_type="item",
             event_names=p.event_names,
             chunk_size=p.stream_chunk or 65536,
+            # an explicit streaming request means the log may exceed host
+            # memory: keep O(chunk) over the materializing columnar scan
+            prefer_streaming=p.stream_chunk > 0,
             storage=ctx.storage)
         if data.n_events == 0:
             raise ValueError("no interaction events found")

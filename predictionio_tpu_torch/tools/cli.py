@@ -49,7 +49,16 @@ Verbs:
 - ``index status [--engine-instance-id ID] [--json] [--shards N]``
   prints a trained instance's PQ index manifests (geometry, bytes, the
   digest verdict, a per-shard layout) from its files alone, without
-  torch.
+  torch;
+- ``fsck [--home H] [--repair] [--json]`` checks every persisted
+  artifact of a home (event-log segments and their sidecars, the
+  snapshot cache, model blobs, ANN index blobs, the model registry) and
+  exits 0 clean, 1 on an operational error, 2 corrupt, 3 repaired;
+- ``segments [status|show|roll|compact|ship] [--json] [--verify]``
+  shows and operates the EVENTLOG backend's segmented log; ``train
+  --no-scan-cache`` bypasses the columnar snapshot cache and
+  ``eventserver --segment-maintenance`` compacts and ships sealed
+  segments in the background.
 
 The verbs print the JAX CLI's lines and write the same rows, so either
 package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
@@ -63,9 +72,8 @@ side and posts every answer back as a ``predict`` event.
 
 Left out for now, each with the module that brings it: ``pio doctor``
 and the router's variant pins (the router and the continuous trainer,
-ROADMAP.md queue 1, item 13), ``--segment-maintenance`` (the native
-event log, item 12), ``batchpredict --shards`` above 1 (the ANN
-retrieval mesh, item 8).
+ROADMAP.md queue 1, item 13), ``train --read-from`` (replication, item
+7), ``batchpredict --shards`` above 1 (the ANN retrieval mesh, item 8).
 """
 
 from __future__ import annotations
@@ -240,6 +248,7 @@ def make_event_server(args: argparse.Namespace):
                        auth_cache_ttl=args.auth_cache_ttl,
                        durable_acks=args.durable_acks,
                        access_log=args.access_log,
+                       segment_maintenance=args.segment_maintenance,
                        tenant_quotas=args.tenant_quotas,
                        incident_dir=_incident_dir(args))
 
@@ -287,11 +296,16 @@ def make_server(args: argparse.Namespace):
 def cmd_train(args: argparse.Namespace) -> None:
     from predictionio_tpu_torch.core.workflow import run_train
 
+    if args.scan_workers:
+        # the segment-scan fan-out of this run; the EVENTLOG store reads
+        # it wherever the Storage is built
+        os.environ["PIO_SCAN_WORKERS"] = str(args.scan_workers)
     variant = _load_variant_file(args.engine_dir, args.variant)
     factory = variant.get("engineFactory") or _die("engine.json missing engineFactory")
     iid = run_train(factory, variant=variant, batch=args.batch,
                     verbose=args.verbose, device=args.device,
-                    resume=args.resume)
+                    resume=args.resume,
+                    scan_cache=False if args.no_scan_cache else None)
     print(f"[info] Training completed: engine instance {iid} "
           f"(kernel launches: {_launch_counts()})")
 
@@ -949,6 +963,130 @@ def cmd_status(args: argparse.Namespace) -> None:
     print("[info] status: all systems go")
 
 
+def cmd_fsck(args: argparse.Namespace) -> None:
+    """Offline integrity scan of every persisted artifact under the
+    storage home. Exit codes: 0 = clean, 1 = operational error, 2 =
+    corruption present (unrepaired), 3 = corruption found and repaired
+    — distinct codes so a cron wrapper can page on 2 but merely log 3."""
+    from predictionio_tpu_torch.data.pel_integrity import fsck_home
+    from predictionio_tpu_torch.storage.registry import StorageConfig
+
+    home = args.home or StorageConfig.from_env().home
+    if not os.path.isdir(home):
+        _die(f"storage home not found: {home}")
+    try:
+        report = fsck_home(home, repair=args.repair)
+    except OSError as e:
+        _die(f"fsck failed: {e}")
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        for a in report["artifacts"]:
+            name = os.path.basename(str(a["path"]))
+            extra = ""
+            if a["artifact"] == "eventlog":
+                extra = (f" v{a['version']} records={a['records']}"
+                         f" corrupt={a['corrupt']}")
+                if a["torn_offset"] is not None:
+                    extra += f" torn@{a['torn_offset']}"
+                if a["quarantine"]:
+                    extra += f" quarantined→{a['quarantine']}"
+            elif a["artifact"] == "segment":
+                extra = f" state={a.get('state')} records={a.get('records')}"
+                if a.get("cols_status"):
+                    extra += f" cols={a['cols_status']}"
+                if a.get("detail"):
+                    extra += f" ({a['detail']})"
+            print(f"[fsck] {a['artifact']:<9} {name}: {a['status']}{extra}")
+        for q in report["quarantines"]:
+            print(f"[fsck] quarantine sidecar: {q}")
+        print(f"[fsck] checked={report['checked']} clean={report['clean']} "
+              f"corrupt={report['corrupt']} repaired={report['repaired']} "
+              f"unchecksummed={report['unchecksummed']} "
+              f"cold={report.get('cold', 0)}")
+    if report["corrupt"]:
+        raise SystemExit(2)
+    if report["repaired"]:
+        raise SystemExit(3)
+
+
+def cmd_segments(args: argparse.Namespace) -> None:
+    """Operate the partitioned event log: show segment layout, force a
+    rollover, compact sealed segments into columnar sidecars, or ship
+    them to the cold tier (PIO_SEGMENT_COLD)."""
+    import re as _re
+
+    store = get_storage().events
+    if not hasattr(store, "namespaces") or not hasattr(store, "_dir"):
+        _die("pio segments requires the EVENTLOG backend "
+             f"(configured backend: {type(store).__name__})")
+    # open every namespace present on disk, not just ones touched in
+    # this process
+    names = sorted(os.listdir(store._dir)) if os.path.isdir(store._dir) else []
+    for fn in names:
+        m = _re.match(r"^events_(\d+)(?:_(\d+))?\.pel$", fn)
+        if m:
+            store._ns(int(m.group(1)),
+                      int(m.group(2)) if m.group(2) else None)
+    namespaces = store.namespaces()
+    if not namespaces:
+        print("[segments] no event-log namespaces found")
+        return
+    acted = {"rolled": 0, "compacted": 0, "shipped": 0}
+    report = []
+    for ns in namespaces:
+        if args.action == "roll":
+            if ns.roll():
+                acted["rolled"] += 1
+        elif args.action == "compact":
+            for seg in list(ns.sealed):
+                if seg.meta.cols is None and seg.meta.records:
+                    try:
+                        ns.compact(seg)
+                        acted["compacted"] += 1
+                    except (IOError, OSError) as e:
+                        print(f"[segments] compact {seg.meta.file}: {e}")
+        elif args.action == "ship":
+            from predictionio_tpu_torch.utils.integrity import IntegrityError
+
+            for seg in list(ns.sealed):
+                if seg.meta.state == "sealed":
+                    try:
+                        if ns.ship(seg, verify=getattr(args, "verify",
+                                                       False)):
+                            acted["shipped"] += 1
+                    except (IOError, OSError, IntegrityError) as e:
+                        print(f"[segments] ship {seg.meta.file}: {e}")
+        active_bytes = (os.path.getsize(ns.base_path)
+                        if os.path.exists(ns.base_path) else 0)
+        segs = [s.meta.to_dict() for s in ns.sealed]
+        report.append({"namespace": ns.namespace_tag(),
+                       "active_bytes": active_bytes,
+                       "sealed": segs})
+    if args.json:
+        print(json.dumps({"namespaces": report, **acted},
+                         indent=2, sort_keys=True))
+        return
+    for entry in report:
+        segs = entry["sealed"]
+        compacted = sum(1 for s in segs if s["cols"])
+        cold = sum(1 for s in segs if s["state"] == "cold")
+        print(f"[segments] {entry['namespace']}: "
+              f"{len(segs)} sealed ({compacted} compacted, {cold} cold), "
+              f"active {entry['active_bytes']} B")
+        for s in segs:
+            marks = "".join((
+                "C" if s["cols"] else "-",
+                "S" if s["state"] == "cold" else "-",
+                "#" if s["sha256"] else "-",
+            ))
+            print(f"[segments]   {s['file']} [{marks}] "
+                  f"records={s['records']} bytes={s['bytes']}")
+    if args.action not in ("status", "show"):
+        print(f"[segments] rolled={acted['rolled']} "
+              f"compacted={acted['compacted']} shipped={acted['shipped']}")
+
+
 def cmd_trace(args: argparse.Namespace) -> None:
     """Tail or grep the span JSONL that servers started with
     ``--tracing`` write. Filters compose; ``--tree`` re-assembles whole
@@ -1112,6 +1250,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fsync storage before acking 201 (survives "
                          "power loss, not just process death); group "
                          "commit amortizes the sync per batch")
+    es.add_argument("--segment-maintenance", action="store_true",
+                    help="background compaction of sealed event-log "
+                         "segments into columnar sidecars, plus "
+                         "cold-tier shipping when PIO_SEGMENT_COLD "
+                         "is configured (EVENTLOG backend only)")
     es.add_argument("--auth-cache-ttl", type=float, default=30.0,
                     help="access-key/channel auth cache TTL seconds "
                          "(0 disables; in-process key mutations "
@@ -1136,6 +1279,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "mid-train checkpoint (the port's own checkpoints "
                          "under <home>/train_ckpt_torch only; the JAX "
                          "package's Orbax checkpoints are not read)")
+    tp.add_argument("--no-scan-cache", action="store_true",
+                    help="bypass the columnar snapshot cache and rescan "
+                         "the full event log")
+    tp.add_argument("--scan-workers", type=int,
+                    help="parallel segment scans per training read "
+                         "(default: PIO_SCAN_WORKERS)")
     tp.set_defaults(fn=cmd_train)
     dp = sub.add_parser("deploy", help="serve the latest trained instance")
     dp.add_argument("--engine-dir", default=".")
@@ -1270,6 +1419,40 @@ def build_parser() -> argparse.ArgumentParser:
                      help="torch device to check (default: cuda; 'cpu' "
                           "checks the CPU and needs no card)")
     stp.set_defaults(fn=cmd_status)
+
+    fs = sub.add_parser(
+        "fsck",
+        help="verify integrity of eventlog segments, snapshot cache, "
+             "model blobs, ANN index blobs, and the model registry "
+             "(exit 0 clean / 2 corrupt / 3 repaired)")
+    fs.add_argument("--home", help="storage home to scan "
+                                   "(default: PIO_HOME / ~/.pio_store)")
+    fs.add_argument("--repair", action="store_true",
+                    help="quarantine torn eventlog tails (copied to a "
+                         ".quarantine-<offset> sidecar, then truncated), "
+                         "delete corrupt snapshots, delete orphaned "
+                         "registry generation dirs, and rewrite registry "
+                         "sha256 sidecars from the manifest; corrupt "
+                         "model blobs are reported only")
+    fs.add_argument("--json", action="store_true",
+                    help="emit the full report as one JSON document")
+    fs.set_defaults(fn=cmd_fsck)
+
+    sg = sub.add_parser(
+        "segments",
+        help="inspect/operate the partitioned event log (EVENTLOG "
+             "backend): status, force rollover, compact, cold-tier ship")
+    sg.add_argument("action", nargs="?", default="status",
+                    choices=("status", "show", "roll", "compact", "ship"),
+                    help="status (or its alias show) prints the layout")
+    sg.add_argument("--json", action="store_true",
+                    help="emit the full segment report as JSON")
+    sg.add_argument("--verify", action="store_true",
+                    help="ship: re-fetch every uploaded object from the "
+                         "cold tier and compare sha256 before trusting "
+                         "it; a mismatch deletes the cold copy, keeps "
+                         "the local file, and fails the ship")
+    sg.set_defaults(fn=cmd_segments)
 
     tc = sub.add_parser(
         "trace",

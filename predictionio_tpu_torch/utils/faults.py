@@ -50,11 +50,21 @@ Sites the port wires so far:
                         (``PQIndex.from_bytes`` — covers the
                         ``ann_index.bin`` file and blob-embedded
                         indexes; the load raises ``IntegrityError``)
+``segments.cold``       cold-tier segment store operations (put, get,
+                        delete), shared by the local, S3 and HDFS tiers
+``segments.shard.hot``  writer sharding of the event log — the entity
+                        hash is bypassed and every append lands on
+                        writer shard 0
+``data.corrupt.eventlog``  byte-flip on ``pio fsck`` event-log reads
+``data.corrupt.snapshot``  byte-flip on snapshot npz load
+``data.corrupt.model``     byte-flip on ``pio fsck`` model-blob reads
+``data.corrupt.segment``   byte-flip on cold-tier segment fetch and on
+                        ``pio fsck`` segment and sidecar reads
 ======================  ===================================================
 
 The JAX package's table lists the rest (the router, trainer,
-replication, segment and model-store sites); they come with the modules
-that call them.
+replication and model-store sites); they come with the modules that
+call them.
 """
 
 from __future__ import annotations

@@ -1003,16 +1003,19 @@ def test_every_port_fault_site_is_documented_and_exercised():
     for path in (root / "predictionio_tpu_torch").rglob("*.py"):
         if path.name == "faults.py":
             continue
-        wired |= set(re.findall(
-            r'(?:faults\.inject|FAULTS\.a?hit|corrupt_bytes)\(\s*"([a-z_.]+)"',
-            path.read_text()))
+        wired |= {a or b for a, b in re.findall(
+            r'(?:faults\.inject|FAULTS\.a?hit|corrupt_bytes)\(\s*"([a-z_.]+)"'
+            r'|fault_site="([a-z_.]+)"', path.read_text())}
     table = set(re.findall(r"^``([a-z_.]+)``", port_faults.__doc__, re.M))
     tests = "".join(p.read_text() for p in (root / "tests").glob("test_torch_*.py"))
     assert wired == table == {"serving.query", "serving.reload", "trace.export",
                               "tsdb.scrape.stall", "tenant.quota.exhausted",
                               "eventsink.send", "ingest.commit",
                               "variant.assign.skew", "variant.reload.partial",
-                              "incident.capture.stall", "ann.index.corrupt"}
+                              "incident.capture.stall", "ann.index.corrupt",
+                              "segments.cold", "segments.shard.hot",
+                              "data.corrupt.eventlog", "data.corrupt.snapshot",
+                              "data.corrupt.model", "data.corrupt.segment"}
     assert all(f'"{site}"' in tests for site in wired)
     # every port site is one of the JAX package's documented sites
     assert wired <= set(re.findall(r"^``([a-z_.]+)``", jax_faults.__doc__, re.M))
