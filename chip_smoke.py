@@ -23,6 +23,8 @@
                                        # sequential templates alone (no result line)
     python3 chip_smoke.py --eventlog   # phases 1, 2 and 16: the EVENTLOG backend
                                        # alone (no result line)
+    python3 chip_smoke.py --storage    # phases 1, 2 and 17: every repository on
+                                       # ELASTICSEARCH alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -117,7 +119,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (k = 64, 128 and 1,024, the k > 32 path), counters zeroed again just
    before it: every answer checked at its own num, one launch a query,
    its dispatches per (bucket, k, path), p50 and loss;
-9. ``pio eval`` at ML-20M width: phase 5's COO as the template's training
+9. ``pio eval`` at ML-20M width: the first 6,000,000 of phase 5's
+   ratings (cut from all 20,000,263 to keep the whole run in its time;
+   the vocabularies stay ML-20M's) as the template's training
    data, ``run_evaluation(distributed=True)`` on the card over evalK 2,
    rank 64, 10 iterations, lambda 0.01 and 0.1 (cut from four lambdas to
    keep the whole run in its time; one bucket a fold); every fold score held against a float64 recomputation, the
@@ -280,7 +284,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    losses are printed); the same steps with TF32 products, a control,
    must fail that limit; under ``--classification`` the CPU's 100 steps
    on one thread are printed against the run on every core; RF (16
-   trees, depth 5, 16 thresholds, feature fraction 0.7), whose first 4 trees grown again on
+   trees, depth 5, 16 thresholds, feature fraction 0.7), whose first 4 trees (1 in
+   the whole run, to keep in its time) grown again on
    the CPU from the same draws must split alike, except where a level's
    two picks have float64 Gini within 1e-6 relative, with leaf_probs
    within 1e-6. Each training accuracy is printed. The NB, LR and RF
@@ -352,11 +357,11 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    EVENTDATA is the native event log (``PIO_STORAGE_REPOSITORIES_
    EVENTDATA_SOURCE=EVENTLOG``, 64 MiB segments): the port's C++ engine
    built with g++ (its time printed); phase 5's draws (all 20,000,263
-   with ``--eventlog``; the whole run cuts them to the first 10,000,000
+   with ``--eventlog``; the whole run cuts them to the first 1,000,000
    to keep in its time, and prints the vocabularies' sizes) as ``rate`` events,
    one eventTime a second, fed to ``append_jsonl`` in ~8 MB NDJSON chunks
    (built by worker processes), the wall and events/s printed; ``pio
-   import`` of a 1,000,000-line file, ``pio export`` (the engine's NDJSON
+   import`` of a 1,000,000-line file (250,000 in the whole run), ``pio export`` (the engine's NDJSON
    path: the round trip's apps are kept to one active segment each) and
    the export imported into a second app, whose columnar scan must equal
    the first's;
@@ -377,6 +382,31 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    queries from 8 clients, every answer equal to score_topk_ref up to
    float64 near-ties (score_topk's counter zeroed just before, and it must
    grow). The CLI verbs run in this process on the phase's Storage.
+17. every repository on ELASTICSEARCH at ML-20M width: the port's CLI in
+   a new process a verb, from a fresh PIO_HOME whose METADATA, EVENTDATA
+   and MODELDATA sources are one embedded index root
+   (``PIO_STORAGE_SOURCES_ES_TYPE=ELASTICSEARCH``, ``_PATH=<home>/es``);
+   ``app new``; ``import`` of phase 5's draws as ``rate`` events over the
+   ML-20M id space (the first 2,000,000 with ``--storage``; the whole run
+   cuts them to the first 150,000 to keep in its time: the index is
+   Python dictionaries and a JSONL WAL that every process replays), its
+   wall and events/s printed;
+   ``train`` of the Recommendation template at rank 64, 10 iterations,
+   lambda 0.01 twice, each in a driver that runs the verb with the
+   process's tracer on and prints the walls of the repositories' open
+   (the index's WAL replayed), of the training read with its snapshot
+   cache outcome (``miss:cold``, then ``hit``) and of ``train.run``, the
+   verb printing its gather_gram and chol_solve launches (counted from 0
+   in the new process), each exactly 10 iterations x the buckets, and x
+   the parts, of the draws' layout; 64 items' factors held
+   against the float64 normal equations (limit 1e-3); ``deploy`` of the
+   instance in a new process (its open of meta and models and its time
+   to listen printed) and 200 queries from 8 clients, every answer equal
+   to score_topk_ref up to float64 near-ties, the server's score_topk
+   launches printed when ``GET /stop`` ends it; ``export`` of the app
+   (in a process of its own while the deploy runs: both only read the
+   index), its line count and 1,000 sampled lines equal to what was
+   imported.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -1303,10 +1333,14 @@ def train_full_width(torch, ops, dev) -> dict:
             "launches": launches, "t_train": t_train, "rmse": rmse}
 
 
+EVAL_RATINGS = 6_000_000  # phase 5's first ratings that phase 9 evaluates over
+
+
 def eval_full_width(torch, ops, dev, train) -> dict:
     """Phase 9: `pio eval` at ML-20M width on the card, distributed.
 
-    Phase 5's synthetic COO (not generated again) becomes the template's
+    The first EVAL_RATINGS of phase 5's synthetic COO (not generated
+    again; the vocabularies stay ML-20M's) become the template's
     TrainingData (ids "u<j>" and "i<j>"), served by a RecDataSource whose
     `_read` returns it, so `read_eval` (the seeded fold draw, `subset`'s
     trimmed vocabularies, the query dicts), `sweep_programs` and the sweep
@@ -1338,6 +1372,9 @@ def eval_full_width(torch, ops, dev, train) -> dict:
 
     t_phase = time.perf_counter()
     coo = train["coo"]
+    coo = dataclasses.replace(coo, user_idx=coo.user_idx[:EVAL_RATINGS],
+                              item_idx=coo.item_idx[:EVAL_RATINGS],
+                              rating=coo.rating[:EVAL_RATINGS])
     td = rec.TrainingData(coo.user_idx, coo.item_idx, coo.rating,
                           BiMap({f"u{j}": j for j in range(coo.n_users)}),
                           BiMap({f"i{j}": j for j in range(coo.n_items)}))
@@ -4729,6 +4766,7 @@ RF_TOL = 1e-6       # leaf_probs, card against CPU
 GINI_TIE = 1e-6     # two picks' float64 Gini within this, relative: a near-tie
 LABEL_TIE = 1e-5    # served labels: top two float64 scores within this, relative
 RF_CPU_TREES = 4    # trees also grown on the CPU from the same draws
+RF_RUN_CPU_TREES = 1  # the whole run's cut, to keep it in its time
 SERVE_QUERIES, SERVE_CLIENTS = 1_000, 8
 EVAL_EVERY = 10     # the eval's cut: every 10th row (58,102 rows)
 CLI_ENTITIES = 20_000
@@ -4999,8 +5037,8 @@ def gini64(X, y, C: int, boot, splits, f: int, t: float) -> float:
     return score
 
 
-def forest_card_against_cpu(X, y, p, model) -> dict:
-    """The card's first RF_CPU_TREES trees against the same trees grown on
+def forest_card_against_cpu(X, y, p, model, trees: int = RF_CPU_TREES) -> dict:
+    """The card's first ``trees`` trees against the same trees grown on
     the CPU from the same draws: equal splits, except where a level's two
     picks have float64 Gini scores within GINI_TIE relative (the tree
     differs from there on, and its leaves are not compared); leaf_probs
@@ -5012,14 +5050,13 @@ def forest_card_against_cpu(X, y, p, model) -> dict:
     from predictionio_tpu_torch.models import forest
 
     boot, keep = forest.forest_draws(X.shape[0], X.shape[1], p)
-    q = dc.replace(p, n_trees=RF_CPU_TREES)
+    q = dc.replace(p, n_trees=trees)
     t0 = time.perf_counter()
-    cpu = forest.forest_train_drawn(X, y, q, boot[:RF_CPU_TREES], keep[:RF_CPU_TREES],
-                                    device="cpu")
+    cpu = forest.forest_train_drawn(X, y, q, boot[:trees], keep[:trees], device="cpu")
     t_cpu = time.perf_counter() - t0
     C = int(y.max()) + 1
     ties, worst = [], 0.0
-    for t in range(RF_CPU_TREES):
+    for t in range(trees):
         splits = []
         for dep in range(p.max_depth):
             a = (int(model.feats[t, dep]), float(model.thrs[t, dep]))
@@ -5035,8 +5072,8 @@ def forest_card_against_cpu(X, y, p, model) -> dict:
             splits.append(a)
         else:
             worst = max(worst, float(np.abs(model.leaf_probs[t] - cpu.leaf_probs[t]).max()))
-    print(f"RF card against the CPU from the same draws: {RF_CPU_TREES} trees on the "
-          f"CPU {t_cpu:.1f} s; splits equal in {RF_CPU_TREES - len(ties)} trees, "
+    print(f"RF card against the CPU from the same draws: {trees} trees on the "
+          f"CPU {t_cpu:.1f} s; splits equal in {trees - len(ties)} trees, "
           f"near-ties {ties}; leaf_probs within {worst:.3e} (limit {RF_TOL})", flush=True)
     check(worst <= RF_TOL, f"leaf_probs {worst:.3e} off the CPU's")
     return {"ties": len(ties), "leaf_err": worst}
@@ -5129,7 +5166,8 @@ def covertype_full_width(torch, dev, home: str, X, y, witness: bool = False) -> 
                       seed=rp.seed)
     a = models["RF"][1].arrays
     out["rf_cpu"] = forest_card_against_cpu(
-        X, y, fp, ForestModel(a["feats"], a["thrs"], a["leaf_probs"], C))
+        X, y, fp, ForestModel(a["feats"], a["thrs"], a["leaf_probs"], C),
+        RF_CPU_TREES if witness else RF_RUN_CPU_TREES)
 
     ds = tmpl.DataSourceParams(app_name="covertype", attrs=attrs)
     rows = np.random.default_rng(SEED + 14).choice(len(y), SERVE_QUERIES, replace=False)
@@ -6307,10 +6345,11 @@ def universal_sequential_full_width(torch, ops, dev, coo=None, cli: bool = True)
 
 # phase 16: the EVENTLOG backend at ML-20M width
 EVENTLOG_DRAWS = N_RATINGS          # phase 5's draws as `rate` events (--eventlog)
-EVENTLOG_RUN_DRAWS = 10_000_000     # the whole run's cut, to keep it in its time
+EVENTLOG_RUN_DRAWS = 1_000_000      # the whole run's cut, to keep it in its time
 EVENTLOG_CHUNK_LINES = 48_000       # ~8 MB of NDJSON a chunk, the size `pio import` reads
 EVENTLOG_MORE = 100_000             # events appended after the snapshot: a delta read
 EVENTLOG_IMPORT = 1_000_000         # lines of the `pio import` / `pio export` round trip
+                                    # (at most a quarter of the phase's draws)
 EVENTLOG_QUERIES = 200
 EVENTLOG_T0 = 1_577_836_800         # 2020-01-01T00:00:00Z, one eventTime a second
 RATING_TEXT = [repr(k / 2) for k in range(11)]
@@ -6508,7 +6547,7 @@ def eventlog_full_width(torch, ops, dev, coo=None, draws: int = EVENTLOG_DRAWS) 
             # exports through the merged find(), the CPU tests' case)
             events.segment_bytes = 1 << 30
             path = os.path.join(home, "import.jsonl")
-            m = min(EVENTLOG_IMPORT, n)
+            m = min(EVENTLOG_IMPORT, n // 4)
             with open(path, "wb") as f:
                 for _, _, blob in ndjson_chunks(users[:m], items[:m], ratings[:m], 0):
                     f.write(blob)
@@ -6706,6 +6745,295 @@ def eventlog_full_width(torch, ops, dev, coo=None, draws: int = EVENTLOG_DRAWS) 
     return out
 
 
+# phase 17: every repository on ELASTICSEARCH at ML-20M width
+STORAGE_DRAWS = 2_000_000        # phase 5's first draws as `rate` events (--storage)
+STORAGE_RUN_DRAWS = 150_000      # the whole run's cut, to keep it in its time
+STORAGE_QUERIES = 200
+STORAGE_SAMPLE = 1_000           # exported lines held against the imported ones
+
+# phase 17's subprocess driver: one verb of the port's CLI, as `python -m
+# predictionio_tpu_torch.tools.cli` runs it, with the process's tracer on.
+# It first opens the repositories named in argv[1] through their stores and
+# prints that wall (the index's snapshot load and WAL replay), then runs
+# the verb and prints the walls and attributes of its `storage.scan` (the
+# training read, with its `scan_cache` outcome) and `train.run` spans.
+CLI_PROBE = r"""
+import json, sys, time
+from predictionio_tpu_torch.storage.registry import get_storage
+from predictionio_tpu_torch.tools import cli
+from predictionio_tpu_torch.utils import tracing
+
+tracing.TRACER.configure(enabled=True)
+st, t0 = get_storage(), time.perf_counter()
+for repo in sys.argv[1].split(","):
+    if repo == "meta":
+        st.meta.list_engine_instances()
+    elif repo == "models":
+        st.models.list_ids()
+    elif repo == "events":
+        for app in st.meta.list_apps():
+            st.events.creation_stats(app.id)
+print("[probe] open " + json.dumps({"repos": sys.argv[1], "s": time.perf_counter() - t0}),
+      flush=True)
+try:
+    cli.main(sys.argv[2:])
+finally:
+    spans = {d["name"]: {"s": d["durationUs"] / 1e6, "attrs": d.get("attrs", {})}
+             for d in reversed(tracing.TRACER.ring.spans(limit=100_000))
+             if d["name"] in ("storage.scan", "train.run")}
+    print("[probe] spans " + json.dumps(spans), flush=True)
+"""
+
+
+def probe_line(out: str, key: str) -> dict:
+    """The JSON of CLI_PROBE's ``[probe] <key>`` line in ``out``."""
+    m = re.search(rf"^\[probe\] {key} (.*)$", out, re.M)
+    check(m is not None, f"no [probe] {key} line in:\n{out[-2000:]}")
+    return json.loads(m.group(1))
+
+
+def index_files(root: str) -> str:
+    """Each index file of the root with its size, for the log."""
+    return ", ".join(f"{f} {os.path.getsize(os.path.join(root, f)) / 2**20:.1f} MiB"
+                     for f in sorted(os.listdir(root)))
+
+
+def storage_full_width(torch, ops, dev, coo=None, draws: int = STORAGE_DRAWS) -> dict:
+    """Phase 17: every repository on ELASTICSEARCH at ML-20M width (see
+    the module docstring)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import RECOMMENDATION_FACTORY, prepare_deploy
+    from predictionio_tpu_torch.data.event import parse_event_time
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.storage import registry
+
+    t_phase = time.perf_counter()
+    if coo is None:
+        users, items, ratings = synthetic_ml20m(N_RATINGS, N_USERS, N_ITEMS)
+    else:  # phase 5's draws, in their order
+        users, items, ratings = coo.user_idx, coo.item_idx, coo.rating
+    users, items, ratings = users[:draws], items[:draws], ratings[:draws]
+    n = len(users)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    engine_dir = os.path.join(repo, "predictionio_tpu_torch", "templates", "recommendation")
+    out = {}
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="pio_chip_es_") as home:
+        root = os.path.join(home, "es")
+        settings = {"PIO_HOME": home, "PIO_STORAGE_SOURCES_ES_TYPE": "ELASTICSEARCH",
+                    "PIO_STORAGE_SOURCES_ES_PATH": root}
+        for r in ("METADATA", "EVENTDATA", "MODELDATA"):
+            settings[f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE"] = "ES"
+        env = dict(os.environ, **settings)
+
+        def cli(*args, opens=None) -> tuple:
+            """One verb in a new process (CLI_PROBE with ``opens``); (stdout, wall)."""
+            argv = (CLI + list(args) if opens is None
+                    else [sys.executable, "-c", CLI_PROBE, opens] + list(args))
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=repo, env=env, capture_output=True, text=True,
+                                  timeout=900)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"cli {' '.join(args)} failed ({proc.returncode}):\n"
+                                        f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            print(f"-- cli {' '.join(args[:2])}: {wall:.2f} s wall", flush=True)
+            return proc.stdout, wall
+
+        try:
+            # 1. the app
+            text, _ = cli("app", "new", "ML20M")
+            check("Access Key:" in text, f"app new: {text}")
+            storage = registry.Storage(registry.StorageConfig.from_env(settings))
+            check((storage.config.metadata_type, storage.config.eventdata_type,
+                   storage.config.modeldata_type) == ("ELASTICSEARCH",) * 3,
+                  f"repositories not on ELASTICSEARCH: {storage.config}")
+            check(sorted(os.listdir(home)) == ["es"] and "pio_apps.jsonl" in os.listdir(root),
+                  f"the app did not land in the index root: {os.listdir(home)}")
+
+            # 2. pio import of the draws
+            path = os.path.join(home, "draws.jsonl")
+            t0 = time.perf_counter()
+            with open(path, "wb") as f:
+                for _, _, blob in ndjson_chunks(users, items, ratings, 0):
+                    f.write(blob)
+            print(f"{n} rate events ({N_USERS} x {N_ITEMS} draws) as NDJSON: "
+                  f"{os.path.getsize(path) / 1e6:.1f} MB in {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+            text, t_import = cli("import", "--app-name", "ML20M", "--input", path)
+            check(f"Imported {n} events" in text, f"import: {text}")
+            print(f"pio import: {n} events in {t_import:.2f} s wall, {n / t_import:.0f} "
+                  f"events/s (the process start, the parse and the index's WAL appends); "
+                  f"index root: {index_files(root)}", flush=True)
+            out["import_s"], out["import_events_s"] = t_import, n / t_import
+
+            # 3. pio train twice: a cold read, then a cached one
+            vpath = os.path.join(home, "variant.json")
+            with open(vpath, "w") as f:
+                json.dump({"id": "default", "engineFactory": RECOMMENDATION_FACTORY,
+                           "datasource": {"params": {"appName": "ML20M",
+                                                     "eventNames": ["rate", "buy"]}},
+                           "algorithms": [{"name": "als", "params": {
+                               "rank": RANK, "numIterations": ITERATIONS,
+                               "lambda": LAMBDA, "seed": SEED}}]}, f)
+            trains = []
+            for label in ("first", "second"):
+                text, wall = cli("train", "--engine-dir", engine_dir, "-e", vpath,
+                                 "--device", dev.type, opens="meta,models,events")
+                opened, spans = probe_line(text, "open"), probe_line(text, "spans")
+                launches = {k: int(v) for k, v in re.findall(
+                    r"(\w+)=(\d+)", text.split("kernel launches:")[-1])}
+                iid = re.search(r"engine instance (\S+)", text).group(1)
+                scan = spans["storage.scan"]
+                print(f"pio train ({label}): {wall:.2f} s wall; the repositories opened in "
+                      f"{opened['s']:.2f} s (the event index's WAL replayed); the training "
+                      f"read {scan['s']:.2f} s, cache {scan['attrs'].get('scan_cache')}, "
+                      f"{scan['attrs'].get('records')} events; train.run "
+                      f"{spans['train.run']['s']:.2f} s; kernel launches {launches} "
+                      f"(phase 5: gather_gram 110, chol_solve 130)", flush=True)
+                trains.append({"wall_s": wall, "open_s": opened["s"], "read_s": scan["s"],
+                               "cache": scan["attrs"].get("scan_cache"), "iid": iid,
+                               "launches": launches, "records": scan["attrs"].get("records")})
+            check([t["cache"] for t in trains] == ["miss:cold", "hit"],
+                  f"scan cache outcomes {[t['cache'] for t in trains]}")
+            check(all(t["records"] == n for t in trains), "the training read lost events")
+            if dev.type == "cuda":
+                # each half-step launches gather_gram once a bucket and
+                # chol_solve once a part (the dense head is a part too)
+                (u_vocab, u_idx), (i_vocab, i_idx) = first_seen(users), first_seen(items)
+                prep = als.als_prepare(als.RatingsCOO(u_idx, i_idx, ratings.astype(np.float32),
+                                                      len(u_vocab), len(i_vocab)))
+                buckets = sum(len(sd.buckets) for sd in (prep.u_side, prep.i_side))
+                parts = buckets + sum(sd.dense is not None for sd in (prep.u_side, prep.i_side))
+                want = {"gather_gram": ITERATIONS * buckets, "chol_solve": ITERATIONS * parts}
+                print(f"the draws' layout: {buckets} buckets, {parts} parts; expected "
+                      f"launches a train {want}", flush=True)
+                for t in trains:
+                    check({k: t["launches"].get(k) for k in want} == want,
+                          f"pio train launched {t['launches']}, expected {want}")
+            out["trains"] = trains
+            iid = trains[1]["iid"]
+
+            eng = prepare_deploy(RECOMMENDATION_FACTORY, instance_id=iid, storage=storage,
+                                 device=dev)
+            model = eng.models[0]
+            rows_u = np.array([int(k[1:]) for k in bimap_keys(model.user_ids)])
+            rows_i = np.array([int(k[1:]) for k in bimap_keys(model.item_ids)])
+            print(f"instance {iid}: {len(rows_u)} users x {len(rows_i)} items, rank "
+                  f"{model.U.shape[1]}", flush=True)
+            U = np.zeros((N_USERS, RANK), np.float32)
+            V = np.zeros((N_ITEMS, RANK), np.float32)
+            U[rows_u], V[rows_i] = model.U, model.V
+            rng = np.random.default_rng(SEED + 17)
+            counts = np.bincount(items, minlength=N_ITEMS)
+            heavy = np.argsort(-counts, kind="stable")[:8]
+            chosen = np.concatenate([heavy, rng.choice(
+                np.setdiff1d(rows_i, heavy), 56, replace=False)])
+            err = normal_equations_err(torch, dev, items, users, ratings, U, V, chosen, LAMBDA)
+            print(f"float64 normal equations: {len(chosen)} items given the final U "
+                  f"{err:.3e} (max|x - x64| / max|x64|, limit {ORACLE_TOL})", flush=True)
+            check(err <= ORACLE_TOL, f"items off their normal equations: {err:.3e}")
+            out["normal_equations_err"] = err
+
+            # 4. pio deploy in a new process, 200 queries from 8 clients, while
+            # 5. pio export runs in another (each only reads the index)
+            exported = os.path.join(home, "export.jsonl")
+            export_log = os.path.join(home, "export.log")
+            t_export = time.perf_counter()
+            with open(export_log, "w") as f:
+                ex = subprocess.Popen(CLI + ["export", "--app-name", "ML20M", "--output",
+                                             exported], cwd=repo, env=env, stdout=f,
+                                      stderr=subprocess.STDOUT)
+            procs.append(ex)
+            port = free_port()
+            log = os.path.join(home, "deploy.log")
+            t0 = time.perf_counter()
+            with open(log, "w") as f:
+                dp = subprocess.Popen(
+                    [sys.executable, "-c", CLI_PROBE, "meta,models", "deploy",
+                     "--engine-dir", engine_dir, "-e", vpath, "--engine-instance-id", iid,
+                     "--batching", "--ip", "127.0.0.1", "--port", str(port),
+                     "--device", dev.type], cwd=repo, env=env, stdout=f,
+                    stderr=subprocess.STDOUT)
+            procs.append(dp)
+            wait_until(lambda: http_json(port, "GET", "/")[0] == 200, dp, log, 600)
+            t_up = time.perf_counter() - t0
+            opened = probe_line(open(log).read(), "open")
+            print(f"pio deploy: listening {t_up:.2f} s after its start (the process, "
+                  f"the index's snapshot load and WAL replay of meta and models "
+                  f"{opened['s']:.2f} s, the model onto the card)", flush=True)
+            queries = rng.choice(len(rows_u), STORAGE_QUERIES, replace=False)
+            bodies = [json.dumps({"user": f"u{rows_u[r]}", "num": 10}) for r in queries]
+            t0 = time.perf_counter()
+            answers = post_all(port, "/queries.json", bodies, 8)
+            t_q = time.perf_counter() - t0
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stop", timeout=30) as r:
+                r.read()
+            dp.wait(timeout=120)
+            text = open(log).read()
+            served = {k: int(v) for k, v in re.findall(
+                r"(\w+)=(\d+)", text.split("kernel launches:")[-1])}
+            Ud = torch.as_tensor(model.U, device=dev)
+            Vd = torch.as_tensor(model.V, device=dev)
+            ids = torch.as_tensor(queries.astype(np.int32), device=dev)
+            rv, ri = ops.score_topk_ref(Ud, Vd, 10, ids=ids)
+            s64 = Ud[ids.long()].double() @ Vd.double().T
+            bad = 0
+            for j, (st, a) in enumerate(answers):
+                got_idx = torch.tensor([model.item_ids[it["item"]]
+                                        for it in a.get("itemScores", [])], device=dev)
+                got_val = torch.tensor([it["score"] for it in a.get("itemScores", [])],
+                                       device=dev)
+                if st != 200 or len(got_idx) != 10 or not topk_agrees(
+                        got_val[None], got_idx[None], rv[j:j + 1], ri[j:j + 1],
+                        s64[j:j + 1]):
+                    bad += 1
+            print(f"deploy: {STORAGE_QUERIES} POST /queries.json from 8 clients in "
+                  f"{t_q:.2f} s, {bad} off score_topk_ref; the server's kernel launches "
+                  f"{served}", flush=True)
+            check(bad == 0, f"{bad} answers disagree with score_topk_ref")
+            if dev.type == "cuda":
+                check(served.get("score_topk", 0) > 0, "deploy did not launch score_topk")
+            out["deploy_up_s"], out["deploy_open_s"] = t_up, opened["s"]
+            out["serve_launches"] = served
+
+            # 5. the export: every event, as imported
+            code = ex.wait(timeout=900)
+            t_export = time.perf_counter() - t_export
+            text = open(export_log).read()
+            check(code == 0 and f"Exported {n} events" in text, f"export: {code} {text[-4000:]}")
+            with open(exported) as f:
+                lines = f.readlines()
+            sample = np.sort(rng.choice(n, min(STORAGE_SAMPLE, n), replace=False))
+            with open(path) as f:
+                imported = f.readlines()
+            fields = ("event", "entityType", "entityId", "targetEntityType",
+                      "targetEntityId", "properties")
+            same = 0
+            for j in sample.tolist():
+                a, b = json.loads(lines[j]), json.loads(imported[j])
+                same += (all(a[k] == b[k] for k in fields)
+                         and parse_event_time(a["eventTime"]) == parse_event_time(b["eventTime"]))
+            print(f"pio export: {len(lines)} lines in {t_export:.2f} s wall (its process "
+                  f"ran beside the deploy's); {same} of {len(sample)} sampled lines equal "
+                  f"to the imported ones", flush=True)
+            check(len(lines) == n and same == len(sample), "the export differs from the import")
+            out["export_s"] = t_export
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+            registry.set_storage(None)
+    launches = {name: trains[1]["launches"].get(name, 0) + served.get(name, 0)
+                for name in ("score_topk", "gather_gram", "chol_solve", "rows_gram")}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 17: {wall:.1f} s wall; kernel launches of the second train and the "
+          f"deploy {launches} ({card_line() if dev.type == 'cuda' else 'cpu'})", flush=True)
+    out["launches"], out["wall"] = launches, wall
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -6723,6 +7051,7 @@ def main(argv) -> int:
     classification_only = "--classification" in argv
     universal_only = "--universal" in argv
     eventlog_only = "--eventlog" in argv
+    storage_only = "--storage" in argv
     global PROFILE_STEPS
     PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
@@ -6749,6 +7078,12 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if storage_only:
+        phase("17. every repository on ELASTICSEARCH at ML-20M width")
+        storage_full_width(torch, ops, dev)
+        phase("done")
+        return 0
 
     if eventlog_only:
         phase("16. the EVENTLOG backend at ML-20M width")
@@ -6869,6 +7204,8 @@ def main(argv) -> int:
     universal = universal_sequential_full_width(torch, ops, dev, train["coo"], cli=False)
     phase("16. the EVENTLOG backend at ML-20M width")
     eventlog = eventlog_full_width(torch, ops, dev, train["coo"], EVENTLOG_RUN_DRAWS)
+    phase("17. every repository on ELASTICSEARCH at ML-20M width")
+    es = storage_full_width(torch, ops, dev, train["coo"], STORAGE_RUN_DRAWS)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -6889,6 +7226,7 @@ def main(argv) -> int:
         "launches_phase13": ann["launches"]["score_topk"],
         "launches_phase15": universal["launches"]["score_topk"],
         "launches_phase16": eventlog["launches"]["score_topk"],
+        "launches_phase17": es["launches"]["score_topk"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
         "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
@@ -6903,7 +7241,8 @@ def main(argv) -> int:
         "launches_phase12": family["launches"]["gather_gram"],
         "launches_phase13": ann["launches"]["gather_gram"],
         "launches_phase15": universal["launches"]["gather_gram"],
-        "launches_phase16": eventlog["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches_phase16": eventlog["launches"]["gather_gram"],
+        "launches_phase17": es["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -6916,7 +7255,8 @@ def main(argv) -> int:
         "launches_phase12": family["launches"]["chol_solve"],
         "launches_phase13": ann["launches"]["chol_solve"],
         "launches_phase15": universal["launches"]["chol_solve"],
-        "launches_phase16": eventlog["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches_phase16": eventlog["launches"]["chol_solve"],
+        "launches_phase17": es["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],
@@ -6926,7 +7266,8 @@ def main(argv) -> int:
         "replaces": "predictionio_tpu/ops/gram.py:73",
         "launches": rows["launches"],
         "launches_phase15": universal["launches"]["rows_gram"],
-        "launches_phase16": eventlog["launches"]["rows_gram"], "max_abs_err": rows_err,
+        "launches_phase16": eventlog["launches"]["rows_gram"],
+        "launches_phase17": es["launches"]["rows_gram"], "max_abs_err": rows_err,
         "ms": rows["ms"], "plain_ms": rows["plain_ms"],
         "bound_ms": rows["bound_ms"], "bound_by": rows["bound_by"],
         "library_ms": rows["library_ms"],

@@ -1,25 +1,25 @@
-"""Event stores: the backend SPI, the in-memory store and the SQLite store.
+"""Event stores: the backend SPI, the in-memory store and the SQL stores.
 
-The port's copy of the JAX package's ``data/events.py`` for ``MEMORY``
-and ``SQLITE``; the native event log (``EVENTLOG``) is
-:mod:`predictionio_tpu_torch.data.filestore`. The SQLite store keeps the
-reference's table per (app, channel) namespace
+The port's copy of the JAX package's ``data/events.py``: ``MEMORY`` and
+the SQL store on any dialect of
+:mod:`predictionio_tpu_torch.storage.sqldialect` (``SQLITE``, the
+default, and the ``PGSQL`` and ``MYSQL`` servers); the native event log
+(``EVENTLOG``) is :mod:`predictionio_tpu_torch.data.filestore` and the
+embedded index (``ELASTICSEARCH``) :mod:`predictionio_tpu_torch.storage.indexed`.
+The SQL store keeps the reference's table per (app, channel) namespace
 (``pio_event_<appId>[_<channelId>]``), its schema, its indexes and its
-scan order, so events the JAX package wrote into a ``PIO_HOME`` are read
-by the port and the other way round. It also has the JAX package's
-columnar training read (:meth:`SqliteEventStore.scan_columnar`) with the
-snapshot cache's probes (``cache_identity`` ``sqlite:<abspath>`` and
-:meth:`~SqliteEventStore.creation_stats`), so the default backend takes
-the reference's read path. Replication and the remote SQL engines are
-not ported yet.
+scan order, so events the JAX package wrote into a ``PIO_HOME`` or a
+database are read by the port and the other way round. It also has the
+JAX package's columnar training read (:meth:`SQLEventStore.scan_columnar`)
+with the snapshot cache's probes (``cache_identity``, ``sqlite:<abspath>``
+on SQLite, and :meth:`~SQLEventStore.creation_stats`), so every backend
+takes the reference's read path. Replication is not ported yet.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 import json
-import os
-import sqlite3
 import threading
 from abc import ABC, abstractmethod
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -254,51 +254,41 @@ _EVENT_COLS = ("id", "event", "entityType", "entityId", "targetEntityType",
                "tags", "prId", "creationTime", "creationTimeIso")
 
 
-class SqliteEventStore(EventStore):
-    """Durable event store on SQLite (the default backend): the SQLite
-    dialect of the reference's ``SQLEventStore``. One table per (app,
-    channel) namespace, indexed on eventTime, entity, event name and
-    creationTime; one connection per thread in WAL mode (``':memory:'``
-    shares one connection, since such a database exists per
-    connection). Each connection commits at ``synchronous=NORMAL``, or
-    at ``FULL`` (an fsync of the WAL per commit) after ``set_durable``."""
+class SQLEventStore(EventStore):
+    """Durable event store on any SQL engine with a dialect
+    (:mod:`predictionio_tpu_torch.storage.sqldialect`): the JAX package's
+    ``SQLEventStore``. One table per (app, channel) namespace,
+    ``pio_event_<appId>[_<channelId>]``, indexed on eventTime, entity,
+    event name and creationTime; one connection per thread. Each
+    connection commits at the dialect's normal durability, or at its
+    durable level (SQLite: an fsync of the WAL per commit) after
+    ``set_durable``."""
 
-    def __init__(self, path: str) -> None:
-        self._path = path
-        if path != ":memory:":
-            # the snapshot cache's key: the JAX package's SqliteDialect
-            # identity, so one snapshot serves both packages
-            self.cache_identity = "sqlite:" + os.path.abspath(path)
+    def __init__(self, dialect) -> None:
+        self._d = dialect
+        self._conns = dialect.thread_conns()
         self._lock = threading.RLock()
-        self._local = threading.local()
-        self._shared = self._connect() if path == ":memory:" else None
+        self._tl = threading.local()  # the sync level this thread's connection has
         self._known: set = set()  # (table, connection) whose DDL already ran
         self._sync = "NORMAL"
+
+    @property
+    def cache_identity(self) -> Optional[str]:  # type: ignore[override]
+        # the snapshot cache's key: the dialect's identity, the JAX
+        # package's, so one snapshot serves both packages
+        return self._d.cache_identity
 
     def set_durable(self, durable: bool = True) -> None:
         # each thread's connection takes the level the next time it is used
         self._sync = "FULL" if durable else "NORMAL"
 
-    def _connect(self) -> sqlite3.Connection:
-        conn = sqlite3.connect(self._path, timeout=30.0,
-                               check_same_thread=self._path != ":memory:")
-        if self._path != ":memory:":
-            conn.execute("PRAGMA journal_mode=WAL")
-            conn.execute("PRAGMA synchronous=NORMAL")
-        return conn
-
-    def _conn(self) -> sqlite3.Connection:
-        if self._shared is not None:
-            return self._shared
-        conn = getattr(self._local, "conn", None)
-        if conn is None:
-            conn = self._local.conn = self._connect()
-            self._local.sync = "NORMAL"
-        if self._local.sync != self._sync:
-            sync = self._sync
-            conn.execute(f"PRAGMA synchronous={sync}")
-            self._local.sync = sync
-        return conn
+    def _conn(self):
+        c = self._conns.get()
+        sync = self._sync
+        if getattr(self._tl, "sync", "NORMAL") != sync:
+            self._d.set_sync_durable(c, sync == "FULL")
+            self._tl.sync = sync
+        return c
 
     @staticmethod
     def _table(app_id: int, channel_id: Optional[int]) -> str:
@@ -306,31 +296,31 @@ class SqliteEventStore(EventStore):
 
     def init_channel(self, app_id: int, channel_id: Optional[int] = None) -> None:
         t = self._table(app_id, channel_id)
+        d = self._d
         c = self._conn()
         with self._lock:
             if (t, id(c)) in self._known:
                 return
-            cur = c.cursor()
-            cur.execute(
+            c.cursor().execute(
                 f"""CREATE TABLE IF NOT EXISTS {t} (
-                    id TEXT PRIMARY KEY,
-                    event TEXT NOT NULL,
-                    entityType TEXT NOT NULL,
-                    entityId TEXT NOT NULL,
-                    targetEntityType TEXT,
-                    targetEntityId TEXT,
+                    id {d.key_type} PRIMARY KEY,
+                    event {d.str_type} NOT NULL,
+                    entityType {d.str_type} NOT NULL,
+                    entityId {d.str_type} NOT NULL,
+                    targetEntityType {d.str_type},
+                    targetEntityId {d.str_type},
                     properties TEXT NOT NULL,
                     eventTime BIGINT NOT NULL,
                     eventTimeIso TEXT NOT NULL,
                     tags TEXT NOT NULL,
-                    prId TEXT,
+                    prId {d.str_type},
                     creationTime BIGINT NOT NULL,
                     creationTimeIso TEXT NOT NULL
                 )"""
             )
             for name, cols in (("time", "eventTime"), ("entity", "entityType, entityId"),
                                ("name", "event"), ("ctime", "creationTime")):
-                cur.execute(f"CREATE INDEX IF NOT EXISTS {t}_{name} ON {t}({cols})")
+                d.create_index(c, f"{t}_{name}", t, cols)
             c.commit()
             self._known.add((t, id(c)))
 
@@ -338,7 +328,7 @@ class SqliteEventStore(EventStore):
         t = self._table(app_id, channel_id)
         c = self._conn()
         with self._lock:
-            c.execute(f"DROP TABLE IF EXISTS {t}")
+            c.cursor().execute(f"DROP TABLE IF EXISTS {t}")
             c.commit()
             self._known = {k for k in self._known if k[0] != t}
 
@@ -378,20 +368,26 @@ class SqliteEventStore(EventStore):
         with self._lock:
             # re-inserting an existing eventId overwrites (put semantics)
             c.cursor().executemany(
-                f"INSERT OR REPLACE INTO {t} ({','.join(_EVENT_COLS)}) "
-                f"VALUES ({','.join('?' * len(_EVENT_COLS))})", rows)
+                self._d.sql(self._d.upsert(t, _EVENT_COLS, "id")), rows)
             c.commit()
         return ids  # type: ignore[return-value]
 
-    @staticmethod
-    def _missing_table(c: sqlite3.Connection, e: BaseException) -> bool:
-        """After a failed statement: roll back, then say whether the
-        namespace's table does not exist yet (a fresh app reads empty)."""
+    def _missing_table(self, c, e: BaseException) -> bool:
+        """After a failed statement: put the connection back in a usable
+        state (PostgreSQL aborts the transaction), then say whether the
+        namespace's table does not exist yet (a fresh app reads empty).
+        Callers re-raise anything else."""
+        self._d.recover(c)
+        return self._d.is_missing_table(e)
+
+    def _end_read(self, c) -> None:
+        """Commit a read: server engines otherwise pin a stale snapshot
+        (MySQL REPEATABLE READ) or sit idle in a transaction (PostgreSQL)
+        on this thread's cached connection."""
         try:
-            c.rollback()
-        except sqlite3.Error:
-            pass
-        return isinstance(e, sqlite3.OperationalError) and "no such table" in str(e)
+            c.commit()
+        except Exception:
+            self._d.recover(c)
 
     @staticmethod
     def _event_from_row(row: Tuple) -> Event:
@@ -414,10 +410,11 @@ class SqliteEventStore(EventStore):
         c = self._conn()
         try:
             cur = c.cursor()
-            cur.execute(f"SELECT {','.join(_EVENT_COLS)} FROM {t} WHERE id=?", (event_id,))
+            cur.execute(self._d.sql(f"SELECT {','.join(_EVENT_COLS)} FROM {t} WHERE id=?"),
+                        (event_id,))
             row = cur.fetchone()
             c.commit()
-        except sqlite3.Error as e:
+        except Exception as e:
             if self._missing_table(c, e):
                 return None
             raise
@@ -429,9 +426,9 @@ class SqliteEventStore(EventStore):
         with self._lock:
             try:
                 cur = c.cursor()
-                cur.execute(f"DELETE FROM {t} WHERE id=?", (event_id,))
+                cur.execute(self._d.sql(f"DELETE FROM {t} WHERE id=?"), (event_id,))
                 c.commit()
-            except sqlite3.Error as e:
+            except Exception as e:
                 if self._missing_table(c, e):
                     return False
                 raise
@@ -444,10 +441,31 @@ class SqliteEventStore(EventStore):
             try:
                 c.cursor().execute(f"DELETE FROM {t}")
                 c.commit()
-            except sqlite3.Error as e:
+            except Exception as e:
                 if self._missing_table(c, e):
                     return
                 raise
+
+    @staticmethod
+    def _where(start_time, until_time, entity_type, entity_id,
+               event_names, target_entity_type, target_entity_id):
+        """The filters as SQL, shared by find() and scan_columnar so that
+        the two read paths never filter differently."""
+        clauses, args = [], []
+        for col, op, val in (("eventTime", ">=", start_time), ("eventTime", "<", until_time)):
+            if val is not None:
+                clauses.append(f"{col} {op} ?")
+                args.append(_ts(val))
+        for col, val in (("entityType", entity_type), ("entityId", entity_id),
+                         ("targetEntityType", target_entity_type),
+                         ("targetEntityId", target_entity_id)):
+            if val is not None:
+                clauses.append(f"{col} = ?")
+                args.append(val)
+        if event_names is not None:
+            clauses.append(f"event IN ({','.join('?' * len(event_names))})")
+            args.extend(event_names)
+        return clauses, args
 
     def find(
         self,
@@ -464,20 +482,8 @@ class SqliteEventStore(EventStore):
         reversed: bool = False,
     ) -> Iterator[Event]:
         t = self._table(app_id, channel_id)
-        clauses, args = [], []
-        for col, op, val in (("eventTime", ">=", start_time), ("eventTime", "<", until_time)):
-            if val is not None:
-                clauses.append(f"{col} {op} ?")
-                args.append(_ts(val))
-        for col, val in (("entityType", entity_type), ("entityId", entity_id),
-                         ("targetEntityType", target_entity_type),
-                         ("targetEntityId", target_entity_id)):
-            if val is not None:
-                clauses.append(f"{col} = ?")
-                args.append(val)
-        if event_names is not None:
-            clauses.append(f"event IN ({','.join('?' * len(event_names))})")
-            args.extend(event_names)
+        clauses, args = self._where(start_time, until_time, entity_type, entity_id,
+                                    event_names, target_entity_type, target_entity_id)
         where = (" WHERE " + " AND ".join(clauses)) if clauses else ""
         order = "DESC" if reversed else "ASC"
         lim = f" LIMIT {int(limit)}" if (limit is not None and limit >= 0) else ""
@@ -486,15 +492,19 @@ class SqliteEventStore(EventStore):
                f"ORDER BY eventTime {order}, creationTime {order}, id {order}{lim}")
         c = self._conn()
         try:
-            cur = c.cursor()
-            cur.execute(sql, args)
+            # a server-side cursor streams; server engines report a
+            # missing table at the first fetch, so it is inside the try
+            cur = self._d.stream_cursor(c)
+            cur.execute(self._d.sql(sql), args)
             first = cur.fetchmany(1024)
-        except sqlite3.Error as e:
+        except Exception as e:
             if self._missing_table(c, e):
                 return iter(())
             raise
         if len(first) < 1024:
-            c.commit()
+            # all read: end the read transaction now, since an abandoned
+            # generator would never commit
+            self._end_read(c)
             return iter([self._event_from_row(r) for r in first])
 
         def stream():
@@ -507,7 +517,7 @@ class SqliteEventStore(EventStore):
                         yield self._event_from_row(r)
                     rows = cur.fetchmany(1024)
             finally:
-                c.commit()
+                self._end_read(c)
 
         return stream()
 
@@ -538,19 +548,8 @@ class SqliteEventStore(EventStore):
         from predictionio_tpu_torch.data.pipeline import columnar_from_rows
 
         t = self._table(app_id, channel_id)
-        clauses, args = [], []
-        for col, op, val in (("eventTime", ">=", start_time), ("eventTime", "<", until_time)):
-            if val is not None:
-                clauses.append(f"{col} {op} ?")
-                args.append(_ts(val))
-        for col, val in (("entityType", entity_type),
-                         ("targetEntityType", target_entity_type)):
-            if val is not None:
-                clauses.append(f"{col} = ?")
-                args.append(val)
-        if event_names is not None:
-            clauses.append(f"event IN ({','.join('?' * len(event_names))})")
-            args.extend(event_names)
+        clauses, args = self._where(start_time, until_time, entity_type, None,
+                                    event_names, target_entity_type, None)
         if created_after_us is not None:
             clauses.append("creationTime > ?")
             args.append(int(created_after_us))
@@ -564,10 +563,10 @@ class SqliteEventStore(EventStore):
                f"ORDER BY eventTime ASC, creationTime ASC, id ASC")
         c = self._conn()
         try:
-            cur = c.cursor()
-            cur.execute(sql, args)
+            cur = self._d.stream_cursor(c)
+            cur.execute(self._d.sql(sql), args)
             rows = cur.fetchmany(8192)
-        except sqlite3.Error as e:
+        except Exception as e:
             if not self._missing_table(c, e):
                 raise
             rows = []
@@ -579,7 +578,7 @@ class SqliteEventStore(EventStore):
                     yield from rows
                     rows = cur.fetchmany(8192)
             finally:
-                c.commit()  # end the read transaction
+                self._end_read(c)
 
         cols = columnar_from_rows(row_iter(), value_key)
         if cols is not None:
@@ -601,11 +600,11 @@ class SqliteEventStore(EventStore):
         c = self._conn()
         try:
             cur = c.cursor()
-            cur.execute(f"SELECT COUNT(*), MAX(creationTime) FROM {t}{where}",
+            cur.execute(self._d.sql(f"SELECT COUNT(*), MAX(creationTime) FROM {t}{where}"),
                         args)
             row = cur.fetchone()
             c.commit()
-        except sqlite3.Error as e:
+        except Exception as e:
             if self._missing_table(c, e):
                 return (0, None)
             raise
@@ -613,3 +612,16 @@ class SqliteEventStore(EventStore):
         if count == 0:
             return (0, None)
         return (count, int(row[1]))
+
+
+class SqliteEventStore(SQLEventStore):
+    """Durable event store on SQLite (the default backend): the SQLite
+    dialect's ``SQLEventStore``, one connection per thread in WAL mode
+    (``':memory:'`` shares one connection, since such a database exists
+    per connection); ``cache_identity`` is ``sqlite:<abspath>``."""
+
+    def __init__(self, path: str) -> None:
+        from predictionio_tpu_torch.storage.sqldialect import SqliteDialect
+
+        super().__init__(SqliteDialect(path))
+        self._path = path

@@ -63,7 +63,7 @@ installs the SIGQUIT and crash handlers.
 
 Left out of the port for now: the router's variant pins and the online
 promotion gate (the router and the continuous trainer, ROADMAP.md queue
-1, item 13).
+1, item 7).
 """
 
 from __future__ import annotations

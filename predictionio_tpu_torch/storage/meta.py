@@ -10,7 +10,11 @@ resolves the app (and channel) named in the variant; serving loads the
 latest COMPLETED instance for (engine factory, variant) — the
 reference's ``EngineInstances.getLatestCompleted``; ``pio eval`` records
 one evaluation instance per grid search, which ``pio evals`` lists.
-Left out: the remote SQL dialects (with ``storage/sqldialect.py``).
+:class:`MetaStore` runs on any dialect of
+:mod:`predictionio_tpu_torch.storage.sqldialect` (SQLite by default, the
+PGSQL and MYSQL servers with ``dialect=``); the embedded index's
+``ESMetaStore`` (:mod:`predictionio_tpu_torch.storage.indexed`) has the
+same methods.
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ from __future__ import annotations
 import datetime as _dt
 import json
 import secrets
-import sqlite3
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -125,25 +128,29 @@ class EvaluationInstance:
     evaluator_results_json: str = ""   # structured per-candidate scores
 
 
-_SCHEMA = (
-    """CREATE TABLE IF NOT EXISTS apps (
-    id INTEGER PRIMARY KEY AUTOINCREMENT,
-    name TEXT UNIQUE NOT NULL,
+def _schema(d) -> List[str]:
+    """The DDL on dialect ``d``: the autoincrement key's spelling and the
+    indexable string types come from the dialect (MySQL cannot make a
+    bare TEXT a key or UNIQUE); on SQLite it is the JAX package's."""
+    return [
+        f"""CREATE TABLE IF NOT EXISTS apps (
+    id {d.autoinc_pk},
+    name {d.str_type} UNIQUE NOT NULL,
     description TEXT NOT NULL
 )""",
-    """CREATE TABLE IF NOT EXISTS access_keys (
-    accesskey TEXT PRIMARY KEY,
+        f"""CREATE TABLE IF NOT EXISTS access_keys (
+    accesskey {d.key_type} PRIMARY KEY,
     appid INTEGER NOT NULL,
     events TEXT NOT NULL
 )""",
-    """CREATE TABLE IF NOT EXISTS channels (
-    id INTEGER PRIMARY KEY AUTOINCREMENT,
-    name TEXT NOT NULL,
+        f"""CREATE TABLE IF NOT EXISTS channels (
+    id {d.autoinc_pk},
+    name {d.str_type} NOT NULL,
     appid INTEGER NOT NULL,
     UNIQUE(name, appid)
 )""",
-    """CREATE TABLE IF NOT EXISTS engine_instances (
-    id TEXT PRIMARY KEY,
+        f"""CREATE TABLE IF NOT EXISTS engine_instances (
+    id {d.key_type} PRIMARY KEY,
     status TEXT NOT NULL,
     startTime TEXT NOT NULL,
     endTime TEXT,
@@ -157,8 +164,8 @@ _SCHEMA = (
     algorithmsParams TEXT NOT NULL,
     servingParams TEXT NOT NULL
 )""",
-    """CREATE TABLE IF NOT EXISTS evaluation_instances (
-    id TEXT PRIMARY KEY,
+        f"""CREATE TABLE IF NOT EXISTS evaluation_instances (
+    id {d.key_type} PRIMARY KEY,
     status TEXT NOT NULL,
     startTime TEXT NOT NULL,
     endTime TEXT,
@@ -170,7 +177,7 @@ _SCHEMA = (
     evaluatorResultsHTML TEXT NOT NULL,
     evaluatorResultsJSON TEXT NOT NULL
 )""",
-)
+    ]
 
 _EI_COLS = ("id", "status", "startTime", "endTime", "engineFactory",
             "engineVariant", "batch", "env", "meshConf", "dataSourceParams",
@@ -181,42 +188,41 @@ _VI_COLS = ("id", "status", "startTime", "endTime", "evaluationClass",
 
 
 class MetaStore:
-    """SQLite-backed engine-instance store (``':memory:'`` for tests).
-    File databases get one connection per thread in WAL mode; an
-    in-memory database exists per connection, so all threads share one."""
+    """SQL-backed meta store: SQLite at ``path`` by default
+    (``':memory:'`` for tests), or any dialect given as ``dialect=``
+    (PGSQL, MYSQL). One connection per thread; an in-memory SQLite
+    database exists per connection, so all threads share one. Reads
+    commit too, and a failed statement rolls the connection back: server
+    engines run every statement in a transaction (PostgreSQL aborts it
+    on an error)."""
 
-    def __init__(self, path: str = ":memory:") -> None:
+    def __init__(self, path: str = ":memory:", dialect=None) -> None:
+        from predictionio_tpu_torch.storage.sqldialect import SqliteDialect
+
         self._path = path
+        self._d = dialect if dialect is not None else SqliteDialect(path)
+        self._conns = self._d.thread_conns()
         self._lock = threading.RLock()
-        self._local = threading.local()
-        self._shared = self._connect() if path == ":memory:" else None
-        for stmt in _SCHEMA:
-            self._x(stmt)
+        with self._lock:
+            c = self._conn()
+            cur = c.cursor()
+            for stmt in _schema(self._d):
+                cur.execute(stmt)
+            c.commit()
 
-    def _connect(self) -> sqlite3.Connection:
-        conn = sqlite3.connect(self._path, timeout=30.0,
-                               check_same_thread=self._path != ":memory:")
-        if self._path != ":memory:":
-            conn.execute("PRAGMA journal_mode=WAL")
-            conn.execute("PRAGMA synchronous=NORMAL")
-        return conn
-
-    def _conn(self) -> sqlite3.Connection:
-        if self._shared is not None:
-            return self._shared
-        conn = getattr(self._local, "conn", None)
-        if conn is None:
-            conn = self._local.conn = self._connect()
-        return conn
+    def _conn(self):
+        return self._conns.get()
 
     def _q(self, q: str, args: tuple = ()) -> List[tuple]:
         with self._lock:
             c = self._conn()
             try:
-                rows = c.execute(q, args).fetchall()
+                cur = c.cursor()
+                cur.execute(self._d.sql(q), args)
+                rows = cur.fetchall()
                 c.commit()
             except Exception:
-                c.rollback()
+                self._d.recover(c)
                 raise
         return rows
 
@@ -224,23 +230,38 @@ class MetaStore:
         rows = self._q(q, args)
         return rows[0] if rows else None
 
-    def _x(self, q: str, args: tuple = ()) -> sqlite3.Cursor:
-        """Run one write; returns its cursor (``lastrowid``, ``rowcount``)."""
+    def _x(self, q: str, args: tuple = ()) -> int:
+        """Run one write; returns its row count."""
         with self._lock:
             c = self._conn()
             try:
-                cur = c.execute(q, args)
+                cur = c.cursor()
+                cur.execute(self._d.sql(q), args)
                 c.commit()
             except Exception:
-                c.rollback()
+                self._d.recover(c)
                 raise
-        return cur
+        return cur.rowcount
+
+    def _insert_id(self, q: str, args: tuple) -> int:
+        """Run one INSERT into a table with an autoincrement id; returns it."""
+        with self._lock:
+            c = self._conn()
+            try:
+                rid = self._d.insert_returning_id(c, q, args)
+                c.commit()
+            except Exception:
+                # a duplicate-name race must not poison this thread's
+                # cached connection
+                self._d.recover(c)
+                raise
+        return rid
 
     # -- apps ------------------------------------------------------------------
 
     def create_app(self, name: str, description: str = "") -> App:
-        rid = self._x("INSERT INTO apps(name, description) VALUES (?,?)",
-                      (name, description)).lastrowid
+        rid = self._insert_id("INSERT INTO apps(name, description) VALUES (?,?)",
+                              (name, description))
         return App(id=rid, name=name, description=description)
 
     def get_app(self, app_id: int) -> Optional[App]:
@@ -260,13 +281,14 @@ class MetaStore:
         with self._lock:
             c = self._conn()
             try:
-                existed = c.execute("DELETE FROM apps WHERE id=?",
-                                    (app_id,)).rowcount > 0
-                c.execute("DELETE FROM access_keys WHERE appid=?", (app_id,))
-                c.execute("DELETE FROM channels WHERE appid=?", (app_id,))
+                cur = c.cursor()
+                cur.execute(self._d.sql("DELETE FROM apps WHERE id=?"), (app_id,))
+                existed = cur.rowcount > 0
+                cur.execute(self._d.sql("DELETE FROM access_keys WHERE appid=?"), (app_id,))
+                cur.execute(self._d.sql("DELETE FROM channels WHERE appid=?"), (app_id,))
                 c.commit()
             except Exception:
-                c.rollback()
+                self._d.recover(c)
                 raise
         bump_meta_epoch()  # the app's keys and channels went with it
         return existed
@@ -296,15 +318,15 @@ class MetaStore:
 
     def delete_access_key(self, key: str) -> bool:
         deleted = self._x("DELETE FROM access_keys WHERE accesskey=?",
-                          (key,)).rowcount > 0
+                          (key,)) > 0
         bump_meta_epoch()
         return deleted
 
     # -- channels --------------------------------------------------------------
 
     def create_channel(self, app_id: int, name: str) -> Channel:
-        rid = self._x("INSERT INTO channels(name, appid) VALUES (?,?)",
-                      (name, app_id)).lastrowid
+        rid = self._insert_id("INSERT INTO channels(name, appid) VALUES (?,?)",
+                              (name, app_id))
         bump_meta_epoch()
         return Channel(id=rid, name=name, app_id=app_id)
 
@@ -320,7 +342,7 @@ class MetaStore:
 
     def delete_channel(self, channel_id: int) -> bool:
         deleted = self._x("DELETE FROM channels WHERE id=?",
-                          (channel_id,)).rowcount > 0
+                          (channel_id,)) > 0
         bump_meta_epoch()
         return deleted
 
@@ -328,8 +350,7 @@ class MetaStore:
 
     def insert_engine_instance(self, ei: EngineInstance) -> None:
         self._x(
-            f"INSERT OR REPLACE INTO engine_instances ({','.join(_EI_COLS)}) "
-            f"VALUES ({','.join('?' * len(_EI_COLS))})",
+            self._d.upsert("engine_instances", _EI_COLS, "id"),
             (
                 ei.id, ei.status, format_time(ei.start_time),
                 format_time(ei.end_time) if ei.end_time else None,
@@ -384,8 +405,7 @@ class MetaStore:
 
     def insert_evaluation_instance(self, vi: EvaluationInstance) -> None:
         self._x(
-            f"INSERT OR REPLACE INTO evaluation_instances ({','.join(_VI_COLS)}) "
-            f"VALUES ({','.join('?' * len(_VI_COLS))})",
+            self._d.upsert("evaluation_instances", _VI_COLS, "id"),
             (
                 vi.id, vi.status, format_time(vi.start_time),
                 format_time(vi.end_time) if vi.end_time else None,

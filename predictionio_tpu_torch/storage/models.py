@@ -1,5 +1,8 @@
-"""Model blob stores: the port's copy of the LOCALFS and MEMORY backends,
-the checksummed artifact helpers and the generation-aware model registry.
+"""Model blob stores: the port's copy of the LOCALFS, MEMORY and SQL
+backends, the checksummed artifact helpers and the generation-aware model
+registry. (The S3 and HDFS stores are in
+:mod:`predictionio_tpu_torch.storage.remote`, the embedded index's in
+:mod:`predictionio_tpu_torch.storage.indexed`.)
 
 A "model" is an opaque byte blob keyed by engine-instance id. The LOCALFS
 layout is the JAX package's: ``<root>/<instance_id>/model.bin`` beside a
@@ -75,6 +78,66 @@ class MemoryModelStore(ModelStore):
 
     def list_ids(self) -> List[str]:
         return sorted(self._blobs)
+
+
+class SQLModelStore(ModelStore):
+    """Model blobs in a SQL table, ``pio_model_data`` with a blob column
+    (the JAX package's ``SQLModelStore``, reference: [U] storage/jdbc/
+    JDBCModels.scala), on any dialect of
+    :mod:`predictionio_tpu_torch.storage.sqldialect`: the PGSQL and MYSQL
+    sources keep models in the database, with no shared filesystem."""
+
+    _TABLE = "pio_model_data"
+
+    def __init__(self, dialect) -> None:
+        self._d = dialect
+        self._conns = dialect.thread_conns()
+        self._lock = threading.Lock()
+        c = self._conns.get()
+        c.cursor().execute(
+            f"""CREATE TABLE IF NOT EXISTS {self._TABLE} (
+                id {dialect.key_type} PRIMARY KEY,
+                model {dialect.blob_type} NOT NULL
+            )""")
+        c.commit()
+
+    def put(self, instance_id: str, blob: bytes) -> None:
+        with self._lock:
+            c = self._conns.get()
+            c.cursor().execute(
+                self._d.sql(self._d.upsert(self._TABLE, ("id", "model"), "id")),
+                (instance_id, self._d.binary(blob)))
+            c.commit()
+
+    def _read(self, q: str, args: tuple = ()) -> list:
+        """One SELECT, committed (server engines otherwise hold the read
+        transaction open on this thread's connection)."""
+        c = self._conns.get()
+        try:
+            cur = c.cursor()
+            cur.execute(self._d.sql(q), args)
+            rows = cur.fetchall()
+            c.commit()
+        except Exception:
+            self._d.recover(c)
+            raise
+        return rows
+
+    def get(self, instance_id: str) -> Optional[bytes]:
+        rows = self._read(f"SELECT model FROM {self._TABLE} WHERE id=?", (instance_id,))
+        return bytes(rows[0][0]) if rows else None
+
+    def delete(self, instance_id: str) -> bool:
+        with self._lock:
+            c = self._conns.get()
+            cur = c.cursor()
+            cur.execute(self._d.sql(f"DELETE FROM {self._TABLE} WHERE id=?"),
+                        (instance_id,))
+            c.commit()
+            return cur.rowcount > 0
+
+    def list_ids(self) -> List[str]:
+        return [r[0] for r in self._read(f"SELECT id FROM {self._TABLE} ORDER BY id")]
 
 
 class LocalFSModelStore(ModelStore):

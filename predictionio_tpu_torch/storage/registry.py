@@ -1,15 +1,25 @@
 """Backend registry: env-driven selection of the meta, event and model stores.
 
-The port's copy of the JAX package's ``storage/registry.py``, limited to
-the backends the port has: the meta repository (SQLITE or MEMORY),
-the event repository (SQLITE, EVENTLOG or MEMORY) and the model
-repository (LOCALFS or MEMORY). EVENTLOG is the native C++ log under
-``<home>/eventlog`` (:mod:`predictionio_tpu_torch.data.filestore`); its
-engine is built with g++ when the store is first opened, and a failed
-build raises. It honours the same
-``PIO_STORAGE_REPOSITORIES_*`` / ``PIO_STORAGE_SOURCES_*`` variables and
-the same defaults — everything under ``$PIO_HOME or ~/.pio_store`` — so
-the two packages share one storage home.
+The port's copy of the JAX package's ``storage/registry.py``: the
+reference's ``Storage`` object, which reads
+``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,SOURCE}``
+and ``PIO_STORAGE_SOURCES_<S>_{TYPE,...}``. Backends register by TYPE
+name (``register_event_backend`` and its two siblings):
+
+- meta: SQLITE, MEMORY, PGSQL, MYSQL, ELASTICSEARCH;
+- events: SQLITE, MEMORY, EVENTLOG, PGSQL, MYSQL, ELASTICSEARCH;
+- models: LOCALFS, MEMORY, PGSQL, MYSQL, ELASTICSEARCH, S3, HDFS.
+
+EVENTLOG is the native C++ log under ``<home>/eventlog``
+(:mod:`predictionio_tpu_torch.data.filestore`), built with g++ when the
+store is first opened; ELASTICSEARCH the embedded index under the
+source's ``PATH`` (default ``<home>/es_index``,
+:mod:`predictionio_tpu_torch.storage.indexed`); the network types bind
+their client libraries when opened (:mod:`predictionio_tpu_torch.storage.remote`).
+A type nobody registered, a missing client library and an unreachable
+server all raise. The defaults are the JAX package's (everything under
+``$PIO_HOME or ~/.pio_store``: SQLite meta and events, LOCALFS models),
+so the two packages share one storage home.
 """
 
 from __future__ import annotations
@@ -39,7 +49,14 @@ def pio_home() -> str:
 
 @dataclass
 class StorageConfig:
-    """Resolved storage configuration (one 'source' per repository)."""
+    """Resolved storage configuration (one 'source' per repository).
+
+    ``sources`` holds every configured source's settings
+    (``PIO_STORAGE_SOURCES_<NAME>_<KEY>`` → ``sources[NAME][KEY]``) and
+    ``*_source`` names the source behind each repository, so that a
+    backend factory reads its own source's settings (two S3 sources
+    must not shadow each other).
+    """
 
     metadata_type: str = "SQLITE"
     eventdata_type: str = "SQLITE"
@@ -49,6 +66,11 @@ class StorageConfig:
     modeldata_source: str = ""
     sources: Dict[str, Dict[str, str]] = field(default_factory=dict)
     home: str = field(default_factory=pio_home)
+
+    def source_properties(self, repo: str) -> Dict[str, str]:
+        """Settings of the source backing ``repo`` ('METADATA', …)."""
+        name = getattr(self, f"{repo.lower()}_source", "")
+        return self.sources.get(name, {})
 
     @classmethod
     def from_env(cls, env: Optional[Dict[str, str]] = None) -> "StorageConfig":
@@ -120,6 +142,28 @@ _META_BACKENDS: Dict[str, Callable[[StorageConfig], MetaStore]] = {
 }
 
 
+def register_event_backend(name: str, factory: Callable[[StorageConfig], EventStore]) -> None:
+    _EVENT_BACKENDS[name.upper()] = factory
+
+
+def register_model_backend(name: str, factory: Callable[[StorageConfig], ModelStore]) -> None:
+    _MODEL_BACKENDS[name.upper()] = factory
+
+
+def register_meta_backend(name: str, factory: Callable[[StorageConfig], MetaStore]) -> None:
+    _META_BACKENDS[name.upper()] = factory
+
+
+# the network backends (S3 and HDFS model stores, the PGSQL and MYSQL
+# servers) and the embedded index's ELASTICSEARCH register their TYPE
+# names; their client libraries bind when a store is opened
+from predictionio_tpu_torch.storage import indexed as _indexed  # noqa: E402
+from predictionio_tpu_torch.storage import remote as _remote  # noqa: E402
+
+_remote.register_all()
+_indexed.register_all()
+
+
 class Storage:
     """Handle on the meta, event and model repositories (lazy singletons)."""
 
@@ -139,7 +183,7 @@ class Storage:
                 except KeyError:
                     raise KeyError(
                         f"unknown METADATA backend {self.config.metadata_type!r}; "
-                        f"the port has: {sorted(_META_BACKENDS)}") from None
+                        f"registered: {sorted(_META_BACKENDS)}") from None
                 self._meta = factory(self.config)
             return self._meta
 
@@ -152,7 +196,7 @@ class Storage:
                 except KeyError:
                     raise KeyError(
                         f"unknown EVENTDATA backend {self.config.eventdata_type!r}; "
-                        f"the port has: {sorted(_EVENT_BACKENDS)}") from None
+                        f"registered: {sorted(_EVENT_BACKENDS)}") from None
                 self._events = factory(self.config)
             return self._events
 
@@ -165,7 +209,7 @@ class Storage:
                 except KeyError:
                     raise KeyError(
                         f"unknown MODELDATA backend {self.config.modeldata_type!r}; "
-                        f"the port has: {sorted(_MODEL_BACKENDS)}") from None
+                        f"registered: {sorted(_MODEL_BACKENDS)}") from None
                 self._models = factory(self.config)
             return self._models
 

@@ -70,10 +70,15 @@ flags are the JAX CLI's flags for the options the port has, plus
 --feedback-accesskey KEY`` serves a champion and a challenger side by
 side and posts every answer back as a ``predict`` event.
 
-Left out for now, each with the module that brings it: ``pio doctor``
-and the router's variant pins (the router and the continuous trainer,
-ROADMAP.md queue 1, item 13), ``train --read-from`` (replication, item
-7), ``batchpredict --shards`` above 1 (the ANN retrieval mesh, item 8).
+Every verb runs on whichever backends ``PIO_STORAGE_REPOSITORIES_*`` and
+``PIO_STORAGE_SOURCES_*`` select (``storage/registry.py``: SQLITE,
+MEMORY, EVENTLOG, PGSQL, MYSQL, ELASTICSEARCH, LOCALFS, S3, HDFS), and
+``status`` opens and checks each of the three repositories.
+
+Left out for now, each with the module that brings it: ``pio doctor``,
+the router's variant pins and ``train --read-from`` (the router, the
+continuous trainer and replication, ROADMAP.md queue 1, item 7),
+``batchpredict --shards`` above 1 (the ANN retrieval mesh, item 8).
 """
 
 from __future__ import annotations
@@ -330,8 +335,13 @@ def cmd_deploy(args: argparse.Namespace) -> None:
               f"listening on {args.ip}:{args.port}")
     else:
         print(f"[info] Engine Server (instance {server.deployed.instance.id}, "
-              f"device {device}) listening on {args.ip}:{args.port}")
-    server.run()
+              f"device {device}) listening on {args.ip}:{args.port}", flush=True)
+    try:
+        server.run()
+    finally:
+        # what the server launched on the card, read when it stops
+        # (`GET /stop` or SIGINT)
+        print(f"[info] kernel launches: {_launch_counts()}", flush=True)
 
 
 def cmd_batchpredict(args: argparse.Namespace) -> None:

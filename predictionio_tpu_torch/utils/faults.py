@@ -57,13 +57,16 @@ Sites the port wires so far:
                         writer shard 0
 ``data.corrupt.eventlog``  byte-flip on ``pio fsck`` event-log reads
 ``data.corrupt.snapshot``  byte-flip on snapshot npz load
-``data.corrupt.model``     byte-flip on ``pio fsck`` model-blob reads
+``data.corrupt.model``     byte-flip on ``pio fsck`` model-blob reads and
+                        on S3 and HDFS model-blob downloads
 ``data.corrupt.segment``   byte-flip on cold-tier segment fetch and on
                         ``pio fsck`` segment and sidecar reads
 ======================  ===================================================
 
-The JAX package's table lists the rest (the router, trainer,
-replication and model-store sites); they come with the modules that
+The S3 and HDFS model stores (``storage/remote.py``) pass their
+``models.s3`` and ``models.hdfs`` sites through ``_ResilientCalls``
+(put, get, delete, list). The JAX package's table lists the rest (the
+router, trainer and replication sites); they come with the modules that
 call them.
 """
 
