@@ -25,6 +25,9 @@
                                        # alone (no result line)
     python3 chip_smoke.py --storage    # phases 1, 2 and 17: every repository on
                                        # ELASTICSEARCH alone (no result line)
+    python3 chip_smoke.py --replication  # phases 1, 2 and 18: the replicated event
+                                         # plane and the continuous trainer alone
+                                         # (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -92,10 +95,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    gather_gram on the same rows;
 7. the quickstart through the port's CLI and HTTP alone, in one
    temporary PIO_HOME: ``app new``; ``eventserver --ingest-batching``
-   taking 50,000 rate events (2,000 single POSTs from 64 clients, the
-   rest in batches of 50 from 16; cut from 200,000 to keep the whole run
-   in its time), every one answered 201, and a few
-   users' events read back as posted; ``export`` (50,000 lines),
+   taking 25,000 rate events (2,000 single POSTs from 64 clients, the
+   rest in batches of 50 from 16; cut from 200,000, then 50,000, to keep
+   the whole run in its time), every one answered 201, and a few
+   users' events read back as posted; ``export`` (25,000 lines),
    ``import`` into a second app and its ``export``, equal lines; ``train``
    on the card (it must launch gather_gram and chol_solve); ``deploy
    --batching --aot-buckets auto`` on the card, 20 HTTP answers checked
@@ -165,7 +168,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    as its size, the span file is not empty and ``pio trace --tree``
    prints one such trace. Phase 7 also
    reads the event server's ``/health``, ``/metrics`` (its
-   pio_events_ingested_total must count the 50,000 events) and
+   pio_events_ingested_total must count the 25,000 events) and
    ``/traces``.
 11. the engine server's online loop at ML-20M width, in a temporary
    PIO_HOME: phase 10's two instances registered as model-registry
@@ -242,8 +245,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (embed 32, hidden [64], out 32, batch 1,024, lr 0.01, temperature
    0.1) for 1 epoch (the cuts: 5 epochs to 1, and the draws quartered to
    keep the whole run in its time), trained through ``run_train`` (the data source's read returns the
-   draws); steps/s and the epoch loss printed; the card's first 50 steps,
-   each from the CPU's state before it, held against the port's CPU run
+   draws); steps/s and the epoch loss printed; the card's first 50 steps
+   (10 in the whole run, to keep it in its time), each from the CPU's
+   state before it, held against the port's CPU run
    of the same steps (same seeded init, same batches): in float64 and
    f32 every entry of each gradient and of each parameter after the step
    within 1e-4 of its leaf's max |value|, each gradient within 1e-4 in
@@ -407,6 +411,53 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (in a process of its own while the deploy runs: both only read the
    index), its line count and 1,000 sampled lines equal to what was
    imported.
+18. the replicated event plane and the continuous trainer at ML-20M
+   width, every step through the port's CLI in a process of its own, on
+   EVENTLOG homes: ``app new`` on a leader's and a follower's home (meta
+   only; the follower's events come by replication), ``import`` of phase
+   5's draws as ``rate`` events into the leader's home (all 20,000,263
+   with ``--replication``; the whole run cuts them to the first
+   1,000,000), its events/s printed; ``eventserver --lease-home
+   --replicate-to --durable-acks`` for the leader, then the follower,
+   which syncs the sealed segments from the leader's manifest (bytes and
+   wall printed); the first batch through the follower, with which the
+   leader resends its whole active file from the follower's cursor; a
+   live tail (100,000 events with ``--replication``, 20,000 in the whole
+   run) in ``/batch/events.json`` batches of 50 from 8 clients through the
+   follower's 307 (events/s printed), every item 201; every frame file of
+   the follower's ``eventlog/`` equal to the leader's by sha256, ``fsck``
+   0 on both homes. Then one long-lived ``daemon -- train --continuous
+   --read-from follower`` (rank 64, 10 iterations, a checkpoint every 2,
+   waking on 5,000 new events), which reads the follower's live log
+   through a view that ends at the acked cursor and is rebuilt at each
+   1 s poll that finds the log moved, each cycle's walls printed (read, train, gate, promote,
+   reload) with its gather_gram and chol_solve launches: cycle 1
+   promotes generation 1, whose 64 items are held against float64
+   (limit 1e-3); ``deploy`` of the follower's home (it needs an instance
+   to start), which then joins the fleet manifest the trainer pushes
+   ``/reload`` to, and 200 answers equal to score_topk_ref on generation
+   1's factors; a delta of 5,000 events through the follower while the
+   trainer polls (events/s printed), on which the same trainer wakes
+   for cycle 2, delta-trains and passes the offline guardrail (champion
+   and candidate RMSE over the newest 200 events: each instance loaded
+   on the card, each rating a dot product on the host), promotes
+   generation 2 and pushes ``/reload``, after which the answers follow
+   generation 2; the crash drill: after another delta the daemon's
+   trainer is killed with SIGKILL after two checkpoint steps, the daemon
+   restarts it, it resumes from ``train_ckpt_torch/`` and promotes
+   generation 3 exactly once (items on float64, answers on its factors);
+   the daemon stopped with SIGTERM (exit 0) and the follower's frame
+   files still equal to the leader's; one cycle with ``PIO_FAULTS``
+   arming ``train.crash`` exits non-zero having published nothing; the
+   refusal drill: a cycle with ``promote.regression`` armed is refused
+   and, after a ``/reload``, the answers stay the champion's; the
+   deploy's score_topk launches printed when ``GET /stop`` ends it.
+   Last, ``failover --drill``, then this phase's own leader killed with
+   SIGKILL after 500 of 1,000 events
+   posted serially through the follower: 0 acknowledged events missing
+   on the promoted follower, the epoch bumped, the kill-to-leader wall
+   printed, a forged apply at the old epoch refused with 412, ``fsck`` 0
+   on both homes, exactly one failover incident bundle.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -442,7 +493,7 @@ SEED = 0
 # full-width training: the template's defaults at BASELINE.md's rank
 N_RATINGS, ITERATIONS, LAMBDA = 20_000_263, 10, 0.01
 # `pio train` through the CLI: a small app from the same generator
-APP_EVENTS, APP_USERS, APP_ITEMS = 50_000, 10_000, 2_000
+APP_EVENTS, APP_USERS, APP_ITEMS = 25_000, 10_000, 2_000
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -1918,7 +1969,7 @@ def wait_until(ready, proc, log: str, timeout: float) -> None:
 
 def quickstart_through_cli(torch, ops, dev) -> None:
     """Phase 7: the quickstart through the port's CLI and HTTP alone: `app
-    new`, the event server with group commit taking the app's 50,000
+    new`, the event server with group commit taking the app's 25,000
     events, `export` and an `import` round trip, `train` and `deploy` on
     the card, 20 answers over HTTP held against the plain reference, and
     `status`."""
@@ -4064,7 +4115,8 @@ def templates_full_width(torch, ops, dev, train) -> dict:
 #: the cut of phase 13: the two-tower template's 5 epochs → 1
 TT_EPOCHS = 1
 TT_PAIRS = 5_000_000       # the draws two-tower trains on (cut from 20,000,263)
-TT_CHECK_STEPS = 50        # the card's first steps held against the CPU's
+TT_CHECK_STEPS = 50        # the card's first steps held against the CPU's (--ann)
+TT_RUN_CHECK_STEPS = 10    # the whole run's cut, to keep it in its time
 TT_STEP_TOL = 1e-4         # of each leaf's max |value|, and of its norm
 TT_MAX_FLIP_SHARE = 1e-5   # switched ReLUs, of the check's hidden units
 TT_F32_FACTOR = 4.0        # f32: the card's error, of the CPU's own
@@ -4141,8 +4193,8 @@ def _leaf_errors(ref: dict, got: dict, masks: dict) -> dict:
     return out
 
 
-def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
-    """The card's first TT_CHECK_STEPS training steps against the port's
+def tt_step_check(torch, dev, uu, ii, params: dict, n_steps: int = TT_CHECK_STEPS) -> dict:
+    """The card's first ``n_steps`` training steps against the port's
     CPU run of the same steps (the same seeded initialisation, the same
     batches: epoch 0's permutation). Each card step starts from the CPU's
     state before that step (parameters, Adam moments, step count).
@@ -4182,9 +4234,9 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
                           temperature=params["temperature"], seed=0)
     B = p.batch_size
     uv, iv = tt.init_variables(N_USERS, N_ITEMS, p)
-    perm = np.random.default_rng(p.seed).permutation(len(uu))[:TT_CHECK_STEPS * B]
-    bu = torch.from_numpy(uu[perm].reshape(TT_CHECK_STEPS, B).astype(np.int64))
-    bi = torch.from_numpy(ii[perm].reshape(TT_CHECK_STEPS, B).astype(np.int64))
+    perm = np.random.default_rng(p.seed).permutation(len(uu))[:n_steps * B]
+    bu = torch.from_numpy(uu[perm].reshape(n_steps, B).astype(np.int64))
+    bi = torch.from_numpy(ii[perm].reshape(n_steps, B).astype(np.int64))
     bu_d, bi_d = bu.to(dev), bi.to(dev)
     cpu_dev = torch.device("cpu")
 
@@ -4250,11 +4302,11 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
                 f"({n[1]}), parameters' worst entry {q[0]:.3e} ({q[1]}), "
                 f"{a['flips']} ReLU switches")
 
-    units = 2 * TT_CHECK_STEPS * B * sum(p.hidden)
+    units = 2 * n_steps * B * sum(p.hidden)
     with full_f32():
         acc64: dict = {}
         cpu, card = trainer(cpu_dev, torch.float64), trainer(dev, torch.float64)
-        for j in range(TT_CHECK_STEPS):
+        for j in range(n_steps):
             state = cpu.state()
             run(cpu, state, j, False)
             run(card, state, j, True)
@@ -4267,7 +4319,7 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
                 "temperature": trainer(dev, torch.float32)}
         runs["temperature"].temperature *= 1.0 + TT_CONTROL_TEMP
         losses, t_cpu, t_card = [], 0.0, 0.0
-        for j in range(TT_CHECK_STEPS):
+        for j in range(n_steps):
             state = cpu.state()
             ids = {"user": bu[j].numpy(), "item": bi[j].numpy()}
             run(truth, as64(state), j, False)
@@ -4286,13 +4338,13 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
             accumulate(acc32, "card vs cpu", cpu, runs["card"], ids,
                        {"grad": leaves(cpu, True), "param": leaves(cpu, False)})
         free = trainer(dev, torch.float32, hooked=False)
-        for j in range(TT_CHECK_STEPS):
+        for j in range(n_steps):
             free.step(bu_d[j], bi_d[j])
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
             one = trainer(cpu_dev, torch.float32, hooked=False)
-            for j in range(TT_CHECK_STEPS):
+            for j in range(n_steps):
                 one.step(bu[j], bi[j])
         finally:
             torch.set_num_threads(threads)
@@ -4304,7 +4356,7 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
     share = {name: limit_share(acc32[name], acc32["cpu"])
              for name in ("card", "tf32", "temperature")}
     loss_err = max(abs(a - b) for a, b in losses)
-    print(f"two-tower: the first {TT_CHECK_STEPS} steps on the card, each from the CPU's "
+    print(f"two-tower: the first {n_steps} steps on the card, each from the CPU's "
           f"state before it (same init and batches; {units:,} hidden units in all; "
           f"entries a switched ReLU reaches masked). float64 against the CPU's float64 "
           f"step (limit {TT_STEP_TOL}): {said(acc64['card'])}. f32 against the float64 step "
@@ -4320,7 +4372,7 @@ def tt_step_check(torch, dev, uu, ii, params: dict) -> dict:
           f"({share['tf32'][1]}); temperature x (1 + {TT_CONTROL_TEMP}) "
           f"{said(acc32['temperature'])}, share {share['temperature'][0]:.3f} "
           f"({share['temperature'][1]})", flush=True)
-    print(f"two-tower free f32 runs after {TT_CHECK_STEPS} steps, not gated (worst entry "
+    print(f"two-tower free f32 runs after {n_steps} steps, not gated (worst entry "
           f"of its max |value|): the card {free_err[0]:.3e} ({free_err[1]}); the CPU on "
           f"one thread against {threads} threads {one_err[0]:.3e} ({one_err[1]})",
           flush=True)
@@ -4475,7 +4527,8 @@ def serve_and_check(torch, ops, dev, storage, factory, iid, bodies, reference,
     return out
 
 
-def twotower_full_width(torch, ops, dev, coo, profile: bool = False) -> dict:
+def twotower_full_width(torch, ops, dev, coo, profile: bool = False,
+                        check_steps: int = TT_CHECK_STEPS) -> dict:
     """Phase 13, two-tower: trained through run_train on phase 5's draws,
     served exact and with ANN (plain PQ and OPQ)."""
     import numpy as np
@@ -4496,7 +4549,7 @@ def twotower_full_width(torch, ops, dev, coo, profile: bool = False) -> dict:
     td = tt.TrainingData(data, stream=False)
     read = mock.patch.object(tt.TTDataSource, "read_training", lambda self, ctx: td)
     base = tt_variant()
-    steps = tt_step_check(torch, dev, uu, ii, base["algorithms"][0]["params"])
+    steps = tt_step_check(torch, dev, uu, ii, base["algorithms"][0]["params"], check_steps)
     prefetch_check(torch, dev, uu, ii)
     if profile:
         profile_two_tower(torch, dev, uu, ii, base["algorithms"][0]["params"])
@@ -4729,7 +4782,8 @@ def ann_10m(torch, ops, dev) -> dict:
     return rows
 
 
-def ann_full_width(torch, ops, dev, train, profile: bool = False) -> dict:
+def ann_full_width(torch, ops, dev, train, profile: bool = False,
+                   check_steps: int = TT_CHECK_STEPS) -> dict:
     """Phase 13: ANN and the two-tower template at full width (see the
     module docstring)."""
     from predictionio_tpu_torch.models.als import RatingsCOO
@@ -4741,7 +4795,7 @@ def ann_full_width(torch, ops, dev, train, profile: bool = False) -> dict:
         print(f"phase 5's draws made again in {time.perf_counter() - t0:.1f} s", flush=True)
     else:
         coo = train["coo"]
-    launches = twotower_full_width(torch, ops, dev, coo, profile)
+    launches = twotower_full_width(torch, ops, dev, coo, profile, check_steps)
     launches.update(similar_ann_full_width(torch, ops, dev, coo))
     big = ann_10m(torch, ops, dev)
     wall = time.perf_counter() - t_phase
@@ -7034,6 +7088,654 @@ def storage_full_width(torch, ops, dev, coo=None, draws: int = STORAGE_DRAWS) ->
     return out
 
 
+# phase 18: the replicated event plane and the continuous trainer at ML-20M width
+REPL_DRAWS = N_RATINGS        # phase 5's draws imported with --replication
+REPL_RUN_DRAWS = 1_000_000    # the whole run's cut, to keep it in its time
+REPL_TAIL = 100_000           # live tail posted through the follower's 307 (--replication)
+REPL_RUN_TAIL = 20_000        # the whole run's tail
+REPL_DELTA = 5_000            # the events each later cycle wakes on
+REPL_FAILOVER = 1_000         # the live ingest across the leader's kill -9
+REPL_KILL_AFTER = 500         # acked events before the kill
+REPL_BATCH = 50               # events a /batch/events.json request
+REPL_QUERIES = 200
+REPL_LEASE_TTL = 1.0          # the event plane's lease (promotion waits this out)
+TRAINER_LEASE_TTL = 3.0       # the trainer's lease (a killed trainer's lapses in this)
+TRAINER_POLL = 1.0            # the trainer's poll (each one rebuilds its view of a moved log)
+REPL_KEY = "chip-repl-key"
+
+
+def repl_events(users, items, ratings, lo: int, hi: int) -> list:
+    """`rate` event dicts of draws ``lo .. hi-1`` (past the draws, they
+    start over: a re-rating), one eventTime a second from EVENTLOG_T0."""
+    import datetime
+
+    n = len(users)
+    t0 = datetime.datetime.fromtimestamp(EVENTLOG_T0, datetime.timezone.utc)
+    out = []
+    for j in range(lo, hi):
+        d = j % n
+        out.append({"event": "rate", "entityType": "user", "entityId": f"u{users[d]}",
+                    "targetEntityType": "item", "targetEntityId": f"i{items[d]}",
+                    "properties": {"rating": float(ratings[d])},
+                    "eventTime": (t0 + datetime.timedelta(seconds=j)).isoformat(
+                        timespec="milliseconds").replace("+00:00", "Z")})
+    return out
+
+
+def post_batch(url: str, events: list, timeout: float = 60) -> tuple:
+    """POST one batch to ``url``'s /batch/events.json, following a 307 at
+    once (its Retry-After is a hint for clients that wait); returns
+    (HTTP status, per-event answers or None, hops followed)."""
+    import urllib.error
+    import urllib.parse
+
+    target = f"{url}/batch/events.json?accessKey={REPL_KEY}"
+    body = json.dumps(events).encode()
+    for hop in range(3):
+        req = urllib.request.Request(target, data=body, method="POST",
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status, json.loads(r.read()), hop
+        except urllib.error.HTTPError as e:
+            if e.code in (307, 308) and e.headers.get("Location"):
+                target = urllib.parse.urljoin(target, e.headers["Location"])
+                continue
+            return e.code, None, hop
+    return 0, None, 3
+
+
+def repl_status(url: str) -> dict:
+    with urllib.request.urlopen(url + "/repl/status", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def file_digests(root: str) -> dict:
+    """{relative path: sha256} of every file under ``root``."""
+    import hashlib
+
+    out = {}
+    for base, _dirs, files in os.walk(root):
+        for name in files:
+            path = os.path.join(base, name)
+            h = hashlib.sha256()
+            with open(path, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 22), b""):
+                    h.update(chunk)
+            out[os.path.relpath(path, root)] = h.hexdigest()
+    return out
+
+
+def launch_line(text: str, marker: str) -> dict:
+    """The kernel counts of the last ``marker ... kernel launches: ...``
+    line in ``text``."""
+    lines = [ln for ln in text.splitlines() if marker in ln and "kernel launches:" in ln]
+    check(bool(lines), f"no {marker!r} launch line in:\n{text[-3000:]}")
+    return {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)",
+                                              lines[-1].split("kernel launches:")[-1])}
+
+
+def replication_full_width(torch, ops, dev, coo=None, draws: int = REPL_DRAWS,
+                           tail: int = REPL_TAIL) -> dict:
+    """Phase 18: the replicated event plane and the continuous trainer at
+    ML-20M width (see the module docstring)."""
+    import signal
+    import urllib.error
+
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import RECOMMENDATION_FACTORY, prepare_deploy
+    from predictionio_tpu_torch.server.repl_server import _failover_bundles
+    from predictionio_tpu_torch.storage import registry
+
+    t_phase = time.perf_counter()
+    if coo is None:
+        users, items, ratings = synthetic_ml20m(N_RATINGS, N_USERS, N_ITEMS)
+    else:  # phase 5's draws, in their order
+        users, items, ratings = coo.user_idx, coo.item_idx, coo.rating
+    n = min(draws, len(users))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    engine_dir = os.path.join(repo, "predictionio_tpu_torch", "templates", "recommendation")
+    out = {"cycles": []}
+    procs = []
+    posted = [n]        # events posted so far; the next batch starts here
+
+    with tempfile.TemporaryDirectory(prefix="pio_chip_repl_") as base:
+        homes = {r: os.path.join(base, r) for r in ("leader", "follower")}
+        lease_home = os.path.join(base, "lease")
+        ports = {r: free_port() for r in homes}
+        urls = {r: f"http://127.0.0.1:{p}" for r, p in ports.items()}
+        eventlog = {"PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EVENTLOG",
+                    "PIO_STORAGE_SOURCES_EVENTLOG_TYPE": "EVENTLOG"}
+        env = {r: dict(os.environ, PIO_HOME=h, **eventlog) for r, h in homes.items()}
+
+        def cli(role, *args, extra_env=None, check_code=True) -> tuple:
+            """One verb in a new process on ``role``'s home: (code, stdout, wall)."""
+            t0 = time.perf_counter()
+            proc = subprocess.run(CLI + list(args), cwd=repo,
+                                  env=dict(env[role], **(extra_env or {})),
+                                  capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if check_code:
+                check(proc.returncode == 0,
+                      f"cli {' '.join(args)} failed ({proc.returncode}):\n"
+                      f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            print(f"-- cli {' '.join(args[:2])}: exit {proc.returncode}, {wall:.2f} s wall",
+                  flush=True)
+            return proc.returncode, proc.stdout + proc.stderr, wall
+
+        def start_server(role: str):
+            peer = "follower" if role == "leader" else "leader"
+            log = os.path.join(base, f"{role}.log")
+            with open(log, "w") as f:
+                p = subprocess.Popen(CLI + [
+                    "eventserver", "--ip", "127.0.0.1", "--port", str(ports[role]),
+                    "--lease-home", lease_home, "--advertise-url", urls[role],
+                    "--replicate-to", urls[peer], "--lease-ttl", str(REPL_LEASE_TTL),
+                    "--durable-acks"], cwd=repo, env=env[role], stdout=f,
+                    stderr=subprocess.STDOUT)
+            procs.append(p)
+            return p, log
+
+        def post_range(url: str, count: int, clients: int) -> tuple:
+            """``count`` next events in batches from ``clients`` threads;
+            (every item 201, wall, 307 hops)."""
+            lo = posted[0]
+            posted[0] += count
+            batches = [repl_events(users, items, ratings, s, min(s + REPL_BATCH, lo + count))
+                       for s in range(lo, lo + count, REPL_BATCH)]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(clients) as pool:
+                answers = list(pool.map(lambda b: post_batch(url, b), batches))
+            wall = time.perf_counter() - t0
+            ok = all(st == 200 and doc is not None and all(d.get("status") == 201 for d in doc)
+                     for st, doc, _ in answers)
+            return ok, wall, sum(h for _, _, h in answers)
+
+        def answers_match(port: int, iid: str, label: str) -> int:
+            """200 queries to the deploy against score_topk_ref on ``iid``'s
+            factors; returns how many disagree."""
+            storage = registry.Storage(registry.StorageConfig.from_env(
+                dict(eventlog, PIO_HOME=homes["follower"])))
+            model = prepare_deploy(RECOMMENDATION_FACTORY, instance_id=iid,
+                                   storage=storage, device=dev).models[0]
+            rows_u = np.array([int(k[1:]) for k in bimap_keys(model.user_ids)])
+            rng = np.random.default_rng(SEED + 18)
+            queries = rng.choice(len(rows_u), REPL_QUERIES, replace=False)
+            bodies = [json.dumps({"user": f"u{rows_u[r]}", "num": 10}) for r in queries]
+            answers = post_all(ports["deploy"], "/queries.json", bodies, 8)
+            Ud = torch.as_tensor(model.U, device=dev)
+            Vd = torch.as_tensor(model.V, device=dev)
+            ids = torch.as_tensor(queries.astype(np.int32), device=dev)
+            rv, ri = ops.score_topk_ref(Ud, Vd, 10, ids=ids)
+            s64 = Ud[ids.long()].double() @ Vd.double().T
+            bad = 0
+            for j, (st, a) in enumerate(answers):
+                got_idx = torch.tensor([model.item_ids[it["item"]]
+                                        for it in a.get("itemScores", [])], device=dev)
+                got_val = torch.tensor([it["score"] for it in a.get("itemScores", [])],
+                                       device=dev)
+                if st != 200 or len(got_idx) != 10 or not topk_agrees(
+                        got_val[None], got_idx[None], rv[j:j + 1], ri[j:j + 1],
+                        s64[j:j + 1]):
+                    bad += 1
+            print(f"{label}: {REPL_QUERIES} answers against score_topk_ref on instance "
+                  f"{iid}'s factors, {bad} off", flush=True)
+            check(bad == 0, f"{label}: {bad} answers off score_topk_ref")
+            return model
+
+        def items_err(iid: str, label: str) -> float:
+            """64 items of ``iid`` (8 heaviest) against their float64 normal
+            equations over every event posted so far."""
+            storage = registry.Storage(registry.StorageConfig.from_env(
+                dict(eventlog, PIO_HOME=homes["follower"])))
+            model = prepare_deploy(RECOMMENDATION_FACTORY, instance_id=iid,
+                                   storage=storage, device=dev).models[0]
+            m = posted[0]
+            idx = np.arange(m) % len(users)
+            uu, ii, rr = users[idx], items[idx], ratings[idx]
+            rows_u = np.array([int(k[1:]) for k in bimap_keys(model.user_ids)])
+            rows_i = np.array([int(k[1:]) for k in bimap_keys(model.item_ids)])
+            U = np.zeros((N_USERS, RANK), np.float32)
+            V = np.zeros((N_ITEMS, RANK), np.float32)
+            U[rows_u], V[rows_i] = model.U, model.V
+            rng = np.random.default_rng(SEED + 18)
+            counts = np.bincount(ii, minlength=N_ITEMS)
+            heavy = np.argsort(-counts, kind="stable")[:8]
+            chosen = np.concatenate([heavy, rng.choice(
+                np.setdiff1d(rows_i, heavy), 56, replace=False)])
+            err = normal_equations_err(torch, dev, ii, uu, rr, U, V, chosen, LAMBDA)
+            print(f"{label} ({m} events in the follower's home): {len(chosen)} items "
+                  f"{err:.3e} from their float64 normal equations (limit {ORACLE_TOL})",
+                  flush=True)
+            check(err <= ORACLE_TOL, f"{label}'s items off float64: {err:.3e}")
+            return err
+
+        def fsck_both() -> dict:
+            """``fsck`` of both homes, in two processes at once: exit codes."""
+            with ThreadPoolExecutor(2) as pool:
+                runs = {role: pool.submit(cli, role, "fsck", "--home", homes[role],
+                                          check_code=False) for role in homes}
+            for role, run in runs.items():
+                code, text, _ = run.result()
+                if code:
+                    print(f"fsck of the {role}'s home:\n{text[-2000:]}", flush=True)
+            return {role: run.result()[0] for role, run in runs.items()}
+
+        def registry_doc() -> dict:
+            path = os.path.join(homes["follower"], "model_registry", "registry.json")
+            with open(path) as f:
+                return json.load(f)
+
+        try:
+            # 1. the app on both homes (meta only: its events come by
+            # replication), pio import into the leader's home
+            for role in homes:
+                plain = {k: v for k, v in env[role].items() if k not in eventlog}
+                proc = subprocess.run(CLI + ["app", "new", "ML20M", "--access-key", REPL_KEY],
+                                      cwd=repo, env=plain, capture_output=True, text=True,
+                                      timeout=120)
+                check(proc.returncode == 0, f"app new on the {role}: {proc.stderr[-2000:]}")
+            path = os.path.join(base, "draws.jsonl")
+            with open(path, "wb") as f:
+                for _, _, blob in ndjson_chunks(users[:n], items[:n], ratings[:n], 0):
+                    f.write(blob)
+            _, text, t_import = cli("leader", "import", "--app-name", "ML20M", "--input", path)
+            check(f"Imported {n} events" in text, f"import: {text[-2000:]}")
+            os.unlink(path)
+            print(f"pio import into the leader's home: {n} events in {t_import:.2f} s wall, "
+                  f"{n / t_import:.0f} events/s", flush=True)
+            out["import_s"], out["import_events_s"] = t_import, n / t_import
+
+            # the leader, then the follower, which catches up on the sealed
+            # segments by the manifest sync
+            leader, leader_log = start_server("leader")
+            wait_until(lambda: repl_status(urls["leader"])["role"] == "leader", leader,
+                       leader_log, 300)
+            with urllib.request.urlopen(urls["leader"] + "/repl/manifest", timeout=60) as r:
+                next_id = json.loads(r.read())["namespaces"].get("events_1", {}).get(
+                    "manifest", {}).get("next_id", 0)
+            t0 = time.perf_counter()
+            follower, follower_log = start_server("follower")
+            wait_until(lambda: repl_status(urls["follower"])["role"] == "follower"
+                       and repl_status(urls["follower"])["leaderUrl"] == urls["leader"]
+                       and repl_status(urls["follower"])["replica"]["cursors"].get(
+                           "events_1", {"seg": 0})["seg"] == next_id, follower,
+                       follower_log, 600)
+            t_sealed = time.perf_counter() - t0
+
+            def pel_bytes() -> int:
+                return sum(os.path.getsize(os.path.join(dp, f))
+                           for dp, _, fs in os.walk(os.path.join(homes["follower"],
+                                                                 "eventlog"))
+                           for f in fs if f.endswith(".pel"))
+
+            sealed_bytes = pel_bytes()
+            # the first batch through the follower: the leader resends its
+            # whole active file from the follower's cursor, then the batch
+            ok, t_first, hops = post_range(urls["follower"], REPL_BATCH, 1)
+            check(ok and hops == 1, "the first batch through the follower was not acked")
+            # the resent active file may roll into a sealed segment at once
+            active = pel_bytes() - sealed_bytes
+            print(f"catch-up: {sealed_bytes} B of {next_id} sealed segments synced "
+                  f"{t_sealed:.2f} s after the follower's start (process start included); "
+                  f"the {active} B active file resent from the cursor with the first "
+                  f"batch in {t_first:.2f} s", flush=True)
+            out["catchup_bytes"] = sealed_bytes + active
+            out["catchup_s"] = t_sealed + t_first
+
+            # the live tail through the follower's 307, replication on
+            ok, t_tail, hops = post_range(urls["follower"], tail - REPL_BATCH, 8)
+            print(f"live tail: {tail - REPL_BATCH} events in batches of {REPL_BATCH} "
+                  f"from 8 clients through the follower's 307 ({hops} redirects), "
+                  f"{(tail - REPL_BATCH) / t_tail:.0f} events/s, every item 201: {ok}",
+                  flush=True)
+            check(ok, "an event of the live tail was not acked 201")
+            out["tail_events_s"] = (tail - REPL_BATCH) / t_tail
+            lead = file_digests(os.path.join(homes["leader"], "eventlog"))
+            foll = file_digests(os.path.join(homes["follower"], "eventlog"))
+            frames = {k: v for k, v in lead.items() if k.endswith(".pel")}
+            same = {k: foll.get(k) for k in frames} == frames and all(
+                k in frames for k in foll if k.endswith(".pel"))
+            print(f"follower's event log against the leader's: {len(frames)} frame files, "
+                  f"equal by sha256: {same}", flush=True)
+            check(same, f"follower differs: leader {lead}, follower {foll}")
+            codes = fsck_both()
+            check(codes == {"leader": 0, "follower": 0}, f"fsck exit codes {codes}")
+
+            # 2. one long-lived supervised trainer reads the follower's home
+            # (through a view of its log that ends at the acked cursor) and
+            # writes its models there; the deploy serves that home and joins
+            # the fleet manifest that the trainer pushes /reload to
+            vpath = os.path.join(base, "variant.json")
+            with open(vpath, "w") as f:
+                # a checkpoint every 2 iterations: the crash drill resumes
+                json.dump({"id": "default", "engineFactory": RECOMMENDATION_FACTORY,
+                           "datasource": {"params": {"appName": "ML20M",
+                                                     "eventNames": ["rate", "buy"]}},
+                           "algorithms": [{"name": "als", "params": {
+                               "rank": RANK, "numIterations": ITERATIONS, "lambda": LAMBDA,
+                               "seed": SEED, "checkpointEvery": 2}}]}, f)
+            fleet = os.path.join(base, "fleet.json")
+            with open(fleet, "w") as f:
+                json.dump({"replicas": []}, f)
+            trainer = ["train", "--continuous", "--read-from", "follower",
+                       "--replica-home", homes["follower"], "--engine-dir", engine_dir,
+                       "-e", vpath, "--device", dev.type, "-v", "--poll-interval",
+                       str(TRAINER_POLL),
+                       "--lease-ttl", str(TRAINER_LEASE_TTL), "--min-delta-events",
+                       str(REPL_DELTA), "--guardrail-holdout", "200",
+                       "--fleet-manifest", fleet]
+
+            def cycles_of(text: str) -> list:
+                """The trainer cycles in ``text`` that did work: outcome,
+                generation, walls, kernel launches (each process's lines count
+                from its start) and gate."""
+                recs, split, last = [], None, {}
+                for ln in text.splitlines():
+                    if ln.startswith("[supervise] started pid"):
+                        last = {}
+                    m = re.search(r"train phases: read_training=([0-9.]+)s, "
+                                  r"prepare=([0-9.]+)s, train:als=([0-9.]+)s", ln)
+                    if m:
+                        split = [float(x) for x in m.groups()]
+                        continue
+                    if ln.startswith("[trainer] gate: ") and recs:
+                        recs[-1]["gate"] = json.loads(ln[len("[trainer] gate: "):])
+                        continue
+                    m = re.match(r"\[trainer\] cycle \d+: (\S+) gen=(\S+) (.*?) "
+                                 r"\(kernel launches: (.*)\)$", ln)
+                    if not m or m.group(1) in ("idle", "lease-held", "lease-lost"):
+                        continue
+                    now = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", m.group(4))}
+                    steps = {k: float(v) for k, v in re.findall(r"(\w+)=([0-9.]+)s",
+                                                                m.group(3))}
+                    if split and "train" in steps:
+                        # the workflow's own split of the train: the read, then
+                        # (within "train") the preparator and the fit; the rest
+                        # of "train" is the card's setup and saving the instance
+                        read, prep, fit = split
+                        steps["train"] -= read
+                        steps.update(read=read, prepare=prep, fit=fit)
+                    split = None
+                    recs.append({"outcome": m.group(1), "gen": m.group(2), "steps": steps,
+                                 "launches": {k: v - last.get(k, 0) for k, v in now.items()}})
+                    last = now
+                return recs
+
+            def report(label: str, rec: dict, wall: float) -> dict:
+                g = rec.get("gate") or {}
+                print(f"{label}: {rec['outcome']} gen={rec['gen']}, {wall:.2f} s wall; walls "
+                      + ", ".join(f"{k} {v:.3f} s" for k, v in rec["steps"].items())
+                      + f"; kernel launches {rec['launches']}; gate {g.get('reason')}"
+                      + (f" (champion RMSE {g['champion_rmse']}, candidate "
+                         f"{g['candidate_rmse']}, {g['pairs']} pairs)"
+                         if g.get("champion_rmse") is not None else ""), flush=True)
+                out["cycles"].append(dict(rec, label=label, wall_s=wall))
+                return rec
+
+            dlog = os.path.join(base, "daemon.log")
+            with open(dlog, "w") as f:
+                daemon = subprocess.Popen(CLI + ["daemon", "--"] + trainer, cwd=repo,
+                                          env=env["leader"], stdout=f,
+                                          stderr=subprocess.STDOUT)
+            procs.append(daemon)
+
+            def await_cycle(outcome: str, gen: int, label: str, t0: float) -> dict:
+                """The daemon's cycle that ended in ``outcome`` for ``gen``."""
+                deadline = time.monotonic() + 600
+                while True:
+                    found = [r for r in cycles_of(open(dlog).read())
+                             if (r["outcome"], r["gen"]) == (outcome, str(gen))]
+                    if found:
+                        wall = time.perf_counter() - t0
+                        time.sleep(0.3)       # the gate's line follows its cycle's
+                        found = [r for r in cycles_of(open(dlog).read())
+                                 if (r["outcome"], r["gen"]) == (outcome, str(gen))]
+                        check(len(found) == 1, f"{label}: {len(found)} cycles of gen {gen}")
+                        return report(label, found[0], wall)
+                    check(daemon.poll() is None and time.monotonic() < deadline,
+                          f"{label}: no {outcome} gen={gen}:\n{open(dlog).read()[-4000:]}")
+                    time.sleep(0.1)
+
+            # cycle 1: generation 1 over the follower's whole log; no deploy
+            # is in the fleet yet (one cannot start before an instance exists)
+            c1 = await_cycle("promoted", 1, "cycle 1 (daemon start to promotion)",
+                             time.perf_counter())
+            if dev.type == "cuda":
+                for name in ("gather_gram", "chol_solve"):
+                    check(c1["launches"].get(name, 0) > 0, f"cycle 1 launched no {name}")
+            gen1 = registry_doc()["generations"][0]["instance_id"]
+            out["normal_equations_err"] = items_err(gen1, "generation 1")
+            ports["deploy"] = free_port()
+            urls["deploy"] = f"http://127.0.0.1:{ports['deploy']}"
+            deploy_log = os.path.join(base, "deploy.log")
+            t0 = time.perf_counter()
+            with open(deploy_log, "w") as f:
+                dp = subprocess.Popen(CLI + [
+                    "deploy", "--engine-dir", engine_dir, "-e", vpath, "--batching",
+                    "--ip", "127.0.0.1", "--port", str(ports["deploy"]),
+                    "--device", dev.type], cwd=repo,
+                    env=dict(os.environ, PIO_HOME=homes["follower"], **eventlog),
+                    stdout=f, stderr=subprocess.STDOUT)
+            procs.append(dp)
+            wait_until(lambda: http_json(ports["deploy"], "GET", "/")[0] == 200, dp,
+                       deploy_log, 600)
+            print(f"pio deploy on the follower's home: listening in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            with open(fleet + ".tmp", "w") as f:
+                json.dump({"replicas": [{"url": urls["deploy"]}]}, f)
+            os.replace(fleet + ".tmp", fleet)
+            answers_match(ports["deploy"], gen1, "deploy of generation 1")
+
+            # cycle 2: a delta through the follower while the trainer polls
+            # the follower's live log; it wakes once the whole delta is acked,
+            # delta-trains with resume, gates offline (champion and candidate
+            # RMSE) and pushes /reload to the deploy
+            ok, t_delta, _ = post_range(urls["follower"], REPL_DELTA, 8)
+            check(ok, "the delta of cycle 2 was not acked")
+            print(f"cycle 2's delta: {REPL_DELTA} events through the follower's 307 while "
+                  f"the trainer polls the follower's log, {REPL_DELTA / t_delta:.0f} "
+                  f"events/s", flush=True)
+            out["delta_events_s"] = REPL_DELTA / t_delta
+            c2 = await_cycle("promoted", 2, "cycle 2 (last ack to promotion)",
+                             time.perf_counter())
+            check(c2.get("gate", {}).get("candidate_rmse") is not None
+                  and c2["gate"].get("champion_rmse") is not None,
+                  f"cycle 2's gate scored nothing: {c2.get('gate')}")
+            if dev.type == "cuda":
+                for name in ("gather_gram", "chol_solve"):
+                    check(c2["launches"].get(name, 0) > 0, f"cycle 2 launched no {name}")
+            doc = registry_doc()
+            gen2 = [e for e in doc["generations"] if e["gen"] == 2][0]["instance_id"]
+            check(doc["champion"] == 2, f"champion {doc['champion']} after cycle 2")
+            answers_match(ports["deploy"], gen2, "after cycle 2's /reload")
+
+            # the crash drill: the daemon's trainer is killed with SIGKILL
+            # mid-train; the daemon restarts it, and it resumes from its
+            # checkpoints and promotes generation 3 exactly once
+            ok, _, _ = post_range(urls["follower"], REPL_DELTA, 8)
+            check(ok, "the delta of the crash drill was not acked")
+            t0 = time.perf_counter()
+            token = registry_doc()["fence_token"]
+            ckpt = os.path.join(homes["follower"], "train_ckpt_torch")
+            deadline = time.monotonic() + 600
+            while True:
+                steps = [d for _, ds, _ in os.walk(ckpt) for d in ds if d.isdigit()]
+                if len(steps) >= 2:
+                    break
+                check(daemon.poll() is None and time.monotonic() < deadline,
+                      f"crash drill: no checkpoint before the kill:\n{open(dlog).read()[-3000:]}")
+                time.sleep(0.01)
+            killed = int(re.findall(r"\[supervise\] started pid (\d+)", open(dlog).read())[-1])
+            os.kill(killed, signal.SIGKILL)
+            print(f"crash drill: kill -9 of the daemon's trainer (pid {killed}) after "
+                  f"{len(steps)} checkpoint steps", flush=True)
+            c3 = await_cycle("promoted", 3, "crash drill (last ack to the resumed promotion)",
+                             t0)
+            doc = registry_doc()
+            text = open(dlog).read()
+            restarts = text.count("[supervise] restarting")
+            left = [d for _, ds, _ in os.walk(ckpt) for d in ds if d.isdigit()]
+            print(f"crash drill: {restarts} restart; generations {len(doc['generations'])}, "
+                  f"champion {doc['champion']}, fencing token {token} -> "
+                  f"{doc['fence_token']}; checkpoint steps left after the resumed train: "
+                  f"{len(left)}", flush=True)
+            check(restarts == 1 and len(doc["generations"]) == 3 and doc["champion"] == 3
+                  and doc["fence_token"] > token and not left, f"crash drill: {text[-3000:]}")
+            gen3 = [e for e in doc["generations"] if e["gen"] == 3][0]["instance_id"]
+            out["resumed_err"] = items_err(gen3, "the resumed generation 3")
+            answers_match(ports["deploy"], gen3, "after the crash drill's /reload")
+            daemon.send_signal(signal.SIGTERM)
+            code = daemon.wait(timeout=120)
+            check(code == 0, f"the daemon stopped with {code}:\n{open(dlog).read()[-3000:]}")
+            # the trainer read the follower's log while it was written: the
+            # follower still equals the leader, byte for byte
+            lead = file_digests(os.path.join(homes["leader"], "eventlog"))
+            foll = file_digests(os.path.join(homes["follower"], "eventlog"))
+            same = {k: foll.get(k) for k in lead if k.endswith(".pel")} == {
+                k: v for k, v in lead.items() if k.endswith(".pel")}
+            print(f"after the daemon's cycles, the follower's frame files equal the "
+                  f"leader's by sha256: {same}", flush=True)
+            check(same, f"follower differs after the trainer's reads: {lead}, {foll}")
+
+            def one_shot(label: str, faults: str) -> tuple:
+                """One unsupervised trainer cycle with ``faults`` armed."""
+                t0 = time.perf_counter()
+                proc = subprocess.run(CLI + trainer + ["--max-cycles", "1"], cwd=repo,
+                                      env=dict(env["leader"], PIO_FAULTS=faults),
+                                      capture_output=True, text=True, timeout=900)
+                return proc.returncode, proc.stdout + proc.stderr, \
+                    time.perf_counter() - t0
+
+            # an armed train.crash exits before any publish; the refusal
+            # drill's promote.regression refuses the candidate
+            ok, _, _ = post_range(urls["follower"], REPL_DELTA, 8)
+            check(ok, "the delta of the refusal drill was not acked")
+            state = open(os.path.join(homes["follower"], "trainer.state.json")).read()
+            code, text, wall = one_shot("train.crash armed", "train.crash:error=drill crash")
+            print(f"train.crash armed: exit {code}, {wall:.2f} s wall", flush=True)
+            check(code != 0 and "drill crash" in text
+                  and len(registry_doc()["generations"]) == 3
+                  and open(os.path.join(homes["follower"], "trainer.state.json")).read()
+                  == state, f"the armed train.crash: {text[-3000:]}")
+            # the crashed trainer kept its lease: wait out its time to live
+            lease = json.load(open(os.path.join(homes["follower"], "trainer.lease")))
+            time.sleep(max(0.0, float(lease["expires"]) - time.time()) + 0.1)
+            code, text, wall = one_shot("refusal drill",
+                                        "promote.regression:error=drill regression")
+            c4 = cycles_of(text)
+            doc = registry_doc()
+            check(code == 0 and [(r["outcome"], r["gen"]) for r in c4] == [("refused", "4")]
+                  and doc["champion"] == 3, f"refusal drill: {text[-3000:]}")
+            report("refusal drill", c4[0], wall)
+            # a /reload after the refusal still lands on the champion
+            st, body = http_json(ports["deploy"], "GET", "/reload")
+            check(st == 200, f"/reload after the refusal: {st} {body}")
+            answers_match(ports["deploy"], gen3, "after the refusal and a /reload")
+            urllib.request.urlopen(urls["deploy"] + "/stop", timeout=30).read()
+            dp.wait(timeout=120)
+            served = launch_line(open(deploy_log).read(), "kernel launches")
+            print(f"the deploy's kernel launches: {served}", flush=True)
+            if dev.type == "cuda":
+                check(served.get("score_topk", 0) > 0, "the deploy launched no score_topk")
+
+            # 3. failover: the port's drill, then this phase's own leader
+            # killed during a live ingest through the follower
+            drill_dir = os.path.join(base, "drill")
+            code, text, t_drill = cli("leader", "failover", "--drill", "--events", "12",
+                                      "--kill-after", "4", "--dir", drill_dir)
+            proof = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+            print(f"failover --drill: {t_drill:.2f} s wall, {proof}", flush=True)
+            check(proof["ok"], f"the drill failed: {proof}")
+            out["drill"] = proof
+
+            before = repl_status(urls["leader"])
+            acked = []
+            killed_at = None
+            lo = posted[0]
+            posted[0] += REPL_FAILOVER
+            t0 = time.perf_counter()
+            for s in range(lo, lo + REPL_FAILOVER, REPL_BATCH):
+                batch = repl_events(users, items, ratings, s,
+                                    min(s + REPL_BATCH, lo + REPL_FAILOVER))
+                deadline = time.monotonic() + 60
+                while True:
+                    try:
+                        st, doc, _ = post_batch(urls["follower"], batch, timeout=10)
+                    except OSError:
+                        st, doc = 0, None   # the dead leader behind a stale 307
+                    if st == 200 and doc and all(d.get("status") == 201 for d in doc):
+                        acked += [d["eventId"] for d in doc]
+                        break
+                    check(time.monotonic() < deadline, f"batch at {s} never acked: {st}")
+                    time.sleep(0.02)
+                if killed_at is None and len(acked) >= REPL_KILL_AFTER:
+                    leader.send_signal(signal.SIGKILL)
+                    leader.wait(timeout=30)
+                    killed_at = time.time()
+            t_fail = time.perf_counter() - t0
+            after = repl_status(urls["follower"])
+            promotion_ms = (float(after["promotedAt"]) - killed_at) * 1000.0
+            lost = []
+
+            def present(eid: str) -> bool:
+                req = urllib.request.Request(
+                    f"{urls['follower']}/events/{eid}.json?accessKey={REPL_KEY}")
+                try:
+                    with urllib.request.urlopen(req, timeout=10) as r:
+                        return r.status == 200
+                except urllib.error.HTTPError:
+                    return False
+
+            with ThreadPoolExecutor(8) as pool:
+                lost = [e for e, ok in zip(acked, pool.map(present, acked)) if not ok]
+
+            forged = urllib.request.Request(
+                urls["follower"] + "/repl/apply", data=b"PELOGv2\n", method="POST",
+                headers={"X-Repl-Ns": "events_1", "X-Repl-Seg": "0", "X-Repl-Offset": "0",
+                         "X-Repl-Crc": "0", "X-Repl-Epoch": str(before["epoch"]),
+                         "Content-Type": "application/octet-stream"})
+            try:
+                urllib.request.urlopen(forged, timeout=10)
+                stale = 200
+            except urllib.error.HTTPError as e:
+                stale = e.code
+            codes = fsck_both()
+            bundles = _failover_bundles(os.path.join(homes["follower"], "incidents"))
+            print(f"failover of this phase's leader: kill -9 after {REPL_KILL_AFTER} acked "
+                  f"events, {len(acked)} acked in {t_fail:.2f} s, {len(lost)} missing on the "
+                  f"promoted node; promoted {promotion_ms:.1f} ms after the kill (the node's "
+                  f"own takeover {after.get('promotionMs')} ms), epoch {before['epoch']} -> "
+                  f"{after['epoch']}; a stale-epoch apply got {stale}; fsck {codes}; "
+                  f"{len(bundles)} failover bundle(s)", flush=True)
+            check(not lost and len(acked) == REPL_FAILOVER, f"acked events lost: {lost[:10]}")
+            check(after["role"] == "leader" and after["epoch"] > before["epoch"],
+                  f"no promotion: {after}")
+            check(stale == 412, f"the stale-epoch apply got {stale}")
+            check(codes == {"leader": 0, "follower": 0}, f"fsck exit codes {codes}")
+            check(len(bundles) == 1, f"{len(bundles)} failover bundles")
+            out.update(promotion_ms=promotion_ms, node_promotion_ms=after.get("promotionMs"),
+                       failover_events_s=REPL_FAILOVER / t_fail)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+                    try:
+                        p.wait(timeout=10)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait()
+    launches = {name: sum(c["launches"].get(name, 0) for c in out["cycles"])
+                + served.get(name, 0)
+                for name in ("score_topk", "gather_gram", "chol_solve", "rows_gram")}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 18: {wall:.1f} s wall; kernel launches of the trainers and the deploy "
+          f"{launches} ({card_line() if dev.type == 'cuda' else 'cpu'})", flush=True)
+    out["launches"], out["wall"] = launches, wall
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -7052,6 +7754,7 @@ def main(argv) -> int:
     universal_only = "--universal" in argv
     eventlog_only = "--eventlog" in argv
     storage_only = "--storage" in argv
+    replication_only = "--replication" in argv
     global PROFILE_STEPS
     PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
@@ -7078,6 +7781,12 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if replication_only:
+        phase("18. the replicated event plane and the continuous trainer at ML-20M width")
+        replication_full_width(torch, ops, dev)
+        phase("done")
+        return 0
 
     if storage_only:
         phase("17. every repository on ELASTICSEARCH at ML-20M width")
@@ -7197,7 +7906,7 @@ def main(argv) -> int:
     phase("12. the ALS family at ML-20M width")
     family = templates_full_width(torch, ops, dev, train)
     phase("13. ANN and the two-tower template at full width")
-    ann = ann_full_width(torch, ops, dev, train, "--profile" in argv)
+    ann = ann_full_width(torch, ops, dev, train, "--profile" in argv, TT_RUN_CHECK_STEPS)
     phase("14. classification and e2 at full width")
     classification_full_width(torch, ops, dev, train["coo"])
     phase("15. the universal and sequential templates at full width")
@@ -7206,6 +7915,9 @@ def main(argv) -> int:
     eventlog = eventlog_full_width(torch, ops, dev, train["coo"], EVENTLOG_RUN_DRAWS)
     phase("17. every repository on ELASTICSEARCH at ML-20M width")
     es = storage_full_width(torch, ops, dev, train["coo"], STORAGE_RUN_DRAWS)
+    phase("18. the replicated event plane and the continuous trainer at ML-20M width")
+    repl = replication_full_width(torch, ops, dev, train["coo"], REPL_RUN_DRAWS,
+                                  REPL_RUN_TAIL)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -7227,6 +7939,7 @@ def main(argv) -> int:
         "launches_phase15": universal["launches"]["score_topk"],
         "launches_phase16": eventlog["launches"]["score_topk"],
         "launches_phase17": es["launches"]["score_topk"],
+        "launches_phase18": repl["launches"]["score_topk"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
         "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
@@ -7242,7 +7955,8 @@ def main(argv) -> int:
         "launches_phase13": ann["launches"]["gather_gram"],
         "launches_phase15": universal["launches"]["gather_gram"],
         "launches_phase16": eventlog["launches"]["gather_gram"],
-        "launches_phase17": es["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches_phase17": es["launches"]["gather_gram"],
+        "launches_phase18": repl["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -7256,7 +7970,8 @@ def main(argv) -> int:
         "launches_phase13": ann["launches"]["chol_solve"],
         "launches_phase15": universal["launches"]["chol_solve"],
         "launches_phase16": eventlog["launches"]["chol_solve"],
-        "launches_phase17": es["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches_phase17": es["launches"]["chol_solve"],
+        "launches_phase18": repl["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],
@@ -7267,7 +7982,8 @@ def main(argv) -> int:
         "launches": rows["launches"],
         "launches_phase15": universal["launches"]["rows_gram"],
         "launches_phase16": eventlog["launches"]["rows_gram"],
-        "launches_phase17": es["launches"]["rows_gram"], "max_abs_err": rows_err,
+        "launches_phase17": es["launches"]["rows_gram"],
+        "launches_phase18": repl["launches"]["rows_gram"], "max_abs_err": rows_err,
         "ms": rows["ms"], "plain_ms": rows["plain_ms"],
         "bound_ms": rows["bound_ms"], "bound_by": rows["bound_by"],
         "library_ms": rows["library_ms"],

@@ -29,8 +29,11 @@ shard's blocks into one
 :func:`~predictionio_tpu_torch.data.pipeline.merge_columnar_segments`
 call, and tombstones walk all shards.
 
-``set_replicator`` is the attachment point of the event-plane
-replicator; the port has no replicator yet, so nothing sets it.
+``set_replicator`` attaches the event-plane replicator
+(``data/replication.Replicator``, set by ``server/repl_server.ReplNode``
+when this node leads): every committed append and every seal is pushed
+to the followers under the namespace's writer lock, and a fenced node's
+appends raise ``FencedWriteError`` before any byte lands.
 """
 
 from __future__ import annotations

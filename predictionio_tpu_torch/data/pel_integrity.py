@@ -63,10 +63,66 @@ for _i in range(256):
 
 
 def crc32c(data: bytes, crc: int = 0) -> int:
+    if len(data) >= _CRC_SPLIT_MIN:
+        return _crc32c_split(data, crc)
     crc ^= 0xFFFFFFFF
     for b in data:
         crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+_CRC_CHUNK = 1024          # bytes of each chunk the split CRC runs in parallel
+# shorter inputs take the byte loop: the split pays a fixed ~9 ms for
+# its 1,024 numpy steps, the byte loop ~0.25 µs a byte. On an x86 host
+# ``python -m predictionio_tpu_torch.tools.crc_crossover`` gave 7.970 ms
+# for the loop against 8.367 ms for the split at 32 KiB, and 9.752 ms
+# against 9.493 ms at 40 KiB
+_CRC_SPLIT_MIN = 40 << 10
+_CRC_SHIFT: List = []      # the chunk's zero-byte operator as 4 byte tables
+
+
+def _crc32c_split(data: bytes, crc: int) -> int:
+    """crc32c of a long buffer, bit-for-bit the byte loop's: the register
+    update is linear over GF(2), so the register after a chunk is the
+    chunk's zero-byte operator applied to the register before it, xor the
+    chunk's CRC from a zero register. Every chunk's CRC from zero runs at
+    once in numpy, a byte a step; the chunks then fold in order through
+    the operator (four 256-entry tables). A long WAL batch of the
+    replicated event log takes milliseconds instead of seconds."""
+    import numpy as np
+
+    t8, _ = _crc_tables()
+    if not _CRC_SHIFT:
+        basis = []
+        for k in range(32):
+            reg = 1 << k
+            for _ in range(_CRC_CHUNK):
+                reg = _CRC_TABLE[reg & 0xFF] ^ (reg >> 8)
+            basis.append(reg)
+        tables = []
+        for b in range(4):
+            t = np.zeros(256, np.uint32)
+            for x in range(256):
+                v = 0
+                for k in range(8):
+                    if x >> k & 1:
+                        v ^= basis[8 * b + k]
+                t[x] = v
+            tables.append(t.tolist())
+        _CRC_SHIFT.extend(tables)
+    n_chunks = len(data) // _CRC_CHUNK
+    head = len(data) - n_chunks * _CRC_CHUNK
+    reg = crc32c(data[:head], crc) ^ 0xFFFFFFFF
+    cols = np.frombuffer(data, np.uint8, count=n_chunks * _CRC_CHUNK,
+                         offset=head).reshape(n_chunks, _CRC_CHUNK)
+    part = np.zeros(n_chunks, np.uint32)
+    for j in range(_CRC_CHUNK):
+        part = t8[(part ^ cols[:, j]) & 0xFF] ^ (part >> 8)
+    s0, s1, s2, s3 = _CRC_SHIFT
+    for v in part.tolist():
+        reg = (s0[reg & 0xFF] ^ s1[(reg >> 8) & 0xFF] ^ s2[(reg >> 16) & 0xFF]
+               ^ s3[reg >> 24] ^ v)
+    return reg ^ 0xFFFFFFFF
 
 
 def _walk(data: bytes, off: int, trailer: int):

@@ -61,9 +61,10 @@ Incident capture (``incident_dir``): an opening breaker writes a
 postmortem bundle (``utils/incidents.py``), and ``serve_forever``
 installs the SIGQUIT and crash handlers.
 
-Left out of the port for now: the router's variant pins and the online
-promotion gate (the router and the continuous trainer, ROADMAP.md queue
-1, item 7).
+Left out of the port for now: the router's variant pins (the router,
+ROADMAP.md queue 1, item 7b). The continuous trainer's online gate
+(``server/trainer.py``, ``--gate online``) reads this server's
+``pio_variant_*`` series from ``/metrics``.
 """
 
 from __future__ import annotations

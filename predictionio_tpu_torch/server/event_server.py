@@ -42,9 +42,13 @@ EVENTLOG backend ``quotas.json``'s ``writer_shards`` sets each app's
 writer shards (``set_shard_policy``), and ``segment_maintenance`` starts
 the background compaction and cold-tier thread.
 
-Left out of the port for now, each with the part of the JAX server that
-brings it: writer sharding and segment maintenance (the native event
-log); the replication gate (replication).
+Replication (``replication``, a ``server/repl_server.ReplNode``): every
+event-data route passes the node's gate first (a follower answers 307 to
+the leader, a fenced ex-leader 503), the node mounts its ``/repl/*``
+wire on this server, and a write that the node's fence refuses
+(``FencedWriteError``) gets 503 with ``Retry-After`` and lands nothing.
+``serve_forever`` starts the node's election and stops it (a leader
+releases the lease) around serving.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ from predictionio_tpu_torch.data.event import (
     utcnow,
 )
 from predictionio_tpu_torch.core.plugins import event_server_plugins
+from predictionio_tpu_torch.data.replication import FencedWriteError
 from predictionio_tpu_torch.data.webhooks import get_connector
 from predictionio_tpu_torch.server.http import (
     HTTPServer,
@@ -214,8 +219,14 @@ class EventServer:
         tenant_quotas: Optional[Any] = None,
         scrape_interval: float = 10.0,
         incident_dir: Optional[str] = None,
+        replication: Optional[Any] = None,
     ) -> None:
         self.storage = storage or get_storage()
+        # replicated event plane (server/repl_server.ReplNode): when set,
+        # every event-data handler passes through its gate (followers 307
+        # to the leader, fenced ex-leaders shed 503) and the node mounts
+        # its /repl/* wire on this router
+        self.repl = replication
         # per-app QoS policy (quotas.json next to the event data, written
         # by `app quota`): ingest token buckets. The zero-config default
         # is unlimited, so single-tenant deployments are unchanged.
@@ -302,6 +313,8 @@ class EventServer:
         router.route("GET", "/stats.json", self._get_stats)
         router.route("POST", "/webhooks/{connector}.json", self._webhook)
         router.route("GET", "/webhooks/{connector}.json", self._webhook_probe)
+        if self.repl is not None:
+            self.repl.attach(self, router)
         if ssl_context is None:
             from predictionio_tpu_torch.server.ssl_config import (
                 ssl_context_from_env,
@@ -350,6 +363,14 @@ class EventServer:
                     {"message": f"Invalid channel {channel!r}."}, status=400)
             channel_id = ch.id
         return (ak.app_id, channel_id, ak.events), None
+
+    def _repl_gate(self, req: Request) -> Optional[Response]:
+        """Replication role gate for event-data routes: None when this
+        node serves, else the follower's 307-to-leader redirect or the
+        fenced ex-leader's 503. Observability routes are never gated."""
+        if self.repl is None:
+            return None
+        return self.repl.gate(req)
 
     # -- handlers --------------------------------------------------------------
 
@@ -492,8 +513,14 @@ class EventServer:
         if deny is not None:
             return deny
         if self._ingest is None:
-            status, body = await asyncio.to_thread(
-                self._insert_one, obj, app_id, channel_id, allowed)
+            try:
+                status, body = await asyncio.to_thread(
+                    self._insert_one, obj, app_id, channel_id, allowed)
+            except FencedWriteError as e:
+                # demotion raced this write: the bytes never landed, and
+                # an honest 503 sends the client to the new leader
+                self._m_events.inc((app_id, 503))
+                return self._throttled(503, str(e), 1.0)
             if status == 201:
                 return self._created(body["eventId"])
             return Response.json(body, status=status)
@@ -519,6 +546,11 @@ class EventServer:
             # storage breaker open: fail fast, don't queue doomed work
             self._m_events.inc((app_id, 503))
             return self._throttled(503, str(e), e.retry_after)
+        except FencedWriteError as e:
+            # this node was demoted while the event sat in the queue: the
+            # append was refused before any byte landed
+            self._m_events.inc((app_id, 503))
+            return self._throttled(503, str(e), 1.0)
         except Exception as e:
             self._m_events.inc((app_id, 500))
             return Response.json(
@@ -527,6 +559,9 @@ class EventServer:
         return self._created(eid)
 
     async def _post_event(self, req: Request) -> Response:
+        deny = self._repl_gate(req)
+        if deny is not None:
+            return deny
         auth, err = self._auth(req)
         if err:
             return err
@@ -534,6 +569,9 @@ class EventServer:
         return await self._ingest_obj(req.json(), app_id, channel_id, allowed)
 
     async def _post_batch(self, req: Request) -> Response:
+        deny = self._repl_gate(req)
+        if deny is not None:
+            return deny
         auth, err = self._auth(req)
         if err:
             return err
@@ -565,6 +603,12 @@ class EventServer:
                                       app_id=app_id, records=len(events)):
                         ids = self.storage.events.insert_batch(
                             events, app_id, channel_id)
+                except FencedWriteError as e:
+                    # demoted mid-batch: nothing landed; every item gets
+                    # the same honest shed status
+                    self._m_events.inc((app_id, 503))
+                    return [{"status": 503, "message": str(e)}
+                            for _ in events]
                 except Exception:
                     pass
                 else:
@@ -583,6 +627,10 @@ class EventServer:
                 t1 = time.perf_counter()
                 try:
                     eid = self.storage.events.insert(ev, app_id, channel_id)
+                except FencedWriteError as e:
+                    self._m_events.inc((app_id, 503))
+                    results.append({"status": 503, "message": str(e)})
+                    continue
                 except Exception as e:
                     self._m_events.inc((app_id, 500))
                     results.append({"status": 500,
@@ -595,6 +643,9 @@ class EventServer:
         return Response.json(await asyncio.to_thread(run))
 
     async def _get_events(self, req: Request) -> Response:
+        deny = self._repl_gate(req)
+        if deny is not None:
+            return deny
         auth, err = self._auth(req)
         if err:
             return err
@@ -627,6 +678,9 @@ class EventServer:
         return Response.json(await asyncio.to_thread(run))
 
     async def _get_event(self, req: Request) -> Response:
+        deny = self._repl_gate(req)
+        if deny is not None:
+            return deny
         auth, err = self._auth(req)
         if err:
             return err
@@ -638,6 +692,9 @@ class EventServer:
         return Response.json(ev.to_json())
 
     async def _delete_event(self, req: Request) -> Response:
+        deny = self._repl_gate(req)
+        if deny is not None:
+            return deny
         auth, err = self._auth(req)
         if err:
             return err
@@ -656,6 +713,9 @@ class EventServer:
         return Response.json(self.stats.to_json())
 
     async def _webhook(self, req: Request) -> Response:
+        deny = self._repl_gate(req)
+        if deny is not None:
+            return deny
         auth, err = self._auth(req)
         if err:
             return err
@@ -695,6 +755,10 @@ class EventServer:
             )
 
             install_crash_handlers(self.incidents)
+        if self.repl is not None:
+            # one election attempt decides leader vs follower; the
+            # role's background threads keep it honest from here
+            self.repl.start()
         scraper = asyncio.create_task(
             scrape_loop(self.tsdb, self.scrape_interval),
             name="pio-events-tsdb")
@@ -704,6 +768,10 @@ class EventServer:
             scraper.cancel()
             with contextlib.suppress(asyncio.CancelledError):
                 await scraper
+            if self.repl is not None:
+                # a graceful leader releases the lease here so a
+                # follower promotes without waiting out the TTL
+                self.repl.stop()
             if self._ingest is not None:
                 # drain: everything accepted before shutdown commits —
                 # a 201 promised durability, so the queue must land

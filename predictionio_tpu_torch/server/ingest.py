@@ -54,8 +54,9 @@ Each commit, and each isolated re-run of one event, passes the
 outage (the commit fails, nothing lands, and enough failures open the
 breaker).
 
-Left out of the port for now: the branch for a write refused by a
-fenced ex-leader (``FencedWriteError``), which comes with replication.
+A commit refused by a fenced ex-leader (``FencedWriteError``, the
+replicated event plane) is no storage outage: the breaker stays closed,
+no event is re-run alone, and every caller of the batch sees the fence.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.replication import FencedWriteError
 from predictionio_tpu_torch.utils import faults, tracing
 from predictionio_tpu_torch.utils.metrics import REGISTRY
 from predictionio_tpu_torch.utils.resilience import CircuitBreaker
@@ -316,6 +318,16 @@ class WriteCoalescer:
                     raise RuntimeError(
                         f"insert_batch returned {len(ids)} ids for "
                         f"{len(events)} events")
+            except FencedWriteError as e:
+                # leadership lost, not a storage outage: the breaker
+                # must stay closed (storage is fine — WE are fenced)
+                # and per-item isolation is pointless (every retry
+                # refuses identically); every caller sees the fence
+                sp.set_error(f"fenced: {e}")
+                for _, fut, _ in pairs:
+                    if not fut.done():
+                        fut.set_exception(e)
+                return
             except Exception as e:
                 self.breaker.record_failure()
                 sp.set_error(f"{type(e).__name__}: {e}")

@@ -167,11 +167,14 @@ _indexed.register_all()
 class Storage:
     """Handle on the meta, event and model repositories (lazy singletons)."""
 
-    def __init__(self, config: Optional[StorageConfig] = None) -> None:
+    def __init__(self, config: Optional[StorageConfig] = None,
+                 events: Optional[EventStore] = None) -> None:
         self.config = config or StorageConfig.from_env()
         self._lock = threading.Lock()
         self._meta: Optional[MetaStore] = None
-        self._events: Optional[EventStore] = None
+        # an event store given here replaces the configured backend's
+        # (``train`` reads a live EVENTLOG home through a LogView)
+        self._events: Optional[EventStore] = events
         self._models: Optional[ModelStore] = None
 
     @property

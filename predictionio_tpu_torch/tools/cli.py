@@ -18,11 +18,26 @@ Verbs:
   ``channel-new``, ``channel-delete``) and ``accesskey`` (``new``,
   ``list``, ``delete``) manage apps, access keys and channels;
 - ``eventserver`` serves the event REST API (``server/event_server.py``);
+  with ``--lease-home DIR`` it joins the replicated event plane
+  (``server/repl_server.py``): nodes elect a leader over the lease file
+  there, the leader streams its event log to ``--replicate-to`` peers
+  before acking, followers 307 writers to the leader and take over when
+  its lease lapses (``--advertise-url``, ``--lease-ttl``);
 - ``import`` and ``export`` move an app's events from and to JSONL;
 - ``train`` trains the engine named in the engine directory's
   ``engine.json`` (or ``--variant``) on the app's events and records a
   COMPLETED instance; ``--resume`` continues an interrupted train from
   the port's own mid-train checkpoints (``<home>/train_ckpt_torch``);
+  ``--read-from follower|any --replica-home DIR`` trains from a
+  replicated follower's home; ``--continuous`` runs the lease-fenced
+  delta-train, gate, promote, ``/reload`` and bake loop
+  (``server/trainer.py``), ``--max-cycles N`` wake cycles or until
+  SIGTERM;
+- ``daemon [flags] -- VERB ...`` supervises a verb of this CLI (crash
+  restart with backoff, health checks, pidfile; ``tools/supervise.py``);
+- ``failover --drill`` runs the kill -9 drill of two replicated event
+  servers and prints its proof document; ``failover --target URL``
+  promotes a follower by hand;
 - ``batchpredict`` answers a JSONL file of queries with the latest
   COMPLETED instance (or ``--engine-instance-id``) into a JSONL file of
   ``{"query", "prediction"}`` lines, ``--batch-size`` queries a dispatch;
@@ -75,10 +90,9 @@ Every verb runs on whichever backends ``PIO_STORAGE_REPOSITORIES_*`` and
 MEMORY, EVENTLOG, PGSQL, MYSQL, ELASTICSEARCH, LOCALFS, S3, HDFS), and
 ``status`` opens and checks each of the three repositories.
 
-Left out for now, each with the module that brings it: ``pio doctor``,
-the router's variant pins and ``train --read-from`` (the router, the
-continuous trainer and replication, ROADMAP.md queue 1, item 7),
-``batchpredict --shards`` above 1 (the ANN retrieval mesh, item 8).
+Left out for now, each with the module that brings it: ``pio doctor``
+and the router's variant pins (the router, ROADMAP.md queue 1, item
+7b), ``batchpredict --shards`` above 1 (the ANN retrieval mesh, item 8).
 """
 
 from __future__ import annotations
@@ -243,9 +257,23 @@ def _configure_tracing(args: argparse.Namespace) -> None:
 
 
 def make_event_server(args: argparse.Namespace):
-    """The EventServer ``eventserver`` runs, built from parsed flags."""
+    """The EventServer ``eventserver`` runs, built from parsed flags
+    (with its ``ReplNode`` when ``--lease-home`` is set)."""
     from predictionio_tpu_torch.server.event_server import EventServer
 
+    replication = None
+    if args.lease_home:
+        from predictionio_tpu_torch.server.repl_server import ReplNode
+        from predictionio_tpu_torch.storage.registry import StorageConfig
+
+        ip = args.ip if args.ip not in ("0.0.0.0", "::") else "127.0.0.1"
+        advertise = args.advertise_url or f"http://{ip}:{args.port}"
+        replication = ReplNode(
+            lease_home=args.lease_home,
+            advertise_url=advertise,
+            home=StorageConfig.from_env().home,
+            replicate_to=args.replicate_to,
+            lease_ttl=args.lease_ttl)
     return EventServer(host=args.ip, port=args.port, stats=args.stats,
                        ingest_batching=args.ingest_batching,
                        ingest_max_batch=args.ingest_max_batch,
@@ -255,13 +283,16 @@ def make_event_server(args: argparse.Namespace):
                        access_log=args.access_log,
                        segment_maintenance=args.segment_maintenance,
                        tenant_quotas=args.tenant_quotas,
-                       incident_dir=_incident_dir(args))
+                       incident_dir=_incident_dir(args),
+                       replication=replication)
 
 
 def cmd_eventserver(args: argparse.Namespace) -> None:
     _configure_tracing(args)
     server = make_event_server(args)
     mode = "group-commit" if args.ingest_batching else "per-event commit"
+    if server.repl is not None:
+        mode += f", replicated event plane ({server.repl.advertise_url})"
     print(f"[info] Event Server listening on {args.ip}:{args.port} ({mode})",
           flush=True)
     server.run()
@@ -299,20 +330,109 @@ def make_server(args: argparse.Namespace):
 
 
 def cmd_train(args: argparse.Namespace) -> None:
-    from predictionio_tpu_torch.core.workflow import run_train
-
     if args.scan_workers:
         # the segment-scan fan-out of this run; the EVENTLOG store reads
         # it wherever the Storage is built
         os.environ["PIO_SCAN_WORKERS"] = str(args.scan_workers)
+    if args.read_from != "leader":
+        from predictionio_tpu_torch.data.replication import select_read_home
+        from predictionio_tpu_torch.storage.registry import pio_home
+
+        home = select_read_home(args.read_from, pio_home(), args.replica_home)
+        # the storage home is resolved from the env wherever the Storage
+        # is built: repoint it at the replicated copy
+        os.environ["PIO_HOME"] = home
+        print(f"[info] Training reads from {args.read_from} home: {home}")
+    if args.read_from != "leader" or args.continuous:
+        _read_through_view()
     variant = _load_variant_file(args.engine_dir, args.variant)
     factory = variant.get("engineFactory") or _die("engine.json missing engineFactory")
+    if args.continuous:
+        _run_continuous(args, variant, factory)
+        return
+    from predictionio_tpu_torch.core.workflow import run_train
+
     iid = run_train(factory, variant=variant, batch=args.batch,
                     verbose=args.verbose, device=args.device,
                     resume=args.resume,
                     scan_cache=False if args.no_scan_cache else None)
     print(f"[info] Training completed: engine instance {iid} "
           f"(kernel launches: {_launch_counts()})")
+
+
+def _read_through_view() -> None:
+    """Read an EVENTLOG home through a private view of its log
+    (``data/replication.LogView``): an event server may be writing it,
+    and the native engine neither sees another process's appends after
+    it opens a file nor may open a file that is being written."""
+    from predictionio_tpu_torch.storage.registry import (
+        Storage,
+        StorageConfig,
+        set_storage,
+    )
+
+    config = StorageConfig.from_env()
+    if config.eventdata_type == "EVENTLOG":
+        from predictionio_tpu_torch.data.replication import LogView
+
+        set_storage(Storage(config, events=LogView(config.home)))
+
+
+def _run_continuous(args: argparse.Namespace, variant: Dict[str, Any],
+                    factory: str) -> None:
+    """The supervised continuous-training loop (``train --continuous``):
+    lease, watermark wake, resumable delta train on ``--device``,
+    registry candidate, gate, promote and ``/reload`` push, bake window
+    with automatic rollback (``server/trainer.py``)."""
+    from predictionio_tpu_torch.server.trainer import (
+        ContinuousTrainer,
+        TrainerConfig,
+    )
+
+    dsp = (variant.get("datasource") or {}).get("params") or {}
+    app_name = args.app or dsp.get("app_name") or dsp.get("appName")
+    if not app_name:
+        _die("--continuous needs --app or an appName in the variant's "
+             "datasource params")
+    cfg = TrainerConfig(
+        engine_factory=factory,
+        app_name=app_name,
+        variant=variant,
+        variant_id=str(variant.get("id", "")),
+        channel=args.channel,
+        min_delta_events=args.min_delta_events,
+        poll_interval=args.poll_interval,
+        lease_ttl=args.lease_ttl,
+        retain=args.retain,
+        guardrail_holdout=args.guardrail_holdout,
+        guardrail_max_regress=args.guardrail_max_regress,
+        guardrail_min_events=args.guardrail_min_events,
+        gate=args.gate,
+        eval_leaderboard_max_age=args.eval_leaderboard_max_age,
+        online_champion=args.online_champion,
+        online_challenger=args.online_challenger,
+        online_min_pairs=args.online_min_pairs,
+        online_max_regress=args.online_max_regress,
+        bake_seconds=args.bake_seconds,
+        bake_error_rate=args.bake_error_rate,
+        bake_p95_ratio=args.bake_p95_ratio,
+        reload_urls=args.reload_url or [],
+        router_url=args.router_url,
+        fleet_manifest=args.fleet_manifest,
+        device=args.device,
+        verbose=args.verbose,
+        metrics_port=args.metrics_port,
+        incident_dir=_incident_dir(args),
+    )
+    trainer = ContinuousTrainer(cfg)
+    print(f"[info] Continuous trainer: app={app_name!r} "
+          f"min_delta={cfg.min_delta_events} lease={trainer.lease.path}",
+          flush=True)
+    outcomes = trainer.run(max_cycles=args.max_cycles)
+    for rec in outcomes[-10:]:
+        print(f"[train] {rec['outcome']}"
+              + (f" gen={rec['generation']}" if rec["generation"] else ""))
+    print(f"[info] Continuous trainer stopped after {len(outcomes)} cycles.")
 
 
 def _launch_counts() -> str:
@@ -1097,6 +1217,57 @@ def cmd_segments(args: argparse.Namespace) -> None:
               f"compacted={acted['compacted']} shipped={acted['shipped']}")
 
 
+def cmd_daemon(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch.tools.supervise import (
+        Supervisor,
+        normalize_command,
+    )
+
+    cmd = normalize_command(args.command)
+    if not cmd:
+        _die("pio daemon: no command given")
+    sup = Supervisor(cmd, health_url=args.health_url,
+                     health_interval=args.health_interval,
+                     health_grace=args.health_grace,
+                     max_restarts=args.max_restarts,
+                     restart_window=args.restart_window,
+                     term_grace=args.term_grace,
+                     pidfile=args.pidfile)
+    raise SystemExit(sup.run())
+
+
+def cmd_failover(args: argparse.Namespace) -> None:
+    """Event-plane failover (no torch): ``--target URL`` promotes a
+    follower by hand (POST /repl/promote, refused while the current
+    leader's lease is live, so it cannot split-brain); ``--drill`` runs
+    the kill -9 drill of ``server/repl_server.py`` and prints the proof
+    document as one JSON line."""
+    if args.target:
+        from predictionio_tpu_torch.server.repl_server import FollowerClient
+
+        doc = FollowerClient(args.target, timeout=args.timeout).promote()
+        print(json.dumps(doc, indent=2 if args.json else None,
+                         sort_keys=True))
+        if doc.get("role") != "leader":
+            sys.exit(1)
+        return
+    if not args.drill:
+        _die("pio failover needs --drill or --target URL")
+    import tempfile
+
+    from predictionio_tpu_torch.server.repl_server import run_failover_drill
+
+    base = args.dir or tempfile.mkdtemp(prefix="pio-failover-")
+    proof = run_failover_drill(
+        base, events=args.events, kill_after=args.kill_after,
+        lease_ttl=args.lease_ttl,
+        log=lambda s: print(f"[failover] {s}", file=sys.stderr))
+    print(json.dumps(proof, indent=2 if args.json else None,
+                     sort_keys=True))
+    if not proof.get("ok"):
+        sys.exit(3)
+
+
 def cmd_trace(args: argparse.Namespace) -> None:
     """Tail or grep the span JSONL that servers started with
     ``--tracing`` write. Filters compose; ``--tree`` re-assembles whole
@@ -1193,7 +1364,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="PredictionIO on PyTorch and CUDA. Verbs: app, "
                     "accesskey, eventserver, import, export, train, deploy, "
                     "eval, evals, status, trace, models, variants, "
-                    "incidents.")
+                    "incidents, daemon, failover.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ap = sub.add_parser("app", aliases=["apps"],
@@ -1273,6 +1444,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-app QoS policy file (default: "
                          "<storage home>/quotas.json, managed by "
                          "'app quota'; hot-reloaded)")
+    es.add_argument("--lease-home", metavar="DIR", default=None,
+                    help="shared directory holding the event-plane "
+                         "leader lease; setting it turns on the "
+                         "replicated event plane (leader election with "
+                         "fencing tokens, follower streaming — "
+                         "server/repl_server.py)")
+    es.add_argument("--advertise-url", metavar="URL", default=None,
+                    help="base URL peers and redirected clients reach "
+                         "THIS node at (default: http://<ip>:<port>; "
+                         "also the lease owner identity)")
+    es.add_argument("--replicate-to", action="append", metavar="URL",
+                    help="follower base URL to stream the event log to "
+                         "when this node leads (repeatable; a node "
+                         "never replicates to its own advertise URL)")
+    es.add_argument("--lease-ttl", type=float, default=2.0,
+                    help="event-plane lease TTL seconds: a leader that "
+                         "stops heartbeating is superseded after this "
+                         "(promotion latency trades against false "
+                         "failover on GC/IO stalls)")
     _add_observability_flags(es)
     _add_incident_flags(es)
     es.set_defaults(fn=cmd_eventserver)
@@ -1295,6 +1485,107 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--scan-workers", type=int,
                     help="parallel segment scans per training read "
                          "(default: PIO_SCAN_WORKERS)")
+    tp.add_argument("--no-mesh", action="store_true",
+                    help="single-device training (the port always trains "
+                         "on one device; accepted for the JAX CLI's "
+                         "command lines)")
+    tp.add_argument("--read-from", choices=("leader", "follower", "any"),
+                    default="leader",
+                    help="which event-plane node training reads come "
+                         "from: 'follower' trains off a replicated "
+                         "home (--replica-home / PIO_REPL_REPLICA_HOME) "
+                         "so scans never contend with leader ingest; "
+                         "'any' prefers the replica when present and "
+                         "falls back to the leader")
+    tp.add_argument("--replica-home", metavar="DIR",
+                    help="storage home of a replicated follower to "
+                         "train from (default: PIO_REPL_REPLICA_HOME)")
+    tp.add_argument("--continuous", action="store_true",
+                    help="run the supervised continuous-training loop: "
+                         "single-writer lease with fencing tokens, "
+                         "watermark-triggered delta trains (resumable "
+                         "after kill -9), guardrail-gated promotion "
+                         "through the model registry, /reload push, and "
+                         "a live-metrics bake window with automatic "
+                         "rollback (server/trainer.py)")
+    tp.add_argument("--app", help="app whose events drive the loop "
+                                  "(default: variant datasource appName)")
+    tp.add_argument("--channel", help="optional event channel")
+    tp.add_argument("--min-delta-events", type=int, default=1,
+                    help="train only when at least this many new events "
+                         "arrived since the last completed cycle")
+    tp.add_argument("--poll-interval", type=float, default=5.0,
+                    help="seconds between watermark polls when idle")
+    tp.add_argument("--lease-ttl", type=float, default=30.0,
+                    help="trainer lease TTL seconds; a trainer that "
+                         "stops heartbeating is supersedable after this")
+    tp.add_argument("--retain", type=int, default=5,
+                    help="registry generations kept beyond the champion")
+    tp.add_argument("--guardrail-holdout", type=int, default=200,
+                    help="newest-N feedback events scored champion vs "
+                         "candidate before promotion")
+    tp.add_argument("--guardrail-max-regress", type=float, default=0.10,
+                    help="refuse candidates whose holdout RMSE is worse "
+                         "than the champion's by more than this fraction")
+    tp.add_argument("--guardrail-min-events", type=int, default=10,
+                    help="below this many scoreable holdout pairs the "
+                         "gate passes trivially")
+    tp.add_argument("--gate", choices=("offline", "online", "both", "eval"),
+                    default="offline",
+                    help="promotion gate mode: 'offline' scores the "
+                         "candidate on held-out feedback (default); "
+                         "'online' judges the CHALLENGER arm's accrued "
+                         "live metrics (pio_variant_online_rmse, fed by "
+                         "real traffic on a --variants replica) against "
+                         "the champion's; 'both' requires both to pass; "
+                         "'eval' consults the latest persisted `pio eval` "
+                         "sweep leaderboard and refuses candidates the "
+                         "sweep ranked below the current champion")
+    tp.add_argument("--eval-leaderboard-max-age", type=float, default=0.0,
+                    help="with --gate eval: leaderboards older than this "
+                         "many seconds are considered stale and the gate "
+                         "passes trivially (0 = never stale)")
+    tp.add_argument("--online-challenger", default="challenger",
+                    help="variant name whose accrued online RMSE the "
+                         "online gate judges")
+    tp.add_argument("--online-champion", default="champion",
+                    help="variant name serving as the online baseline")
+    tp.add_argument("--online-min-pairs", type=int, default=20,
+                    help="below this many fleet-wide online rated pairs "
+                         "the online gate passes trivially")
+    tp.add_argument("--online-max-regress", type=float, default=None,
+                    help="online gate regression tolerance (default: "
+                         "--guardrail-max-regress)")
+    tp.add_argument("--bake-seconds", type=float, default=0.0,
+                    help="watch live serving metrics for this long after "
+                         "promotion and auto-roll-back on regression "
+                         "(0 = no bake window)")
+    tp.add_argument("--bake-error-rate", type=float, default=0.01,
+                    help="bake: roll back when the 5xx fraction over the "
+                         "window exceeds this")
+    tp.add_argument("--bake-p95-ratio", type=float, default=2.0,
+                    help="bake: roll back when window p95 exceeds the "
+                         "pre-swap baseline by this factor")
+    tp.add_argument("--reload-url", action="append",
+                    help="engine-server base URL to /reload and scrape "
+                         "(repeatable)")
+    tp.add_argument("--router-url",
+                    help="fleet-router base URL; promotion then pushes "
+                         "POST /router/reload?rolling=1 instead of "
+                         "direct /reload calls")
+    tp.add_argument("--fleet-manifest",
+                    help="router manifest file; its replica URLs are "
+                         "used for direct reload + bake scraping")
+    tp.add_argument("--max-cycles", type=int,
+                    help="stop after N wake cycles (smoke/testing; "
+                         "default: run until SIGTERM)")
+    tp.add_argument("--metrics-port", type=int, default=None,
+                    help="continuous mode: serve /metrics, "
+                         "/metrics/history and /health on this port so "
+                         "the router federates the trainer (manifest "
+                         "'observe=1' line); 0 = ephemeral, unset = "
+                         "no listener")
+    _add_incident_flags(tp)
     tp.set_defaults(fn=cmd_train)
     dp = sub.add_parser("deploy", help="serve the latest trained instance")
     dp.add_argument("--engine-dir", default=".")
@@ -1463,6 +1754,60 @@ def build_parser() -> argparse.ArgumentParser:
                          "it; a mismatch deletes the cold copy, keeps "
                          "the local file, and fails the ship")
     sg.set_defaults(fn=cmd_segments)
+
+    fo = sub.add_parser(
+        "failover",
+        help="event-plane failover: promote a follower by hand "
+             "(--target) or run the kill -9 drill (--drill) that "
+             "proves zero acked loss, sub-second promotion, "
+             "stale-epoch refusal, fsck-clean logs, and one coalesced "
+             "incident bundle (no torch)")
+    fo.add_argument("--drill", action="store_true",
+                    help="spawn a leader+follower pair, ingest through "
+                         "the follower's 307 redirect, kill -9 the "
+                         "leader mid-stream, and print the proof "
+                         "document as one JSON line (exit 3 if any "
+                         "proof fails)")
+    fo.add_argument("--target", metavar="URL",
+                    help="follower base URL to promote now (POST "
+                         "/repl/promote; refused while the current "
+                         "leader's lease is live)")
+    fo.add_argument("--dir", metavar="PATH",
+                    help="drill working directory (default: a fresh "
+                         "temp dir; kept afterward for inspection)")
+    fo.add_argument("--events", type=int, default=120,
+                    help="drill: total events to ingest")
+    fo.add_argument("--kill-after", type=int, default=40,
+                    help="drill: kill -9 the leader after this many "
+                         "acked events")
+    fo.add_argument("--lease-ttl", type=float, default=0.35,
+                    help="drill: event-plane lease TTL seconds "
+                         "(promotion must still land under 1s "
+                         "including the expiry wait)")
+    fo.add_argument("--timeout", type=float, default=10.0,
+                    help="--target: HTTP timeout seconds")
+    fo.add_argument("--json", action="store_true",
+                    help="pretty-print the proof document instead of "
+                         "one line")
+    fo.set_defaults(fn=cmd_failover)
+
+    dm = sub.add_parser(
+        "daemon",
+        help="supervise a server verb: crash restart with backoff, "
+             "health checks, pidfile")
+    dm.add_argument("--pidfile")
+    dm.add_argument("--health-url")
+    dm.add_argument("--health-interval", type=float, default=5.0)
+    dm.add_argument("--health-grace", type=float, default=30.0)
+    dm.add_argument("--max-restarts", type=int, default=10)
+    dm.add_argument("--restart-window", type=float, default=600.0)
+    dm.add_argument("--term-grace", type=float, default=10.0,
+                    help="seconds between SIGTERM and SIGKILL when "
+                         "stopping the child; give the continuous "
+                         "trainer enough to finish its cycle and "
+                         "release the lease cleanly")
+    dm.add_argument("command", nargs=argparse.REMAINDER)
+    dm.set_defaults(fn=cmd_daemon)
 
     tc = sub.add_parser(
         "trace",

@@ -61,13 +61,30 @@ Sites the port wires so far:
                         on S3 and HDFS model-blob downloads
 ``data.corrupt.segment``   byte-flip on cold-tier segment fetch and on
                         ``pio fsck`` segment and sidecar reads
+``train.crash``         continuous trainer, after the wake decision and
+                        before any publish — the process dies; the
+                        supervisor restarts it and ``run_train(resume=
+                        True)`` picks up the port's checkpoints
+``train.lease.lost``    continuous trainer heartbeat renewal — the
+                        single-writer lease was stolen; the trainer
+                        must abandon the cycle and never publish
+``promote.regression``  the trainer's promotion gate — the candidate
+                        scores as regressed, so the gate must refuse it
+``replication.follower.lag``  follower WAL apply — a slow or down
+                        follower; the leader marks the link unhealthy
+                        and keeps acking; watch ``pio_repl_lag_bytes``
+``replication.wal.torn``  byte-flip on a replicated WAL batch (and on a
+                        fetched sealed segment) before its check — the
+                        follower refuses it (422) and keeps its cursor
+``replication.leader.partition``  event-plane leader heartbeat — the
+                        lease renewal fails as if partitioned; the
+                        leader fences itself (writes 503)
 ======================  ===================================================
 
 The S3 and HDFS model stores (``storage/remote.py``) pass their
 ``models.s3`` and ``models.hdfs`` sites through ``_ResilientCalls``
 (put, get, delete, list). The JAX package's table lists the rest (the
-router, trainer and replication sites); they come with the modules that
-call them.
+router, autoscaler and remediation sites); they come with the router.
 """
 
 from __future__ import annotations

@@ -19,6 +19,14 @@ torch; ``eval`` without a card and without ``--device cpu`` exits
 non-zero. Last, a small CPU quickstart: ``app new`` → event server →
 HTTP posts → ``train --device cpu`` → ``deploy --device cpu``, which
 answers a query.
+
+The replicated event plane and the continuous trainer: ``eventserver
+--lease-home`` builds its ``ReplNode`` from the flags and leads once
+started; ``train --continuous --max-cycles 1`` (the port on ``--device
+cpu``), ``train --read-from follower``, ``daemon`` and ``failover
+--target`` print the JAX CLI's lines with its exit codes on twin homes,
+with equal trainer state and registry manifests; ``daemon -- train
+--continuous`` supervises the port's trainer in a process of its own.
 """
 
 import json
@@ -29,6 +37,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from predictionio_tpu.data.event import Event as JaxEvent
@@ -423,3 +432,237 @@ def test_quickstart_on_the_cpu(tmp_path, capsys, monkeypatch):
                                   {"user": "u3", "num": 4})
     assert code == 200 and len(answer["itemScores"]) == 4
     assert all(s["item"].startswith("i") for s in answer["itemScores"])
+
+
+# -- replication, the continuous trainer, daemon and failover -----------------
+
+
+def test_cli_eventserver_with_a_lease_home_builds_its_repl_node(tmp_path, monkeypatch):
+    """``--lease-home`` makes the server a node of the replicated event
+    plane, with the JAX CLI's defaults (advertise URL from the bind
+    address, a node never replicating to itself)."""
+    from predictionio_tpu_torch.server.repl_server import ReplNode
+
+    monkeypatch.setenv("PIO_HOME", str(tmp_path / "home"))
+    lease = str(tmp_path / "lease")
+    args = cli.build_parser().parse_args([
+        "eventserver", "--ip", "0.0.0.0", "--port", "7071", "--lease-home", lease,
+        "--replicate-to", "http://127.0.0.1:7072/", "--replicate-to",
+        "http://127.0.0.1:7071", "--lease-ttl", "1.5", "--durable-acks"])
+    port_registry.set_storage(Storage(StorageConfig(home=str(tmp_path / "home"))))
+    try:
+        srv = cli.make_event_server(args)
+        named = cli.make_event_server(cli.build_parser().parse_args([
+            "eventserver", "--port", "0", "--lease-home", lease,
+            "--advertise-url", "http://node-a:9000/"]))
+        plain = cli.make_event_server(cli.build_parser().parse_args(
+            ["eventserver", "--port", "0"]))
+    finally:
+        port_registry.set_storage(None)
+    node = srv.repl
+    assert isinstance(node, ReplNode) and node.role == "idle"
+    assert node.advertise_url == "http://127.0.0.1:7071"
+    assert node.peers == ["http://127.0.0.1:7072"]
+    assert node.lease_ttl == 1.5 and node.home == str(tmp_path / "home")
+    assert node.lease.path == os.path.join(lease, "eventplane.lease")
+    assert node.lease.owner == node.advertise_url
+    assert named.repl.advertise_url == "http://node-a:9000" and named.repl.peers == []
+    assert plain.repl is None
+    with ServerThread(named) as s:
+        status, doc, _ = request(s.port, "GET", "/repl/status")
+        assert status == 200 and doc["role"] == "leader" and doc["epoch"] == 1
+        # an event route is served by the leader it became at start
+        assert request(s.port, "GET", "/events.json")[0] == 401
+
+
+def _loop_variant(path):
+    with open(path, "w") as f:
+        json.dump({"id": "loop",
+                   "engineFactory": "predictionio_tpu.templates.recommendation.engine:engine_factory",
+                   "datasource": {"params": {"appName": APP}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": 4, "numIterations": 6, "lambda": 0.05, "seed": 2}}]}, f)
+    return str(path)
+
+
+def test_train_continuous_matches_the_jax_cli(tmp_path, capsys):
+    """``train --continuous --max-cycles 1`` on twin homes: the same lines
+    and exit code, the same ``trainer.state.json`` and registry manifest
+    (ids and digests normalised); the port trains on ``--device cpu``."""
+    import signal
+
+    homes = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
+    _seed(JaxStorage(JaxStorageConfig(home=homes["jax"])), JaxEvent)
+    _seed(Storage(StorageConfig(home=homes["port"])), Event)
+    variant = _loop_variant(tmp_path / "variant.json")
+    base = ["train", "--continuous", "--max-cycles", "1", "--no-mesh", "--engine-dir",
+            ENGINE_DIR, "-e", variant, "--no-incidents", "--poll-interval", "0.2"]
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    out = {}
+    try:
+        for name, main, registry, storage, config, extra in (
+                ("jax", jax_cli.main, jax_registry, JaxStorage, JaxStorageConfig, []),
+                ("port", cli.main, port_registry, Storage, StorageConfig,
+                 ["--device", "cpu"])):
+            code, lines, err = _run(main, registry, storage(config(home=homes[name])),
+                                    base + extra, capsys)
+            out[name] = (code, [ln.replace(homes[name], "{home}") for ln in lines])
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    assert out["port"] == out["jax"]
+    assert out["port"] == (0, [
+        f"[info] Continuous trainer: app={APP!r} min_delta=1 lease={{home}}/trainer.lease",
+        "[train] promoted gen=1", "[info] Continuous trainer stopped after 1 cycles."])
+    # the same count; each watermark is its home's newest creation time
+    # (the seeded events carry the wall clock's)
+    for name, storage, config in (("jax", JaxStorage, JaxStorageConfig),
+                                  ("port", Storage, StorageConfig)):
+        st = storage(config(home=homes[name]))
+        count, max_us = st.events.creation_stats(st.meta.get_app_by_name(APP).id, None)
+        state = json.load(open(os.path.join(homes[name], "trainer.state.json")))
+        assert state == {"count": count, "watermark_us": max_us} and count == 492
+
+    def registry_doc(home):
+        doc = json.load(open(os.path.join(home, "model_registry", "registry.json")))
+        for e in doc["generations"]:
+            e.update(instance_id="<id>", sha256="<sha>", created_us=0, promoted_us=0)
+        return doc
+
+    assert registry_doc(homes["jax"]) == registry_doc(homes["port"])
+    assert registry_doc(homes["port"])["champion"] == 1
+
+
+def test_train_read_from_follower_matches_the_jax_cli(tmp_path, capsys, monkeypatch):
+    """``--read-from follower`` repoints the storage home at the replica
+    (the instance lands there); without a replica both CLIs refuse."""
+    variant = _loop_variant(tmp_path / "variant.json")
+    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "EL")
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_EL_TYPE", "EVENTLOG")
+    out = {}
+    for name, main, registry, storage, config, extra in (
+            ("jax", jax_cli.main, jax_registry, JaxStorage, JaxStorageConfig, []),
+            ("port", cli.main, port_registry, Storage, StorageConfig,
+             ["--device", "cpu"])):
+        leader = str(tmp_path / name / "leader")
+        replica = str(tmp_path / name / "replica")
+        os.makedirs(leader)
+        monkeypatch.setenv("PIO_HOME", replica)
+        _seed(storage(config.from_env()), JaxEvent if name == "jax" else Event)
+        monkeypatch.setenv("PIO_HOME", leader)
+        registry.set_storage(None)
+        argv = ["train", "--engine-dir", ENGINE_DIR, "-e", variant, "--no-mesh",
+                "--read-from", "follower", "--replica-home", replica] + extra
+        try:
+            main(argv)
+        finally:
+            registry.set_storage(None)
+        lines = capsys.readouterr().out.splitlines()
+        assert os.environ["PIO_HOME"] == replica
+        instances = storage(config.from_env()).meta.get_latest_completed_engine_instance(
+            "predictionio_tpu.templates.recommendation.engine:engine_factory", "loop")
+        assert instances is not None
+        assert not os.path.exists(os.path.join(leader, "meta.db"))
+        out[name] = lines[0].replace(replica, "{replica}")
+        monkeypatch.setenv("PIO_HOME", leader)
+        with pytest.raises(ValueError) as e:
+            main(["train", "--engine-dir", ENGINE_DIR, "-e", variant, "--read-from",
+                  "follower", "--replica-home", str(tmp_path / "none")] + extra)
+        out[name + "-refused"] = str(e.value)
+    assert out["port"] == out["jax"] == "[info] Training reads from follower home: {replica}"
+    assert out["port-refused"] == out["jax-refused"]
+
+
+def _daemon_lines(lines):
+    return [re.sub(r"pid \d+", "pid N", ln) for ln in lines]
+
+
+def test_daemon_verb_matches_the_jax_cli(tmp_path, capsys):
+    """``daemon`` runs a clean child once (exit 0), gives up on a
+    crashing one past ``--max-restarts`` (exit 1) and refuses an empty
+    command, with the JAX CLI's lines and exit codes."""
+    ok = [sys.executable, "-S", "-c", "print('child ran', flush=True)"]
+    crash = [sys.executable, "-S", "-c", "raise SystemExit(4)"]
+    out = {}
+    for name, main, registry, storage, config in (
+            ("jax", jax_cli.main, jax_registry, JaxStorage, JaxStorageConfig),
+            ("port", cli.main, port_registry, Storage, StorageConfig)):
+        st = storage(config(home=str(tmp_path / name)))
+        runs = []
+        for argv in (["daemon", "--"] + ok,
+                     ["daemon", "--max-restarts", "0", "--"] + crash,
+                     ["daemon", "--"]):
+            code, lines, err = _run(main, registry, st, argv, capsys)
+            runs.append((code, _daemon_lines(lines), err))
+        out[name] = runs
+    assert out["port"] == out["jax"]
+    assert [r[0] for r in out["port"]] == [0, 1, 1]
+    assert out["port"][0][1][-1] == "[supervise] child exited cleanly; done"
+    assert out["port"][2][2] == ["[error] pio daemon: no command given"]
+
+
+def test_daemon_supervises_the_port_trainer(tmp_path):
+    """``daemon -- train --continuous`` in a process of its own: the
+    supervised child is the port's CLI, trains on the CPU, promotes and
+    exits cleanly, which ends the daemon with 0."""
+    home = str(tmp_path / "home")
+    _seed(Storage(StorageConfig(home=home)), Event)
+    variant = _loop_variant(tmp_path / "variant.json")
+    env = {**os.environ, "PIO_HOME": home, "PYTHONPATH": REPO}
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "daemon", "--",
+         "train", "--continuous", "--max-cycles", "1", "--engine-dir", ENGINE_DIR,
+         "-e", variant, "--device", "cpu", "--no-incidents"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert f"-m predictionio_tpu_torch.tools.cli train --continuous" in proc.stdout
+    assert "[train] promoted gen=1" in proc.stdout
+    assert proc.stdout.rstrip().endswith("[supervise] child exited cleanly; done")
+    doc = json.load(open(os.path.join(home, "model_registry", "registry.json")))
+    assert doc["champion"] == 1
+
+
+def test_failover_verb_matches_the_jax_cli(tmp_path, capsys):
+    """``failover --target`` against a live node of each package: a
+    leader answers its status (exit 0); a follower whose leader's lease is
+    live refuses with 409 in both; no flag is an error in both."""
+    import urllib.error
+
+    from predictionio_tpu.server.event_server import EventServer as JaxEventServer
+    from predictionio_tpu.server.repl_server import ReplNode as JaxReplNode
+    from predictionio_tpu_torch.server.event_server import EventServer
+    from predictionio_tpu_torch.server.repl_server import ReplNode
+
+    out = {}
+    for name, main, server_cls, node_cls, storage, config in (
+            ("jax", jax_cli.main, JaxEventServer, JaxReplNode, JaxStorage,
+             JaxStorageConfig),
+            ("port", cli.main, EventServer, ReplNode, Storage, StorageConfig)):
+        lease = str(tmp_path / name / "lease")
+        servers = []
+        for k, role in enumerate(("a", "b")):
+            home = str(tmp_path / name / role)
+            node = node_cls(lease_home=lease, advertise_url=f"http://127.0.0.1:{k + 1}",
+                            home=home, lease_ttl=30.0)
+            servers.append(server_cls(storage=storage(config(home=home)),
+                                      host="127.0.0.1", port=0, replication=node,
+                                      incident_dir=None))
+        with ServerThread(servers[0]) as a:
+            servers[0].repl.advertise_url = f"http://127.0.0.1:{a.port}"
+            with ServerThread(servers[1]) as b:
+                code, lines, err = _run(main, port_registry if name == "port"
+                                        else jax_registry, None,
+                                        ["failover", "--target",
+                                         f"http://127.0.0.1:{a.port}"], capsys)
+                doc = json.loads(lines[0])
+                summary = (code, doc["role"], doc["epoch"], sorted(doc))
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    main(["failover", "--target", f"http://127.0.0.1:{b.port}",
+                          "--timeout", "5"])
+                refused = e.value.code
+        code2, _, err2 = _run(main, jax_registry if name == "jax" else port_registry,
+                              None, ["failover"], capsys)
+        out[name] = (summary, refused, code2, err2)
+    assert out["port"] == out["jax"]
+    assert out["port"][0][:3] == (0, "leader", 1) and out["port"][1] == 409
+    assert out["port"][3] == ["[error] pio failover needs --drill or --target URL"]

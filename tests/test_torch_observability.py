@@ -1015,7 +1015,10 @@ def test_every_port_fault_site_is_documented_and_exercised():
                               "incident.capture.stall", "ann.index.corrupt",
                               "segments.cold", "segments.shard.hot",
                               "data.corrupt.eventlog", "data.corrupt.snapshot",
-                              "data.corrupt.model", "data.corrupt.segment"}
+                              "data.corrupt.model", "data.corrupt.segment",
+                              "train.crash", "train.lease.lost", "promote.regression",
+                              "replication.follower.lag", "replication.wal.torn",
+                              "replication.leader.partition"}
     assert all(f'"{site}"' in tests for site in wired)
     # every port site is one of the JAX package's documented sites
     assert wired <= set(re.findall(r"^``([a-z_.]+)``", jax_faults.__doc__, re.M))

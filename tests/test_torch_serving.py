@@ -462,7 +462,11 @@ MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq"
              "predictionio_tpu_torch.templates.universal.engine",
              "predictionio_tpu_torch.parallel.ring_attention",
              "predictionio_tpu_torch.models.seq_rec",
-             "predictionio_tpu_torch.templates.sequentialrec.engine")
+             "predictionio_tpu_torch.templates.sequentialrec.engine",
+             "predictionio_tpu_torch.data.replication",
+             "predictionio_tpu_torch.server.repl_server",
+             "predictionio_tpu_torch.server.trainer",
+             "predictionio_tpu_torch.tools.supervise")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
