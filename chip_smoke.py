@@ -28,6 +28,8 @@
     python3 chip_smoke.py --replication  # phases 1, 2 and 18: the replicated event
                                          # plane and the continuous trainer alone
                                          # (no result line)
+    python3 chip_smoke.py --router     # phases 1, 2, 5 and 19: the fleet router over
+                                       # port replicas alone (no result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -262,12 +264,18 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    128), once plain and once with annOpq, each through ``run_train``
    reusing the trained towers (only the index is built): the build time
    split into Lloyd, encode and OPQ, every answer equal to a host float64
-   replay of the ADC → shortlist → re-rank from the index up to near-ties
-   within 1e-5, 0 score_topk launches, recall@10 against the exact path
-   printed. Similar-product: phase 12's implicit train (rank 64) with
-   ``ann: true`` (annM 8, annK 256) through ``run_train``, the index
-   sidecars beside model.bin, 500 single-item queries each against the
-   same replay, 0 score_topk launches. The 10M catalog: an ANNScorer over
+   replay of the ADC → shortlist → re-rank from the index (``ann_reference``:
+   the shortlist's edge allows exactly the f32 near-ties that each
+   item's f32 error bound from the query's LUT allows, ``adc_f32_bound``;
+   the re-ranked scores up to near-ties within 1e-5), a precision
+   control (each answer with its last item swapped for the first item
+   past the bound) refused every time, the served items inside the
+   bound's edge band counted, 0 score_topk launches, recall@10 against
+   the exact path printed; a failing answer is printed beside its replay
+   (``ann_explain``). Similar-product: phase 12's implicit train (rank
+   64) with ``ann: true`` (annM 8, annK 256) through ``run_train``, the
+   index sidecars beside model.bin, 500 single-item queries each against
+   the same replay and control, 0 score_topk launches. The 10M catalog: an ANNScorer over
    10,000,000 × 32 normalised Gaussian items (seeded), the index build
    timed, ANN dispatches at B = 1, 8 and 64 (k 16, k′ 128) against the
    exact score_topk over the same corpus (CUDA events) beside the ANN
@@ -458,6 +466,38 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    on the promoted follower, the epoch bumped, the kill-to-leader wall
    printed, a forged apply at the old epoch refused with 412, ``fsck`` 0
    on both homes, exactly one failover incident bundle.
+19. the fleet router over port replicas at ML-20M width: phase 5's
+   factors written as an instance into a temporary PIO_HOME, then
+   ``router serve`` in a subprocess with ``--pool-spawn`` of the port's
+   ``deploy --batching --aot-buckets auto --port {port}``, ``--min-replicas
+   2 --max-replicas 3 --autoscale-interval 1``, health polls every 0.5 s,
+   a 1 s scrape, a 0.5 s prober and ``conf/remediations.json``: each
+   replica a process of its own on the card, loading the kernel library
+   phase 2 built. Parity: 400 queries from 16 clients through the router
+   (paced at 60 q/s, under the autoscaler's trigger), every answer held
+   against score_topk_ref by ``answers_agree``; 50 queries sent to a
+   replica and through the router give byte-equal bodies; 200 sequential
+   queries timed each way (the router's p50 and p99 beside one replica's,
+   printed, not gated). A replica killed with SIGKILL in the middle of a
+   320-query burst from 16 clients: every answer 200 and held, the pool
+   backfills it and ``/router/status`` shows its new ``instance`` (the
+   kill-to-serving wall printed). A second instance (V x 2, so the
+   answers stay comparable) written, then ``router reload --rolling``
+   under a 16-client load: 0 errors, every replica at ``reloadGeneration``
+   1, 200 answers after it held against the new instance's reference.
+   Twelve unpaced clients (above 50 q/s a replica, at most 6 in flight a
+   replica): the autoscaler's one ``up`` decision gives ``qps`` as its
+   reason, the pool grows to 3 and the third replica serves (its cold
+   start from the decision printed), 0 errors, 200 answers over three
+   replicas held. Then ``slo status`` (exit 1 exactly when an SLO fast
+   burns), ``top --once --json`` (three replicas), ``doctor`` and
+   ``doctor --incident latest --act`` (a dry run on the bundle the kill
+   captured, exit 1 or 2), each printed with its exit code. The router is
+   stopped with SIGINT: it stops its pool, each replica prints its
+   launches, and their score_topk launches summed (the killed replica's
+   are lost with it) must be above 0 (``launches_phase19``); no replica
+   process may be left, and no replica may have built a kernel library
+   again (the libraries' files unchanged).
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -4472,37 +4512,165 @@ def ann_replay(q64, index, corpus64, kprime: int):
     return adc, shortlist, corpus64[shortlist] @ q64
 
 
-def ann_reference(q64, index, corpus64, kprime: int, num: int, exclude=()):
-    """``ranked_agrees`` arguments for an ANN answer: the replay's
-    re-ranked shortlist (equal exact scores in shortlist order, the
-    excluded items left out) cut to ``num``; an item is eligible when
-    its float64 ADC score reaches the k′-th one within TOL (a near-tie
-    at the shortlist's edge) and it is not excluded."""
+#: f32 unit roundoff
+U32 = 2.0 ** -24
+
+
+def _gamma(n: int) -> float:
+    """Higham's gamma_n = n u / (1 - n u): the relative bound of n f32
+    roundings in a sum or product chain."""
+    return n * U32 / (1 - n * U32)
+
+
+def adc_f32_bound(q64, index):
+    """Bound on |f32 ADC score - float64 ADC score| of every item, from
+    this query's LUT (the inputs are the same f32 numbers on both sides,
+    so only the card's arithmetic differs):
+
+        bound_j = Σ_m Σ_t r_t·|c_{m,code_jm,t}|      (OPQ: r_t = g(d)·Σ_e |q_e R_et|)
+                + g(dsub)·Σ_m Σ_t |qr_t c_{m,code_jm,t}|      (each LUT entry)
+                + g(M-1)·Σ_m |lut_m[code_jm]|                   (the M-term sum)
+
+    with g(n) = n u / (1 - n u), u = 2^-24, M subspaces of dsub
+    dimensions, t running over subspace m's dimensions, and r_t the
+    bound on the f32 rotation's coordinate t (0 without OPQ); the
+    bound's own second-order terms are below u² and left out."""
+    import numpy as np
+
+    m, _, dsub = index.codebooks.shape
+    cb = index.codebooks.astype(np.float64)
+    qr = q64 @ index.rotation.astype(np.float64) if index.rotation is not None else q64
+    lut = np.einsum("md,mkd->mk", qr.reshape(m, dsub), cb)
+    lut_abs = np.einsum("md,mkd->mk", np.abs(qr.reshape(m, dsub)), np.abs(cb))
+    rot = np.zeros((m, dsub))
+    if index.rotation is not None:
+        rot = (_gamma(len(q64)) * (np.abs(q64) @ np.abs(index.rotation.astype(np.float64)))
+               ).reshape(m, dsub)
+    lut_rot = np.einsum("md,mkd->mk", rot, np.abs(cb))
+    bound = np.zeros(index.n_items)
+    for mi in range(m):
+        c = index.codes[:, mi]
+        bound += (_gamma(m - 1) * np.abs(lut[mi][c]) + _gamma(dsub) * lut_abs[mi][c]
+                  + lut_rot[mi][c])
+    return bound
+
+
+class ann_reference:
+    """The float64 replay of one ANN query as a check of its answer.
+
+    The card's shortlist is the top k′ of f32 ADC scores, each within
+    ``adc_f32_bound`` of its float64 score. So an item *may* be in it
+    when fewer than k′ items are above it for certain (their float64
+    score less their bound exceeds its score plus its bound), and *is*
+    in it when fewer than k′ other items can reach it. The answer is the
+    top ``num`` of that shortlist by exact score, the excluded items
+    left out. An answer passes (``__call__``) when each of its items may
+    be in the shortlist and is not excluded, and its scores are, place
+    by place within TOL, the exact float64 scores of the top ``num`` of
+    the certain items and its own (``ranked_agrees``). ``control``
+    swaps into the answer the first item, in float64 ADC order, that
+    cannot be in the shortlist: the check must refuse that."""
+
+    def __init__(self, q64, index, corpus64, kprime: int, num: int, exclude=()):
+        import numpy as np
+
+        self.q64, self.corpus64, self.num = q64, corpus64, num
+        self.exclude = set(exclude)
+        adc, _, _ = ann_replay(q64, index, corpus64, kprime)
+        bound = adc_f32_bound(q64, index)
+        lo, hi = adc - bound, adc + bound
+        n = len(adc)
+        self.possible = (n - np.searchsorted(np.sort(lo), hi, side="right")) < kprime
+        self.sure = (n - np.searchsorted(np.sort(hi), lo, side="left") - 1) < kprime
+        self.order = np.lexsort((np.arange(n), -adc))
+
+    def _exact(self, j: int) -> float:
+        return float(self.corpus64[j] @ self.q64)
+
+    def __call__(self, answer) -> bool:
+        import numpy as np
+
+        items = [int(s["item"][1:]) for s in answer]
+        cands = (set(np.nonzero(self.sure)[0].tolist()) | set(items)) - self.exclude
+        ranked = sorted(cands, key=lambda j: (-self._exact(j), j))[:self.num]
+        return ranked_agrees(
+            answer, [f"i{j}" for j in ranked], [self._exact(j) for j in ranked],
+            lambda it: self._exact(int(it[1:])),
+            lambda it: bool(self.possible[int(it[1:])]) and int(it[1:]) not in self.exclude)
+
+    def control(self, answer) -> bool:
+        """True when the check refuses ``answer`` with its last item
+        replaced by the first item that cannot be in the shortlist."""
+        out = next(int(j) for j in self.order if not self.possible[j])
+        swapped = [dict(s) for s in answer[:-1]] + [{"item": f"i{out}",
+                                                     "score": self._exact(out)}]
+        swapped.sort(key=lambda s: -s["score"])
+        return not self(swapped)
+
+    def near_ties(self, answer) -> int:
+        """How many of the answer's items only an f32 near-tie put in the
+        shortlist (possible, not certain)."""
+        return sum(1 for s in answer if not self.sure[int(s["item"][1:])])
+
+
+def ann_explain(q64, index, corpus64, kprime: int, answer, num: int) -> None:
+    """Print one ANN answer beside its float64 replay: for each served
+    item and each item of the replay's ranking, the served score, the
+    float64 exact and ADC scores, the item's place in the float64 ADC
+    order, and its f32 bound (``adc_f32_bound``); then the ADC scores
+    around the shortlist's edge."""
     import numpy as np
 
     adc, shortlist, exact = ann_replay(q64, index, corpus64, kprime)
-    order = np.lexsort((np.arange(len(shortlist)), -exact))
-    ranked = [int(shortlist[j]) for j in order if int(shortlist[j]) not in exclude][:num]
-    edge = adc[shortlist[-1]] - TOL * max(1.0, abs(adc[shortlist[0]]))
-    scores = {int(j): float(s) for j, s in zip(shortlist, exact)}
+    order = np.lexsort((np.arange(index.n_items), -adc))
+    place = np.empty(index.n_items, np.int64)
+    place[order] = np.arange(index.n_items)
+    bound = adc_f32_bound(q64, index)
+    ranked = [int(shortlist[j]) for j in np.lexsort((np.arange(len(shortlist)), -exact))][:num]
+    served = {int(s["item"][1:]): s["score"] for s in answer}
 
-    def score_of(it):
-        j = int(it[1:])
-        return scores.get(j, float(corpus64[j] @ q64))
+    def row(tag, j):
+        return (f"  {tag} i{j}: served {served.get(j)!r} exact64 {float(corpus64[j] @ q64)!r} "
+                f"adc64 {adc[j]!r} adc place {place[j]} f32 bound {bound[j]:.3e}")
 
-    def eligible(it):
-        j = int(it[1:])
-        return adc[j] >= edge and j not in exclude
+    print(f"ANN replay: k'={kprime}, edge adc64 {adc[order[kprime - 1]]!r}, top adc64 "
+          f"{adc[order[0]]!r}", flush=True)
+    for j in served:
+        print(row("served", j), flush=True)
+    for j in ranked:
+        print(row("replay", j), flush=True)
+    for p in range(kprime - 4, kprime + 4):
+        j = int(order[p])
+        print(row(f"edge place {p}", j), flush=True)
 
-    return ([f"i{j}" for j in ranked], [scores[j] for j in ranked], score_of, eligible)
+
+def ann_controls(refs, res, label: str) -> None:
+    """The precision control of the ANN check: every answer of both runs,
+    its last item swapped for the first item the f32 bound keeps out of
+    the shortlist, must be refused; and how many served items only an
+    f32 near-tie at the shortlist's edge let in."""
+    pairs = [(ref, a["itemScores"]) for c in (1, 8) for ref, (_, a) in
+             zip(refs, res[c]["answers"])]
+    refused = sum(ref.control(a) for ref, a in pairs)
+    ties = sum(ref.near_ties(a) for ref, a in pairs)
+    print(f"{label}: precision control refused {refused} of {len(pairs)} answers (both "
+          f"runs) with an item past the f32 bound swapped in; served items inside the "
+          f"bound's edge band (f32 near-ties of the k'-th ADC score): {ties}", flush=True)
+    check(refused == len(pairs), f"{label}: the f32 bound let a swapped-in item pass")
+
+
+def agrees(answer, reference) -> bool:
+    """``reference`` is ``ranked_agrees``'s arguments or a check to call."""
+    return reference(answer) if callable(reference) else ranked_agrees(answer, *reference)
 
 
 def serve_and_check(torch, ops, dev, storage, factory, iid, bodies, reference,
-                    label: str) -> dict:
+                    label: str, explain=None) -> dict:
     """POST ``bodies`` to an EngineServer of instance ``iid``, once from
     one client and once from 8; every answer checked by ``reference(i)``
-    (``ranked_agrees`` arguments). Returns the launches, the dispatches
-    and the answers of the 8-client run."""
+    (``ranked_agrees`` arguments, or a check of the answer), a failing
+    one printed by ``explain(i, answer)`` when given. Returns the
+    launches, the dispatches and the answers of the 8-client run."""
     from predictionio_tpu_torch.server import aot
 
     out = {}
@@ -4515,8 +4683,12 @@ def serve_and_check(torch, ops, dev, storage, factory, iid, bodies, reference,
             wall = time.perf_counter() - t0
             launches = read_counters(ops)["score_topk"]
             dispatches = int(sum(aot._DISPATCHES._values.values()) - d0)
-            bad = sum(1 for j, (status, a) in enumerate(answers)
-                      if status != 200 or not ranked_agrees(a["itemScores"], *reference(j)))
+            failed = [j for j, (status, a) in enumerate(answers)
+                      if status != 200 or not agrees(a["itemScores"], reference(j))]
+            bad = len(failed)
+            for j in failed[:3] if explain is not None else ():
+                print(f"{label}: answer {j} off the reference", flush=True)
+                explain(j, answers[j][1]["itemScores"])
             print(f"{label}: {len(bodies)} queries from {clients} client(s) in "
                   f"{wall:.2f} s ({len(bodies) / wall:.1f} q/s); answers off the "
                   f"float64 reference: {bad}; device dispatches {dispatches}, "
@@ -4623,8 +4795,11 @@ def twotower_full_width(torch, ops, dev, coo, profile: bool = False,
                   f"{meta['opq_sec']:.3f} s), M={index.m} K={index.k} over "
                   f"{index.n_items} items, rotation {index.rotation is not None}", flush=True)
             refs = [ann_reference(UE64[u], index, IE64, ANN_SHORTLIST, 10) for u in users]
-            res = serve_and_check(torch, ops, dev, storage, TWOTOWER_FACTORY, iid, bodies,
-                                  lambda j: refs[j], f"two-tower ANN ({label})")
+            res = serve_and_check(
+                torch, ops, dev, storage, TWOTOWER_FACTORY, iid, bodies, lambda j: refs[j],
+                f"two-tower ANN ({label})",
+                lambda j, a: ann_explain(UE64[users[j]], index, IE64, ANN_SHORTLIST, a, 10))
+            ann_controls(refs, res, f"two-tower ANN ({label})")
             for c in (1, 8):
                 check(res[c]["launches"] == 0 and res[c]["dispatches"] > 0,
                       f"two-tower ANN ({label}): {res[c]['launches']} score_topk launches "
@@ -4694,6 +4869,7 @@ def similar_ann_full_width(torch, ops, dev, coo) -> dict:
                 for j in items]
         res = serve_and_check(torch, ops, dev, storage, SIMILARPRODUCT_FACTORY, iid, bodies,
                               lambda j: refs[j], "similar-product ANN")
+        ann_controls(refs, res, "similar-product ANN")
         for c in (1, 8):
             check(res[c]["launches"] == 0 and res[c]["dispatches"] == SP_ANN_QUERIES,
                   f"similar-product ANN: {res[c]['launches']} score_topk launches, "
@@ -7736,6 +7912,379 @@ def replication_full_width(torch, ops, dev, coo=None, draws: int = REPL_DRAWS,
     return out
 
 
+# -- phase 19: the fleet router over port replicas at ML-20M width ------------------
+
+ROUTER_MIN, ROUTER_MAX = 2, 3     # the pool's floor at start, the autoscaler's ceiling
+ROUTER_CLIENTS = 16               # clients of the parity, kill and reload loads
+ROUTER_QUERIES = 400              # the parity load's queries
+ROUTER_SAME = 50                  # queries sent to a replica and through the router
+ROUTER_TIMED = 200                # sequential queries timed each way
+ROUTER_KILL_QUERIES = 320         # the burst a replica is killed in the middle of
+ROUTER_PACE_QPS = 60.0            # the loads before the scale-up: under the autoscaler's
+                                  # 50 q/s a replica at two replicas
+ROUTER_SCALE_CLIENTS = 12         # the unpaced load that must scale the pool up: above
+                                  # 50 q/s a replica, but at most 6 in flight a replica
+                                  # (the autoscaler's inflight trigger is 8), so that
+                                  # the decision's reason is the rate
+ROUTER_V_SCALE = 2.0              # the second instance's V: the first's times 2 (exact in f32)
+
+
+def paced_load(port: int, bodies, clients: int, qps=None, stop=None) -> list:
+    """POST ``bodies`` to ``/queries.json`` from ``clients`` keep-alive
+    connections, request j not before t0 + j / ``qps`` (``None``: as fast
+    as they go); with ``stop`` (an Event) cycle through the bodies until it
+    is set. Returns the (status, JSON) answers in send order; a transport
+    error is status 0."""
+    import http.client
+
+    lock, nxt, out = threading.Lock(), [0], {}
+    t0 = time.perf_counter()
+
+    def client() -> None:
+        conn = None
+        while True:
+            with lock:
+                j = nxt[0]
+                if (stop.is_set() if stop is not None else j >= len(bodies)):
+                    break
+                nxt[0] += 1
+            if qps:
+                delay = t0 + j / qps - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                conn.request("POST", "/queries.json", body=bodies[j % len(bodies)],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                raw = resp.read()
+                out[j] = (resp.status, json.loads(raw) if raw else None)
+            except (OSError, http.client.HTTPException) as e:
+                out[j] = (0, f"{type(e).__name__}: {e}")
+                if conn is not None:
+                    conn.close()
+                conn = None
+        if conn is not None:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return [out[j] for j in sorted(out)]
+
+
+def in_background(fn, *args, **kw):
+    """Run ``fn`` on a thread; returns (thread, a dict whose "out" is its
+    result once the thread ends)."""
+    box = {}
+    t = threading.Thread(target=lambda: box.__setitem__("out", fn(*args, **kw)))
+    t.start()
+    return t, box
+
+
+def timed_posts(port: int, bodies, qps: float) -> tuple:
+    """POST ``bodies`` one after another on one keep-alive connection, at
+    most ``qps`` a second: (the raw bodies, each request's ms)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    raws, ms = [], []
+    try:
+        for j, body in enumerate(bodies):
+            t0 = time.perf_counter()
+            conn.request("POST", "/queries.json", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            raws.append((resp.status, resp.read()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            time.sleep(max(0.0, 1.0 / qps - ms[-1] / 1e3))
+    finally:
+        conn.close()
+    return raws, ms
+
+
+def router_full_width(torch, ops, dev, train) -> dict:
+    """Phase 19: the fleet router over port replicas at ML-20M width (see
+    the module docstring)."""
+    import shlex
+    import signal
+
+    import numpy as np
+
+    from predictionio_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    libraries = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    engine_dir = os.path.join(repo, "predictionio_tpu_torch", "templates", "recommendation")
+    U, V = train["U"], train["V"]
+    Ud = torch.as_tensor(U, device=dev)
+    V1 = torch.cat([torch.as_tensor(V, device=dev),
+                    torch.zeros(N_PAD - N_ITEMS, RANK, device=dev)])
+    Vp = {1: V1, 2: V1 * ROUTER_V_SCALE}
+    rng = np.random.default_rng(SEED + 19)
+    out = {}
+    pids = set()
+
+    def bodies_for(users):
+        return [json.dumps({"user": f"u{u}", "num": 10}) for u in users]
+
+    def failed(answers) -> list:
+        """(place, status, message) of each answer that is not a 200."""
+        return [(j, s, a.get("message") if isinstance(a, dict) else a)
+                for j, (s, a) in enumerate(answers) if s != 200]
+
+    def held(users, answers, gen: int, label: str) -> None:
+        """Every answer 200 and equal to score_topk_ref of instance ``gen``."""
+        bad = failed(answers)
+        check(not bad, f"{label}: {len(bad)} answers not 200 ({bad[:5]})")
+        ok = answers_agree(torch, ops, dev, Ud, Vp[gen], users, [a for _, a in answers])
+        check(all(ok), f"{label}: {ok.count(False)} of {len(ok)} answers off "
+                       f"score_topk_ref of instance {gen}")
+
+    with tempfile.TemporaryDirectory(prefix="pio_chip_router_") as home:
+        t0 = time.perf_counter()
+        storage, factory, _, _ = write_instance(home, U, V)
+        first = storage.meta.get_latest_completed_engine_instance(factory, "default").id
+        print(f"instance {first} written: {N_USERS} x {N_ITEMS} rank {RANK} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rport = free_port()
+        base = f"http://127.0.0.1:{rport}"
+        manifest = os.path.join(home, "fleet.txt")
+        spawn = (f"deploy --engine-dir {shlex.quote(engine_dir)} --batching --aot-buckets "
+                 f"auto --device {dev.type} --ip 127.0.0.1 --port {{port}}")
+        log = os.path.join(home, "router.log")
+        env = dict(os.environ, PIO_HOME=home)
+
+        def get(path: str):
+            status, doc = http_json(rport, "GET", path)
+            check(status == 200, f"GET {path} answered {status}: {doc}")
+            return doc
+
+        def note_pids():
+            for m in get("/pool/status")["pool"]:
+                if m.get("pid"):
+                    pids.add(m["pid"])
+
+        def cli(*args, extra_env=None) -> tuple:
+            t0 = time.perf_counter()
+            proc = subprocess.run(CLI + list(args), cwd=repo, env=dict(env, **(extra_env or {})),
+                                  capture_output=True, text=True, timeout=300)
+            text = (proc.stdout + proc.stderr).strip()
+            print(f"-- cli {' '.join(args)}: exit {proc.returncode}, "
+                  f"{time.perf_counter() - t0:.2f} s wall\n{text[:1500]}", flush=True)
+            return proc.returncode, proc.stdout, proc.stderr
+
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            router = subprocess.Popen(CLI + [
+                "router", "serve", "--ip", "127.0.0.1", "--port", str(rport),
+                "--manifest", manifest, "--pool-spawn", spawn,
+                "--min-replicas", str(ROUTER_MIN), "--max-replicas", str(ROUTER_MAX),
+                "--autoscale-interval", "1", "--health-interval", "0.5",
+                "--scrape-interval", "1", "--probe-interval", "0.5",
+                "--remediations", os.path.join(repo, "conf", "remediations.json")],
+                cwd=repo, env=env, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            wait_until(lambda: http_json(rport, "GET", "/health")[0] == 200, router, log, 400)
+            out["start_s"] = time.perf_counter() - t0
+            note_pids()
+            status = get("/router/status")
+            check(len(status["replicas"]) == ROUTER_MIN
+                  and all(r["state"] == "ok" for r in status["replicas"]),
+                  f"the router's replicas at start: {status['replicas']}")
+            print(f"router serve up over {ROUTER_MIN} pool replicas in {out['start_s']:.2f} s "
+                  f"(the replicas started one after another, each a `deploy` process: "
+                  f"import torch, the CUDA context, the instance, the AOT ladder)", flush=True)
+
+            # 1. parity through the router
+            users = rng.choice(N_USERS, ROUTER_QUERIES, replace=False)
+            t0 = time.perf_counter()
+            answers = paced_load(rport, bodies_for(users), ROUTER_CLIENTS, ROUTER_PACE_QPS)
+            wall = time.perf_counter() - t0
+            held(users, answers, 1, "through the router")
+            print(f"{ROUTER_QUERIES} queries from {ROUTER_CLIENTS} clients through the router "
+                  f"in {wall:.2f} s (paced at {ROUTER_PACE_QPS:g} q/s): every answer equal to "
+                  f"score_topk_ref", flush=True)
+            direct = int(get("/pool/status")["pool"][0]["port"])
+            same = bodies_for(users[:ROUTER_SAME])
+            raw_d, _ = timed_posts(direct, same, ROUTER_PACE_QPS)
+            raw_r, _ = timed_posts(rport, same, ROUTER_PACE_QPS)
+            differ = sum(1 for a, b in zip(raw_d, raw_r) if a != b or a[0] != 200)
+            print(f"{ROUTER_SAME} queries sent to replica :{direct} and through the router: "
+                  f"{differ} bodies differ", flush=True)
+            check(differ == 0, f"{differ} bodies differ between the replica and the router")
+            timed = bodies_for(rng.choice(N_USERS, ROUTER_TIMED, replace=False))
+            _, ms_d = timed_posts(direct, timed, ROUTER_PACE_QPS)
+            _, ms_r = timed_posts(rport, timed, ROUTER_PACE_QPS)
+            lat = {"direct": (float(np.percentile(ms_d, 50)), float(np.percentile(ms_d, 99))),
+                   "router": (float(np.percentile(ms_r, 50)), float(np.percentile(ms_r, 99)))}
+            print(f"{ROUTER_TIMED} sequential queries (host clock, not gated): through the "
+                  f"router p50 {lat['router'][0]:.3f} ms p99 {lat['router'][1]:.3f} ms; one "
+                  f"replica directly p50 {lat['direct'][0]:.3f} ms p99 {lat['direct'][1]:.3f} "
+                  f"ms", flush=True)
+            out["latency_ms"] = lat
+
+            # 2. kill -9 a replica in the middle of a burst
+            victim = get("/pool/status")["pool"][0]
+            old = {r["url"]: r["instance"] for r in get("/router/status")["replicas"]}
+            vurl = f"http://{victim['name']}"
+            kusers = rng.choice(N_USERS, ROUTER_KILL_QUERIES, replace=False)
+            load, box = in_background(paced_load, rport, bodies_for(kusers), ROUTER_CLIENTS,
+                                      ROUTER_PACE_QPS)
+            time.sleep(ROUTER_KILL_QUERIES / ROUTER_PACE_QPS / 2)
+            os.kill(victim["pid"], signal.SIGKILL)
+            t_kill = time.perf_counter()
+            load.join()
+            held(kusers, box["out"], 1, "the burst across the kill")
+            print(f"replica {victim['name']} (pid {victim['pid']}) killed with SIGKILL in the "
+                  f"middle of {ROUTER_KILL_QUERIES} queries from {ROUTER_CLIENTS} clients: "
+                  f"every answer 200 and equal to score_topk_ref", flush=True)
+            deadline = time.monotonic() + 300
+            while True:
+                reps = {r["url"]: r for r in get("/router/status")["replicas"]}
+                rep = reps.get(vurl, {})
+                if rep.get("instance") not in (None, old[vurl]) and rep.get("state") == "ok":
+                    break
+                check(router.poll() is None and time.monotonic() < deadline,
+                      f"replica {victim['name']} not backfilled: {rep}")
+                time.sleep(0.2)
+            out["backfill_s"] = time.perf_counter() - t_kill
+            note_pids()
+            print(f"the pool backfilled {victim['name']}: instance {old[vurl]} -> "
+                  f"{rep['instance']}, serving {out['backfill_s']:.2f} s after the kill (the "
+                  f"replica's cold start)", flush=True)
+
+            # 3. rolling reload under load onto a second instance (V x 2)
+            write_instance(home, U, V * ROUTER_V_SCALE)
+            second = storage.meta.get_latest_completed_engine_instance(factory, "default").id
+            check(second != first, "the second instance was not recorded")
+            stop = threading.Event()
+            load, box = in_background(paced_load, rport, bodies_for(users), ROUTER_CLIENTS,
+                                      ROUTER_PACE_QPS, stop)
+            try:
+                t0 = time.perf_counter()
+                code, text, _ = cli("router", "reload", "--rolling", "--url", base)
+                out["reload_s"] = time.perf_counter() - t0
+            finally:
+                stop.set()
+                load.join()
+            doc = json.loads(text)
+            check(code == 0 and doc["ok"] and len(doc["replicas"]) == ROUTER_MIN,
+                  f"router reload --rolling: exit {code}, {doc}")
+            during = box["out"]
+            errors = failed(during)
+            print(f"rolling reload onto {second} (V x {ROUTER_V_SCALE:g}) in "
+                  f"{out['reload_s']:.2f} s under {len(during)} queries from "
+                  f"{ROUTER_CLIENTS} clients: {len(errors)} errors", flush=True)
+            check(not errors, f"{len(errors)} errors across the rolling reload (place in "
+                              f"the paced load, status, message): {errors[:20]}")
+            gens = {r["url"]: r["reloadGeneration"] for r in get("/router/status")["replicas"]}
+            check(set(gens.values()) == {1}, f"reload generations after the reload: {gens}")
+            after = rng.choice(N_USERS, 200, replace=False)
+            held(after, paced_load(rport, bodies_for(after), ROUTER_CLIENTS, ROUTER_PACE_QPS),
+                 2, "after the rolling reload")
+            print(f"every replica at reloadGeneration 1; 200 answers after the reload equal "
+                  f"to score_topk_ref of {second}", flush=True)
+
+            # 4. scale up under sustained load
+            stop = threading.Event()
+            load, box = in_background(paced_load, rport, bodies_for(users),
+                                      ROUTER_SCALE_CLIENTS, None, stop)
+            t0 = time.perf_counter()
+            try:
+                deadline = time.monotonic() + 300
+                while get("/pool/status")["size"] < ROUTER_MAX:
+                    check(router.poll() is None and time.monotonic() < deadline,
+                          f"no scale-up: {get('/autoscale/status')['decisions'][-3:]}")
+                    time.sleep(0.2)
+                t_size = time.time()
+                deadline = time.monotonic() + 60
+                while not (len(reps := get("/router/status")["replicas"]) == ROUTER_MAX
+                           and all(r["state"] == "ok" for r in reps)):
+                    check(time.monotonic() < deadline, f"the third replica not in rotation: "
+                                                       f"{reps}")
+                    time.sleep(0.2)
+            finally:
+                stop.set()
+                load.join()
+            wall = time.perf_counter() - t0
+            note_pids()
+            errors = failed(box["out"])
+            check(not errors, f"{len(errors)} errors under the scale-up load: {errors[:5]}")
+            ups = [d for d in get("/autoscale/status")["decisions"] if d["action"] == "up"]
+            check(len(ups) == 1 and ups[0]["reason"] == "qps",
+                  f"the scale-up decisions: {ups}")
+            out["scale_cold_s"] = t_size - ups[0]["at"]
+            print(f"scale-up under {ROUTER_SCALE_CLIENTS} unpaced clients "
+                  f"({len(box['out'])} queries in {wall:.2f} s, {len(box['out']) / wall:.0f} "
+                  f"q/s, 0 errors): decision {ups[0]['action']} for {ups[0]['reason']} at "
+                  f"{ups[0]['signals']['qps']:.1f} q/s over {ups[0]['signals']['replicas']} "
+                  f"replicas; the third replica's cold start {out['scale_cold_s']:.2f} s from "
+                  f"the decision to the pool's health gate", flush=True)
+            three = rng.choice(N_USERS, 200, replace=False)
+            held(three, paced_load(rport, bodies_for(three), ROUTER_CLIENTS, ROUTER_PACE_QPS),
+                 2, "over three replicas")
+
+            # 5. the verbs, live
+            code, text, _ = cli("slo", "status", "--url", base)
+            check(code == (1 if "FAST BURN" in text else 0), f"slo status exit {code}")
+            code, text, _ = cli("top", "--once", "--json", "--url", base)
+            top = json.loads(text)
+            check(code == 0 and len(top["replicas"]) == ROUTER_MAX
+                  and top["qps"]["total"] > 0, f"top --once --json: exit {code}")
+            code, text, _ = cli("doctor", "--url", base)
+            check(code in (0, 1, 2) and text.startswith("doctor — live fleet"),
+                  f"doctor: exit {code}")
+            code, text, _ = cli("doctor", "--incident", "latest", "--act")
+            check(code in (1, 2) and "DRY RUN" in text,
+                  f"doctor --incident latest --act: exit {code}")
+            out["verbs"] = True
+        except BaseException:
+            for path in ("/router/status", "/autoscale/status"):
+                with contextlib.suppress(Exception):
+                    print(f"GET {path}: {json.dumps(http_json(rport, 'GET', path)[1])[-3000:]}",
+                          flush=True)
+            with open(log) as f:
+                print(f"the router's log (its end):\n{f.read()[-6000:]}", flush=True)
+            raise
+        finally:
+            if router.poll() is None:
+                router.send_signal(signal.SIGINT)
+                try:
+                    router.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    router.kill()
+                    router.wait()
+            left = []
+            for pid in pids:
+                try:
+                    os.kill(pid, 0)
+                    left.append(pid)
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+        with open(log) as f:
+            text = f.read()
+    check(router.returncode == 0, f"router serve exited {router.returncode}:\n{text[-3000:]}")
+    check(not left, f"replica processes left after the router stopped: {left}")
+    after = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")}
+    check(after == libraries, f"a replica built a kernel library again: {libraries} -> {after}")
+    counts = [int(m) for m in re.findall(r"kernel launches: score_topk=(\d+)", text)]
+    launches = sum(counts)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 19: {wall:.1f} s wall; score_topk launches of the replicas that stopped "
+          f"({len(counts)} processes; the killed one's are lost with it): {counts}, "
+          f"sum {launches} ({card_line()})", flush=True)
+    check(len(counts) == ROUTER_MAX and launches > 0,
+          f"the replicas' launch lines: {counts}")
+    out["launches"], out["wall"] = launches, wall
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -7755,6 +8304,7 @@ def main(argv) -> int:
     eventlog_only = "--eventlog" in argv
     storage_only = "--storage" in argv
     replication_only = "--replication" in argv
+    router_only = "--router" in argv
     global PROFILE_STEPS
     PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
@@ -7781,6 +8331,14 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if router_only:
+        phase("5. full-width training (ML-20M shape, rank 64)")
+        train = train_full_width(torch, ops, dev)
+        phase("19. the fleet router over port replicas at ML-20M width")
+        router_full_width(torch, ops, dev, train)
+        phase("done")
+        return 0
 
     if replication_only:
         phase("18. the replicated event plane and the continuous trainer at ML-20M width")
@@ -7918,6 +8476,8 @@ def main(argv) -> int:
     phase("18. the replicated event plane and the continuous trainer at ML-20M width")
     repl = replication_full_width(torch, ops, dev, train["coo"], REPL_RUN_DRAWS,
                                   REPL_RUN_TAIL)
+    phase("19. the fleet router over port replicas at ML-20M width")
+    fleet = router_full_width(torch, ops, dev, train)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -7940,6 +8500,7 @@ def main(argv) -> int:
         "launches_phase16": eventlog["launches"]["score_topk"],
         "launches_phase17": es["launches"]["score_topk"],
         "launches_phase18": repl["launches"]["score_topk"],
+        "launches_phase19": fleet["launches"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
         "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (

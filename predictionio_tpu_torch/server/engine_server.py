@@ -61,8 +61,10 @@ Incident capture (``incident_dir``): an opening breaker writes a
 postmortem bundle (``utils/incidents.py``), and ``serve_forever``
 installs the SIGQUIT and crash handlers.
 
-Left out of the port for now: the router's variant pins (the router,
-ROADMAP.md queue 1, item 7b). The continuous trainer's online gate
+The fleet router (``server/router.py``) pushes a manifest's variant pins
+to ``POST /variants/weights`` and sends its synthetic prober's canary
+with ``X-PIO-Probe``, which skips the fair admission and the variant
+scoreboard. The continuous trainer's online gate
 (``server/trainer.py``, ``--gate online``) reads this server's
 ``pio_variant_*`` series from ``/metrics``.
 """

@@ -61,6 +61,20 @@ Verbs:
   --variants`` server's arms over HTTP, probe-then-apply;
 - ``incidents list|show|prune`` browse the incident bundles the servers
   write (``--incident-dir``, on by default under ``<home>/incidents``);
+  ``doctor`` ranks the findings of a bundle (``--incident ID|latest``)
+  or of a live router and exits 0 clean, 1 warnings, 2 firing;
+  ``--act`` prints the remediation plan of ``conf/remediations.json``'s
+  playbooks, which ``--yes`` executes;
+- ``router serve|status|reload [--rolling]`` runs and operates the fleet
+  router (``server/router.py``) over ``deploy`` replicas: ``serve
+  --pool-spawn 'deploy ... --port {port}' --manifest F`` owns the
+  replicas (``tools/supervise.ReplicaPool``), with the autoscaler
+  (``server/autoscale.py``) and the remediation engine
+  (``server/remediate.py``) unless ``--no-autoscale``; ``slo status``
+  (exit 1 while an SLO fast-burns) and ``top [--once] [--json]
+  [--watch N]`` read the router's burn rates and federated history;
+- ``dashboard`` serves the evaluation instances on :9000 and
+  ``adminserver`` the REST admin API on :7071;
 - ``index status [--engine-instance-id ID] [--json] [--shards N]``
   prints a trained instance's PQ index manifests (geometry, bytes, the
   digest verdict, a per-shard layout) from its files alone, without
@@ -90,9 +104,8 @@ Every verb runs on whichever backends ``PIO_STORAGE_REPOSITORIES_*`` and
 MEMORY, EVENTLOG, PGSQL, MYSQL, ELASTICSEARCH, LOCALFS, S3, HDFS), and
 ``status`` opens and checks each of the three repositories.
 
-Left out for now, each with the module that brings it: ``pio doctor``
-and the router's variant pins (the router, ROADMAP.md queue 1, item
-7b), ``batchpredict --shards`` above 1 (the ANN retrieval mesh, item 8).
+Left out for now: ``batchpredict --shards`` above 1 (the ANN retrieval
+mesh, ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -443,6 +456,7 @@ def _launch_counts() -> str:
 
 def cmd_deploy(args: argparse.Namespace) -> None:
     _configure_tracing(args)
+    _stop_on_sigterm()
     server = make_server(args)
     device = server.deployed.algorithms[0][1].device
     if args.variants:
@@ -458,9 +472,11 @@ def cmd_deploy(args: argparse.Namespace) -> None:
               f"device {device}) listening on {args.ip}:{args.port}", flush=True)
     try:
         server.run()
+    except KeyboardInterrupt:
+        pass  # SIGINT, or SIGTERM from a supervisor: a stop
     finally:
         # what the server launched on the card, read when it stops
-        # (`GET /stop` or SIGINT)
+        # (`GET /stop`, SIGINT or SIGTERM)
         print(f"[info] kernel launches: {_launch_counts()}", flush=True)
 
 
@@ -1040,6 +1056,322 @@ def cmd_incidents(args: argparse.Namespace) -> None:
           f"{len(store.ids())} retained under {root}")
 
 
+def cmd_doctor(args: argparse.Namespace) -> None:
+    """Ranked findings from a captured incident bundle or the live fleet
+    (torch-free). Exit 0 = clean, 1 = warnings, 2 = firing evidence."""
+    from predictionio_tpu_torch.utils import incidents as incmod
+
+    if args.incident:
+        from predictionio_tpu_torch.storage.registry import StorageConfig
+
+        root = args.dir or incmod.default_incident_dir(
+            StorageConfig.from_env().home)
+        store = incmod.IncidentStore(root)
+        iid = args.incident
+        if iid == "latest":
+            ids = store.ids()
+            if not ids:
+                _die(f"no incident bundles under {root}")
+            iid = ids[0]
+        bundle = store.load_bundle(iid)
+        if bundle is None:
+            _die(f"incident {iid!r} not found (or incomplete) under {root}")
+        findings = incmod.diagnose(bundle)
+        header = (f"doctor — incident {iid} "
+                  f"(process={bundle['manifest'].get('process')})")
+    else:
+        base = args.url.rstrip("/")
+        try:
+            slo_doc = _http_json(f"{base}/slo/status", timeout=args.timeout)
+            health_doc = _http_json(f"{base}/health", timeout=args.timeout)
+            top_doc = _http_json(f"{base}/top?window=5m",
+                                 timeout=args.timeout)
+        except Exception as e:  # noqa: BLE001 — ops verb, readable failure
+            _die(f"live diagnosis against {base} failed: "
+                 f"{type(e).__name__}: {e}")
+        findings = incmod.diagnose_live(slo_doc, health_doc, top_doc)
+        header = f"doctor — live fleet at {base}"
+    code = incmod.exit_code(findings)
+    results = None
+    if args.act:
+        # findings onto conf/remediations.json playbooks; without --yes
+        # a dry run: the plan prints, nothing executes
+        from predictionio_tpu_torch.server.remediate import (
+            OpsActuator,
+            RemediationEngine,
+            load_playbooks,
+        )
+        from predictionio_tpu_torch.storage.registry import StorageConfig
+
+        home = StorageConfig.from_env().home
+        engine = RemediationEngine(
+            OpsActuator(url=None if args.incident else args.url,
+                        home=home, timeout=args.timeout),
+            load_playbooks(args.remediations),
+            lock_path=os.path.join(home, "remediation.lock"))
+        results = engine.execute(engine.plan(findings), yes=args.yes)
+    if args.json:
+        out = {"findings": findings, "exit": code}
+        if results is not None:
+            out["remediation"] = results
+        print(json.dumps(out, indent=2, sort_keys=True))
+    else:
+        print(header)
+        if not findings:
+            print("  no findings — clean bill of health")
+        labels = {2: "FIRING", 1: "warn", 0: "info"}
+        for f in findings:
+            print(f"  [{labels[f['severity']]:<6}] {f['title']}")
+            print(f"           {f['evidence']}")
+        if results is not None:
+            mode = ("EXECUTED" if args.yes else
+                    "DRY RUN — pass --yes to execute")
+            print(f"remediation plan ({mode}):")
+            if not results:
+                print("  nothing to do — no finding matches a playbook")
+            for r in results:
+                print(f"  [{r['result']:<11}] {r['playbook']}: "
+                      f"{r['action']} -> {r['target']}")
+                if r.get("detail"):
+                    print(f"               {r['detail']}")
+    raise SystemExit(code)
+
+
+# -- the fleet router and its control plane -----------------------------------
+
+
+def _stop_on_sigterm() -> None:
+    """Turn SIGTERM into the SIGINT stop (``KeyboardInterrupt``), so a
+    supervised server runs its ``finally`` (a pool's replicas stopped,
+    the launch counts printed) when its supervisor stops it."""
+    import signal
+
+    def on_term(signum, frame):
+        raise KeyboardInterrupt
+
+    try:
+        signal.signal(signal.SIGTERM, on_term)
+    except ValueError:
+        pass  # not the main thread: the caller stops the server itself
+
+
+def cmd_router(args: argparse.Namespace) -> None:
+    """Fleet router: one endpoint over N engine-server replicas (P2C
+    routing, retry budget, hedging, rolling reload;
+    ``server/router.py``)."""
+    if args.router_cmd == "serve":
+        from predictionio_tpu_torch.server.router import FleetRouter
+
+        _configure_tracing(args)
+        replicas = ([u for u in args.replicas.split(",") if u.strip()]
+                    if args.replicas else None)
+        pool = None
+        autoscale_cfg = None
+        if args.pool_spawn and not args.manifest:
+            _die("--pool-spawn needs --manifest (the file the pool "
+                 "rewrites and the router watches)")
+        _stop_on_sigterm()
+        try:
+            if args.pool_spawn:
+                import shlex
+
+                from predictionio_tpu_torch.tools.supervise import (
+                    ReplicaPool,
+                    normalize_command,
+                )
+
+                pool = ReplicaPool(normalize_command(shlex.split(args.pool_spawn)),
+                                   args.manifest)
+                for _ in range(max(1, args.min_replicas)):
+                    name = pool.add_replica()
+                    print(f"[info] pool replica {name} ready", flush=True)
+                if not args.no_autoscale:
+                    from predictionio_tpu_torch.server.autoscale import (
+                        AutoscaleConfig,
+                    )
+
+                    autoscale_cfg = AutoscaleConfig(
+                        min_replicas=max(1, args.min_replicas),
+                        max_replicas=max(1, args.max_replicas),
+                        interval=args.autoscale_interval)
+            router = FleetRouter(
+                replicas=replicas,
+                manifest=args.manifest,
+                host=args.ip, port=args.port,
+                health_interval=args.health_interval,
+                retry_budget_ratio=args.retry_budget,
+                hedge=not args.no_hedge,
+                hedge_min_ms=args.hedge_min_ms,
+                default_deadline_ms=args.deadline_ms,
+                per_try_timeout_ms=args.per_try_timeout_ms,
+                drain_timeout=args.drain_timeout,
+                ready_timeout=args.ready_timeout,
+                access_log=args.access_log,
+                tenant_quotas=args.tenant_quotas,
+                slo_config=args.slo_config,
+                scrape_interval=args.scrape_interval,
+                probe_interval=args.probe_interval,
+                incident_dir=_incident_dir(args),
+                pool=pool,
+                autoscale=autoscale_cfg,
+                remediations=args.remediations,
+            )
+            print(f"[info] Fleet router on {args.ip}:{args.port} over "
+                  f"{len(router.replicas)} replicas "
+                  f"({', '.join(r.name for r in router.replicas)})", flush=True)
+            if autoscale_cfg is not None:
+                print(f"[info] autoscaler on: {autoscale_cfg.min_replicas}"
+                      f"-{autoscale_cfg.max_replicas} replicas, tick every "
+                      f"{autoscale_cfg.interval:g}s (--no-autoscale to "
+                      "disable)", flush=True)
+            router.run()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            if pool is not None:
+                pool.stop_all()
+        return
+
+    import urllib.error
+    import urllib.request
+
+    base = args.url.rstrip("/")
+    if args.router_cmd == "status":
+        with urllib.request.urlopen(f"{base}/router/status",
+                                    timeout=args.timeout) as r:
+            print(json.dumps(json.loads(r.read()), indent=2, sort_keys=True))
+        return
+    # reload: POST /router/reload[?rolling=1], with a long timeout: a
+    # rolling pass drains and re-warms every replica in turn
+    qs = "?rolling=1" if args.rolling else ""
+    req = urllib.request.Request(f"{base}/router/reload{qs}", data=b"",
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=args.timeout) as r:
+            out = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        out = json.loads(e.read() or b"{}")
+    print(json.dumps(out, indent=2, sort_keys=True))
+    if not out.get("ok"):
+        _die("fleet reload failed")
+
+
+def cmd_slo(args: argparse.Namespace) -> None:
+    """SLO burn-rate status from a running router (torch-free). Exit 1
+    while any SLO is fast-burning."""
+    base = args.url.rstrip("/")
+    try:
+        doc = _http_json(f"{base}/slo/status", timeout=args.timeout)
+    except Exception as e:  # noqa: BLE001 — ops verb, readable failure
+        _die(f"GET {base}/slo/status failed: {type(e).__name__}: {e}")
+    if args.json:
+        print(json.dumps(doc, indent=2, sort_keys=True))
+    else:
+        windows = (doc.get("windows") or {})
+        th = (doc.get("thresholds") or {})
+        print(f"[slo] {base}  fast windows "
+              f"{'/'.join(windows.get('fast', []))} > {th.get('fast')}  "
+              f"slow {'/'.join(windows.get('slow', []))} > {th.get('slow')}")
+        labels = {0: "ok", 1: "SLOW BURN", 2: "FAST BURN"}
+        for s in doc.get("slos", []):
+            burns = "  ".join(f"{w}={b:g}" for w, b in
+                              sorted((s.get("burnRate") or {}).items()))
+            print(f"  {s['name']:<24} objective={s['objective']:g}  "
+                  f"{burns}  {labels.get(s.get('alerting'), '?')}")
+    if doc.get("fastBurning"):
+        raise SystemExit(1)
+
+
+def cmd_top(args: argparse.Namespace) -> None:
+    """Terminal fleet view over the router's federated history
+    (torch-free): a refresh loop over ``GET /top``, which computes
+    everything shown."""
+    import time
+
+    base = args.url.rstrip("/")
+    watch = getattr(args, "watch", 0.0) or 0.0
+    once = (args.once or args.json) and not watch
+    interval = watch or args.interval
+
+    def frame() -> None:
+        doc = _http_json(f"{base}/top?window={args.window}",
+                         timeout=args.timeout)
+        if args.json:
+            print(json.dumps(doc, indent=2, sort_keys=True))
+            return
+        if "_status" in doc:
+            print(f"[top] {base}: HTTP {doc['_status']}: "
+                  f"{doc.get('message')}")
+            return
+        if not once:
+            sys.stdout.write("\x1b[2J\x1b[H")  # clear + home
+        qps = doc.get("qps") or {}
+        by = ", ".join(f"{k}:{v:g}" for k, v in
+                       sorted((qps.get("byStatus") or {}).items()))
+        print(f"pio top — {base}  window={doc.get('windowSeconds'):g}s")
+        print(f"qps {qps.get('total', 0):g}" + (f"  ({by})" if by else ""))
+        paths = doc.get("paths") or {}
+        if paths:
+            print(f"{'PATH':<16}{'QPS':>8}{'P50MS':>10}{'P99MS':>10}")
+            for p, row in sorted(paths.items()):
+                p50, p99 = row.get("p50Ms"), row.get("p99Ms")
+                print(f"{p:<16}{row.get('qps', 0):>8g}"
+                      f"{'-' if p50 is None else p50:>10}"
+                      f"{'-' if p99 is None else p99:>10}")
+        variants = doc.get("variants") or {}
+        if variants:
+            print(f"{'VARIANT':<16}{'QPS':>8}{'SHARE':>10}")
+            for v, row in sorted(variants.items()):
+                print(f"{v:<16}{row.get('qps', 0):>8g}"
+                      f"{row.get('share', 0) * 100:>9.1f}%")
+        sheds = doc.get("tenantSheds") or {}
+        if sheds:
+            print("sheds/s  " + "  ".join(
+                f"{a}={r:g}" for a, r in sorted(sheds.items())))
+        probe = doc.get("probe") or {}
+        if probe:
+            print("probe/s  " + "  ".join(
+                f"{o}={r:g}" for o, r in sorted(probe.items())))
+        slo = doc.get("slo") or {}
+        labels = {0: "ok", 1: "SLOW", 2: "FAST-BURN"}
+        for s in slo.get("slos", []):
+            burns = "  ".join(f"{w}={b:g}" for w, b in
+                              sorted((s.get("burnRate") or {}).items()))
+            print(f"slo {s['name']:<22} {burns}  "
+                  f"{labels.get(s.get('alerting'), '?')}")
+        print(f"{'REPLICA':<22}{'STATE':<11}{'BREAKER':<9}"
+              f"{'EWMA-MS':>8}  GEN")
+        for r in doc.get("replicas", []):
+            gen = r.get("modelGeneration")
+            print(f"{r.get('url', '?'):<22}{r.get('state', '?'):<11}"
+                  f"{r.get('breaker', '?'):<9}{r.get('ewmaMs', 0):>8g}"
+                  f"  {'-' if gen is None else gen}")
+
+    try:
+        frame()
+        while not once:
+            time.sleep(max(0.2, interval))
+            frame()
+    except KeyboardInterrupt:
+        pass
+    except Exception as e:  # noqa: BLE001 — ops verb, readable failure
+        _die(f"GET {base}/top failed: {type(e).__name__}: {e}")
+
+
+def cmd_dashboard(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch.tools.dashboard import Dashboard
+
+    print(f"[info] Dashboard on {args.ip}:{args.port}", flush=True)
+    Dashboard(host=args.ip, port=args.port).run()
+
+
+def cmd_adminserver(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch.tools.admin import AdminServer
+
+    print(f"[info] Admin server on {args.ip}:{args.port}", flush=True)
+    AdminServer(host=args.ip, port=args.port).run()
+
+
 def _app_id_for(args: argparse.Namespace) -> int:
     if args.appid is not None:
         return args.appid
@@ -1364,7 +1696,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="PredictionIO on PyTorch and CUDA. Verbs: app, "
                     "accesskey, eventserver, import, export, train, deploy, "
                     "eval, evals, status, trace, models, variants, "
-                    "incidents, daemon, failover.")
+                    "incidents, daemon, failover, router, slo, top, "
+                    "doctor, dashboard, adminserver.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ap = sub.add_parser("app", aliases=["apps"],
@@ -1648,6 +1981,93 @@ def build_parser() -> argparse.ArgumentParser:
     _add_observability_flags(dp)
     _add_incident_flags(dp)
     dp.set_defaults(fn=cmd_deploy)
+
+    rt = sub.add_parser(
+        "router",
+        help="fleet router: one endpoint over N engine-server replicas")
+    rts = rt.add_subparsers(dest="router_cmd", required=True)
+    x = rts.add_parser("serve", help="start the router")
+    x.add_argument("--replicas",
+                   help="comma-separated replica URLs (host:port or "
+                        "http://host:port)")
+    x.add_argument("--manifest",
+                   help="file with one replica URL per line, re-read on "
+                        "mtime change (# comments ok)")
+    x.add_argument("--ip", default="0.0.0.0")
+    x.add_argument("--port", type=int, default=8100)
+    x.add_argument("--health-interval", type=float, default=1.0,
+                   help="seconds between active /health probe rounds")
+    x.add_argument("--retry-budget", type=float, default=0.1,
+                   help="retry/hedge tokens earned per live request; "
+                        "bounds retries to this fraction of traffic")
+    x.add_argument("--no-hedge", action="store_true",
+                   help="disable tail-latency hedging of /queries.json")
+    x.add_argument("--hedge-min-ms", type=float, default=20.0,
+                   help="hedge delay floor (used until enough latency "
+                        "samples exist for a p95)")
+    x.add_argument("--deadline-ms", type=float, default=10000.0,
+                   help="default end-to-end budget per client request "
+                        "(an inbound X-PIO-Deadline-Ms only tightens it)")
+    x.add_argument("--per-try-timeout-ms", type=float, default=0.0,
+                   help="cap any single replica attempt (0 = the "
+                        "remaining deadline)")
+    x.add_argument("--drain-timeout", type=float, default=30.0,
+                   help="rolling reload: max seconds to wait for a "
+                        "replica's in-flight requests to finish")
+    x.add_argument("--ready-timeout", type=float, default=120.0,
+                   help="rolling reload: max seconds for /reload + "
+                        "AOT re-warm readiness per replica")
+    x.add_argument("--tenant-quotas", metavar="PATH", default=None,
+                   help="per-app QoS policy file driving per-tenant "
+                        "retry/hedge budgets and deadline caps "
+                        "(default: <storage home>/quotas.json; "
+                        "hot-reloaded)")
+    x.add_argument("--slo-config", metavar="PATH", default=None,
+                   help="SLO objectives file for the burn-rate engine "
+                        "(default: ./conf/slo.json if present, else the "
+                        "built-in prober objectives)")
+    x.add_argument("--scrape-interval", type=float, default=10.0,
+                   help="seconds between metrics-history scrape ticks "
+                        "(local registry + fleet federation + SLO "
+                        "evaluation)")
+    x.add_argument("--probe-interval", type=float, default=2.0,
+                   help="seconds between synthetic canary probes "
+                        "(X-PIO-Probe queries feeding the SLO series; "
+                        "0 disables the prober)")
+    x.add_argument("--pool-spawn", metavar="CMD",
+                   help="own the replica fleet: spawn each replica with "
+                        "this command ('{port}' substituted; a bare verb "
+                        "such as 'deploy --port {port}' runs this CLI), "
+                        "supervise it, and rewrite --manifest on "
+                        "membership changes (enables the autoscaler and "
+                        "POST /pool/* endpoints)")
+    x.add_argument("--min-replicas", type=int, default=1,
+                   help="pool floor: replicas started at boot and the "
+                        "scale-down limit")
+    x.add_argument("--max-replicas", type=int, default=4,
+                   help="pool ceiling: the autoscaler never scales past "
+                        "this")
+    x.add_argument("--autoscale-interval", type=float, default=5.0,
+                   help="seconds between autoscaler control ticks")
+    x.add_argument("--no-autoscale", action="store_true",
+                   help="own the pool but hold the fleet size fixed "
+                        "(manual scaling via POST /pool/add|remove)")
+    x.add_argument("--remediations", metavar="PATH", default=None,
+                   help="remediation playbooks for the auto-remediator "
+                        "(default: ./conf/remediations.json if present, "
+                        "else built-ins)")
+    _add_observability_flags(x)
+    _add_incident_flags(x)
+    x = rts.add_parser("status", help="replica states from a running router")
+    x.add_argument("--url", default="http://localhost:8100")
+    x.add_argument("--timeout", type=float, default=10.0)
+    x = rts.add_parser("reload", help="reload the fleet through the router")
+    x.add_argument("--url", default="http://localhost:8100")
+    x.add_argument("--rolling", action="store_true",
+                   help="drain + reload + re-warm one replica at a time "
+                        "(zero-downtime); default reloads all at once")
+    x.add_argument("--timeout", type=float, default=600.0)
+    rt.set_defaults(fn=cmd_router)
 
     ev = sub.add_parser("eval", help="hyperparameter evaluation (grid search)")
     ev.add_argument("evaluation",
@@ -1933,6 +2353,77 @@ def build_parser() -> argparse.ArgumentParser:
                    help="incident store (default: "
                         "<storage home>/incidents)")
     x.set_defaults(fn=cmd_incidents)
+
+    sp = sub.add_parser(
+        "slo", help="SLO burn-rate status from a running router")
+    sps = sp.add_subparsers(dest="slo_cmd", required=True)
+    x = sps.add_parser("status", help="print burn rates per SLO "
+                                      "(exit 1 while fast-burning)")
+    x.add_argument("--url", default="http://localhost:8100",
+                   help="router base URL")
+    x.add_argument("--json", action="store_true",
+                   help="raw /slo/status JSON instead of the table")
+    x.add_argument("--timeout", type=float, default=10.0)
+    x.set_defaults(fn=cmd_slo)
+
+    tp = sub.add_parser(
+        "top", help="live fleet view from a running router "
+                    "(QPS, latency, variants, tenants, SLOs, replicas)")
+    tp.add_argument("--url", default="http://localhost:8100",
+                    help="router base URL")
+    tp.add_argument("--window", default="1m",
+                    help="rate/quantile window over federated history "
+                         "(e.g. 30s, 1m, 5m)")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="refresh period in seconds")
+    tp.add_argument("--once", action="store_true",
+                    help="render one frame and exit (no screen clear)")
+    tp.add_argument("--json", action="store_true",
+                    help="raw /top JSON once and exit")
+    tp.add_argument("--watch", type=float, default=0.0, metavar="N",
+                    help="redraw every N seconds (overrides --interval "
+                         "and --once; ctrl-C exits)")
+    tp.add_argument("--timeout", type=float, default=10.0)
+    tp.set_defaults(fn=cmd_top)
+
+    dr = sub.add_parser(
+        "doctor",
+        help="ranked findings from an incident bundle or the live "
+             "fleet (exit 0 clean / 1 warn / 2 firing)")
+    dr.add_argument("--incident", metavar="ID",
+                    help="diagnose a captured bundle ('latest' = "
+                         "newest) instead of the live fleet")
+    dr.add_argument("--dir", metavar="PATH",
+                    help="incident store for --incident (default: "
+                         "<storage home>/incidents)")
+    dr.add_argument("--url", default="http://localhost:8100",
+                    help="router base URL for live diagnosis")
+    dr.add_argument("--json", action="store_true",
+                    help="findings + exit code as JSON")
+    dr.add_argument("--timeout", type=float, default=10.0)
+    dr.add_argument("--act", action="store_true",
+                    help="map findings onto conf/remediations.json "
+                         "playbooks and print the remediation plan "
+                         "(dry run: NOTHING executes without --yes)")
+    dr.add_argument("--yes", action="store_true",
+                    help="with --act: actually execute the plan "
+                         "(rate-limited, target-verified, one "
+                         "remediation in flight)")
+    dr.add_argument("--remediations", metavar="PATH", default=None,
+                    help="playbook file for --act (default: "
+                         "./conf/remediations.json if present, else "
+                         "built-ins)")
+    dr.set_defaults(fn=cmd_doctor)
+
+    db = sub.add_parser("dashboard", help="evaluation results dashboard")
+    db.add_argument("--ip", default="0.0.0.0")
+    db.add_argument("--port", type=int, default=9000)
+    db.set_defaults(fn=cmd_dashboard)
+
+    ad = sub.add_parser("adminserver", help="REST admin API")
+    ad.add_argument("--ip", default="0.0.0.0")
+    ad.add_argument("--port", type=int, default=7071)
+    ad.set_defaults(fn=cmd_adminserver)
     return p
 
 

@@ -79,12 +79,29 @@ Sites the port wires so far:
 ``replication.leader.partition``  event-plane leader heartbeat — the
                         lease renewal fails as if partitioned; the
                         leader fences itself (writes 503)
+``router.replica.down``  fleet-router forward path — the replica refuses
+                        or drops the proxied request
+``router.replica.slow``  fleet-router forward path — added latency on the
+                        proxied request (drives hedging)
+``router.health.flap``  fleet-router active ``/health`` probe (a flapping
+                        or partitioned replica)
+``slo.probe.fail``      router synthetic prober, before the canary is
+                        sent — the probe fails, so the SLO burn-rate
+                        series spike and ``/health`` degrades
+``autoscale.flap``      autoscaler decision tick — the raw desire is
+                        inverted every tick; the cooldown and flap
+                        damping, not the thresholds, bound the churn
+``remediate.wrong_target``  remediation target selection — a healthy
+                        replica is picked; pre-action verification must
+                        refuse it
+``remediate.storm``     auto-remediation dedup — the same finding
+                        re-fires every tick as new; the per-playbook
+                        rate limit alone bounds the blast radius
 ======================  ===================================================
 
 The S3 and HDFS model stores (``storage/remote.py``) pass their
 ``models.s3`` and ``models.hdfs`` sites through ``_ResilientCalls``
-(put, get, delete, list). The JAX package's table lists the rest (the
-router, autoscaler and remediation sites); they come with the router.
+(put, get, delete, list).
 """
 
 from __future__ import annotations

@@ -17,8 +17,9 @@ into fixed-size ring buffers:
   via :meth:`record`, across replicas) and interpolates like
   ``histogram_quantile()``.
 
-Exposed as ``GET /metrics/history?series=&window=`` on the event server
-and the engine server. The scrape loop carries the ``tsdb.scrape.stall``
+Exposed as ``GET /metrics/history?series=&window=`` on the event server,
+the engine server and the router (whose fleet federation feeds scraped
+replica samples into its store through :meth:`record`). The scrape loop carries the ``tsdb.scrape.stall``
 fault site: a wedged scraper degrades history, never serving
 (``pio_tsdb_scrapes_total{result}`` counts outcomes). The store is
 clock-injectable.
@@ -388,10 +389,14 @@ _m_series = REGISTRY.gauge(
     "pio_tsdb_series", "Distinct series resident in the TSDB ring buffers")
 
 
-async def scrape_loop(store: TimeSeriesStore, interval: float) -> None:
+async def scrape_loop(store: TimeSeriesStore, interval: float,
+                      extra: Optional[Callable] = None) -> None:
     """The per-server background scraper task: tick, inject, scrape,
-    count. Fail-open — an error (or an armed ``tsdb.scrape.stall`` plan)
-    costs one tick of history, never the serving path."""
+    count. ``extra`` is an optional async callable run after each local
+    scrape on the same tick (the router federates its fleet and
+    evaluates its SLOs there, so burn rates see this tick's samples).
+    Fail-open — an error (or an armed ``tsdb.scrape.stall`` plan) costs
+    one tick of history, never the serving path."""
     import asyncio
 
     while True:
@@ -399,6 +404,8 @@ async def scrape_loop(store: TimeSeriesStore, interval: float) -> None:
         try:
             await FAULTS.ahit("tsdb.scrape.stall")
             store.scrape()
+            if extra is not None:
+                await extra()
             with store._lock:
                 _m_series.set(len(store._series))
             _m_scrapes.inc(("ok",))

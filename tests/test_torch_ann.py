@@ -15,6 +15,9 @@ math of ``ops/topk.py``) held against the JAX package's, on the CPU.
   break them alike: the JAX package's dense and streamed paths (N =
   70,000, d 8, m 4, K 16) against the port at its default tile width and
   two others;
+- ``chip_smoke.adc_f32_bound`` (the edge of the card's ANN check) covers
+  both packages' f32 ADC scans against the float64 replay, plain and
+  with OPQ;
 - ``ANNScorer`` answers the JAX package's across AOT buckets with pad
   rows, with exclusions and with ``num`` past the shortlist (the k
   clamp); a shard count above 1 raises;
@@ -254,6 +257,37 @@ def test_adc_scores_within_tolerance():
     p = port_topk.adc_scores(torch.from_numpy(Q), torch.from_numpy(C),
                              torch.from_numpy(codes)).numpy()
     assert np.abs(p - j).max() <= SCORE_TOL * np.abs(j).max()
+
+
+@pytest.mark.parametrize("opq", [False, True])
+def test_chip_smoke_adc_bound_covers_the_f32_scans(opq):
+    """``chip_smoke.adc_f32_bound``, the shortlist's edge in phase 13's
+    ANN check: the port's f32 ADC scan (after the f32 rotation with OPQ)
+    and the JAX package's lie within it of the float64 replay for every
+    item, and it stays below the flat 1e-5 it replaced."""
+    import chip_smoke
+
+    V = _clustered(4000, 32, 40, seed=11)
+    index = ann.build_index(V, 8, 256, iters=3, sample=4000, opq=opq, opq_iters=2,
+                            device="cpu")
+    codes = np.ascontiguousarray(index.codes.T)
+    rng = np.random.default_rng(12)
+    for _ in range(8):
+        q = rng.standard_normal(32).astype(np.float32)
+        q /= np.linalg.norm(q)
+        Q = torch.from_numpy(q[None])
+        Qr = Q if index.rotation is None else Q @ torch.from_numpy(index.rotation)
+        port = port_topk.adc_scores(Qr, torch.from_numpy(index.codebooks),
+                                    torch.from_numpy(codes)).numpy()[0]
+        jax = np.asarray(jax_topk.adc_scores(jnp.asarray(Qr.numpy()),
+                                             jnp.asarray(index.codebooks),
+                                             jnp.asarray(codes)))[0]
+        adc, _, _ = chip_smoke.ann_replay(q.astype(np.float64), index,
+                                          V.astype(np.float64), 128)
+        bound = chip_smoke.adc_f32_bound(q.astype(np.float64), index)
+        assert (np.abs(port - adc) <= bound).all()
+        assert (np.abs(jax - adc) <= bound).all()
+        assert 0 < bound.max() < 1e-5
 
 
 def _tied_inputs(seed, N=70_000, d=8, m=4, K=16, B=5):

@@ -1018,7 +1018,10 @@ def test_every_port_fault_site_is_documented_and_exercised():
                               "data.corrupt.model", "data.corrupt.segment",
                               "train.crash", "train.lease.lost", "promote.regression",
                               "replication.follower.lag", "replication.wal.torn",
-                              "replication.leader.partition"}
+                              "replication.leader.partition",
+                              "router.replica.down", "router.replica.slow",
+                              "router.health.flap", "slo.probe.fail", "autoscale.flap",
+                              "remediate.wrong_target", "remediate.storm"}
     assert all(f'"{site}"' in tests for site in wired)
     # every port site is one of the JAX package's documented sites
     assert wired <= set(re.findall(r"^``([a-z_.]+)``", jax_faults.__doc__, re.M))

@@ -466,7 +466,11 @@ MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq"
              "predictionio_tpu_torch.data.replication",
              "predictionio_tpu_torch.server.repl_server",
              "predictionio_tpu_torch.server.trainer",
-             "predictionio_tpu_torch.tools.supervise")
+             "predictionio_tpu_torch.tools.supervise",
+             "predictionio_tpu_torch.server.slo", "predictionio_tpu_torch.server.router",
+             "predictionio_tpu_torch.server.remediate",
+             "predictionio_tpu_torch.server.autoscale",
+             "predictionio_tpu_torch.tools.dashboard", "predictionio_tpu_torch.tools.admin")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
