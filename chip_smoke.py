@@ -30,6 +30,9 @@
                                          # (no result line)
     python3 chip_smoke.py --router     # phases 1, 2, 5 and 19: the fleet router over
                                        # port replicas alone (no result line)
+    python3 chip_smoke.py --mesh       # phases 1, 2, 5 and 20: sharded ALS over a
+                                       # four-slot mesh of the card alone (no
+                                       # result line)
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -111,7 +114,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    on the card: both instances EVALCOMPLETED, equal leaderboard digests,
    every score within 1e-5 relative across the two, compiles <= buckets;
    then ``eval leaderboard``, ``evals list`` and ``evals show``;
-   ``status``, which must name the card. Each step prints its wall time;
+   ``status``, which must name the card; ``undeploy`` stops the deploy
+   (exit 0, nothing listens on its port). Each step prints its wall time;
 8. the factors phase 5 trained, written as a COMPLETED Recommendation
    engine instance into a temporary PIO_HOME through the port's storage,
    deployed with the port's EngineServer (micro-batching, AOT ladder);
@@ -124,9 +128,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (k = 64, 128 and 1,024, the k > 32 path), counters zeroed again just
    before it: every answer checked at its own num, one launch a query,
    its dispatches per (bucket, k, path), p50 and loss;
-9. ``pio eval`` at ML-20M width: the first 6,000,000 of phase 5's
-   ratings (cut from all 20,000,263 to keep the whole run in its time;
-   the vocabularies stay ML-20M's) as the template's training
+9. ``pio eval`` at ML-20M width: the first 3,000,000 of phase 5's
+   ratings (cut from all 20,000,263, then 6,000,000, to keep the whole
+   run in its time; the vocabularies stay ML-20M's) as the template's training
    data, ``run_evaluation(distributed=True)`` on the card over evalK 2,
    rank 64, 10 iterations, lambda 0.01 and 0.1 (cut from four lambdas to
    keep the whole run in its time; one bucket a fold); every fold score held against a float64 recomputation, the
@@ -400,7 +404,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (``PIO_STORAGE_SOURCES_ES_TYPE=ELASTICSEARCH``, ``_PATH=<home>/es``);
    ``app new``; ``import`` of phase 5's draws as ``rate`` events over the
    ML-20M id space (the first 2,000,000 with ``--storage``; the whole run
-   cuts them to the first 150,000 to keep in its time: the index is
+   cuts them to the first 75,000 to keep in its time: the index is
    Python dictionaries and a JSONL WAL that every process replays), its
    wall and events/s printed;
    ``train`` of the Recommendation template at rank 64, 10 iterations,
@@ -497,7 +501,39 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    launches, and their score_topk launches summed (the killed replica's
    are lost with it) must be above 0 (``launches_phase19``); no replica
    process may be left, and no replica may have built a kernel library
-   again (the libraries' files unchanged).
+   again (the libraries' files unchanged);
+20. the device mesh at ML-20M width: ``als_train`` of phase 5's COO and
+   parameters over ``make_mesh(MeshConfig({"data": 4}), devices=[card] *
+   4)``, four shards on the one card, with TF32 turned on around it and
+   the launch counters zeroed just before and read just after: gather_gram
+   and chol_solve must launch exactly iterations x 4 x the merged
+   geometry's buckets (or parts) (``launches_phase20``; the one-device
+   counts printed beside); the layout (``als_prepare_sharded``, its wall
+   printed) against the single-device layout on a sample of entities of
+   each side (the shard that owns one holds exactly its ratings); the
+   sharded factors against their float64 normal equations as phase 5's
+   (64 items given the final U, 64 users given the second-to-last V,
+   ORACLE_TOL), their largest difference from phase 5's factors printed;
+   a warm 9-iteration train timed on four slots and on one (CUDA events,
+   the card's name and power limit beside); a four-slot train cut after 4
+   of 10 iterations (a checkpoint every 2) and resumed to 10, bitwise the
+   straight sharded run's factors with the last 6 iterations' launches
+   only; ``pio train`` in a subprocess with ``meshConf {"mesh": {"data":
+   4}}`` clamped to the one card over phase 5's draws as ``rate`` events
+   on EVENTLOG (all 20,000,263 with ``--mesh``, the first 1,000,000 in the
+   whole run), bitwise the factors of ``als_train`` on one device over the
+   same draws relabelled first-seen as the store relabels them (phase 5's
+   own factors cannot come out of a store: its vocabularies are first-seen
+   and hold no never-rated id), with equal launches, and with
+   ``"allowSmaller": false`` exiting non-zero with the JAX package's
+   message and leaving no row; ``run_sweep`` of a lambda grid of four over
+   phase 5's first 1,000,000 draws unsharded and over two slots of the
+   card (given to ``parallel/distributed.initialize``), equal fold scores
+   and stats; ``version``, ``template new recommendation``, ``build`` and
+   ``run`` through the CLI on a new engine dir, and ``fake_run``, which
+   leaves one COMPLETED row. Phase 7 stops its ``deploy`` with
+   ``undeploy`` (exit 0, the port free). The multi-process path (NCCL) is
+   not run: it needs a second card.
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -515,6 +551,7 @@ import json
 import os
 import pickle
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1424,7 +1461,7 @@ def train_full_width(torch, ops, dev) -> dict:
             "launches": launches, "t_train": t_train, "rmse": rmse}
 
 
-EVAL_RATINGS = 6_000_000  # phase 5's first ratings that phase 9 evaluates over
+EVAL_RATINGS = 3_000_000  # phase 5's first ratings that phase 9 evaluates over
 
 
 def eval_full_width(torch, ops, dev, train) -> dict:
@@ -2219,6 +2256,22 @@ def quickstart_through_cli(torch, ops, dev) -> None:
                   f"{bad} off the reference; in-process score_topk launches {served}",
                   flush=True)
             check(bad == 0, f"{bad} of 20 answers disagree with score_topk_ref")
+
+            # `undeploy` stops the server: GET /stop, the process exits 0
+            # and nothing listens on its port any more
+            t0 = time.perf_counter()
+            out = cli("undeploy", "--ip", "127.0.0.1", "--port", str(port))
+            code = dp.wait(timeout=60)
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=5).close()
+                port_free = False
+            except ConnectionRefusedError:
+                port_free = True
+            print(f"undeploy: {out.strip()}; deploy exited {code} in "
+                  f"{time.perf_counter() - t0:.2f} s; port {port} free: {port_free}",
+                  flush=True)
+            check(code == 0, f"deploy exited {code} after undeploy")
+            check(port_free, f"port {port} still answers after undeploy")
 
             out = cli("status")
             check(torch.cuda.get_device_name(0) in out, "cli status did not name the card")
@@ -6977,7 +7030,7 @@ def eventlog_full_width(torch, ops, dev, coo=None, draws: int = EVENTLOG_DRAWS) 
 
 # phase 17: every repository on ELASTICSEARCH at ML-20M width
 STORAGE_DRAWS = 2_000_000        # phase 5's first draws as `rate` events (--storage)
-STORAGE_RUN_DRAWS = 150_000      # the whole run's cut, to keep it in its time
+STORAGE_RUN_DRAWS = 75_000       # the whole run's cut, to keep it in its time
 STORAGE_QUERIES = 200
 STORAGE_SAMPLE = 1_000           # exported lines held against the imported ones
 
@@ -8285,6 +8338,425 @@ def router_full_width(torch, ops, dev, train) -> dict:
     return out
 
 
+
+# -- phase 20: the device mesh and sharded ALS --------------------------------
+
+MESH_SLOTS = 4        # shards of the four-slot mesh, all on the one card
+MESH_CRASH, MESH_EVERY = 4, 2   # the resume: crash after 4 of 10, save every 2
+MESH_APP_DRAWS = N_RATINGS        # phase 5's draws `pio train` reads (--mesh)
+MESH_APP_RUN_DRAWS = 1_000_000    # the whole run's cut, to keep it in its time
+MESH_SWEEP_DRAWS = 1_000_000      # phase 5's first draws the sharded sweep reads
+MESH_SWEEP_LAMBDAS = (0.003, 0.01, 0.03, 0.1)
+
+
+def entity_pairs(side, pos: int, other_orig):
+    """The (original other id → (count, rating sum)) of the entity at
+    permuted position ``pos`` of a bucketed side, whatever part holds it:
+    the dense head's weight rows, the seg bucket's rows (found through
+    its one-hot) or its ladder bucket's row. ``other_orig`` maps the
+    other side's permuted positions to original ids."""
+    import numpy as np
+
+    out = {}
+
+    def add(others, vals):
+        for o, v in zip(other_orig[others].tolist(), vals.tolist()):
+            c, s = out.get(o, (0, 0.0))
+            out[o] = (c + 1, s + v)
+
+    nb_dense = side.dense.nb if side.dense is not None else 0
+    if pos < nb_dense:
+        cols = np.nonzero(side.dense.w_cnt[pos])[0]
+        return {o: (int(side.dense.w_cnt[pos, c]), float(side.dense.w_val[pos, c]))
+                for o, c in zip(other_orig[cols].tolist(), cols.tolist())}
+    start = nb_dense
+    for b in side.buckets:
+        if pos < start + b.nb:
+            oi = b.other_idx.reshape(-1, b.C)
+            vv = b.vals.reshape(-1, b.C)
+            mm = b.mask.reshape(-1, b.C)
+            if b.seg is None:
+                rows = [pos - start]
+            else:
+                seg = b.seg.reshape(-1, b.slab)
+                ent = b.seg_off[np.arange(seg.shape[0]) // b.slab] + seg.argmax(1)
+                rows = np.nonzero(seg.any(1) & (ent == pos - start))[0].tolist()
+            for r in rows:
+                keep = mm[r] > 0
+                add(oi[r][keep], vv[r][keep].astype(np.float64))
+            break
+        start += b.nb
+    return {o: (c, float(np.float32(s))) for o, (c, s) in out.items()}
+
+
+def check_sharded_layout(prep, sprep, rng) -> int:
+    """Phase 20: on a sample of each side's entities (the heaviest of the
+    dense head and the seg bucket, the rest across the buckets), the
+    shard that owns an entity holds exactly the ratings the single-device
+    layout holds for it (other entity, count and rating sum). Returns the
+    entities checked."""
+    import numpy as np
+
+    n_dev = sprep.n_dev
+    orig_i = np.concatenate([d * sprep.block_i + s.perm for d, s in
+                             enumerate(sprep.i_sides)])
+    orig_u = np.concatenate([d * sprep.block_u + s.perm for d, s in
+                             enumerate(sprep.u_sides)])
+    checked = 0
+    for single, shards, block, other_single, other_sharded in (
+            (prep.u_side, sprep.u_sides, sprep.block_u, prep.i_side.perm, orig_i),
+            (prep.i_side, sprep.i_sides, sprep.block_i, prep.u_side.perm, orig_u)):
+        for e in oracle_entities(single, rng).tolist():
+            d, local = divmod(int(e), block)
+            check(d < n_dev, f"entity {e} has no shard")
+            want = entity_pairs(single, int(single.inv_perm[e]), other_single)
+            got = entity_pairs(shards[d], int(shards[d].inv_perm[local]), other_sharded)
+            check(got == want and len(want) > 0,
+                  f"shard {d}'s layout of entity {e} differs from the single "
+                  f"layout's ({len(got)} vs {len(want)} other entities)")
+            checked += 1
+    return checked
+
+
+def cuda_wall(torch, fn):
+    """(result, ms between CUDA events around ``fn``, host ms)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def clamped_train_through_cli(torch, ops, dev, home: str, coo, draws: int) -> dict:
+    """Phase 20: `pio train` in a subprocess with meshConf {"mesh":
+    {"data": 4}} on the one card clamps the mesh to one device as the JAX
+    package does and gives, bitwise, the factors of `als_train` on one
+    device over the same ratings; "allowSmaller": false exits non-zero
+    with the JAX package's message. The store: phase 5's first ``draws``
+    draws as `rate` events on EVENTLOG, as phase 16 loads them. Phase 5's
+    own factors cannot come out of `pio train`: the store's vocabularies
+    are first-seen (a relabelling, which moves each entity's seeded
+    initial row) and hold no never-rated id. So the one-device reference
+    is phase 5's draws relabelled first-seen, as the store relabels them
+    (``first_seen``), at rank 64, 10 iterations, lambda 0.01."""
+    import io
+
+    import numpy as np
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.models.als import ALSParams, RatingsCOO, als_train
+    from predictionio_tpu_torch.storage import registry
+    from predictionio_tpu_torch.templates.recommendation import engine as rec
+
+    env = {"PIO_HOME": home,
+           "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EVENTLOG",
+           "PIO_STORAGE_SOURCES_EVENTLOG_TYPE": "EVENTLOG"}
+    storage = registry.Storage(registry.StorageConfig.from_env(env))
+    check(storage.config.eventdata_type == "EVENTLOG", "EVENTDATA is not EVENTLOG")
+    apps = {"MeshTrain": draws}
+    if draws != MESH_SWEEP_DRAWS:
+        apps["MeshSweep"] = MESH_SWEEP_DRAWS
+    for name, n in apps.items():
+        app = storage.meta.create_app(name)
+        storage.events.init_channel(app.id)
+        t0 = time.perf_counter()
+        for lo, n_lines, blob in ndjson_chunks(coo.user_idx[:n], coo.item_idx[:n],
+                                               coo.rating[:n], 0):
+            appended, fallback = storage.events.append_jsonl(blob, n_lines, app.id)
+            check(appended == n_lines and not fallback,
+                  f"append_jsonl took {appended} of {n_lines} lines at {lo}")
+        print(f"{name}: phase 5's first {n} draws stored as rate events on "
+              f"EVENTLOG in {time.perf_counter() - t0:.2f} s", flush=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    variant = {"id": "mesh", "engineFactory": workflow.RECOMMENDATION_FACTORY,
+               "datasource": {"params": {"appName": "MeshTrain"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": RANK, "numIterations": ITERATIONS, "lambda": LAMBDA,
+                   "seed": SEED}}],
+               "meshConf": {"mesh": {"data": MESH_SLOTS}}}
+    paths = {}
+    for name, conf in (("clamp", variant["meshConf"]),
+                       ("strict", {**variant["meshConf"], "allowSmaller": False})):
+        paths[name] = os.path.join(home, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump({**variant, "meshConf": conf}, f)
+    cli_env = dict(os.environ, **env)
+    t0 = time.perf_counter()
+    proc = subprocess.run(CLI + ["train", "--engine-dir", repo, "-e", paths["clamp"]],
+                          cwd=repo, env=cli_env, capture_output=True, text=True,
+                          timeout=900)
+    t_cli = time.perf_counter() - t0
+    print(proc.stdout.strip(), flush=True)
+    check(proc.returncode == 0, f"clamped train failed:\n{proc.stderr[-4000:]}")
+    iid = re.search(r"engine instance (\S+)", proc.stdout).group(1)
+    found = dict(re.findall(r"(\w+)=(\d+)", proc.stdout.split("kernel launches:")[-1]))
+    d = pickle.loads(pickle.loads(storage.models.get(iid))[0])
+    z = np.load(io.BytesIO(d["npz"]))
+    Uc, Vc = z["U"], z["V"]
+    inst = storage.meta.get_engine_instance(iid)
+
+    # the reference: one device, phase 5's draws relabelled as the store does
+    t0 = time.perf_counter()
+    (u_vocab, u_idx), (i_vocab, i_idx) = (first_seen(coo.user_idx[:draws]),
+                                          first_seen(coo.item_idx[:draws]))
+    p = rec.ALSAlgorithm._als_params(rec.ALSAlgorithmParams(
+        rank=RANK, num_iterations=ITERATIONS, lambda_=LAMBDA, seed=SEED))
+    check(p == ALSParams(rank=RANK, iterations=ITERATIONS, reg=LAMBDA,
+                         weighted_reg=True, implicit=False, seed=SEED),
+          f"the template's ALS parameters {p} are not phase 5's")
+    reset_counters(ops)
+    U1, V1 = als_train(RatingsCOO(u_idx, i_idx, coo.rating[:draws], len(u_vocab),
+                                  len(i_vocab)), p, device=dev)
+    one = read_counters(ops)
+    t_one = time.perf_counter() - t0
+    bitwise = np.array_equal(Uc, U1) and np.array_equal(Vc, V1)
+    print(f"pio train with meshConf {variant['meshConf']} on one card (subprocess, "
+          f"{t_cli:.2f} s, phase 5's first {draws} draws from the store): "
+          f"{inst.status}, launches {found}; als_train on one device over the "
+          f"same draws relabelled first-seen ({t_one:.2f} s) launched {one}; "
+          f"factors {Uc.shape[0]} users (of {N_USERS} ids) x {Vc.shape[0]} items "
+          f"(of {N_ITEMS}), bitwise equal: {bitwise}", flush=True)
+    check(inst.status == "COMPLETED", f"clamped instance {inst.status}")
+    check(inst.mesh_conf == variant["meshConf"], f"recorded meshConf {inst.mesh_conf}")
+    check(bitwise, "the clamped train's factors differ from the one-device train's")
+    for name in ("gather_gram", "chol_solve"):
+        check(int(found.get(name, 0)) == one[name] > 0,
+              f"clamped train launched {name} {found.get(name)} times, one device "
+              f"{one[name]}")
+    before = len(storage.meta.list_engine_instances())
+    proc = subprocess.run(CLI + ["train", "--engine-dir", repo, "-e", paths["strict"]],
+                          cwd=repo, env=cli_env, capture_output=True, text=True,
+                          timeout=600)
+    msg = f"mesh needs {MESH_SLOTS} devices, have 1"
+    print(f"pio train with allowSmaller false: exit {proc.returncode}, "
+          f"{msg!r} in stderr: {msg in proc.stderr}", flush=True)
+    check(proc.returncode != 0 and msg in proc.stderr,
+          f"allowSmaller false: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+    check(len(storage.meta.list_engine_instances()) == before,
+          "the refused train left an instance row")
+    return {"storage": storage, "variant": variant, "repo": repo,
+            "sweep_app": "MeshSweep" if "MeshSweep" in apps else "MeshTrain"}
+
+
+def sharded_sweep_on_card(dev, storage, app: str) -> None:
+    """Phase 20: the distributed sweep of a lambda grid of four over
+    ``app`` (phase 5's first MESH_SWEEP_DRAWS draws), unsharded and dealt
+    out over two slots of the card (two rows a slot; the slots given to
+    the distributed runtime, as every mesh takes them): equal fold scores,
+    scores and dispatch stats."""
+    from predictionio_tpu_torch.controller import EngineParams, WorkflowContext
+    from predictionio_tpu_torch.core.sweep import run_sweep
+    from predictionio_tpu_torch.parallel import distributed
+    from predictionio_tpu_torch.templates.recommendation import engine as rec
+
+    cands = [EngineParams(
+        data_source_params=rec.DataSourceParams(app_name=app, eval_k=2),
+        algorithms_params=[("als", rec.ALSAlgorithmParams(
+            rank=RANK, num_iterations=ITERATIONS, lambda_=lam, seed=SEED))])
+        for lam in MESH_SWEEP_LAMBDAS]
+    ctx = WorkflowContext(storage=storage, device=dev)
+    out = {}
+    for shards in (0, 2):
+        t0 = time.perf_counter()
+        distributed.initialize(slots=[dev] * 2)
+        try:
+            res = run_sweep(ctx, rec.engine_factory(), cands, rec.NegRMSE(),
+                            sweep_shards=shards)
+        finally:
+            distributed.shutdown()
+        out[shards] = res
+        print(f"sweep over {len(cands)} lambdas, sweep_shards={shards}: "
+              f"{time.perf_counter() - t0:.2f} s wall, shards {res.shards}, "
+              f"{res.dispatches} dispatches, scores "
+              f"{[round(s, 6) for _, s, _ in res.result.candidates]}", flush=True)
+    check(out[2].shards == 2, f"sharded sweep ran {out[2].shards} shards")
+    check(out[2].fold_scores == out[0].fold_scores,
+          "sharded sweep's fold scores differ from the unsharded sweep's")
+    for key in ("buckets", "dispatches", "vmapped", "serial"):
+        check(out[2].stats()[key] == out[0].stats()[key], f"sweep stats {key} differ")
+
+
+def last_verbs_on_card(torch, dev, home: str, engine: dict) -> None:
+    """Phase 20: `version`, `template new recommendation`, `build` and
+    `run` through the port's CLI on a new engine dir, and `fake_run`,
+    which must leave one COMPLETED row."""
+    import io
+
+    from predictionio_tpu_torch import __version__
+    from predictionio_tpu_torch.core.fake_workflow import fake_run
+    from predictionio_tpu_torch.tools import cli
+
+    def verb(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                cli.main(list(argv))
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        return code, out.getvalue().strip()
+
+    engine_dir = os.path.join(home, "engine")
+    steps = [("version", verb("version"))]
+    steps.append(("template new", verb("template", "new", "recommendation", engine_dir)))
+    with open(os.path.join(engine_dir, "engine.json"), "rb") as f, \
+            open(os.path.join(engine["repo"], "predictionio_tpu_torch", "templates",
+                              "recommendation", "engine.json"), "rb") as g:
+        same = f.read() == g.read()
+    steps.append(("build", verb("build", "--engine-dir", engine_dir)))
+    with open(os.path.join(engine_dir, "mesh_probe.py"), "w") as f:
+        f.write("import torch\n"
+                "from predictionio_tpu_torch.parallel.mesh import make_mesh\n"
+                "def main(*args):\n"
+                "    return f\"{' '.join(args)} on {torch.cuda.get_device_name(0)}, \"\\\n"
+                "        f\"mesh {make_mesh().shape}\"\n")
+    steps.append(("run", verb("run", "mesh_probe:main", "probe", "--engine-dir", engine_dir)))
+    for name, (code, out) in steps:
+        print(f"cli {name}: exit {code}: {out}", flush=True)
+        check(code == 0, f"cli {name} exited {code}")
+    check(steps[0][1][1] == __version__, "cli version")
+    check(same, "template new did not copy the template's engine.json")
+    check("is valid" in steps[2][1][1], "cli build did not validate the engine dir")
+    check(torch.cuda.get_device_name(0) in steps[3][1][1], "cli run did not run")
+    storage = engine["storage"]
+    before = {ei.id for ei in storage.meta.list_engine_instances()}
+    got = fake_run(lambda ctx: (ctx.mesh.shape, str(ctx.device)), storage=storage,
+                   use_mesh=True, label="chip", device=dev)
+    new = [ei for ei in storage.meta.list_engine_instances() if ei.id not in before]
+    print(f"fake_run: {got}; rows {[(ei.engine_factory, ei.status) for ei in new]}",
+          flush=True)
+    check(len(new) == 1 and new[0].status == "COMPLETED"
+          and new[0].engine_factory == "fake:chip", f"fake_run rows {new}")
+
+
+def mesh_full_width(torch, ops, dev, train, draws: int = MESH_APP_DRAWS) -> dict:
+    """Phase 20: sharded ALS over a four-slot mesh of the one card at
+    ML-20M width (phase 5's COO and parameters), its resume, the clamped
+    `pio train` over phase 5's first ``draws`` draws from a store, the
+    sharded sweep and the last verbs."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import als_sharded
+    from predictionio_tpu_torch.models.als import (ALSParams, als_train,
+                                                   als_train_prepared)
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from predictionio_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    t_phase = time.perf_counter()
+    coo, prep = train["coo"], train["prep"]
+    p = ALSParams(rank=RANK, iterations=ITERATIONS, reg=LAMBDA, weighted_reg=True,
+                  implicit=False, seed=SEED)
+    mesh = make_mesh(MeshConfig({"data": MESH_SLOTS}), devices=[dev] * MESH_SLOTS)
+    made = {}
+    prepare = als_sharded.als_prepare_sharded
+
+    def timed_prepare(c, n_dev):
+        t0 = time.perf_counter()
+        made["prep"] = prepare(c, n_dev)
+        made["wall"] = time.perf_counter() - t0
+        return made["prep"]
+
+    # the entry point a user calls; its layout is timed and kept
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    with mock.patch.object(als_sharded, "als_prepare_sharded", timed_prepare), \
+            tf32_matmuls(torch):
+        U4, V4 = als_train(coo, p, mesh=mesh)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    launches = read_counters(ops)
+    sprep, t_layout = made["prep"], made["wall"]
+    for name, sides in (("user", sprep.u_sides), ("item", sprep.i_sides)):
+        s0 = sides[0]
+        dense = (f"{s0.dense.nb} x {s0.dense.n_other}" if s0.dense is not None else "none")
+        print(f"sharded {name} side: {MESH_SLOTS} shards of {s0.n}, dense head {dense} "
+              f"a shard, buckets a shard: "
+              + ", ".join(f"{'seg ' if b.seg is not None else ''}C={b.C} nb={b.nb}"
+                          for b in s0.buckets), flush=True)
+    print(f"als_prepare_sharded(coo, {MESH_SLOTS}): {t_layout:.2f} s wall", flush=True)
+    print(f"als_train over {mesh!r}: {t_host:.2f} s host wall (layout, upload, "
+          f"{ITERATIONS} iterations, fetch); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches "
+          f"{launches}", flush=True)
+    bk = [len(s.buckets) for s in (sprep.u_sides[0], sprep.i_sides[0])]
+    parts = sum(bk) + sum(s.dense is not None for s in (sprep.u_sides[0], sprep.i_sides[0]))
+    single_bk = sum(len(s.buckets) for s in (prep.u_side, prep.i_side))
+    single_parts = single_bk + sum(s.dense is not None for s in (prep.u_side, prep.i_side))
+    want = {"gather_gram": ITERATIONS * MESH_SLOTS * sum(bk),
+            "chol_solve": ITERATIONS * MESH_SLOTS * parts}
+    print(f"expected launches {want} (iterations x shards x the merged geometry's "
+          f"buckets or parts); one device: {ITERATIONS * single_bk} gather_gram, "
+          f"{ITERATIONS * single_parts} chol_solve (phase 5: "
+          f"{train['launches']['gather_gram']}, {train['launches']['chol_solve']})",
+          flush=True)
+    for name in want:
+        check(launches[name] == want[name], f"{name} launched {launches[name]} "
+              f"times, expected {want[name]}")
+    check(np.isfinite(U4).all() and np.isfinite(V4).all(), "non-finite sharded factors")
+
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    n_checked = check_sharded_layout(prep, sprep, rng)
+    print(f"sharded layout against the single layout: {n_checked} sampled entities, "
+          f"each shard's ratings equal ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    # device walls, warm (layouts on the card), the same 9 iterations each
+    p9 = dataclasses.replace(p, iterations=ITERATIONS - 1)
+    (U9s, V9s), ms4, host4 = cuda_wall(
+        torch, lambda: als_sharded.als_train_sharded_prepared(sprep, p9, mesh))
+    (_, _), ms1, host1 = cuda_wall(torch, lambda: als_train_prepared(prep, p9, device=dev))
+    print(f"warm {ITERATIONS - 1} iterations: {MESH_SLOTS} slots {ms4:.1f} ms device "
+          f"({host4:.1f} ms host), one slot {ms1:.1f} ms device ({host1:.1f} ms host) "
+          f"on {card_line()}", flush=True)
+
+    items_chk = oracle_entities(prep.i_side, np.random.default_rng(SEED + 5))
+    users_chk = oracle_entities(prep.u_side, np.random.default_rng(SEED + 6))
+    err_v = normal_equations_err(torch, dev, coo.item_idx, coo.user_idx, coo.rating,
+                                 U4, V4, items_chk, LAMBDA)
+    err_u = normal_equations_err(torch, dev, coo.user_idx, coo.item_idx, coo.rating,
+                                 V9s, U4, users_chk, LAMBDA)
+    rel = max(np.abs(U4 - train["U"]).max() / np.abs(train["U"]).max(),
+              np.abs(V4 - train["V"]).max() / np.abs(train["V"]).max())
+    print(f"sharded factors against float64 normal equations: {len(items_chk)} items "
+          f"given the final U {err_v:.3e}, {len(users_chk)} users given the "
+          f"second-to-last V {err_u:.3e} (limit {ORACLE_TOL}); largest difference "
+          f"from phase 5's factors {rel:.3e} (relative to max|x|)", flush=True)
+    check(err_v <= ORACLE_TOL, f"sharded items off their normal equations: {err_v:.3e}")
+    check(err_u <= ORACLE_TOL, f"sharded users off their normal equations: {err_u:.3e}")
+
+    with tempfile.TemporaryDirectory(prefix="pio_chip_mesh_") as home:
+        ck = TrainCheckpointer(os.path.join(home, "als"))
+        als_sharded.als_train_sharded_prepared(
+            sprep, dataclasses.replace(p, iterations=MESH_CRASH), mesh,
+            checkpointer=ck, checkpoint_every=MESH_EVERY)
+        check(ck.all_steps()[-1] == MESH_CRASH, f"crash left steps {ck.all_steps()}")
+        reset_counters(ops)
+        t0 = time.perf_counter()
+        Ur, Vr = als_sharded.als_train_sharded_prepared(
+            sprep, p, mesh, checkpointer=TrainCheckpointer(os.path.join(home, "als")),
+            checkpoint_every=MESH_EVERY)
+        resumed = read_counters(ops)
+        bitwise = np.array_equal(Ur, U4) and np.array_equal(Vr, V4)
+        print(f"sharded resume: crashed after {MESH_CRASH} of {ITERATIONS} iterations "
+              f"(saved every {MESH_EVERY}), resumed to {ITERATIONS} in "
+              f"{time.perf_counter() - t0:.2f} s with {resumed['gather_gram']} "
+              f"gather_gram launches; bitwise the straight sharded run: {bitwise}",
+              flush=True)
+        check(bitwise, "the resumed sharded factors differ from the straight run's")
+        check(resumed["gather_gram"] * ITERATIONS == want["gather_gram"]
+              * (ITERATIONS - MESH_CRASH), "the resume did not run only the last "
+              f"{ITERATIONS - MESH_CRASH} iterations")
+
+        engine = clamped_train_through_cli(torch, ops, dev, home, coo, draws)
+        sharded_sweep_on_card(dev, engine["storage"], engine["sweep_app"])
+        last_verbs_on_card(torch, dev, home, engine)
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return {"launches": launches, "t_layout": t_layout, "ms4": ms4, "ms1": ms1}
+
+
 def main(argv) -> int:
     import torch
 
@@ -8305,6 +8777,7 @@ def main(argv) -> int:
     storage_only = "--storage" in argv
     replication_only = "--replication" in argv
     router_only = "--router" in argv
+    mesh_only = "--mesh" in argv
     global PROFILE_STEPS
     PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
@@ -8331,6 +8804,14 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if mesh_only:
+        phase("5. full-width training (ML-20M shape, rank 64)")
+        train = train_full_width(torch, ops, dev)
+        phase("20. the device mesh: sharded ALS over four slots at ML-20M width")
+        mesh_full_width(torch, ops, dev, train)
+        phase("done")
+        return 0
 
     if router_only:
         phase("5. full-width training (ML-20M shape, rank 64)")
@@ -8478,6 +8959,8 @@ def main(argv) -> int:
                                   REPL_RUN_TAIL)
     phase("19. the fleet router over port replicas at ML-20M width")
     fleet = router_full_width(torch, ops, dev, train)
+    phase("20. the device mesh: sharded ALS over four slots at ML-20M width")
+    sharded = mesh_full_width(torch, ops, dev, train, MESH_APP_RUN_DRAWS)
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -8517,7 +9000,8 @@ def main(argv) -> int:
         "launches_phase15": universal["launches"]["gather_gram"],
         "launches_phase16": eventlog["launches"]["gather_gram"],
         "launches_phase17": es["launches"]["gather_gram"],
-        "launches_phase18": repl["launches"]["gather_gram"], "max_abs_err": gram_err,
+        "launches_phase18": repl["launches"]["gather_gram"],
+        "launches_phase20": sharded["launches"]["gather_gram"], "max_abs_err": gram_err,
         "ms": gram["ms"], "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"], "bound_by": gram["bound_by"],
         "library_ms": gram["library_ms"],
@@ -8532,7 +9016,8 @@ def main(argv) -> int:
         "launches_phase15": universal["launches"]["chol_solve"],
         "launches_phase16": eventlog["launches"]["chol_solve"],
         "launches_phase17": es["launches"]["chol_solve"],
-        "launches_phase18": repl["launches"]["chol_solve"], "max_abs_err": solve_err,
+        "launches_phase18": repl["launches"]["chol_solve"],
+        "launches_phase20": sharded["launches"]["chol_solve"], "max_abs_err": solve_err,
         "ms": solve["ms"], "plain_ms": solve["plain_ms"],
         "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],

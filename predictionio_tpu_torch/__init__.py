@@ -8,4 +8,6 @@ points run on the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no such request they raise.
 """
 
-__version__ = "0.1.0"
+from predictionio_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

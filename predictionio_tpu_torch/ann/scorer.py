@@ -23,7 +23,7 @@ under ``path="ann"`` (the exact path's is ``"aot"``); a dispatch at an
 unwarmed shape records ``"jit"``, the JAX package's label for the same
 warm-up gap.
 
-The mesh-sharded scorer is not ported (ROADMAP.md queue 1, item 8): a
+The mesh-sharded scorer is not ported (ROADMAP.md queue 1, item 8b): a
 shard count above 1, from the caller, ``PIO_ANN_SHARDS`` or the index
 blob's hint, raises instead of serving unsharded.
 """
@@ -44,7 +44,7 @@ DEFAULT_SHORTLIST = 128
 
 SHARDED_NOT_PORTED = (
     "sharded ANN serving (ShardedANNScorer) is not ported to "
-    "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8)")
+    "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8b)")
 
 
 class _ANNProgram:

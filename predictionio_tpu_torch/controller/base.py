@@ -82,7 +82,9 @@ class WorkflowContext:
     per-phase wall-clock seconds land in ``timings``.
     ``checkpoint_dir`` is where iterative trainers keep mid-train
     checkpoints (``run_train`` points it at a per-(factory, variant)
-    directory; None turns checkpointing off)."""
+    directory; None turns checkpointing off). ``mesh`` is the run's
+    ``parallel/mesh.Mesh`` (None: one device), which the ALS templates
+    train sharded over when it has more than one slot."""
 
     storage: Storage = field(default_factory=get_storage)
     device: Optional[torch.device] = None
@@ -90,6 +92,7 @@ class WorkflowContext:
     timings: Dict[str, float] = field(default_factory=dict)
     instance_id: str = ""
     checkpoint_dir: Optional[str] = None
+    mesh: Optional[Any] = None
 
     def log(self, msg: str) -> None:
         if self.verbose:

@@ -32,7 +32,7 @@ def run_batch_predict(
     if shards and int(shards) > 1:
         raise ValueError(
             f"--shards {shards}: sharded retrieval is not ported to "
-            "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8); "
+            "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8b); "
             "use --shards 0")
     n = 0
     batch = []

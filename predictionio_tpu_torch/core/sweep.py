@@ -13,15 +13,17 @@ over the stacked rows on the device, scoring on the device too.
 
 The JAX package vmaps a bucket into one XLA program; the port runs its
 rows one after another over the one uploaded layout, each through the
-same kernel launches as ``pio train``. Scores come back as per-candidate
-``(stat_sum, stat_count)`` pairs that the metric folds with
+same kernel launches as ``pio train``. With ``sweep_shards > 1`` the rows
+are dealt out over the slots of a ``"shards"`` mesh
+(``parallel/mesh.shards_mesh``): each slot's sub-grid runs on that slot's
+device, and the stats come back in row order. A pool too small for the
+mesh warns and runs unsharded, as the JAX package does. Scores come back
+as per-candidate ``(stat_sum, stat_count)`` pairs that the metric folds with
 ``Metric.sweep_finalize`` — per fold and in total — so rankings equal the
 serial path's (``controller.evaluation.ranking_key``: NaN ranks last).
 Groups whose algorithm, serving or metric cannot run on this path fall
 back to the serial ``eval_batch`` per group, counted in
-``pio_eval_sweep_candidates_total{path="serial"}``. The port has no
-device mesh yet, so ``sweep_shards > 1`` warns and runs unsharded, as
-the JAX package does on a pool too small for the mesh.
+``pio_eval_sweep_candidates_total{path="serial"}``.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ from predictionio_tpu_torch.controller.evaluation import (
     MetricEvaluatorResult,
     ranking_key,
 )
+from predictionio_tpu_torch.parallel.mesh import shards_mesh
 from predictionio_tpu_torch.server.aot import BucketLadder
+from predictionio_tpu_torch.utils.device import resolve_device
 from predictionio_tpu_torch.utils.metrics import REGISTRY
 
 #: grid-width ladder: the stacked hyper axis snaps UP to one of these
@@ -162,37 +166,60 @@ def _tree_shapes(data: Tuple[Any, ...]) -> Tuple:
                  for x in _leaves(data))
 
 
-def _resolve_shards(sweep_shards: int) -> int:
-    """Shard count of the run: 0 (unsharded). The port has no device
-    mesh yet, so a request for more than one shard degrades with the JAX
-    package's warning for a pool too small for the mesh."""
-    if sweep_shards > 1:
-        warnings.warn(f"sweep_shards={sweep_shards} unavailable (mesh needs "
-                      f"{int(sweep_shards)} devices, have 1); running "
-                      "unsharded", RuntimeWarning)
-    return 0
+def _resolve_shards(sweep_shards: int, platform: str):
+    """``(shards, mesh)``: a ``"shards"`` mesh over the slots of
+    ``platform`` (``parallel/mesh.make_mesh``'s pool), or (0, None) when
+    sharding is off or the pool is too small (degrade with a warning,
+    don't fail — the unsharded sweep is always correct)."""
+    if sweep_shards <= 1:
+        return 0, None
+    try:
+        return int(sweep_shards), shards_mesh(int(sweep_shards), platform=platform)
+    except ValueError as e:  # the pool is smaller than the mesh
+        warnings.warn(f"sweep_shards={sweep_shards} unavailable ({e}); "
+                      "running unsharded", RuntimeWarning)
+        return 0, None
 
 
-def _build_stacked(build: Callable[[], Callable]) -> Callable:
+def _on_device(data: Any, device: torch.device) -> Any:
+    """``data`` with every tensor on ``device`` (nested tuples kept)."""
+    if isinstance(data, (tuple, list)):
+        return type(data)(_on_device(x, device) for x in data)
+    return data.to(device) if isinstance(data, torch.Tensor) else data
+
+
+def _build_stacked(build: Callable[[], Callable], mesh=None) -> Callable:
     """The bucket's program over the stacked hyper axis: ``one`` for each
-    row in turn, the results stacked."""
+    row in turn, the results stacked; with a ``"shards"`` mesh the rows
+    are dealt out in equal runs over its slots, each run on its slot's
+    device."""
     one = build()
 
     def stacked(hyper: np.ndarray, *data):
-        outs = [one(row, *data) for row in hyper]
+        if mesh is None:
+            outs = [one(row, *data) for row in hyper]
+        else:
+            per = len(hyper) // mesh.size
+            outs = []
+            for j, device in enumerate(mesh.slots):
+                local = _on_device(data, device)
+                outs += [one(row, *local) for row in hyper[j * per:(j + 1) * per]]
         return [s for s, _ in outs], [c for _, c in outs]
 
     return stacked
 
 
 def _fetch(values: List[Any]) -> np.ndarray:
-    """Per-row results as float64 on the host (one copy for tensors)."""
+    """Per-row results as float64 on the host (one copy for tensors on one
+    device; a sharded sweep's rows are copied device by device)."""
     if values and isinstance(values[0], torch.Tensor):
-        return torch.stack(values).double().cpu().numpy()
+        if len({v.device for v in values}) == 1:
+            return torch.stack(values).double().cpu().numpy()
+        return torch.stack([v.to("cpu", torch.float64) for v in values]).numpy()
     return np.asarray([float(v) for v in values], np.float64)
 
 
-def _dispatch(prog: SweepProgram, cache: _SweepCache, shards: int,
+def _dispatch(prog: SweepProgram, cache: _SweepCache, shards: int, mesh=None,
               ) -> Tuple[np.ndarray, np.ndarray, float]:
     """Run one bucket's whole sub-grid; returns (stat_sums[k],
     stat_counts[k], device_seconds)."""
@@ -201,14 +228,19 @@ def _dispatch(prog: SweepProgram, cache: _SweepCache, shards: int,
         raise ValueError("SweepProgram.hyper must be (k, H)")
     k = hyper.shape[0]
     kp = GRID_LADDER.snap(k)
+    if shards > 1:
+        kp = max(kp, shards)
+        kp = ((kp + shards - 1) // shards) * shards
     if kp > k:
         # pad rows repeat row 0 — same geometry, results sliced off
         hyper = np.concatenate(
             [hyper, np.repeat(hyper[:1], kp - k, axis=0)], axis=0)
     key = (prog.geometry, kp, shards, _tree_shapes(prog.data))
-    fn = cache.get_or_compile(key, lambda: _build_stacked(prog.build))
+    fn = cache.get_or_compile(key, lambda: _build_stacked(prog.build, mesh))
     devices = {x.device for x in _leaves(prog.data)
                if isinstance(x, torch.Tensor) and x.is_cuda}
+    if mesh is not None:
+        devices |= {d for d in mesh.slots if d.type == "cuda"}
     t0 = time.perf_counter()
     sums, counts = fn(hyper, *prog.data)
     for dev in devices:
@@ -240,13 +272,19 @@ def run_sweep(
     scores, just not stacked. ``other_metrics`` are only computed on
     fallback groups (the device path never materializes per-query
     predictions); their slots are NaN elsewhere.
+
+    ``sweep_shards > 1`` deals each bucket's rows out over a ``"shards"``
+    mesh of the slots of the context's device type
+    (``parallel/mesh.make_mesh``'s pool: every card, one CPU, or the
+    slots given to ``parallel/distributed.initialize``, where one device
+    may fill several).
     """
     if not candidates:
         raise ValueError("no candidate engine params to evaluate")
     t_run = time.perf_counter()
     _m_runs.inc()
     cache = cache if cache is not None else FastEvalCache()
-    shards = _resolve_shards(sweep_shards)
+    shards, mesh = _resolve_shards(sweep_shards, resolve_device(ctx.device).type)
     exe = _SweepCache()
 
     n = len(candidates)
@@ -291,7 +329,7 @@ def run_sweep(
                     break
                 covered: set = set()
                 for prog in progs:
-                    sums, counts, dt = _dispatch(prog, exe, shards)
+                    sums, counts, dt = _dispatch(prog, exe, shards, mesh)
                     dispatches += 1
                     device_seconds += dt
                     ctx.log(f"sweep dispatch: fold {f}, {len(prog.indices)} "

@@ -4,9 +4,11 @@ Equivalent of the reference's ``CoreWorkflow`` / ``CreateServer.prepareDeploy``
 (SURVEY.md §3.1–3.2) and of the JAX package's ``core/workflow``:
 
 - :func:`run_train` — INIT row → TRAINING → ``Engine.train`` on the
-  device (mid-train checkpoints under ``train_ckpt_torch/``, resumed with
-  ``resume=True``) → persist the per-algorithm model blobs → COMPLETED
-  (or FAILED);
+  device, or over the device mesh ``meshConf`` names (mid-train
+  checkpoints under ``train_ckpt_torch/``, resumed with ``resume=True``)
+  → persist the per-algorithm model blobs → COMPLETED (or FAILED); under
+  the ``PIO_*`` rendezvous variables every process runs it in lockstep
+  and the coordinator alone writes rows and blobs;
 - :func:`prepare_deploy` — load the latest COMPLETED instance for (engine
   factory, variant), or a given one, rebuild its params from the
   recorded JSON, and restore each algorithm's model onto the serving
@@ -45,13 +47,14 @@ from predictionio_tpu_torch.controller.evaluation import (
     Evaluation,
     MetricEvaluatorResult,
 )
+from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from predictionio_tpu_torch.storage.meta import (
     EngineInstance,
     EvaluationInstance,
     utcnow,
 )
 from predictionio_tpu_torch.storage.registry import Storage, get_storage
-from predictionio_tpu_torch.utils.device import check_mesh, resolve_device
+from predictionio_tpu_torch.utils.device import resolve_device
 
 RECOMMENDATION_FACTORY = "predictionio_tpu_torch.templates.recommendation.engine:engine_factory"
 JAX_RECOMMENDATION_FACTORY = "predictionio_tpu.templates.recommendation.engine:engine_factory"
@@ -141,10 +144,25 @@ def run_train(
     device=None,
     resume: bool = False,
     scan_cache: Optional[bool] = None,
+    use_mesh: bool = True,
 ) -> str:
     """Train and persist one engine instance on ``device`` (CUDA unless
     the caller passes ``"cpu"``; raises when there is no card and no CPU
     request); returns its id.
+
+    ``use_mesh`` (``pio train --no-mesh`` turns it off) puts a device mesh
+    from the variant's ``meshConf`` on the workflow context
+    (``parallel/mesh.make_mesh`` over every process's devices of
+    ``device``'s type, clamped as the JAX package clamps); the ALS
+    templates train sharded over a mesh of more than one slot, the others
+    on ``device`` unless ``meshConf`` asks for more than one slot, which
+    they refuse (``parallel/mesh.one_slot``).
+
+    Multi-process (the ``PIO_*`` rendezvous variables,
+    ``parallel/distributed``): every process runs this in lockstep, the
+    coordinator mints the instance id and broadcasts it, writes the meta
+    and model rows alone, and barriers keep the processes aligned around
+    training.
 
     Exactly one of ``variant`` / ``variant_path`` / ``engine_params``
     supplies the parameters (variant = parsed engine.json dict). The
@@ -163,9 +181,12 @@ def run_train(
     read is suspect), True forces it on, None keeps the process default
     (``PIO_SCAN_CACHE``, on unless set to 0/false/no/off)."""
     from predictionio_tpu_torch.data.store import set_scan_cache
+    from predictionio_tpu_torch.parallel import distributed
     from predictionio_tpu_torch.utils import tracing
 
     device = resolve_device(device)
+    multi = distributed.initialize(device=device)
+    coord = distributed.is_coordinator()
     storage = storage or get_storage()
     port = port_factory(engine_factory)
     engine = EngineFactory.create(port)
@@ -175,8 +196,13 @@ def run_train(
     variant = variant or {}
     if engine_params is None:
         engine_params = engine.params_from_variant(variant)
+    mesh_conf = variant.get("meshConf") or variant.get("sparkConf") or {}
+    mesh = (make_mesh(MeshConfig.from_json(mesh_conf), platform=device.type)
+            if use_mesh else None)
 
-    instance_id = storage.meta.new_instance_id()
+    instance_id = storage.meta.new_instance_id() if coord else ""
+    if multi:
+        instance_id = distributed.broadcast_string(instance_id)
     ei = EngineInstance(
         id=instance_id,
         status="INIT",
@@ -186,7 +212,7 @@ def run_train(
         engine_variant=str(variant.get("id", "")),
         batch=batch or str(variant.get("description", "")),
         env={},
-        mesh_conf=variant.get("meshConf") or variant.get("sparkConf") or {},
+        mesh_conf=mesh_conf,
         data_source_params=json.dumps(params_to_json(engine_params.data_source_params)),
         preparator_params=json.dumps(params_to_json(engine_params.preparator_params)),
         algorithms_params=json.dumps([
@@ -194,46 +220,57 @@ def run_train(
             for n, p in engine_params.algorithms_params]),
         serving_params=json.dumps(params_to_json(engine_params.serving_params)),
     )
-    check_mesh(ei.mesh_conf)
-    storage.meta.insert_engine_instance(ei)
+    if coord:
+        storage.meta.insert_engine_instance(ei)
     ckpt_root = _ckpt_root(storage, port, ei.engine_variant)
-    if not resume:
+    if coord and not resume:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    if multi:
+        distributed.barrier("pio_ckpt_ready")
     ctx = WorkflowContext(storage=storage, device=device, verbose=verbose,
-                          instance_id=instance_id, checkpoint_dir=ckpt_root)
+                          instance_id=instance_id, checkpoint_dir=ckpt_root,
+                          mesh=mesh)
     prev_scan_cache = (set_scan_cache(scan_cache)
                        if scan_cache is not None else None)
     try:
         with tracing.root_span("train.run", engine_factory=engine_factory,
                                instance_id=instance_id):
             ei.status = "TRAINING"
-            storage.meta.update_engine_instance(ei)
+            if coord:
+                storage.meta.update_engine_instance(ei)
             models = engine.train(ctx, engine_params)
             if ctx.timings:
                 ctx.log("train phases: " + ", ".join(
                     f"{k}={v:.3f}s" for k, v in ctx.timings.items()))
-            with tracing.span("train.save", instance_id=instance_id,
-                              algorithms=len(models)):
-                instance_dir = storage.models.model_dir(instance_id)
-                blobs: List[Optional[bytes]] = []
-                for (name, algo), model in zip(
-                        engine.make_algorithms(engine_params), models):
-                    algo_dir = None
-                    if instance_dir is not None:
-                        algo_dir = os.path.join(instance_dir, name)
-                        os.makedirs(algo_dir, exist_ok=True)
-                    blobs.append(algo.save_model(model, algo_dir))
-                storage.models.put(instance_id, pickle.dumps(blobs))
-            ei.status = "COMPLETED"
-            ei.end_time = utcnow()
-            storage.meta.update_engine_instance(ei)
-            # the run completed: its mid-train checkpoints are consumed
-            shutil.rmtree(ckpt_root, ignore_errors=True)
+            if multi:
+                distributed.barrier("pio_train_done")
+            # every process holds the whole model: one writer suffices
+            if coord:
+                with tracing.span("train.save", instance_id=instance_id,
+                                  algorithms=len(models)):
+                    instance_dir = storage.models.model_dir(instance_id)
+                    blobs: List[Optional[bytes]] = []
+                    for (name, algo), model in zip(
+                            engine.make_algorithms(engine_params), models):
+                        algo_dir = None
+                        if instance_dir is not None:
+                            algo_dir = os.path.join(instance_dir, name)
+                            os.makedirs(algo_dir, exist_ok=True)
+                        blobs.append(algo.save_model(model, algo_dir))
+                    storage.models.put(instance_id, pickle.dumps(blobs))
+                ei.status = "COMPLETED"
+                ei.end_time = utcnow()
+                storage.meta.update_engine_instance(ei)
+                # the run completed: its mid-train checkpoints are consumed
+                shutil.rmtree(ckpt_root, ignore_errors=True)
+            if multi:
+                distributed.barrier("pio_persist_done")
             return instance_id
     except Exception:
         ei.status = "FAILED"
         ei.end_time = utcnow()
-        storage.meta.update_engine_instance(ei)
+        if coord:
+            storage.meta.update_engine_instance(ei)
         traceback.print_exc()
         raise
     finally:
@@ -358,6 +395,7 @@ def run_evaluation(
     distributed: bool = False,
     sweep_shards: int = 0,
     device=None,
+    use_mesh: bool = True,
 ) -> Tuple[str, MetricEvaluatorResult]:
     """Grid-search evaluation on ``device`` (CUDA unless the caller passes
     "cpu"; raises when there is no card and no CPU request). Persists an
@@ -370,6 +408,8 @@ def run_evaluation(
     program that trains and scores on the device, instead of a
     per-candidate train and a per-query scoring loop. Rankings equal the
     serial path's; groups the sweep can't stack fall back to it.
+    ``use_mesh`` puts every device of ``device``'s type on the context's
+    mesh, as ``run_train`` does for an empty ``meshConf``.
     """
     device = resolve_device(device)
     storage = storage or get_storage()
@@ -381,8 +421,9 @@ def run_evaluation(
         batch="", env={},
     )
     storage.meta.insert_evaluation_instance(vi)
-    ctx = WorkflowContext(storage=storage, device=device, verbose=verbose,
-                          instance_id=instance_id)
+    ctx = WorkflowContext(
+        storage=storage, device=device, verbose=verbose, instance_id=instance_id,
+        mesh=make_mesh(platform=device.type) if use_mesh else None)
     try:
         if evaluation.metric is None:
             raise ValueError("Evaluation.metric not set")

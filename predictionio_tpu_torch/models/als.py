@@ -16,7 +16,8 @@ one gather → score → top-k launch of the ``score_topk`` kernel
 - :class:`RatingsCOO`, :class:`ALSParams`, :func:`als_prepare` — ratings,
   parameters and the host layout, copied from the JAX package;
 - :func:`als_train`, :func:`als_train_prepared` — training on a device,
-  optionally in checkpointed blocks that a restart resumes;
+  optionally in checkpointed blocks that a restart resumes, or over a
+  mesh of several slots (``models/als_sharded.py``);
 - :func:`als_train_many`, :func:`als_train_scored`,
   :func:`als_sweep_program` — ``pio eval``'s grid: many candidates over
   one prepared, uploaded layout, serially or as sweep programs that
@@ -90,8 +91,10 @@ class ALSParams:
 #
 # The JAX package's host layout, copied so that both packages build the
 # same arrays bit for bit (with its default constants; the port has no
-# environment overrides and no sharded path). Entities are sorted by rating count and padded to a ladder
-# of widths, so each entity's normal equations are ONE row of a dense
+# environment overrides), for one device and, with common bounds, for
+# each shard of models/als_sharded.py. Entities are sorted by rating
+# count and padded to a ladder of widths, so each entity's normal
+# equations are ONE row of a dense
 # batched weighted Gram (no scatter); entities live in count-descending
 # permuted order during training and factors are un-permuted once at the
 # end. The reasons for each constant, and the TPU v5e measurements that
@@ -200,34 +203,57 @@ def _perm_by_count_desc(counts: np.ndarray):
     return perm, inv
 
 
-def _bucket_bounds(counts_sorted: np.ndarray, n_other: int) -> tuple:
-    """Bucket boundaries of one count-desc-sorted count vector:
-    ``(nb_dense, (nb_seg, seg_rows), ((width, nb), … desc))``."""
+def _merge_bounds(counts_sorted_list, n_other: int) -> tuple:
+    """Common bucket boundaries for one or many count-desc-sorted count
+    vectors: ``(nb_dense, (nb_seg, seg_rows), ((width, nb), … desc))``.
+
+    For the sharded path every shard must have the SAME geometry, so
+    boundaries are the elementwise max over the shards' natural
+    boundaries. Placing a lighter entity in a wider bucket (or the dense
+    head) is always safe (capacity ≥ count — see ``_bucket_side``), so
+    max-merging never breaks a shard, only pads it."""
     thresh = max(_DENSE_MIN_COUNT, int(_DENSE_RATIO * n_other))
-    nb_dense = int((counts_sorted >= thresh).sum())
+    nb_dense = max(int((c >= thresh).sum()) for c in counts_sorted_list)
     # byte-cap the head (see _DENSE_HEAD_MB): counts are sorted
     # descending, so truncating keeps the heaviest — highest-payoff —
     # entities and spills the rest to the buckets below
     nb_dense = min(nb_dense, (_DENSE_HEAD_MB << 20) // max(1, 8 * n_other))
-    nb_seg = int((counts_sorted[nb_dense:] > _C_MAX).sum())
-    seg_c = counts_sorted[nb_dense:nb_dense + nb_seg]
-    seg_rows = int(((seg_c + _C_MAX - 1) // _C_MAX).sum())
-    rest = counts_sorted[nb_dense + nb_seg:]
-    rest = rest[rest > 0]
+    nb_seg = max(int((c[nb_dense:] > _C_MAX).sum())
+                 for c in counts_sorted_list)
+    rows_cap = 0
+    if nb_seg:
+        for c in counts_sorted_list:
+            seg_c = c[nb_dense:nb_dense + nb_seg]
+            rows = int(((seg_c + _C_MAX - 1) // _C_MAX).sum())
+            rows_cap = max(rows_cap, rows, 1)
     ladder = np.asarray(_LADDER, np.int64)
-    w, n = np.unique(ladder[np.searchsorted(ladder, rest)], return_counts=True)
-    regs = tuple(sorted(((int(wi), int(ni)) for wi, ni in zip(w, n)),
-                        reverse=True))
-    return (nb_dense, (nb_seg, seg_rows), regs)
+    nbs: dict = {}
+    for c in counts_sorted_list:
+        rest = c[nb_dense + nb_seg:]
+        rest = rest[rest > 0]
+        if rest.size:
+            w, n = np.unique(ladder[np.searchsorted(ladder, rest)],
+                             return_counts=True)
+            for wi, ni in zip(w, n):
+                nbs[int(wi)] = max(nbs.get(int(wi), 0), int(ni))
+    regs = tuple(sorted(nbs.items(), reverse=True))
+    return (nb_dense, (nb_seg, rows_cap), regs)
 
 
 def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
-                 perm, inv_perm, n_other) -> _BucketSide:
+                 perm, inv_perm, n_other, bounds=None) -> _BucketSide:
     """Bucket one orientation. ``idx_other_pos`` must already be mapped
     to the other side's factor-row positions; ``counts/perm/inv_perm``
     come from :func:`_perm_by_count_desc` on this side's counts;
     ``n_other`` is the other side's factor-row count (the width of
-    dense-head weight rows — the gathered factor matrix height)."""
+    dense-head weight rows — the gathered factor matrix height).
+
+    ``bounds`` forces common bucket boundaries (the sharded path: the
+    max-merge over all shards, so every shard has one geometry). Forced
+    boundaries are safe: the entity at permuted position p has count ≤
+    every entity before it, and merged boundaries only ever move p into
+    the dense head or a bucket at least as wide as its natural one — so
+    capacity C ≥ count always holds."""
     nnz = idx_self.shape[0]
     pos = inv_perm[idx_self]
     order = np.argsort(pos, kind="stable")
@@ -236,13 +262,15 @@ def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
     starts = np.zeros(n_self + 1, np.int64)
     np.cumsum(counts_perm, out=starts[1:])
     within = (np.arange(nnz, dtype=np.int64) - starts[ps]).astype(np.int64)
-    nb_dense, (nb_seg, n_rows), regs = _bucket_bounds(counts_perm, n_other)
+    if bounds is None:
+        bounds = _merge_bounds([counts_perm], n_other)
+    nb_dense, (nb_seg, rows_cap), regs = bounds
 
     # dense head: heaviest entities (permuted positions [0, nb_dense))
     # as dense weight rows — see _DENSE_RATIO
     dense = None
     if nb_dense:
-        hi = int(starts[nb_dense])
+        hi = int(starts[min(nb_dense, n_self)])
         # bincount over linearized (entity, other) indices: np.add.at
         # is an unbuffered scalar scatter, ~50-100× slower over the
         # millions of nnz the dense head holds
@@ -252,7 +280,9 @@ def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
             np.float32).reshape(nb_dense, n_other)
         w_val = np.bincount(lin, weights=v[:hi], minlength=size).astype(
             np.float32).reshape(nb_dense, n_other)
-        cnts = counts_perm[:nb_dense].astype(np.float32)
+        cnts = np.zeros(nb_dense, np.float32)
+        real = min(nb_dense, n_self)
+        cnts[:real] = counts_perm[:real]
         dense = _DenseHead(nb_dense, n_other, w_cnt, w_val, cnts)
         # rebase the remainder so the seg/ladder code below sees a
         # self-contained problem over positions [nb_dense, n_self)
@@ -260,6 +290,9 @@ def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
         o, v, within = o[hi:], v[hi:], within[hi:]
         counts_perm = counts_perm[nb_dense:]
         starts = starts[nb_dense:] - hi
+        n_self_rest = max(n_self - nb_dense, 0)
+    else:
+        n_self_rest = n_self
     buckets = []
 
     # heavy entities (count > _C_MAX): one SEGMENTED bucket — each
@@ -270,14 +303,16 @@ def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
     if nb_seg:
         C = _C_MAX
         cnts = counts_perm[:nb_seg]
-        rows_per = (cnts + C - 1) // C
+        rows_per = (cnts + C - 1) // C  # forced-in light entities: 1 row
         row_starts = np.zeros(nb_seg + 1, np.int64)
         np.cumsum(rows_per, out=row_starts[1:])
-        # slab capped at the row count: padding a small bucket to a full
-        # slab made every tiny block solve tens of thousands of identity
-        # systems
-        slab = max(1, min(_SLAB_ELEMS // C, n_rows))
-        n_slabs = -(-n_rows // slab)
+        n_rows = int(row_starts[-1])
+        # slab capped at the (merged) row count: padding a small bucket to
+        # a full slab made every tiny block solve tens of thousands of
+        # identity systems
+        slab = max(1, min(_SLAB_ELEMS // C, rows_cap))
+        n_slabs = -(-rows_cap // slab)
+        assert n_rows <= n_slabs * slab
         R = n_slabs * slab
         oi = np.zeros((R, C), np.int32)
         vv = np.zeros((R, C), np.float32)
@@ -291,11 +326,15 @@ def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
         row_ent = np.repeat(np.arange(nb_seg), rows_per)
         # slab-local one-hot: entity index relative to the slab's first
         # entity (rows are entity-sorted → ≤ slab consecutive entities)
-        seg_off = row_ent[np.minimum(np.arange(n_slabs) * slab,
-                                     n_rows - 1)].astype(np.int32)
-        local = row_ent - seg_off[np.arange(n_rows) // slab]
-        seg = np.zeros((R, slab), np.float32)
-        seg[np.arange(n_rows), local] = 1.0  # pad rows stay all-zero
+        if n_rows:
+            seg_off = row_ent[np.minimum(np.arange(n_slabs) * slab,
+                                         n_rows - 1)].astype(np.int32)
+            local = row_ent - seg_off[np.arange(n_rows) // slab]
+            seg = np.zeros((R, slab), np.float32)
+            seg[np.arange(n_rows), local] = 1.0  # pad rows stay all-zero
+        else:  # a shard with no ratings in the (forced) seg range
+            seg_off = np.zeros(n_slabs, np.int32)
+            seg = np.zeros((R, slab), np.float32)
         buckets.append(_Bucket(
             C, nb_seg, slab, n_slabs,
             oi.reshape(n_slabs, slab, C),
@@ -314,14 +353,16 @@ def _bucket_side(idx_self, idx_other_pos, vals, n_self, counts,
         oi = np.zeros((nb_pad, C), np.int32)
         vv = np.zeros((nb_pad, C), np.float32)
         mm = np.zeros((nb_pad, C), np.float32)
-        lo, hi = int(starts[e]), int(starts[e + nb])
+        # forced boundaries may extend past this shard's entities
+        e_end = min(e + nb, n_self_rest)
+        lo, hi = int(starts[min(e, n_self_rest)]), int(starts[e_end])
         row = (ps[lo:hi] - e).astype(np.int64)
         col = within[lo:hi]
         oi[row, col] = o[lo:hi]
         vv[row, col] = v[lo:hi]
         mm[row, col] = 1.0
         cnt = np.zeros(nb_pad, np.float32)
-        cnt[:nb] = counts_perm[e:e + nb]
+        cnt[: max(e_end - e, 0)] = counts_perm[e:e_end]
         buckets.append(_Bucket(
             C, nb, slab, n_slabs,
             oi.reshape(n_slabs, slab, C),
@@ -601,22 +642,45 @@ def als_train_prepared(prep: ALSPrepared, p: ALSParams, device=None,
 
 
 def als_train(coo: RatingsCOO, params: ALSParams, device=None,
-              checkpointer=None, checkpoint_every: int = 0,
+              checkpointer=None, checkpoint_every: int = 0, mesh=None,
               ) -> Tuple[np.ndarray, np.ndarray]:
     """Train ALS on ``device``; returns (U [n_users, k], V [n_items, k]).
-    ``checkpointer``/``checkpoint_every``: see :func:`als_train_prepared`."""
+    ``checkpointer``/``checkpoint_every``: see :func:`als_train_prepared`.
+
+    ``mesh`` (a ``parallel/mesh.Mesh`` with a ``"data"`` axis) of more
+    than one slot trains sharded over it
+    (:func:`models.als_sharded.als_train_sharded`); a one-slot mesh runs
+    the single-device path on that slot's device."""
+    if mesh is not None and mesh.size > 1:
+        from predictionio_tpu_torch.models.als_sharded import als_train_sharded
+
+        return als_train_sharded(coo, params, mesh, checkpointer=checkpointer,
+                                 checkpoint_every=checkpoint_every)
+    if mesh is not None:
+        device = mesh.slots[0]
     return als_train_prepared(als_prepare(coo), params, device=device,
                               checkpointer=checkpointer,
                               checkpoint_every=checkpoint_every)
 
 
-def als_train_many(coo: RatingsCOO, params_list, device=None) -> list:
+def als_train_many(coo: RatingsCOO, params_list, device=None, mesh=None) -> list:
     """Train one (U, V) per params on the SAME ratings — the ``pio eval``
     grid fan-out — on ``device`` (CUDA unless the caller passes "cpu").
     The host layout is prepared ONCE and uploaded once (the upload is
     cached on the layout, ``_device_buffers``); each candidate then runs
-    the same half-steps as ``pio train``, one after another."""
-    device = resolve_device(device)
+    the same half-steps as ``pio train``, one after another. ``mesh``
+    dispatches as in :func:`als_train`: sharded over more than one slot,
+    else on the one slot's device."""
+    params_list = list(params_list)
+    if mesh is not None and mesh.size > 1:
+        from predictionio_tpu_torch.models.als_sharded import (
+            als_prepare_sharded,
+            als_train_sharded_prepared,
+        )
+
+        sprep = als_prepare_sharded(coo, mesh.size)
+        return [als_train_sharded_prepared(sprep, p, mesh) for p in params_list]
+    device = resolve_device(mesh.slots[0] if mesh is not None else device)
     prep = als_prepare(coo)
     return [als_train_prepared(prep, p, device=device) for p in params_list]
 

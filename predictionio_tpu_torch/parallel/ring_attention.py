@@ -11,8 +11,8 @@ sequence model is one.
 :func:`ring_attention` keeps the JAX signature. With ``mesh=None`` or a
 one-device axis it is :func:`attention_reference`; the sequence-parallel
 ring over several devices is not ported yet (ROADMAP.md queue 1, item
-8) and raises. A mesh here is the ``mesh`` block of an engine.json
-``meshConf``: a mapping of axis name → size.
+8b) and raises. A mesh here is a mapping of axis name → size: the
+``mesh`` block of an engine.json ``meshConf``, or ``parallel/mesh.Mesh.shape``.
 
 Layout: ``[batch, seq, heads, head_dim]``.
 """
@@ -24,7 +24,7 @@ from typing import Mapping, Optional
 
 import torch
 
-from predictionio_tpu_torch.utils.device import MESH_NOT_PORTED
+from predictionio_tpu_torch.parallel.mesh import NOT_PORTED
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,5 +68,5 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "pass mesh=None for single-device attention")
     if int(mesh[axis]) == 1:
         return attention_reference(q, k, v, causal=causal, k_mask=k_mask)
-    raise ValueError(f"ring attention over a {mesh[axis]}-device axis: "
-                     f"{MESH_NOT_PORTED}")
+    raise ValueError(f"ring attention over a {mesh[axis]}-device axis "
+                     f"{NOT_PORTED}")

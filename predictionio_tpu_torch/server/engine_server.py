@@ -690,10 +690,19 @@ class EngineServer:
                         entity_id=pr_id, properties=props, pr_id=pr_id))
                 send = getattr(sink, "send_batch", None)
                 if send is None:  # a sink with send() alone
-                    ids = [self._sink_breaker.call(sink.send, e)
-                           for e in events]
-                else:
+                    self._send_each(sink, events, sp)
+                    return
+                try:
                     ids = self._sink_breaker.call(send, events)
+                except CircuitOpenError:
+                    raise
+                except Exception:
+                    # one failed send is n failed deliveries: the breaker
+                    # counts each, as it counts the JAX package's one
+                    # event a call (the call itself recorded one)
+                    for _ in range(n - 1):
+                        self._sink_breaker.record_failure()
+                    raise
                 ok = sum(i is not None for i in ids)
                 if ok:
                     self._m_feedback.inc(("ok",), n=ok)
@@ -708,6 +717,29 @@ class EngineServer:
             except Exception as e:
                 self._m_feedback.inc(("error",), n=n)  # never breaks serving
                 sp.set_error(f"{type(e).__name__}: {e}")
+
+    def _send_each(self, sink, events: List[Event], sp) -> None:
+        """A sink with ``send()`` alone: each event is one breaker call,
+        counted on its own (ok, error, or breaker_open once the breaker
+        has opened), as the JAX package sends and counts each event; a
+        failed event does not drop the rest of the backlog."""
+        counts = {"ok": 0, "error": 0, "breaker_open": 0}
+        for e in events:
+            try:
+                ok = self._sink_breaker.call(sink.send, e) is not None
+                counts["ok" if ok else "error"] += 1
+            except CircuitOpenError:
+                counts["breaker_open"] += 1
+            except Exception:
+                counts["error"] += 1
+        for status, k in counts.items():
+            if k:
+                self._m_feedback.inc((status,), n=k)
+        if counts["ok"] == len(events):
+            sp.set_attr("result", "ok")
+        else:
+            sp.set_error(f"{len(events) - counts['ok']} of {len(events)} "
+                         "events not delivered")
 
     # -- variant surface -------------------------------------------------------
 

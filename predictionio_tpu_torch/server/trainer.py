@@ -435,6 +435,9 @@ class TrainerConfig:
     router_url: Optional[str] = None
     #: fleet manifest path: replica URLs parsed for reload + bake scraping
     fleet_manifest: Optional[str] = None
+    #: train over the device mesh of the variant's meshConf (train
+    #: --continuous without --no-mesh), as run_train's use_mesh
+    use_mesh: bool = False
     #: the torch device the delta train and the guardrail's scoring run
     #: on: CUDA unless ``"cpu"``; raises when that is CUDA and no card
     device: Optional[str] = None
@@ -591,6 +594,7 @@ class ContinuousTrainer:
             device=self.cfg.device,
             resume=True,
             batch="continuous",
+            use_mesh=self.cfg.use_mesh,
         )
 
     # -- guardrail -------------------------------------------------------------

@@ -11,8 +11,9 @@ RandomForest). Wire shapes preserved:
 Training runs on the training device (CUDA unless the caller asks for the
 CPU) through :mod:`predictionio_tpu_torch.models.naive_bayes`,
 ``.linear`` and ``.forest``; serving scores one query in host numpy, as
-the JAX package does. ``run_train`` refuses a ``meshConf`` asking for
-more than one device. The model blob pickles :class:`ClassificationModel` under its
+the JAX package does. A ``meshConf`` clamped to one device trains as
+without one; a mesh of more than one slot raises (the data-parallel
+paths are not ported yet). The model blob pickles :class:`ClassificationModel` under its
 JAX module path, so an instance either package trains deploys in the
 other.
 """
@@ -43,6 +44,7 @@ from predictionio_tpu_torch.models.linear import (
     logreg_train,
 )
 from predictionio_tpu_torch.models.naive_bayes import NaiveBayesParams, nb_predict, nb_train
+from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.utils import jaxpickle
 
 
@@ -225,6 +227,7 @@ class NaiveBayesAlgorithm(BlobAlgorithm):
         return nb_sweep_programs(ctx, pd.X, pd.y, Xe, ye, params_list)
 
     def train(self, ctx: WorkflowContext, pd: LabeledData) -> ClassificationModel:
+        one_slot(ctx.mesh, "data-parallel naive Bayes")
         p: NBAlgoParams = self.params
         lp, lt = nb_train(pd.X, pd.y,
                           NaiveBayesParams(lambda_=p.lambda_,
@@ -252,6 +255,7 @@ class LogisticRegressionAlgorithm(BlobAlgorithm):
     ParamsClass = LRAlgoParams
 
     def train(self, ctx: WorkflowContext, pd: LabeledData) -> ClassificationModel:
+        one_slot(ctx.mesh, "data-parallel logistic regression")
         p: LRAlgoParams = self.params
         num_classes = max(p.num_classes, int(pd.y.max()) + 1)
         W, b = logreg_train(
@@ -270,6 +274,7 @@ class LogisticRegressionAlgorithm(BlobAlgorithm):
         candidate exactly as ``train`` does."""
         from predictionio_tpu_torch.models.linear import logreg_train_many
 
+        one_slot(ctx.mesh, "data-parallel logistic regression")
         data_classes = int(pd.y.max()) + 1
         wbs = logreg_train_many(
             pd.X, pd.y,
@@ -321,6 +326,7 @@ class RandomForestAlgorithm(BlobAlgorithm):
     def train(self, ctx: WorkflowContext, pd: LabeledData) -> ClassificationModel:
         from predictionio_tpu_torch.models.forest import ForestParams, forest_train
 
+        one_slot(ctx.mesh, "a data-parallel random forest")
         p: RFAlgoParams = self.params
         m = forest_train(pd.X, pd.y, ForestParams(
             n_trees=p.num_trees, max_depth=p.max_depth,

@@ -299,14 +299,16 @@ class ECommAlgorithm(Algorithm):
 
         coo = cls._to_coo(pd)
         results = als_train_many(
-            coo, [cls._als_params(p) for p in params_list], device=ctx.device)
+            coo, [cls._als_params(p) for p in params_list], device=ctx.device,
+            mesh=ctx.mesh)
         return [cls(p)._model(pd, coo, U, V, p, device=ctx.device)
                 for p, (U, V) in zip(params_list, results)]
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> ECommModel:
         p: ECommAlgorithmParams = self.params
         coo = self._to_coo(pd)
-        U, V = als_train(coo, self._als_params(p), device=self.device)
+        U, V = als_train(coo, self._als_params(p), device=self.device,
+                         mesh=ctx.mesh)
         return self._model(pd, coo, U, V, p, device=self.device)
 
     def predict(self, model: ECommModel, query: Dict[str, Any]) -> Dict[str, Any]:

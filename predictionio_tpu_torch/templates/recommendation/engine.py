@@ -285,23 +285,25 @@ class ALSAlgorithm(Algorithm):
     @classmethod
     def train_many(cls, ctx: WorkflowContext, pd: TrainingData,
                    params_list) -> List[ALSModel]:
-        """Grid fan-out (``pio eval``) on ``ctx.device``: the layout is
-        built and uploaded once, then each candidate trains over it
-        (``models/als.als_train_many``)."""
+        """Grid fan-out (``pio eval``) on ``ctx.device``, or sharded over
+        ``ctx.mesh``: the layout is built and uploaded once, then each
+        candidate trains over it (``models/als.als_train_many``)."""
         from predictionio_tpu_torch.models.als import als_train_many
 
         coo, user_ids, item_ids = cls._to_coo(pd)
         results = als_train_many(
-            coo, [cls._als_params(p) for p in params_list], device=ctx.device)
+            coo, [cls._als_params(p) for p in params_list], device=ctx.device,
+            mesh=ctx.mesh)
         return [ALSModel(U, V, user_ids, item_ids, device=ctx.device)
                 for U, V in results]
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> ALSModel:
         """Train on ``self.device`` (set by Engine.train from the
-        workflow context; CUDA unless the run asked for the CPU)."""
+        workflow context; CUDA unless the run asked for the CPU), or
+        sharded over ``ctx.mesh`` when it has more than one slot."""
         coo, user_ids, item_ids = self._to_coo(pd)
         U, V = als_train(
-            coo, self._als_params(self.params), device=self.device,
+            coo, self._als_params(self.params), device=self.device, mesh=ctx.mesh,
             # restart-from-checkpoint (run_train --resume): save U and V
             # every checkpoint_every iterations under the workflow's dir
             checkpointer=ctx.checkpointer("als"),
@@ -361,6 +363,7 @@ class ALSAlgorithm(Algorithm):
             if uidx is not None and iidx is not None:
                 users[j], items[j], valid[j] = uidx, iidx, True
             ratings[j] = float(a)
+        device = ctx.mesh.slots[0] if ctx.mesh is not None else ctx.device
         groups: Dict[tuple, List[int]] = {}
         for i, p in enumerate(params_list):
             key = (int(p.rank), int(p.num_iterations),
@@ -372,7 +375,7 @@ class ALSAlgorithm(Algorithm):
         for idxs in groups.values():
             p0 = cls._als_params(params_list[idxs[0]])
             geometry, build, data = als_sweep_program(
-                prep, p0, users, items, ratings, valid, device=ctx.device)
+                prep, p0, users, items, ratings, valid, device=device)
             hyper = np.asarray(
                 [[params_list[i].lambda_, params_list[i].alpha]
                  for i in idxs], np.float32)

@@ -52,6 +52,7 @@ from predictionio_tpu_torch.models.seq_rec import (
     seq_rec_scores,
     seq_rec_train,
 )
+from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.utils import jaxpickle
 from predictionio_tpu_torch.utils.bimap import BiMap
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -213,6 +214,7 @@ class SeqRecAlgorithm(Algorithm):
             raise ValueError("no user has a sequence of length ≥ 2")
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> SeqRecModel:
+        one_slot(ctx.mesh, "ring attention")
         p: SeqRecAlgorithmParams = self.params
         item_ids = BiMap.string_int(
             i for seq in pd.sequences.values() for i in seq)

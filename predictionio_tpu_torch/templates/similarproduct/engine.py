@@ -301,7 +301,8 @@ class ALSAlgorithm(Algorithm):
         from predictionio_tpu_torch.models.als import als_train_many
 
         als_params = [cls._als_params(p) for p in params_list]
-        results = als_train_many(cls._to_coo(pd), als_params, device=ctx.device)
+        results = als_train_many(cls._to_coo(pd), als_params, device=ctx.device,
+                                 mesh=ctx.mesh)
         return [SimilarProductModel(V, pd.item_ids, pd.item_categories,
                                     ann_index=cls._maybe_index(V, p, ctx.device),
                                     ann_shortlist=p.ann_shortlist,
@@ -311,7 +312,7 @@ class ALSAlgorithm(Algorithm):
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> SimilarProductModel:
         p: ALSAlgorithmParams = self.params
         _, V = als_train(self._to_coo(pd), self._als_params(p),
-                         device=self.device)
+                         device=self.device, mesh=ctx.mesh)
         return SimilarProductModel(V, pd.item_ids, pd.item_categories,
                                    ann_index=self._maybe_index(V, p, self.device),
                                    ann_shortlist=p.ann_shortlist,

@@ -46,6 +46,7 @@ from predictionio_tpu_torch.models.naive_bayes import (
     nb_predict,
     nb_train,
 )
+from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.templates.classification.engine import (
     Accuracy,
     BlobAlgorithm,
@@ -201,6 +202,7 @@ class TextNaiveBayesAlgorithm(_TextAlgorithm):
     ParamsClass = TextNBParams
 
     def train(self, ctx: WorkflowContext, pd: TextLabeledData) -> TextModel:
+        one_slot(ctx.mesh, "data-parallel text classification")
         p: TextNBParams = self.params
         lp, lt = nb_train(pd.X, pd.y,
                           NaiveBayesParams(lambda_=p.lambda_,
@@ -241,6 +243,7 @@ class TextLogisticRegressionAlgorithm(_TextAlgorithm):
     ParamsClass = TextLRParams
 
     def train(self, ctx: WorkflowContext, pd: TextLabeledData) -> TextModel:
+        one_slot(ctx.mesh, "data-parallel text classification")
         p: TextLRParams = self.params
         num_classes = max(p.num_classes, int(pd.y.max()) + 1)
         W, b = logreg_train(

@@ -50,6 +50,7 @@ from predictionio_tpu_torch.models.two_tower import (
     two_tower_train,
     two_tower_user_embed,
 )
+from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.utils import jaxpickle
 from predictionio_tpu_torch.utils.bimap import BiMap
 
@@ -252,6 +253,7 @@ class TwoTowerAlgorithm(Algorithm):
             from predictionio_tpu_torch.ann.scorer import SHARDED_NOT_PORTED
 
             raise ValueError(f"annShards {p.ann_shards}: {SHARDED_NOT_PORTED}")
+        one_slot(ctx.mesh, "data-parallel two-tower training")
         user_ids = pd.interactions.user_ids
         item_ids = pd.interactions.item_ids
         if pd.stream:

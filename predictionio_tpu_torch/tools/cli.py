@@ -75,6 +75,14 @@ Verbs:
   [--watch N]`` read the router's burn rates and federated history;
 - ``dashboard`` serves the evaluation instances on :9000 and
   ``adminserver`` the REST admin API on :7071;
+- ``undeploy`` stops a running ``deploy`` (``GET /stop``);
+- ``template list|new NAME DIR`` lists the engine templates and copies
+  one's ``engine.json`` into a new engine directory; ``build`` checks an
+  engine directory (``engine.json`` parses, the factory resolves, the
+  params bind); ``run module:callable [ARGS]`` calls a function with the
+  engine directory on ``sys.path``; ``shell`` opens a Python prompt with
+  the storage, ``data/store`` and the port's ``pypio`` loaded;
+- ``version`` (and ``--version``) prints the package's version;
 - ``index status [--engine-instance-id ID] [--json] [--shards N]``
   prints a trained instance's PQ index manifests (geometry, bytes, the
   digest verdict, a per-shard layout) from its files alone, without
@@ -93,7 +101,11 @@ The verbs print the JAX CLI's lines and write the same rows, so either
 package's CLI works on a ``PIO_HOME`` the other wrote. ``train``,
 ``deploy``, ``batchpredict``, ``eval`` and ``status`` run on the CUDA
 card and exit non-zero without one; ``--device cpu`` runs them on the
-CPU instead. The
+CPU instead. ``train`` trains over the device mesh of the variant's
+``meshConf`` (sharded ALS over more than one slot; ``--no-mesh`` for one
+device), and under the ``PIO_COORDINATOR_ADDRESS``/``PIO_NUM_PROCESSES``/
+``PIO_PROCESS_ID`` variables one process a host trains together
+(``parallel/distributed.py``). The
 flags are the JAX CLI's flags for the options the port has, plus
 ``--device``: ``deploy --variants SPEC --feedback-url URL
 --feedback-accesskey KEY`` serves a champion and a challenger side by
@@ -105,7 +117,7 @@ MEMORY, EVENTLOG, PGSQL, MYSQL, ELASTICSEARCH, LOCALFS, S3, HDFS), and
 ``status`` opens and checks each of the three repositories.
 
 Left out for now: ``batchpredict --shards`` above 1 (the ANN retrieval
-mesh, ROADMAP.md queue 1, item 8).
+mesh, ROADMAP.md queue 1, item 8b).
 """
 
 from __future__ import annotations
@@ -117,6 +129,7 @@ import sys
 from typing import Any, Dict, List, Optional
 
 from predictionio_tpu_torch.storage.registry import get_storage
+from predictionio_tpu_torch.version import __version__
 
 
 def _die(msg: str, code: int = 1) -> "NoReturn":  # type: ignore[name-defined]
@@ -368,7 +381,8 @@ def cmd_train(args: argparse.Namespace) -> None:
     iid = run_train(factory, variant=variant, batch=args.batch,
                     verbose=args.verbose, device=args.device,
                     resume=args.resume,
-                    scan_cache=False if args.no_scan_cache else None)
+                    scan_cache=False if args.no_scan_cache else None,
+                    use_mesh=not args.no_mesh)
     print(f"[info] Training completed: engine instance {iid} "
           f"(kernel launches: {_launch_counts()})")
 
@@ -432,6 +446,7 @@ def _run_continuous(args: argparse.Namespace, variant: Dict[str, Any],
         reload_urls=args.reload_url or [],
         router_url=args.router_url,
         fleet_manifest=args.fleet_manifest,
+        use_mesh=not args.no_mesh,
         device=args.device,
         verbose=args.verbose,
         metrics_port=args.metrics_port,
@@ -1358,6 +1373,103 @@ def cmd_top(args: argparse.Namespace) -> None:
         _die(f"GET {base}/top failed: {type(e).__name__}: {e}")
 
 
+def cmd_undeploy(args: argparse.Namespace) -> None:
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/stop"
+    with urllib.request.urlopen(url, timeout=10) as r:
+        print(r.read().decode())
+
+
+def cmd_template(args: argparse.Namespace) -> None:
+    """``template list`` prints the registry; ``template new NAME DIR``
+    copies the template's ``engine.json`` into DIR (a template without
+    one gets a minimal variant naming its factory)."""
+    import importlib
+    import shutil
+
+    from predictionio_tpu_torch.templates import TEMPLATES
+
+    if args.tpl_cmd == "list":
+        for name, mod in TEMPLATES.items():
+            print(f"{name:<26} {mod}")
+        return
+    name, dest = args.name, args.dir
+    if name not in TEMPLATES:
+        _die(f"unknown template {name!r}; see `pio template list`")
+    try:
+        mod = importlib.import_module(TEMPLATES[name])
+    except ImportError as e:
+        _die(f"template {name!r} is not available: {e}")
+    os.makedirs(dest, exist_ok=True)
+    src = os.path.join(os.path.dirname(mod.__file__), "engine.json")
+    dst = os.path.join(dest, "engine.json")
+    if os.path.exists(src):
+        shutil.copyfile(src, dst)
+    else:
+        with open(dst, "w", encoding="utf-8") as f:
+            json.dump({"id": "default",
+                       "engineFactory": TEMPLATES[name] + ":engine_factory"},
+                      f, indent=2)
+    print(f"[info] Created engine dir {dest} from template {name!r}. "
+          f"Edit {dst} (set appName) and run `pio train`.")
+
+
+def cmd_build(args: argparse.Namespace) -> None:
+    """Validate an engine dir: engine.json parses, the factory resolves
+    to one of the port's templates, the params bind. Python needs no
+    compile step, so build is the static check before ``train``."""
+    variant = _load_variant_file(args.engine_dir, args.variant)
+    factory = variant.get("engineFactory") or _die("engine.json missing engineFactory")
+    from predictionio_tpu_torch.controller.engine import EngineFactory
+    from predictionio_tpu_torch.core.workflow import port_factory
+
+    try:
+        EngineFactory.create(port_factory(factory)).params_from_variant(variant)
+    except Exception as e:
+        _die(f"engine validation failed: {e}")
+    print(f"[info] Engine {factory} is valid. Ready for `pio train`.")
+
+
+def cmd_run(args: argparse.Namespace) -> None:
+    """Call a ``module:callable`` with the engine dir on ``sys.path``
+    (the reference's ``pio run`` submits a main class); a returned value
+    is printed."""
+    from predictionio_tpu_torch.utils.imports import resolve_spec
+
+    sys.path.insert(0, os.path.abspath(args.engine_dir))
+    rv = resolve_spec(args.main)(*args.args)
+    if rv is not None:
+        print(rv)
+
+
+def shell_namespace() -> Dict[str, Any]:
+    """What ``shell`` preloads: the package, the storage, ``data/store``
+    and the port's ``pypio``, initialised on that storage."""
+    import predictionio_tpu_torch
+    from predictionio_tpu_torch import pypio
+    from predictionio_tpu_torch.data import store
+
+    storage = get_storage()
+    pypio.init(storage)
+    return {"predictionio_tpu_torch": predictionio_tpu_torch,
+            "storage": storage, "store": store, "pypio": pypio}
+
+
+def cmd_shell(args: argparse.Namespace) -> None:
+    """Interactive prompt with the framework loaded (the reference's
+    ``pio-shell --with-pyspark``): the storage and the ``pypio`` bridge
+    are ready before the prompt."""
+    import code
+
+    banner = (f"predictionio_tpu_torch {__version__} shell\n"
+              "preloaded: predictionio_tpu_torch, storage (Storage), store "
+              "(PEventStore/LEventStore API), pypio (initialized: "
+              "pypio.find_events('<app>') -> DataFrame)\n"
+              'try: list(store.find("MyApp1", limit=3))')
+    code.interact(banner=banner, local=shell_namespace())
+
+
 def cmd_dashboard(args: argparse.Namespace) -> None:
     from predictionio_tpu_torch.tools.dashboard import Dashboard
 
@@ -1403,7 +1515,6 @@ def cmd_import(args: argparse.Namespace) -> None:
 def cmd_status(args: argparse.Namespace) -> None:
     import torch
 
-    from predictionio_tpu_torch import __version__
     from predictionio_tpu_torch.utils.device import resolve_device
 
     try:
@@ -1695,9 +1806,11 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m predictionio_tpu_torch.tools.cli",
         description="PredictionIO on PyTorch and CUDA. Verbs: app, "
                     "accesskey, eventserver, import, export, train, deploy, "
-                    "eval, evals, status, trace, models, variants, "
+                    "undeploy, eval, evals, status, trace, models, variants, "
                     "incidents, daemon, failover, router, slo, top, "
-                    "doctor, dashboard, adminserver.")
+                    "doctor, dashboard, adminserver, template, build, run, "
+                    "shell, version.")
+    p.add_argument("--version", action="version", version=__version__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ap = sub.add_parser("app", aliases=["apps"],
@@ -1819,9 +1932,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="parallel segment scans per training read "
                          "(default: PIO_SCAN_WORKERS)")
     tp.add_argument("--no-mesh", action="store_true",
-                    help="single-device training (the port always trains "
-                         "on one device; accepted for the JAX CLI's "
-                         "command lines)")
+                    help="single-device training: no device mesh from "
+                         "meshConf")
     tp.add_argument("--read-from", choices=("leader", "follower", "any"),
                     default="leader",
                     help="which event-plane node training reads come "
@@ -2087,8 +2199,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "on the device, instead of one train per "
                          "candidate per fold scored query by query")
     ev.add_argument("--sweep-shards", type=int, default=0,
-                    help="shard each sweep over this many devices (0 = "
-                         "one device; the port has no mesh yet, so more "
+                    help="deal each sweep's rows out over this many "
+                         "devices (0 = one device; a pool too small "
                          "warns and runs unsharded)")
     ev.add_argument("--json", action="store_true",
                     help="print the leaderboard document as JSON")
@@ -2424,6 +2536,34 @@ def build_parser() -> argparse.ArgumentParser:
     ad.add_argument("--ip", default="0.0.0.0")
     ad.add_argument("--port", type=int, default=7071)
     ad.set_defaults(fn=cmd_adminserver)
+
+    ud = sub.add_parser("undeploy", help="stop a running engine server")
+    ud.add_argument("--ip", default="127.0.0.1")
+    ud.add_argument("--port", type=int, default=8000)
+    ud.set_defaults(fn=cmd_undeploy)
+
+    tp = sub.add_parser("template", help="engine templates")
+    tps = tp.add_subparsers(dest="tpl_cmd", required=True)
+    tps.add_parser("list")
+    x = tps.add_parser("new"); x.add_argument("name"); x.add_argument("dir")
+    tp.set_defaults(fn=cmd_template)
+
+    bd = sub.add_parser("build", help="validate an engine dir")
+    bd.add_argument("--engine-dir", default=".")
+    bd.add_argument("-e", "--variant")
+    bd.set_defaults(fn=cmd_build)
+
+    rn = sub.add_parser("run", help="run a module:callable in the framework env")
+    rn.add_argument("main", help="module:callable")
+    rn.add_argument("args", nargs="*")
+    rn.add_argument("--engine-dir", default=".")
+    rn.set_defaults(fn=cmd_run)
+
+    sh = sub.add_parser("shell", help="interactive framework REPL")
+    sh.set_defaults(fn=cmd_shell)
+
+    vp = sub.add_parser("version")
+    vp.set_defaults(fn=lambda a: print(__version__))
     return p
 
 

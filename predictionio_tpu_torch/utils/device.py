@@ -4,14 +4,9 @@ the port."""
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Union
+from typing import Optional, Union
 
 import torch
-
-#: why a mesh of more than one device is refused: the port has none yet
-MESH_NOT_PORTED = (
-    "a device mesh of more than one device is not ported to "
-    "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8)")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -27,17 +22,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def check_mesh(mesh_conf: Optional[Dict[str, Any]]) -> None:
-    """Refuse an engine.json ``meshConf`` block whose ``mesh`` axes
-    (``{"mesh": {"data": 8}}``) ask for more than one device."""
-    want = 1
-    for size in ((mesh_conf or {}).get("mesh") or {}).values():
-        want *= int(size)
-    if want > 1:
-        raise ValueError(f"meshConf {mesh_conf} asks for {want} devices: "
-                         f"{MESH_NOT_PORTED}")
 
 
 @contextlib.contextmanager

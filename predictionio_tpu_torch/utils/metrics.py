@@ -300,7 +300,7 @@ def build_info(instance: str) -> Gauge:
     always-1, with the running version and the server's instance uid as
     labels. Federation turns it into a per-version fleet census — a
     half-finished rollout is one ``sum by (version)`` away."""
-    from predictionio_tpu_torch import __version__
+    from predictionio_tpu_torch.version import __version__
 
     g = REGISTRY.gauge(
         "pio_build_info",

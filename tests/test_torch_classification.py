@@ -48,6 +48,8 @@ from predictionio_tpu.models import forest as jax_forest
 from predictionio_tpu.models import linear as jax_linear
 from predictionio_tpu.models import naive_bayes as jax_nb
 from predictionio_tpu.ops import segment as jax_segment
+from predictionio_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
+from predictionio_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from predictionio_tpu.storage import leaderboard as jax_lb
 from predictionio_tpu.storage import registry as jax_registry
 from predictionio_tpu.storage.registry import Storage as JaxStorage
@@ -55,7 +57,7 @@ from predictionio_tpu.storage.registry import StorageConfig as JaxStorageConfig
 from predictionio_tpu.templates.classification import engine as jax_cls
 from predictionio_tpu.templates.textclassification import engine as jax_text
 from predictionio_tpu.tools import cli as jax_cli
-from predictionio_tpu_torch.controller import EngineParams
+from predictionio_tpu_torch.controller import EngineParams, WorkflowContext
 from predictionio_tpu_torch.core.workflow import (
     CLASSIFICATION_FACTORY,
     JAX_CLASSIFICATION_FACTORY,
@@ -70,13 +72,14 @@ from predictionio_tpu_torch.models import forest as port_forest
 from predictionio_tpu_torch.models import linear as port_linear
 from predictionio_tpu_torch.models import naive_bayes as port_nb
 from predictionio_tpu_torch.ops import segment as port_segment
+from predictionio_tpu_torch.parallel import distributed
+from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from predictionio_tpu_torch.storage import leaderboard as lb
 from predictionio_tpu_torch.storage import registry as port_registry
 from predictionio_tpu_torch.storage.registry import Storage, StorageConfig
 from predictionio_tpu_torch.templates.classification import engine as port_cls
 from predictionio_tpu_torch.templates.textclassification import engine as port_text
 from predictionio_tpu_torch.tools import cli
-from predictionio_tpu_torch.utils.device import check_mesh
 from tests.test_torch_cli import _run
 from tests.test_torch_event_server import ServerThread, request
 
@@ -582,22 +585,59 @@ def test_instances_record_the_jax_factory(home):
 
 
 def test_a_mesh_of_more_than_one_device_is_refused(home):
-    home, _ = home
+    """``meshConf {"data": 8}`` clamps to the one CPU and trains as without
+    a mesh (the JAX package trains on one device alike); ``allowSmaller:
+    false`` raises the JAX package's message; the default mesh of an empty
+    meshConf over two slots trains on its first slot; a meshConf asking
+    for more than one slot is still refused by the classification and
+    text algorithms, naming the remaining item of queue 1."""
+    home, ids = home
+    ps = _port_storage(home)
     v = _variant("nb", CLASSIFICATION_FACTORY)
     v["meshConf"] = {"mesh": {"data": 8}}
-    ps = _port_storage(home)
-    before = len(ps.meta.list_engine_instances())
-    with pytest.raises(ValueError, match="queue 1, item 8"):
-        run_train(CLASSIFICATION_FACTORY, variant=v, storage=ps, device="cpu")
-    assert len(ps.meta.list_engine_instances()) == before
-    for mesh_conf in ({"mesh": {"data": 2}}, {"mesh": {"data": 2, "model": 1}}):
-        with pytest.raises(ValueError, match="queue 1, item 8"):
-            check_mesh(mesh_conf)
-    for mesh_conf in (None, {}, {"mesh": {}}, {"mesh": {"data": 1, "model": 1}}):
-        check_mesh(mesh_conf)
-    v["meshConf"] = {"mesh": {"data": 1}}
     iid = run_train(CLASSIFICATION_FACTORY, variant=v, storage=ps, device="cpu")
     assert ps.meta.get_engine_instance(iid).status == "COMPLETED"
+    assert ps.meta.get_engine_instance(iid).mesh_conf == {"mesh": {"data": 8}}
+    clamped = prepare_deploy(instance_id=iid, storage=ps, device="cpu").models[0]
+    plain = prepare_deploy(instance_id=ids["nb", "port"], storage=ps,
+                           device="cpu").models[0]
+    assert clamped.arrays.keys() == plain.arrays.keys()
+    for key in plain.arrays:
+        np.testing.assert_array_equal(clamped.arrays[key], plain.arrays[key])
+
+    v["meshConf"] = {"mesh": {"data": 8}, "allowSmaller": False}
+    before = len(ps.meta.list_engine_instances())
+    with pytest.raises(ValueError) as mine:
+        run_train(CLASSIFICATION_FACTORY, variant=v, storage=ps, device="cpu")
+    assert len(ps.meta.list_engine_instances()) == before
+    with pytest.raises(ValueError) as theirs:
+        jax_make_mesh(JaxMeshConfig.from_json(v["meshConf"]),
+                      devices=jax.devices("cpu")[:1])
+    assert str(mine.value) == str(theirs.value) == "mesh needs 8 devices, have 1"
+
+    v["meshConf"] = {}
+    distributed.initialize(slots=["cpu"] * 2)
+    try:
+        iid = run_train(CLASSIFICATION_FACTORY, variant=v, storage=ps, device="cpu")
+    finally:
+        distributed.shutdown()
+    default = prepare_deploy(instance_id=iid, storage=ps, device="cpu").models[0]
+    for key in plain.arrays:
+        np.testing.assert_array_equal(default.arrays[key], plain.arrays[key])
+
+    ctx = WorkflowContext(storage=ps, device="cpu",
+                          mesh=make_mesh(MeshConfig({"data": 2}), devices=["cpu"] * 2))
+    for algo in (port_cls.NaiveBayesAlgorithm(port_cls.NBAlgoParams()),
+                 port_cls.LogisticRegressionAlgorithm(port_cls.LRAlgoParams()),
+                 port_cls.RandomForestAlgorithm(port_cls.RFAlgoParams())):
+        with pytest.raises(ValueError, match="queue 1, item 8b"):
+            algo.train(ctx, None)
+    with pytest.raises(ValueError, match="queue 1, item 8b"):
+        port_cls.LogisticRegressionAlgorithm.train_many(ctx, None, [])
+    for algo in (port_text.TextNaiveBayesAlgorithm(port_text.TextNBParams()),
+                 port_text.TextLogisticRegressionAlgorithm(port_text.TextLRParams())):
+        with pytest.raises(ValueError, match="queue 1, item 8b"):
+            algo.train(ctx, None)
 
 
 def test_training_needs_a_card_or_a_cpu_request(home, monkeypatch):

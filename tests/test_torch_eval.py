@@ -439,7 +439,7 @@ def test_mixed_grid_falls_back_to_serial_for_the_ineligible_group(tmp_path):
 
 
 def test_sweep_shards_warn_and_run_unsharded(tmp_path):
-    """No device mesh in the port yet: the JAX package's warning for a
+    """A pool of one device (the CPU): the JAX package's warning for a
     pool too small, then the unsharded sweep with the same scores."""
     ctx = WorkflowContext(storage=Storage(StorageConfig(home=str(tmp_path))),
                           device="cpu")
