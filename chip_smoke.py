@@ -33,6 +33,10 @@
     python3 chip_smoke.py --mesh       # phases 1, 2, 5 and 20: sharded ALS over a
                                        # four-slot mesh of the card alone (no
                                        # result line)
+    python3 chip_smoke.py --sharded    # phases 1, 2 and 21: the serving and attention
+                                       # half of the mesh on four slots of the card
+                                       # alone (no result line); with --profile, the
+                                       # B = 1 ANN dispatches' device time by op
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
@@ -534,6 +538,39 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    leaves one COMPLETED row. Phase 7 stops its ``deploy`` with
    ``undeploy`` (exit 0, the port free). The multi-process path (NCCL) is
    not run: it needs a second card.
+21. the serving and attention half of the mesh, on four slots of the
+   card (``shards_mesh(4, devices=[card] * 4)``, ``make_mesh(MeshConfig(
+   {"data": 4}), devices=[card] * 4)``), the launch counters zeroed just
+   before and read just after (no kernel of the port is on these paths:
+   ``launches_phase21``). (a) a ``ShardedANNScorer`` over phase 13's 10M
+   x 32 catalog and index (built again under ``--sharded``; M 8, K 256,
+   k' 128) at B = 1, 8 and 64, k 16: every answer's items equal, in
+   order, to the unsharded ``ANNScorer``'s, the scores bitwise or within
+   1e-6 relative (printed which), one shard bitwise, no pad row served;
+   both dispatches timed with CUDA events; each slot's resident bytes and
+   the three ``pio_ann_shard_*`` gauges; a 50-item catalog whose last
+   slot holds pad rows, none served; a control (the merge over three of
+   the four slots' lists) must be refused by the item check. (b) 10
+   two-tower steps at phase 13's widths over four slots, in float64, each
+   from the one-slot run's state, every gradient and parameter within
+   TT_STEP_TOL of the one-slot step; a control with each slot's own
+   in-batch negatives must fail it. (c) logistic regression on phase 14's
+   Covertype-shaped 581,012 x 54 (reg 1e-3): each of the template's 100
+   L-BFGS steps over four slots from the one-slot state within 1e-5 of
+   the one-slot step; then ``run_train`` of the classification template
+   with ``meshConf {"mesh": {"data": 4}}`` over four slots in this
+   process (20,000 ``$set`` entities of the table), within 1e-4 of a
+   one-slot train of the same read after 10 steps. (d) SeqRec at phase
+   15's widths with ring attention over four slots: 10 steps, each from
+   the one-slot state, within phase 15's gradient and step tolerances;
+   ring attention (four slots) and Ulysses (two slots, two heads) at
+   those shapes with the causal and key masks, forward and gradient
+   within 1e-5 of a float64 ``attention_reference``, fully masked rows
+   exactly zero. (e) ``batchpredict --shards 4`` through the port's CLI
+   in this process on a two-tower ANN instance: the JAX package's
+   warning logged, served unsharded, the lines equal to ``--shards 0``'s.
+   Its draws are phase 5's first 1,000,000 (made again under
+   ``--sharded``).
 
 Each phase prints its wall time. The line before the last is a JSON
 object with each kernel's numbers; the last line is {"ok": true,
@@ -4930,15 +4967,11 @@ def similar_ann_full_width(torch, ops, dev, coo) -> dict:
     return {k: train_launches[k] for k in ("gather_gram", "chol_solve")}
 
 
-def ann_10m(torch, ops, dev) -> dict:
-    """Phase 13, the 10M catalog: an ANNScorer over BIG_N normalised
-    Gaussian items, the index build timed, ANN dispatches against the
-    exact score_topk over the same corpus (CUDA events), BIG_CHECK_ROWS
-    rows' shortlists against a float64 replay."""
-    import numpy as np
-
-    from predictionio_tpu_torch.ann import ANNScorer, build_index
-    from predictionio_tpu_torch.ops.topk import adc_shortlist, rerank_topk
+def big_catalog(torch, dev) -> dict:
+    """The 10M catalog: BIG_N normalised Gaussian items and
+    max(BIG_BATCHES) queries (seeded, made on the card), and their PQ
+    index built on the card, timed: {"U", "V", "index"}."""
+    from predictionio_tpu_torch.ann import build_index
 
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
     t0 = time.perf_counter()
@@ -4956,6 +4989,20 @@ def ann_10m(torch, ops, dev) -> dict:
           f"{meta['lloyd_sec']:.3f} s over a {min(BIG_N, 65536)}-row sample, encode "
           f"{meta['encode_sec']:.3f} s); codes {index.code_bytes() / 1e6:.1f} MB, "
           f"V {BIG_N * BIG_D * 4 / 1e9:.2f} GB", flush=True)
+    return {"U": U, "V": V, "index": index}
+
+
+def ann_10m(torch, ops, dev, catalog: dict) -> dict:
+    """Phase 13, the 10M catalog: an ANNScorer over ``big_catalog``'s
+    items, ANN dispatches against the exact score_topk over the same
+    corpus (CUDA events), BIG_CHECK_ROWS rows' shortlists against a
+    float64 replay."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ann import ANNScorer
+    from predictionio_tpu_torch.ops.topk import adc_shortlist, rerank_topk
+
+    U, V, index = catalog["U"], catalog["V"], catalog["index"]
     t0 = time.perf_counter()
     scorer = ANNScorer(U, V, index, shortlist=ANN_SHORTLIST, device=dev)
     torch.cuda.synchronize()
@@ -5026,10 +5073,11 @@ def ann_full_width(torch, ops, dev, train, profile: bool = False,
         coo = train["coo"]
     launches = twotower_full_width(torch, ops, dev, coo, profile, check_steps)
     launches.update(similar_ann_full_width(torch, ops, dev, coo))
-    big = ann_10m(torch, ops, dev)
+    catalog = big_catalog(torch, dev)
+    big = ann_10m(torch, ops, dev, catalog)
     wall = time.perf_counter() - t_phase
     print(f"phase 13: {wall:.1f} s wall; launches {launches}", flush=True)
-    return {"launches": launches, "big": big, "wall": wall}
+    return {"launches": launches, "big": big, "wall": wall, "catalog": catalog}
 
 
 # -- phase 14: classification and e2 at full width --------------------------------
@@ -8757,6 +8805,604 @@ def mesh_full_width(torch, ops, dev, train, draws: int = MESH_APP_DRAWS) -> dict
     return {"launches": launches, "t_layout": t_layout, "ms4": ms4, "ms1": ms1}
 
 
+# -- phase 21: the serving and attention half of the mesh -------------------------
+
+SHARD_SLOTS = 4            # slots of phase 21's meshes, all on the one card
+SHARD_SCORE_RTOL = 1e-6    # sharded ANN scores against the unsharded, when not bitwise
+SHARD_PAD_N = 50           # a catalog whose last slot holds pad rows
+SHARD_DRAWS = 1_000_000    # phase 5's first draws (made again under --sharded) for (b), (d), (e)
+SHARD_TT_STEPS = 10        # two-tower steps over four slots, each from the one-slot state
+SHARD_SR_STEPS = 10        # SeqRec steps over four slots, each from the one-slot state
+SHARD_ATT_TOL = 1e-5       # ring and Ulysses against float64 attention_reference
+SHARD_LR_REG = 1e-3        # phase 14's held regularisation
+SHARD_CLS_ENTITIES = 20_000  # the classification app trained over four slots
+SHARD_BP_PAIRS = 200_000   # the pairs of (e)'s two-tower ANN instance
+SHARD_BP_QUERIES = 1_000
+
+
+def sharded_ann_on_card(torch, dev, catalog: dict) -> dict:
+    """Phase 21 (a): a ShardedANNScorer over four slots of the card on the
+    10M catalog against the unsharded ANNScorer: items equal in order,
+    scores bitwise or within SHARD_SCORE_RTOL, one shard bitwise; both
+    timed with CUDA events; each slot's resident bytes and the shard
+    gauges; a pad catalog whose pad rows are never served; and a control
+    (the merge over the first three slots' lists only) that the item
+    check must refuse."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ann import ANNScorer, ShardedANNScorer, build_index
+    from predictionio_tpu_torch.ops import topk as topk_mod
+    from predictionio_tpu_torch.parallel.mesh import shards_mesh
+    from predictionio_tpu_torch.server import aot
+    from predictionio_tpu_torch.server.aot import BucketLadder
+
+    U, V, index = catalog["U"], catalog["V"], catalog["index"]
+    ladder = BucketLadder(list(BIG_BATCHES))
+    walls = {}
+    scorers = {}
+    for name, make in (
+            ("unsharded", lambda: ANNScorer(U, V, index, shortlist=ANN_SHORTLIST, device=dev)),
+            ("one shard", lambda: ShardedANNScorer(U, V, index, shortlist=ANN_SHORTLIST,
+                                                   mesh=shards_mesh(1, devices=[dev]))),
+            ("four shards", lambda: ShardedANNScorer(
+                U, V, index, shortlist=ANN_SHORTLIST,
+                mesh=shards_mesh(SHARD_SLOTS, devices=[dev] * SHARD_SLOTS)))):
+        t0 = time.perf_counter()
+        scorers[name] = make()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        scorers[name].warm_buckets(ladder, ks=(BIG_K,))
+    base, one, sharded = scorers["unsharded"], scorers["one shard"], scorers["four shards"]
+    gauges = [aot.ANN_SHARDS.get(), aot.ANN_SHARD_ITEMS.get(), aot.ANN_SHARD_MERGE.get()]
+    slot_bytes = []
+    for s in range(sharded.shards):
+        b = (sharded._codes[s].numel() + 4 * sharded._V_parts[s].numel()
+             + 4 * sharded._codebooks_at[s].numel())
+        if sharded._rot_at[s] is not None:
+            b += 4 * sharded._rot_at[s].numel()
+        if s == 0:
+            b += 4 * sharded._U.numel()
+        slot_bytes.append(b)
+    print(f"sharded ANN: placed unsharded {walls['unsharded']:.2f} s, one shard "
+          f"{walls['one shard']:.2f} s, {SHARD_SLOTS} shards {walls['four shards']:.2f} s "
+          f"({sharded.local_n} rows a slot, k' {sharded.shortlist}); resident bytes a slot "
+          f"{slot_bytes} (codes + V rows + codebooks, the user table on slot 0); gauges "
+          f"pio_ann_shard_count {gauges[0]:g}, pio_ann_shard_items_per_device {gauges[1]:g}, "
+          f"pio_ann_shard_merge_candidates {gauges[2]:g}", flush=True)
+    check(gauges == [SHARD_SLOTS, sharded.local_n, ANN_SHORTLIST * SHARD_SLOTS],
+          f"sharded ANN gauges {gauges}")
+    rows, bitwise, worst = {}, True, 0.0
+    for B in BIG_BATCHES:
+        ids = np.arange(B, dtype=np.int32)
+        bv, bi = base._topk(ids, BIG_K)
+        sv, si = sharded._topk(ids, BIG_K)
+        ov, oi = one._topk(ids, BIG_K)
+        same = np.array_equal(sv, bv)
+        rel = float(np.abs(sv - bv).max() / max(float(np.abs(bv).max()), 1e-30))
+        bitwise, worst = bitwise and same, max(worst, rel)
+        check(np.array_equal(si, bi), f"sharded ANN B={B}: items differ from the unsharded")
+        check(same or rel <= SHARD_SCORE_RTOL, f"sharded ANN B={B}: scores {rel:.3e} off")
+        check(np.array_equal(ov, bv) and np.array_equal(oi, bi),
+              f"sharded ANN B={B}: one shard not bitwise the unsharded scorer")
+        check(int(si.max()) < BIG_N, f"sharded ANN B={B}: a pad row served")
+        ms4, call4 = cuda_ms(lambda: sharded._topk(ids, BIG_K), iters=10, warmup=2)
+        ms1, call1 = cuda_ms(lambda: base._topk(ids, BIG_K), iters=10, warmup=2)
+        rows[B] = {"ms": ms4, "call_ms": call4, "unsharded_ms": ms1, "unsharded_call_ms": call1}
+        print(f"sharded ANN B={B:2d} k={BIG_K} k'={ANN_SHORTLIST}: items equal in order, "
+              f"scores {'bitwise' if same else f'within {rel:.3e} relative'}, one shard "
+              f"bitwise; dispatch (CUDA events, device ms / per call ms): {SHARD_SLOTS} "
+              f"shards {ms4:.4f} / {call4:.4f}, unsharded {ms1:.4f} / {call1:.4f} "
+              f"({card_line()})", flush=True)
+    if PROFILE_STEPS:
+        profile_sharded_ann(torch, base, sharded)
+    # the control: the merge given every slot's list but the last
+    ids = np.arange(max(BIG_BATCHES), dtype=np.int32)
+    _, bi = base._topk(ids, BIG_K)
+    real = topk_mod.merge_shortlists
+    with mock.patch.object(topk_mod, "merge_shortlists",
+                           lambda v, i, k: real(v[:-1], i[:-1], k)):
+        _, ci = sharded._topk(ids, BIG_K)
+    refused = not np.array_equal(ci, bi)
+    rows_off = int((ci != bi).any(axis=1).sum())
+    print(f"sharded ANN control (the merge over {SHARD_SLOTS - 1} of {SHARD_SLOTS} slots' "
+          f"lists): refused by the item check: {refused} ({rows_off} of {len(ids)} rows "
+          f"differ)", flush=True)
+    check(refused, "sharded ANN: the item check passed a merge missing a slot's list")
+    del base, one, sharded, scorers
+    # pad rows: the last slot's tail
+    Vs = np.ascontiguousarray(V[:SHARD_PAD_N])
+    small_index = build_index(Vs, ANN_M, 16, device=dev)
+    small = ShardedANNScorer(U, Vs, small_index, shortlist=16,
+                             mesh=shards_mesh(SHARD_SLOTS, devices=[dev] * SHARD_SLOTS))
+    plain = ANNScorer(U, Vs, small_index, shortlist=small.shortlist, device=dev)
+    ids = np.arange(len(U), dtype=np.int32)
+    _, pi = small._topk(ids, 8)
+    _, qi = plain._topk(ids, 8)
+    pad_rows = small.local_n * SHARD_SLOTS - SHARD_PAD_N
+    print(f"sharded ANN over {SHARD_PAD_N} items: {pad_rows} pad rows in the last slot, "
+          f"k' {small.shortlist}; largest served row {int(pi.max())}; items equal to the "
+          f"unsharded scorer's at that k': {np.array_equal(pi, qi)}", flush=True)
+    check(pad_rows > 0 and int(pi.max()) < SHARD_PAD_N and np.array_equal(pi, qi),
+          "sharded ANN: a pad row served, or the pad catalog's items differ")
+    return {"rows": rows, "bitwise": bitwise, "rel": worst, "slot_bytes": slot_bytes,
+            "control_rows": rows_off}
+
+
+def profile_sharded_ann(torch, base, sharded) -> None:
+    """--sharded --profile: the device time by op of 10 B = 1 dispatches
+    of the unsharded and the four-shard scorer (torch.profiler), the ten
+    largest a scorer."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = np.zeros(1, dtype=np.int32)
+    for name, scorer in (("unsharded", base), (f"{SHARD_SLOTS} shards", sharded)):
+        scorer._topk(ids, BIG_K)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                scorer._topk(ids, BIG_K)
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            if dev_us and ev.count:
+                rows.append((dev_us / 10, ev.count // 10, ev.key[:60]))
+        for dev_us, calls, key in sorted(rows, reverse=True)[:10]:
+            print(f"profile sharded ANN B=1 {name}: {key:60s} calls a dispatch={calls:3d} "
+                  f"device_us a dispatch={dev_us:.1f}", flush=True)
+
+
+def slot_negatives_trainer(tt):
+    """Phase 21 (b)'s control: the port's two-tower trainer with every
+    slot scoring its rows against its own rows only (B/S in-batch
+    negatives a slot), not the whole batch's as the JAX package's one
+    global program does."""
+
+    class SlotNegatives(tt.TwoTowerTrainer):
+        def contrastive(self, ue, ie):
+            import torch
+
+            n = len(self.slots)
+            return torch.stack([super(SlotNegatives, self).contrastive(u, i)
+                                for u, i in zip(ue.chunk(n), ie.chunk(n))]).mean()
+
+    return SlotNegatives
+
+
+def sharded_two_tower_steps(torch, dev, uu, ii) -> dict:
+    """Phase 21 (b): SHARD_TT_STEPS two-tower steps at phase 13's widths,
+    data-parallel over four slots, each from the one-slot run's state
+    before it (parameters, Adam moments, count), in float64: every
+    gradient and parameter after the step within TT_STEP_TOL of its
+    leaf's max |value| (and in its norm) of the one-slot step; the
+    per-slot-negatives control must leave it."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import two_tower as tt
+    from predictionio_tpu_torch.utils.device import full_f32
+
+    params = tt_variant()["algorithms"][0]["params"]
+    p = tt.TwoTowerParams(embed_dim=params["embedDim"], hidden=list(params["hidden"]),
+                          out_dim=params["outDim"], batch_size=params["batchSize"],
+                          learning_rate=params["learningRate"],
+                          temperature=params["temperature"], seed=0)
+    B = p.batch_size
+    uv, iv = tt.init_variables(N_USERS, N_ITEMS, p)
+    perm = np.random.default_rng(p.seed).permutation(len(uu))[:SHARD_TT_STEPS * B]
+    bu = torch.as_tensor(uu[perm].reshape(-1, B).astype(np.int64), device=dev)
+    bi = torch.as_tensor(ii[perm].reshape(-1, B).astype(np.int64), device=dev)
+    slots = [dev] * SHARD_SLOTS
+
+    def trainer(cls, on):
+        tr = cls(uv, iv, p, dev, on)
+        tr.user.to(torch.float64)
+        tr.item.to(torch.float64)
+        return tr
+
+    def leaves(tr, grad: bool) -> dict:
+        return {f"{side}.{n}": (t.grad if grad else t).detach().cpu().numpy()
+                for side, n, t in tr._named()}
+
+    one = trainer(tt.TwoTowerTrainer, None)
+    runs = {"four slots": trainer(tt.TwoTowerTrainer, slots),
+            "control": trainer(slot_negatives_trainer(tt), slots)}
+    worst = {name: (0.0, "") for name in runs}
+    walls = {"one slot": 0.0, "four slots": 0.0}
+    with full_f32():
+        for j in range(SHARD_TT_STEPS):
+            state = one.state()
+            for tr in runs.values():
+                tr.load_state(state)
+            t0 = time.perf_counter()
+            one.step(bu[j], bi[j])
+            torch.cuda.synchronize()
+            walls["one slot"] += time.perf_counter() - t0
+            ref = {"grad": leaves(one, True), "param": leaves(one, False)}
+            for name, tr in runs.items():
+                t0 = time.perf_counter()
+                tr.step(bu[j], bi[j])
+                torch.cuda.synchronize()
+                if name == "four slots":
+                    walls[name] += time.perf_counter() - t0
+                for what in ("grad", "param"):
+                    for leaf, (e, f) in _leaf_errors(ref[what], leaves(tr, what == "grad"),
+                                                     {}).items():
+                        worst[name] = max(worst[name], (max(e, f), f"{leaf} {what}"))
+    print(f"two-tower over {SHARD_SLOTS} slots: {SHARD_TT_STEPS} float64 steps at batch {B} "
+          f"(embed {p.embed_dim}, hidden {p.hidden}, out {p.out_dim}; {N_USERS} x {N_ITEMS}), "
+          f"each from the one-slot state: worst {worst['four slots'][0]:.3e} "
+          f"({worst['four slots'][1]}; limit {TT_STEP_TOL}, of each leaf's max |value| and "
+          f"in its norm); walls one slot {walls['one slot']:.2f} s, four slots "
+          f"{walls['four slots']:.2f} s ({card_line()})", flush=True)
+    print(f"two-tower control (each slot's own in-batch negatives), which must fail: worst "
+          f"{worst['control'][0]:.3e} ({worst['control'][1]})", flush=True)
+    check(worst["four slots"][0] <= TT_STEP_TOL,
+          f"two-tower over four slots {worst['four slots'][0]:.3e} off the one-slot steps")
+    check(worst["control"][0] > TT_STEP_TOL,
+          "two-tower: the per-slot-negatives control passed the step check")
+    return {"err": worst["four slots"][0], "control": worst["control"][0], "walls": walls}
+
+
+def sharded_lr_on_card(torch, dev, X, y) -> dict:
+    """Phase 21 (c): logistic regression at SHARD_LR_REG on the
+    Covertype-shaped table: the one-slot run's template steps on the
+    card, and from each step's state (point and memory) the same L-BFGS
+    step over four slots, within LR_STEP_TOL of the one-slot next point
+    (of its max |W|)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import lbfgs, linear
+
+    C, d = int(y.max()) + 1, X.shape[1]
+    iters = linear.LogisticRegressionParams().iterations
+    Xd = torch.as_tensor(X).to(dev)
+    yd = torch.as_tensor(y.astype(np.int64)).to(dev)
+    one = linear.loss_and_grad(Xd, yd, C, SHARD_LR_REG)
+    four = linear.sharded_loss_and_grad(linear.data_shares(X, y, [dev] * SHARD_SLOTS),
+                                        len(y), C, SHARD_LR_REG, dev)
+    x = torch.zeros(d * C + C, device=dev)
+    state = lbfgs.lbfgs_init(x)
+    worst, worst_k, walls = 0.0, -1, [0.0, 0.0]
+    for k in range(iters):
+        t0 = time.perf_counter()
+        x4, _, _, _ = lbfgs.lbfgs_step(four, x, state)
+        torch.cuda.synchronize()
+        walls[1] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xn, state, _, _ = lbfgs.lbfgs_step(one, x, state)
+        torch.cuda.synchronize()
+        walls[0] += time.perf_counter() - t0
+        err = float((x4 - xn).abs().max() / xn[:d * C].abs().max())
+        if err > worst:
+            worst, worst_k = err, k
+        x = xn
+    print(f"LR over {SHARD_SLOTS} slots ({len(y)} x {d}, {C} classes, reg {SHARD_LR_REG:g}): "
+          f"each of the {iters} steps from the one-slot state, worst {worst:.3e} of max|W| "
+          f"(step {worst_k}; limit {LR_STEP_TOL}); walls one slot {walls[0]:.2f} s, four "
+          f"slots {walls[1]:.2f} s ({card_line()})", flush=True)
+    check(worst <= LR_STEP_TOL, f"an LR step over four slots is {worst:.3e} off one slot's")
+    return {"step_err": worst, "walls": walls}
+
+
+def sharded_classification_train(torch, dev, X, y) -> dict:
+    """Phase 21 (c): ``run_train`` of the classification template's LR
+    with ``meshConf {"mesh": {"data": 4}}`` over four slots of the card
+    (given to ``parallel/distributed.initialize``), on an app of the
+    table's first SHARD_CLS_ENTITIES rows as ``$set`` events; its weights
+    within LR_CPU_TOL of a one-slot train over the same read after
+    LR_FREE_STEPS steps."""
+    import numpy as np
+
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import (CLASSIFICATION_FACTORY,
+                                                      prepare_deploy, run_train)
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.models import linear
+    from predictionio_tpu_torch.parallel import distributed
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.templates.classification import engine as ce
+
+    attrs = [f"attr{j}" for j in range(X.shape[1])]
+    C = int(y.max()) + 1
+    with tempfile.TemporaryDirectory(prefix="pio_chip_sharded_cls_") as home:
+        storage = Storage(StorageConfig(home=home))
+        app = storage.meta.create_app("ShardCls")
+        storage.events.init_channel(app.id)
+        t0 = time.perf_counter()
+        storage.events.insert_batch([Event(
+            event="$set", entity_type="user", entity_id=f"u{r}",
+            properties={**{a: float(X[r, j]) for j, a in enumerate(attrs)},
+                        "label": int(y[r])}) for r in range(SHARD_CLS_ENTITIES)], app.id)
+        t_insert = time.perf_counter() - t0
+        variant = {"id": "sharded", "engineFactory": CLASSIFICATION_FACTORY,
+                   "datasource": {"params": {"appName": "ShardCls", "attrs": attrs}},
+                   "algorithms": [{"name": "lr", "params": {
+                       "numClasses": C, "iterations": LR_FREE_STEPS, "reg": SHARD_LR_REG}}],
+                   "meshConf": {"mesh": {"data": SHARD_SLOTS}}}
+        distributed.initialize(slots=[dev] * SHARD_SLOTS)
+        try:
+            t0 = time.perf_counter()
+            iid = run_train(CLASSIFICATION_FACTORY, variant=variant, storage=storage, device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            distributed.shutdown()
+        row = storage.meta.get_engine_instance(iid)
+        model = prepare_deploy(instance_id=iid, storage=storage, device=dev).models[0]
+        pd = ce.ClassificationDataSource(ce.DataSourceParams(
+            app_name="ShardCls", attrs=attrs)).read_training(
+            WorkflowContext(storage=storage, device=dev))
+        W1, b1 = linear.logreg_train(pd.X, pd.y, linear.LogisticRegressionParams(
+            num_classes=C, iterations=LR_FREE_STEPS, reg=SHARD_LR_REG), device=dev)
+        scale = float(np.abs(W1).max())
+        err = max(float(np.abs(model.arrays["W"] - W1).max()),
+                  float(np.abs(model.arrays["b"] - b1).max())) / scale
+    print(f"classification run_train over {SHARD_SLOTS} slots (meshConf "
+          f"{row.mesh_conf}): {SHARD_CLS_ENTITIES} $set entities ({len(attrs)} attributes, "
+          f"inserted in {t_insert:.2f} s), {LR_FREE_STEPS} L-BFGS steps, {wall:.2f} s of "
+          f"run_train, status {row.status}; weights against a one-slot train of the same "
+          f"read {err:.3e} of max|W| (limit {LR_CPU_TOL})", flush=True)
+    check(row.status == "COMPLETED" and row.mesh_conf == variant["meshConf"],
+          f"the sharded classification train left {row.status}")
+    check(err <= LR_CPU_TOL, f"the four-slot template train is {err:.3e} off one slot's")
+    return {"err": err, "wall": wall}
+
+
+def _seqrec_grads(torch, sr, net, xb, yb, mesh):
+    """(loss, gradients, each block's ReLU input as numpy) of one SeqRec
+    batch, at full f32."""
+    from predictionio_tpu_torch.utils.device import full_f32
+
+    pre, relu = [], torch.relu
+
+    def recording_relu(x):
+        pre.append(x.detach().cpu().numpy())
+        return relu(x)
+
+    with full_f32(), mock.patch.object(torch, "relu", recording_relu):
+        loss = sr._loss(net, xb, yb, None, mesh)
+        return loss.detach(), torch.autograd.grad(loss, net.leaves()), pre
+
+
+def sharded_seqrec_on_card(torch, dev, users, items) -> dict:
+    """Phase 21 (d): SeqRec at phase 15's widths with ring attention over
+    four slots: SHARD_SR_STEPS steps, each from the one-slot run's state,
+    the loss and gradients within SR_GRAD_TOL and the parameters after
+    the step within SR_STEP_TOL of the one-slot step (entries a switched
+    ReLU reaches left out, ``seqrec_switch_masks``); then ring attention
+    (four slots) and Ulysses (two slots, two heads) at those shapes with
+    the causal and key masks, forward and gradient within SHARD_ATT_TOL
+    of a float64 attention_reference, fully masked rows exactly zero."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import seq_rec as sr
+    from predictionio_tpu_torch.parallel import (attention_reference, ring_attention,
+                                                 ulysses_attention)
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from predictionio_tpu_torch.templates.sequentialrec import engine as se
+    from predictionio_tpu_torch.utils.device import full_f32
+
+    ap = se.SeqRecAlgorithmParams()
+    hp = sr.SeqRecParams(hidden=ap.hidden, num_blocks=ap.num_blocks, num_heads=ap.num_heads,
+                         seq_len=ap.seq_len, epochs=1, lr=ap.lr, batch_size=ap.batch_size,
+                         seed=ap.seed)
+    seqs = seqrec_sequences(users, items)[:SHARD_SR_STEPS * hp.batch_size]
+    X, Y = sr.make_training_batches(seqs, hp, seed=hp.seed)
+    params0 = sr.init_params(N_ITEMS, hp)
+    mesh = make_mesh(MeshConfig({"data": SHARD_SLOTS}), devices=[dev] * SHARD_SLOTS)
+    one = sr.SeqRecNet(params0, hp, dev)
+    one_opt = sr.Adam(one.leaves(), hp.lr)
+    four = sr.SeqRecNet(params0, hp, dev)
+    four_opt = sr.Adam(four.leaves(), hp.lr)
+
+    def errs(got, want, masks):
+        out = []
+        for path, a, b in zip(one.paths, got, want):
+            d = (a.detach().double() - b.detach().double()).abs()
+            scale = max(float(b.detach().abs().max()), 1e-30)
+            if path in masks:
+                d[masks[path]] = 0.0
+            out.append((float(d.max()) / scale, "/".join(path)))
+        return max(out)
+
+    worst_l, worst_g, worst_p, switches = 0.0, (0.0, ""), (0.0, ""), []
+    walls = [0.0, 0.0]
+    for b in range(X.shape[0]):
+        with torch.no_grad():
+            for dst, src in ((four.leaves(), one.leaves()), (four_opt.mu, one_opt.mu),
+                             (four_opt.nu, one_opt.nu)):
+                for a, c in zip(dst, src):
+                    a.copy_(c)
+        four_opt.count = one_opt.count
+        xb = torch.as_tensor(X[b].astype(np.int64), device=dev)
+        yb = torch.as_tensor(Y[b].astype(np.int64), device=dev)
+        t0 = time.perf_counter()
+        l1, g1, p1 = _seqrec_grads(torch, sr, one, xb, yb, None)
+        torch.cuda.synchronize()
+        walls[0] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        l4, g4, p4 = _seqrec_grads(torch, sr, four, xb, yb, mesh)
+        torch.cuda.synchronize()
+        walls[1] += time.perf_counter() - t0
+        masks, flips = seqrec_switch_masks(p1, p4, X[b], one.paths, SR_GRAD_TOL)
+        switches.append(flips)
+        worst_l = max(worst_l, abs(float(l4) - float(l1)) / abs(float(l1)))
+        worst_g = max(worst_g, errs(g4, g1, masks))
+        with full_f32():
+            one_opt.step(list(g1))
+            four_opt.step(list(g4))
+        worst_p = max(worst_p, errs(four.leaves(), one.leaves(), masks))
+    print(f"SeqRec over {SHARD_SLOTS} slots (ring attention; hidden {hp.hidden}, "
+          f"{hp.num_blocks} blocks, {hp.num_heads} heads, seq_len {hp.seq_len}, batch "
+          f"{hp.batch_size}): {X.shape[0]} steps each from the one-slot state: loss "
+          f"{worst_l:.3e} relative, gradients {worst_g[0]:.3e} ({worst_g[1]}; limit "
+          f"{SR_GRAD_TOL}), parameters after the step {worst_p[0]:.3e} ({worst_p[1]}; limit "
+          f"{SR_STEP_TOL}); switched ReLUs by step {switches}; forward+backward walls one "
+          f"slot {walls[0]:.2f} s, four slots {walls[1]:.2f} s ({card_line()})", flush=True)
+    check(worst_l <= SR_GRAD_TOL and worst_g[0] <= SR_GRAD_TOL,
+          f"SeqRec over four slots: gradients {worst_g} (loss {worst_l:.3e}) off one slot's")
+    check(worst_p[0] <= SR_STEP_TOL, f"SeqRec over four slots: step {worst_p} off one slot's")
+
+    # the attention paths alone at these shapes, against float64
+    k_mask = torch.as_tensor(X[0] > 0, device=dev)
+    H, Dh = hp.num_heads, hp.hidden // hp.num_heads
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    shape = (hp.batch_size, hp.seq_len, H, Dh)
+    q, k, v, w = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+    ins64 = [t.double().requires_grad_() for t in (q, k, v)]
+    ref = attention_reference(*ins64, causal=True, k_mask=k_mask)
+    grads64 = torch.autograd.grad((ref * w.double()).sum(), ins64)
+    ref = ref.detach()
+    # a causal query row sees no key when every key up to it is masked
+    dead = (torch.cumsum(k_mask.long(), 1) == 0)
+    out = {}
+    for name, fn, n in (("ring", ring_attention, SHARD_SLOTS), ("ulysses", ulysses_attention, 2)):
+        m = make_mesh(MeshConfig({"data": n}), devices=[dev] * n)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        with full_f32():
+            got = fn(*ins, mesh=m, causal=True, k_mask=k_mask)
+            gs = torch.autograd.grad((got * w).sum(), ins)
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got.double() - ref).abs().max()) / scale
+        gerr = max(float((a.double() - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(gs, grads64))
+        zeros = bool((got[dead] == 0).all())
+        out[name] = (err, gerr)
+        print(f"{name} attention over {n} slots at {tuple(shape)} (causal, key mask of a "
+              f"training batch, {int(dead.sum())} fully masked rows): output {err:.3e}, "
+              f"gradients {gerr:.3e} against float64 attention_reference (limit "
+              f"{SHARD_ATT_TOL}); fully masked rows exactly zero: {zeros}", flush=True)
+        check(err <= SHARD_ATT_TOL and gerr <= SHARD_ATT_TOL and zeros and int(dead.sum()) > 0,
+              f"{name} attention off float64 ({err:.3e}, {gerr:.3e}) or masked rows not zero")
+    return {"grad_err": worst_g[0], "step_err": worst_p[0], "attention": out, "walls": walls}
+
+
+def sharded_batchpredict_cli(torch, dev, uu, ii) -> dict:
+    """Phase 21 (e): a two-tower ANN instance (annM 8, annK 256,
+    annShortlist 128) trained through ``run_train`` on SHARD_BP_PAIRS
+    pairs, then ``batchpredict --shards 4`` and ``--shards 0`` through
+    the port's CLI in this process on the one card: the first logs the
+    JAX package's warning and serves unsharded, and both write the same
+    lines."""
+    import logging
+
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import TWOTOWER_FACTORY, run_train
+    from predictionio_tpu_torch.data.pipeline import InteractionData
+    from predictionio_tpu_torch.storage import Storage, StorageConfig, registry
+    from predictionio_tpu_torch.templates.twotower import engine as tt
+    from predictionio_tpu_torch.tools import cli
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    uu, ii = uu[:SHARD_BP_PAIRS], ii[:SHARD_BP_PAIRS]
+    data = InteractionData(BiMap.string_int(f"u{i}" for i in range(N_USERS)),
+                           BiMap.string_int(f"i{j}" for j in range(N_ITEMS)),
+                           lambda: iter([(uu, ii, np.ones(len(uu), np.float32))]), len(uu))
+    td = tt.TrainingData(data, stream=False)
+    variant = tt_variant(ann=True, annM=ANN_M, annK=ANN_K, annShortlist=ANN_SHORTLIST)
+    said = []
+
+    class Said(logging.Handler):
+        def emit(self, record):
+            said.append(record.getMessage())
+
+    handler = Said()
+    lines = {}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_sharded_bp_") as home:
+        storage = Storage(StorageConfig(home=home))
+        t0 = time.perf_counter()
+        with mock.patch.object(tt.TTDataSource, "read_training", lambda self, ctx: td):
+            run_train(TWOTOWER_FACTORY, variant=variant, storage=storage, device=dev)
+        t_train = time.perf_counter() - t0
+        engine_dir = os.path.join(home, "engine")
+        os.makedirs(engine_dir)
+        with open(os.path.join(engine_dir, "engine.json"), "w") as f:
+            json.dump(variant, f)
+        rng = np.random.default_rng(SEED + 21)
+        src = os.path.join(home, "queries.jsonl")
+        with open(src, "w") as f:
+            f.writelines(json.dumps({"user": f"u{u}", "num": 10}) + "\n"
+                         for u in rng.choice(uu, SHARD_BP_QUERIES))
+        logging.getLogger("pio.ann").addHandler(handler)
+        registry.set_storage(storage)
+        try:
+            with mock.patch.dict(os.environ, {"PIO_ALS_SERVE": "device"}):
+                for shards in (SHARD_SLOTS, 0):
+                    dst = os.path.join(home, f"predictions_{shards}.jsonl")
+                    before = len(said)
+                    code, out = run_cli(cli, ["batchpredict", "--engine-dir", engine_dir,
+                                              "--input", src, "--output", dst, "--shards",
+                                              str(shards), "--device", "cuda"])
+                    print(out.strip(), flush=True)
+                    for msg in said[before:]:
+                        print(f"pio.ann: {msg}", flush=True)
+                    check(code == 0, f"batchpredict --shards {shards} exited {code}")
+                    with open(dst) as f:
+                        lines[shards] = (f.read().splitlines(), said[before:])
+        finally:
+            registry.set_storage(None)
+            logging.getLogger("pio.ann").removeHandler(handler)
+    want = [f"sharded ANN serving unavailable (mesh needs {SHARD_SLOTS} devices, have 1); "
+            "serving unsharded"]
+    same = lines[SHARD_SLOTS][0] == lines[0][0]
+    print(f"batchpredict --shards {SHARD_SLOTS} on a two-tower ANN instance "
+          f"({len(uu)} pairs, run_train {t_train:.2f} s): {len(lines[0][0])} lines, equal to "
+          f"--shards 0: {same}; warnings {lines[SHARD_SLOTS][1]} and {lines[0][1]}", flush=True)
+    check(lines[SHARD_SLOTS][1] == want and lines[0][1] == [],
+          f"batchpredict --shards {SHARD_SLOTS} logged {lines[SHARD_SLOTS][1]}")
+    check(same and len(lines[0][0]) == SHARD_BP_QUERIES,
+          "batchpredict --shards 4 wrote other lines than --shards 0")
+    return {"lines": len(lines[0][0])}
+
+
+def sharded_full_width(torch, ops, dev, coo=None, catalog=None) -> dict:
+    """Phase 21: the serving and attention half of the mesh on four slots
+    of the card (see the module docstring); no kernel of the port is on
+    its path, and the launch counters are read around it."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    reset_counters(ops)
+    if coo is None:
+        t0 = time.perf_counter()
+        users, items, _ = synthetic_ml20m(SHARD_DRAWS, N_USERS, N_ITEMS)
+        print(f"phase 5's first {SHARD_DRAWS} draws made in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    else:
+        users, items = coo.user_idx[:SHARD_DRAWS], coo.item_idx[:SHARD_DRAWS]
+    if catalog is None:
+        catalog = big_catalog(torch, dev)
+    walls = {}
+    t0 = time.perf_counter()
+    ann = sharded_ann_on_card(torch, dev, catalog)
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tt = sharded_two_tower_steps(torch, dev, users, items)
+    walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X, y = synthetic_covertype()
+    lr = sharded_lr_on_card(torch, dev, X, y)
+    cls = sharded_classification_train(torch, dev, X, y)
+    walls["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = sharded_seqrec_on_card(torch, dev, users, items)
+    walls["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bp = sharded_batchpredict_cli(torch, dev, users, items)
+    walls["e"] = time.perf_counter() - t0
+    launches = read_counters(ops)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 21: {wall:.1f} s wall (a {walls['a']:.1f}, b {walls['b']:.1f}, c "
+          f"{walls['c']:.1f}, d {walls['d']:.1f}, e {walls['e']:.1f}); kernel launches "
+          f"{launches}", flush=True)
+    check(np.isfinite(lr["step_err"]), "phase 21: LR step error not finite")
+    return {"launches": launches, "ann": ann, "two_tower": tt, "lr": lr, "cls": cls,
+            "seq": seq, "bp": bp, "wall": wall}
+
+
 def main(argv) -> int:
     import torch
 
@@ -8778,6 +9424,7 @@ def main(argv) -> int:
     replication_only = "--replication" in argv
     router_only = "--router" in argv
     mesh_only = "--mesh" in argv
+    sharded_only = "--sharded" in argv
     global PROFILE_STEPS
     PROFILE_STEPS = "--profile" in argv
     dev = torch.device("cuda", 0)
@@ -8804,6 +9451,12 @@ def main(argv) -> int:
             continue
         print(f"{name} built in {info['seconds']:.2f} s", flush=True)
         print(info["log"].strip(), flush=True)
+
+    if sharded_only:
+        phase("21. the serving and attention half of the mesh, on four slots of the card")
+        sharded_full_width(torch, ops, dev)
+        phase("done")
+        return 0
 
     if mesh_only:
         phase("5. full-width training (ML-20M shape, rank 64)")
@@ -8961,6 +9614,8 @@ def main(argv) -> int:
     fleet = router_full_width(torch, ops, dev, train)
     phase("20. the device mesh: sharded ALS over four slots at ML-20M width")
     sharded = mesh_full_width(torch, ops, dev, train, MESH_APP_RUN_DRAWS)
+    phase("21. the serving and attention half of the mesh, on four slots of the card")
+    half = sharded_full_width(torch, ops, dev, train["coo"], ann["catalog"])
     phase("done")
 
     main = times[BATCH_MAX, AOT_TOPK]
@@ -8984,6 +9639,7 @@ def main(argv) -> int:
         "launches_phase17": es["launches"]["score_topk"],
         "launches_phase18": repl["launches"]["score_topk"],
         "launches_phase19": fleet["launches"],
+        "launches_phase21": half["launches"]["score_topk"],
         "k_gt_32": [{"k": k, "B": B, **{key: times[B, k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for B, k in BAR_CELLS],
         "batchpredict": [{"k": k, "B": B, **{key: times[B, k][key] for key in (

@@ -23,9 +23,14 @@ under ``path="ann"`` (the exact path's is ``"aot"``); a dispatch at an
 unwarmed shape records ``"jit"``, the JAX package's label for the same
 warm-up gap.
 
-The mesh-sharded scorer is not ported (ROADMAP.md queue 1, item 8b): a
-shard count above 1, from the caller, ``PIO_ANN_SHARDS`` or the index
-blob's hint, raises instead of serving unsharded.
+:class:`ShardedANNScorer` partitions the corpus item-wise over the
+slots of a ``"shards"`` mesh axis (``parallel/mesh``): each slot holds
+``local_n`` rows of the PQ codes and of the float corpus, and one
+dispatch runs the per-slot scan at the slot's global column offset, the
+gather of the per-slot shortlists onto the first slot, their merge, each
+slot's share of the exact re-rank and their sum, in slot order. Its
+answers are the unsharded scorer's (every global winner wins its own
+slot under the key order of ``ops/topk``).
 """
 
 from __future__ import annotations
@@ -41,11 +46,6 @@ from predictionio_tpu_torch.models.als import (
     LadderScorer, _bucket_k, serve_on_device)
 
 DEFAULT_SHORTLIST = 128
-
-SHARDED_NOT_PORTED = (
-    "sharded ANN serving (ShardedANNScorer) is not ported to "
-    "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8b)")
-
 
 class _ANNProgram:
     """One warmed serving program for a (batch bucket B, k) pair: the
@@ -159,12 +159,141 @@ class ANNScorer(LadderScorer):
                 str(self.device))
 
 
-class ShardedANNScorer(ANNScorer):
-    """The JAX package's mesh-sharded ANN scorer, by name only: the port
-    has no item-sharded serving yet, so constructing one raises."""
+class _ShardedANNProgram(_ANNProgram):
+    """One warmed sharded serving program for a (B, k) pair: the
+    :class:`_ANNProgram` buffers on the first slot, where the queries are
+    gathered and the result packed. A dispatch:
 
-    def __init__(self, *args, **kwargs):
-        raise ValueError(SHARDED_NOT_PORTED)
+    - Q = U[ids] (pad rows zeroed), copied to every slot (the queries
+      replicate);
+    - each slot's ADC shortlist over its codes at its global offset,
+      pad columns past the corpus tail at ``_NEG``;
+    - the shortlists gathered onto the first slot and merged
+      (``ops/topk.merge_shortlists``), the merged list copied back;
+    - each slot's share of the exact re-rank (``rerank_partial``),
+      summed onto the first slot in slot order; a pad candidate
+      re-masked to ``_NEG``; the top k."""
+
+    def __call__(self, scorer: "ShardedANNScorer", user_ids: np.ndarray,
+                 rows_valid: int):
+        import torch
+
+        from predictionio_tpu_torch.ops.topk import (_NEG, _topk_ordered, adc_shortlist,
+                                                     merge_shortlists, rerank_partial)
+
+        k, home = self.k, self.device
+        with self._lock:
+            self._ids_host.numpy()[:] = user_ids
+            self._ids.copy_(self._ids_host, non_blocking=True)
+            Q = scorer._U.index_select(0, self._ids)
+            Q = torch.where(self._rows < rows_valid, Q, torch.zeros_like(Q))
+            Qs = [Q.to(dev) for dev in scorer.slots]
+            lists = []
+            for s, dev in enumerate(scorer.slots):
+                rot = scorer._rot_at[s]
+                Qr = Qs[s] if rot is None else Qs[s] @ rot
+                lists.append(adc_shortlist(
+                    Qr, scorer._codebooks_at[s], scorer._codes[s], scorer.shortlist,
+                    n_valid=scorer.n_items, col_offset=s * scorer.local_n))
+            _mv, mi = merge_shortlists(
+                torch.stack([v.to(home) for v, _ in lists]),
+                torch.stack([i.to(home) for _, i in lists]), scorer.shortlist)
+            exact = None
+            for s, dev in enumerate(scorer.slots):
+                part = rerank_partial(Qs[s], scorer._V_parts[s], mi.to(dev),
+                                      s * scorer.local_n).to(home)
+                exact = part if exact is None else exact + part
+            # zero-padded V rows re-rank to 0.0, which would beat a real
+            # candidate's negative score: push any pad candidate below all
+            exact = torch.where(mi < scorer.n_items, exact,
+                                torch.full_like(exact, _NEG))
+            pos = _topk_ordered(exact, torch.arange(exact.shape[1], dtype=torch.int64,
+                                                    device=home), k)
+            self._packed[:, :k] = exact.gather(1, pos)
+            self._packed[:, k:] = mi.gather(1, pos).to(torch.float32)
+            self._packed_host.copy_(self._packed, non_blocking=True)
+            if home.type == "cuda":
+                for dev in set(scorer.slots):
+                    torch.cuda.current_stream(dev).synchronize()
+            packed = self._packed_host.numpy().copy()
+        return packed[:, :k], packed[:, k:].astype(np.int32)
+
+
+class ShardedANNScorer(ANNScorer):
+    """ANN scorer with the serving corpus partitioned item-wise over a
+    ``"shards"`` mesh axis: each slot holds ``1/S`` of the PQ codes and
+    of the exact-rerank vectors, the queries replicate, and one program
+    runs scan → gather → merge → re-rank over the slots.
+
+    Slot i owns the global rows [i·local_n, (i+1)·local_n); pad rows
+    live only in the last slot's tail and never win. Per-slot residency
+    is ``local_n · (m + 4·dim)`` bytes plus the replicated codebooks and
+    rotation; the user table stays on the first slot. Same external
+    contract as :class:`ANNScorer`; ``shards=1`` is bitwise identical to
+    it. ``mesh`` (a ``parallel/mesh.Mesh`` with a ``"shards"`` axis) is
+    built by ``shards_mesh(shards)`` over this process's slots of
+    ``device``'s type when not given; its slots must all be this
+    process's.
+    """
+
+    _program = _ShardedANNProgram
+
+    def __init__(self, U: np.ndarray, V: np.ndarray, index: PQIndex,
+                 shortlist: int = DEFAULT_SHORTLIST, *,
+                 shards: Optional[int] = None, mesh=None, device=None):
+        from predictionio_tpu_torch.parallel.mesh import process_slots, shards_mesh
+        from predictionio_tpu_torch.utils.device import resolve_device
+
+        if mesh is None:
+            if not shards or int(shards) < 1:
+                raise ValueError(
+                    "ShardedANNScorer needs shards >= 1 or an explicit mesh")
+            mesh = shards_mesh(int(shards), platform=resolve_device(device).type)
+        if "shards" not in mesh.axis_names:
+            raise ValueError(
+                'sharded ANN serving mesh must carry a "shards" axis')
+        self.mesh = mesh
+        self.slots = process_slots(mesh, "sharded ANN serving", "shards")
+        self.shards = len(self.slots)
+        super().__init__(U, V, index, shortlist=shortlist, device=self.slots[0])
+
+    def _place(self, U, V, index: PQIndex) -> None:
+        import torch
+
+        from predictionio_tpu_torch.parallel.mesh import pad_to_multiple
+        from predictionio_tpu_torch.server import aot
+
+        #: padded item rows a slot
+        self.local_n = pad_to_multiple(self.n_items, self.shards) // self.shards
+        # a slot can only nominate from its own rows, so k′ beyond local_n
+        # is meaningless (and would break the local top-k)
+        self.shortlist = max(1, min(self.shortlist, self.local_n))
+        n_pad = self.local_n * self.shards
+        Vp = np.asarray(V, np.float32)
+        codesT = np.asarray(index.codes, np.uint8).T
+        if n_pad != self.n_items:
+            Vp = np.concatenate([Vp, np.zeros(
+                (n_pad - self.n_items, self.rank), np.float32)])
+            codesT = np.concatenate([codesT, np.zeros(
+                (self.m, n_pad - self.n_items), np.uint8)], axis=1)
+
+        def put(a, dtype, dev):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        self._U = put(U, np.float32, self.device)
+        cuts = [slice(s * self.local_n, (s + 1) * self.local_n)
+                for s in range(self.shards)]
+        self._V_parts = [put(Vp[c], np.float32, dev) for c, dev in zip(cuts, self.slots)]
+        self._codes = [put(codesT[:, c], np.uint8, dev) for c, dev in zip(cuts, self.slots)]
+        self._codebooks_at = [put(index.codebooks, np.float32, dev) for dev in self.slots]
+        self._rot_at = [None if index.rotation is None
+                        else put(index.rotation, np.float32, dev) for dev in self.slots]
+        aot.record_shard_layout(self.shards, self.local_n, self.shortlist)
+
+    def _aot_key(self, B: int, k: int) -> tuple:
+        return ("ann_sharded_topk", self.n_users, self.rank, self.m, self.K,
+                self.n_items, self.local_n, self.shards, B, k, self.shortlist,
+                self._rot_at[0] is not None, tuple(str(d) for d in self.slots))
 
 
 def _resolve_shards(index: PQIndex, shards: int) -> int:
@@ -194,16 +323,33 @@ def maybe_ann_scorer(U, V, index: Optional[PQIndex], cached=None,
     from these exact U/V arrays on this device with this shortlist.
 
     ``shards > 1`` (explicit, ``PIO_ANN_SHARDS``, or the index blob's
-    build hint) raises: the sharded scorer is not ported.
+    build hint) selects the mesh-sharded scorer over this process's
+    slots of ``device``'s type; with fewer slots than shards it logs
+    the JAX package's warning and serves unsharded.
     """
+    import logging
+
+    from predictionio_tpu_torch.parallel.mesh import device_count
+    from predictionio_tpu_torch.utils.device import resolve_device
+
     if index is None:
         return None
     if not serve_on_device(V.shape[0]):
         return None
     want = _resolve_shards(index, shards)
     if want > 1:
-        raise ValueError(f"{want} ANN shards asked for: {SHARDED_NOT_PORTED}; "
-                         "serve with one shard (annShards 0, PIO_ANN_SHARDS unset)")
+        have = device_count(resolve_device(device).type)
+        if have >= want:
+            if (cached is not None and type(cached) is ShardedANNScorer
+                    and cached.built_from(U, V, device)
+                    and cached._want_shortlist == int(shortlist)
+                    and cached.shards == want):
+                return cached
+            return ShardedANNScorer(U, V, index, shortlist=shortlist,
+                                    shards=want, device=device)
+        logging.getLogger("pio.ann").warning(
+            "sharded ANN serving unavailable (%s); serving unsharded",
+            f"mesh needs {want} devices, have {have}")
     if (cached is not None and type(cached) is ANNScorer
             and cached.built_from(U, V, device)
             and cached._want_shortlist == int(shortlist)):
@@ -211,21 +357,15 @@ def maybe_ann_scorer(U, V, index: Optional[PQIndex], cached=None,
     return ANNScorer(U, V, index, shortlist=shortlist, device=device)
 
 
-def load_blob_index(d: dict, instance_dir: Optional[str], shards: int):
+def load_blob_index(d: dict, instance_dir: Optional[str]):
     """A template blob dict's PQ index: ``ann_index.bin`` in
     ``instance_dir`` when there is one (sidecar and payload digests
     verified), else the blob's own bytes (payload digest verified), else
     None. Any mismatch raises
-    ``IntegrityError``, which ``/reload`` turns into a refused candidate.
-    An index whose serving shard count (``shards``, ``PIO_ANN_SHARDS``
-    or its own hint) is above 1 raises: sharded serving is not ported."""
+    ``IntegrityError``, which ``/reload`` turns into a refused candidate."""
     from predictionio_tpu_torch.ann.index import load_index
 
     index = load_index(instance_dir) if instance_dir else None
     if index is None and d.get("ann_index") is not None:
         index = PQIndex.from_bytes(d["ann_index"])
-    if index is not None and _resolve_shards(index, shards) > 1:
-        raise ValueError(f"{_resolve_shards(index, shards)} ANN shards: "
-                         f"{SHARDED_NOT_PORTED}")
     return index
-

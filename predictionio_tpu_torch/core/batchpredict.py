@@ -12,6 +12,7 @@ whole batch in one device dispatch. Each output line is
 from __future__ import annotations
 
 import json
+import os
 from typing import TextIO
 
 from predictionio_tpu_torch.core.workflow import DeployedEngine
@@ -27,13 +28,23 @@ def run_batch_predict(
     shards: int = 0,
 ) -> int:
     """Answer every query line of ``src`` into ``out``; returns the count.
-    ``shards > 1`` (the JAX package's item-sharded ANN retrieval mesh) is
-    not ported and raises; 0 and 1 run on the one device."""
+
+    ``shards > 1`` runs the ANN-served templates over the item-sharded
+    retrieval mesh (``ann/scorer.ShardedANNScorer``): scorers build
+    lazily inside ``batch_predict``, so ``PIO_ANN_SHARDS`` is set for the
+    duration of the run, the one hook that reaches every engine variant
+    without threading a parameter through the template contract. With
+    fewer slots than shards the scorer warns and serves unsharded."""
     if shards and int(shards) > 1:
-        raise ValueError(
-            f"--shards {shards}: sharded retrieval is not ported to "
-            "predictionio_tpu_torch yet (ROADMAP.md queue 1, item 8b); "
-            "use --shards 0")
+        prev = os.environ.get("PIO_ANN_SHARDS")
+        os.environ["PIO_ANN_SHARDS"] = str(int(shards))
+        try:
+            return run_batch_predict(deployed, src, out, batch_size)
+        finally:
+            if prev is None:
+                os.environ.pop("PIO_ANN_SHARDS", None)
+            else:
+                os.environ["PIO_ANN_SHARDS"] = prev
     n = 0
     batch = []
 

@@ -153,10 +153,12 @@ def run_train(
     ``use_mesh`` (``pio train --no-mesh`` turns it off) puts a device mesh
     from the variant's ``meshConf`` on the workflow context
     (``parallel/mesh.make_mesh`` over every process's devices of
-    ``device``'s type, clamped as the JAX package clamps); the ALS
-    templates train sharded over a mesh of more than one slot, the others
-    on ``device`` unless ``meshConf`` asks for more than one slot, which
-    they refuse (``parallel/mesh.one_slot``).
+    ``device``'s type, clamped as the JAX package clamps). Over a mesh of
+    more than one slot the ALS templates train sharded, logistic
+    regression and the two-tower template data-parallel, and SeqRec runs
+    ring attention over the mesh's sequence axis; naive Bayes and the
+    forest train on the context's device, as the JAX package ignores the
+    mesh there.
 
     Multi-process (the ``PIO_*`` rendezvous variables,
     ``parallel/distributed``): every process runs this in lockstep, the

@@ -144,9 +144,10 @@ def forest_train_drawn(X: np.ndarray, y: np.ndarray, p: ForestParams,
 
 
 def forest_train(X: np.ndarray, y: np.ndarray, p: ForestParams,
-                 device=None) -> ForestModel:
+                 device=None, mesh=None) -> ForestModel:
     """Train the ensemble on ``device`` (CUDA unless the caller passes
-    "cpu") with the port's seeded draws."""
+    "cpu") with the port's seeded draws. ``mesh`` is accepted and
+    ignored, as the JAX package's ``forest_train`` ignores it."""
     dev = resolve_device(device)
     X = np.asarray(X, np.float32)
     boot, keep = forest_draws(X.shape[0], X.shape[1], p)

@@ -48,9 +48,11 @@ def _fit(Xd: torch.Tensor, yd: torch.Tensor, C: int, lam, bern: bool):
 
 
 def nb_train(X: np.ndarray, y: np.ndarray, params: NaiveBayesParams,
-             device=None) -> Tuple[np.ndarray, np.ndarray]:
+             device=None, mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Train on ``device`` (CUDA unless the caller passes "cpu"); returns
-    (log_prior [C], log_theta [C, d]) as float32 numpy."""
+    (log_prior [C], log_theta [C, d]) as float32 numpy. ``mesh`` is
+    accepted and ignored, as the JAX package's ``nb_train`` ignores it:
+    the closed-form fit is one matmul on ``device``."""
     dev = resolve_device(device)
     C = params.num_classes or int(y.max()) + 1
     Xd = torch.as_tensor(np.asarray(X, np.float32)).to(dev)

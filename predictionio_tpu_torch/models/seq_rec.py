@@ -16,7 +16,8 @@ What keeps it the JAX model, step for step:
   tied logits' softmax; the input is scaled by √d and padded positions
   are zeroed after every block; attention is
   ``parallel/ring_attention.attention_reference`` (fully masked rows give
-  zeros);
+  zeros), or with a ``mesh`` ring attention over its ``seq_axis`` slots
+  (the same exact math, the sequence split over the slots);
 - the loss is the mean masked next-item cross-entropy, plus ``l2`` times
   the squares of every leaf;
 - :class:`Adam` is optax's ``inject_hyperparams(adam)``: ε outside the
@@ -42,7 +43,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from predictionio_tpu_torch.parallel.ring_attention import attention_reference
+from predictionio_tpu_torch.parallel.ring_attention import (
+    attention_reference,
+    ring_attention,
+)
 from predictionio_tpu_torch.utils.device import full_f32, resolve_device
 
 
@@ -150,8 +154,13 @@ class SeqRecNet(nn.Module):
     def leaves(self) -> List[torch.Tensor]:
         return [self.leaf(*path) for path in self.paths]
 
-    def forward(self, seqs: torch.Tensor) -> torch.Tensor:
-        """[B, S] int item ids (0=pad) → [B, S, d] contextual states."""
+    def forward(self, seqs: torch.Tensor, mesh=None,
+                seq_axis: str = "data") -> torch.Tensor:
+        """[B, S] int item ids (0=pad) → [B, S, d] contextual states.
+
+        ``mesh`` routes attention through ring attention over
+        ``seq_axis`` (S must divide by the axis size); None = local
+        attention."""
         p = self.hp
         B, S = seqs.shape
         d, H = p.hidden, p.num_heads
@@ -167,7 +176,11 @@ class SeqRecNet(nn.Module):
             q = (h @ blk("wq")).reshape(B, S, H, Dh)
             k = (h @ blk("wk")).reshape(B, S, H, Dh)
             v = (h @ blk("wv")).reshape(B, S, H, Dh)
-            att = attention_reference(q, k, v, causal=True, k_mask=k_mask)
+            if mesh is not None:
+                att = ring_attention(q, k, v, mesh=mesh, axis=seq_axis,
+                                     causal=True, k_mask=k_mask)
+            else:
+                att = attention_reference(q, k, v, causal=True, k_mask=k_mask)
             x = x + att.reshape(B, S, d) @ blk("wo")
             h = _ln(x, blk("ln2", "g"), blk("ln2", "b"))
             x = x + torch.relu(h @ blk("w1") + blk("b1")) @ blk("w2") + blk("b2")
@@ -199,11 +212,13 @@ def seq_rec_params_to_jax(net: SeqRecNet) -> Dict:
 
 
 def _loss(net: SeqRecNet, seqs: torch.Tensor, targets: torch.Tensor,
-          l2: Optional[float] = None) -> torch.Tensor:
+          l2: Optional[float] = None, mesh=None,
+          seq_axis: str = "data") -> torch.Tensor:
     """Mean masked cross-entropy of next-item prediction (targets[b, t]
     the next id, 0 where padded), plus ``l2`` (default ``hp.l2``) times
-    the sum of every leaf's squares when it is set."""
-    states = net(seqs)                                  # [B, S, d]
+    the sum of every leaf's squares when it is set; ``mesh`` as in
+    :meth:`SeqRecNet.forward`."""
+    states = net(seqs, mesh, seq_axis)                  # [B, S, d]
     logits = states @ net.leaf("item_emb").T            # [B, S, V] tied weights
     logp = torch.log_softmax(logits, dim=-1)
     tgt_logp = logp.gather(-1, targets[..., None])[..., 0]
@@ -316,23 +331,31 @@ def _load_net_state(net: SeqRecNet, opt: Adam, state: Dict[str, Any]) -> None:
 
 
 def train_steps(net: SeqRecNet, opt: Adam, X: torch.Tensor, Y: torch.Tensor,
-                l2: Optional[float] = None) -> torch.Tensor:
+                l2: Optional[float] = None, mesh=None,
+                seq_axis: str = "data") -> torch.Tensor:
     """One epoch: an Adam step for each batch of (X, Y), [n_batches, B, S]
-    on the net's device; returns the epoch's mean loss (device scalar)."""
+    on the net's device; returns the epoch's mean loss (device scalar).
+    ``mesh`` as in :meth:`SeqRecNet.forward`."""
     losses = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
     for b in range(X.shape[0]):
-        loss = _loss(net, X[b], Y[b], l2)
+        loss = _loss(net, X[b], Y[b], l2, mesh, seq_axis)
         grads = torch.autograd.grad(loss, net.leaves())
         opt.step(list(grads))
         losses[b] = loss.detach()
     return losses.mean()
 
 
-def seq_rec_train(sequences, n_items: int, p: SeqRecParams, device=None
+def seq_rec_train(sequences, n_items: int, p: SeqRecParams, mesh=None,
+                  seq_axis: str = "data", device=None
                   ) -> Tuple[Dict, np.ndarray]:
     """Train on per-user item-id sequences on ``device`` (CUDA unless the
     caller passes "cpu"); returns (params as the JAX package's nested
     dict of numpy arrays, mean loss of each epoch run).
+
+    ``mesh`` runs attention as ring attention over its ``seq_axis`` slots
+    (``seq_len`` must divide by the axis size); a mesh without that axis,
+    or whose axis does not divide ``seq_len``, falls back to local
+    attention rather than failing the train, as in the JAX package.
 
     With ``p.checkpoint_dir`` the state (parameters, moments, step count and
     learning rate) is saved every ``checkpoint_every`` epochs and a
@@ -340,6 +363,10 @@ def seq_rec_train(sequences, n_items: int, p: SeqRecParams, device=None
     run's learning rate; a checkpoint of another geometry is wiped with
     a warning. A resumed run returns the losses of the epochs it ran."""
     dev = resolve_device(device)
+    if mesh is not None and (
+            seq_axis not in mesh.axis_names
+            or p.seq_len % mesh.shape[seq_axis]):
+        mesh = None
     X, Y = make_training_batches(sequences, p, seed=p.seed)
     net = SeqRecNet(init_params(n_items, p), p, dev)
     opt = Adam(net.leaves(), p.lr)
@@ -376,7 +403,7 @@ def seq_rec_train(sequences, n_items: int, p: SeqRecParams, device=None
     losses = []
     with full_f32():
         for epoch in range(start, p.epochs):
-            losses.append(train_steps(net, opt, Xd, Yd, l2))
+            losses.append(train_steps(net, opt, Xd, Yd, l2, mesh, seq_axis))
             if ckpt is not None and (
                     (epoch + 1 - start) % max(1, p.checkpoint_every) == 0
                     or epoch + 1 == p.epochs):

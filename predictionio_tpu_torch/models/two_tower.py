@@ -15,7 +15,15 @@ The port of the JAX package's ``models/two_tower.py`` (flax + optax):
 - epoch permutations come from ``np.random.default_rng(seed + epoch)``
   and the streaming path groups batches ``(G, B)`` with carried
   remainders exactly as the JAX package does, so both packages see the
-  same batches in the same order.
+  same batches in the same order;
+- over a mesh of more than one slot the batch is data-parallel, as the
+  JAX package shards it over ``"data"``: B rounds down to a multiple of
+  the slots (unsharded when such a batch would not fill), each slot runs
+  its share of the towers on a copy of the weights, the embeddings are
+  gathered onto the first slot before the logits (the in-batch negatives
+  stay the whole batch's, as in the JAX package's one global program),
+  the gradients flow back and sum onto the first slot's weights, and one
+  Adam step there is what every slot copies at the next step.
 
 Weights cross between the packages as flax variable dicts of numpy
 arrays (``{"params": {"Embed_0": {"embedding"}, "Dense_j": {"kernel",
@@ -167,10 +175,14 @@ def init_variables(n_users: int, n_items: int, p: TwoTowerParams):
 
 class TwoTowerTrainer:
     """Both towers and their Adam state on one device, with the training
-    step; the state a checkpoint saves and a resume restores."""
+    step; the state a checkpoint saves and a resume restores. With
+    ``slots`` (more than one device slot; the first is ``device``) each
+    step is data-parallel over them."""
 
-    def __init__(self, user_vars, item_vars, p: TwoTowerParams, device) -> None:
+    def __init__(self, user_vars, item_vars, p: TwoTowerParams, device,
+                 slots: Optional[List[torch.device]] = None) -> None:
         self.device = device
+        self.slots = list(slots) if slots else [device]
         self.user, self.item = two_tower_variables_from_jax(user_vars, item_vars,
                                                             device)
         self.temperature = float(np.float32(p.temperature))
@@ -178,14 +190,32 @@ class TwoTowerTrainer:
         self.opt = torch.optim.Adam(self._params, lr=float(p.learning_rate),
                                     betas=(0.9, 0.999), eps=1e-8)
 
+    def embed(self, tower: Tower, ids: torch.Tensor) -> torch.Tensor:
+        """The tower's embeddings of ``ids`` on the trainer's device: each
+        slot runs its equal share of the rows on its own copy of the
+        weights (a differentiable copy, so its gradients flow back onto
+        the first slot's weights)."""
+        if len(self.slots) == 1:
+            return tower(ids)
+        weights = dict(tower.named_parameters())
+        outs = []
+        for dev, share in zip(self.slots, ids.chunk(len(self.slots))):
+            local = {name: w.to(dev) for name, w in weights.items()}
+            outs.append(torch.func.functional_call(tower, local, (share.to(dev),))
+                        .to(self.device))
+        return torch.cat(outs)
+
+    def contrastive(self, ue: torch.Tensor, ie: torch.Tensor) -> torch.Tensor:
+        """The in-batch softmax cross-entropy of the whole batch's (B, D)
+        embeddings: every other row of the batch is a negative."""
+        logits = (ue @ ie.T) / self.temperature
+        labels = torch.arange(ue.shape[0], device=ue.device)
+        return nn.functional.cross_entropy(logits, labels)
+
     def step(self, bu: torch.Tensor, bi: torch.Tensor) -> torch.Tensor:
         """One Adam step on the batch (bu, bi) of positive pairs; the
         loss (a device scalar)."""
-        ue = self.user(bu)
-        ie = self.item(bi)
-        logits = (ue @ ie.T) / self.temperature      # in-batch negatives
-        labels = torch.arange(bu.shape[0], device=bu.device)
-        loss = nn.functional.cross_entropy(logits, labels)
+        loss = self.contrastive(self.embed(self.user, bu), self.embed(self.item, bi))
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
@@ -267,15 +297,17 @@ def _stream_groups(pair_chunks: Callable, erng: np.random.Generator,
 def two_tower_train(
     user_idx: np.ndarray, item_idx: np.ndarray,
     n_users: int, n_items: int,
-    params: TwoTowerParams,
+    params: TwoTowerParams, mesh=None,
     pair_chunks: Optional[Callable] = None,
     device=None,
     initial_variables: Optional[Tuple[Dict, Dict]] = None,
     stats: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Train on positive (user, item) pairs on ``device`` (CUDA unless
-    the caller names another); returns (user_variables, item_variables)
-    as flax variable dicts of numpy arrays.
+    the caller names another), or data-parallel over the slots of
+    ``mesh`` when it has more than one (the first slot holds the weights
+    and the optimizer); returns (user_variables, item_variables) as flax
+    variable dicts of numpy arrays.
 
     ``pair_chunks`` (a zero-arg callable returning an iterator of
     (user_idx, item_idx, …) numpy chunks, e.g. ``InteractionData.chunks``)
@@ -300,11 +332,23 @@ def two_tower_train(
     if n < 2:
         raise ValueError("two-tower training needs at least 2 positive pairs "
                          "(in-batch negatives)")
+    slots = None
+    if mesh is not None and mesh.size > 1:
+        from predictionio_tpu_torch.parallel.mesh import process_slots
+
+        slots = process_slots(mesh, "data-parallel two-tower training")
+        dev = resolve_device(slots[0])
+    n_dev = 1 if slots is None else len(slots)
     B = min(p.batch_size, n)
+    if n_dev > 1:
+        # the batch splits evenly over the slots
+        B = max(n_dev, (B // n_dev) * n_dev)
+        if B > n:  # too few pairs to fill one sharded batch → run unsharded
+            slots, B = None, min(p.batch_size, n)
     n_batches = max(1, n // B)
     uv, iv = (initial_variables if initial_variables is not None
               else init_variables(n_users, n_items, p))
-    tr = TwoTowerTrainer(uv, iv, p, dev)
+    tr = TwoTowerTrainer(uv, iv, p, dev, slots)
 
     # mid-train checkpoint/resume: per-epoch RNG is seeded by epoch index
     # so a resumed run replays the exact batch permutations a straight
@@ -436,7 +480,8 @@ def two_tower_build_index(item_embeds: np.ndarray, m: int = 8, k: int = 256,
     serving into ADC-shortlist + re-rank. Returns a
     :class:`predictionio_tpu_torch.ann.PQIndex`. ``opq=True`` trains an
     OPQ-style rotation first (versioned into the blob); ``shards > 1``
-    records a serving-mesh hint, which the port's scorer refuses."""
+    records the serving-mesh width as a build hint that
+    ``maybe_ann_scorer`` picks up at deploy time."""
     from predictionio_tpu_torch.ann.index import build_index
 
     return build_index(np.asarray(item_embeds, np.float32), m, k,

@@ -220,7 +220,8 @@ def adc_scores(Q: torch.Tensor, codebooks: torch.Tensor,
 
 def adc_shortlist(Q: torch.Tensor, codebooks: torch.Tensor,
                   codesT: torch.Tensor, kprime: int,
-                  tile: Optional[int] = None,
+                  tile: Optional[int] = None, *, n_valid: int = 0,
+                  col_offset: Optional[int] = None,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-``kprime`` shortlist by ADC score → (vals f32, idx i32), each
     (B, k′), ordered by score descending, ties to the lower item.
@@ -230,6 +231,13 @@ def adc_shortlist(Q: torch.Tensor, codebooks: torch.Tensor,
     its top k′ and one final top k′ over the tile winners merges them.
     Every global winner wins its own tile under the key order, so the
     result is a dense top-k′'s, and the JAX package's, for every width.
+
+    Sharded serving runs this per slot on a contiguous column block of
+    the global code matrix: ``col_offset`` is added to the returned
+    indices (and to the tie keys) so they are GLOBAL corpus rows, and
+    ``n_valid`` (the global real item count) scores pad columns past the
+    corpus tail ``_NEG``. The defaults leave the one-device path
+    byte-identical.
     """
     N = codesT.shape[1]
     B = Q.shape[0]
@@ -237,21 +245,67 @@ def adc_shortlist(Q: torch.Tensor, codebooks: torch.Tensor,
     if tile is None:
         tile = max(_ADC_CHUNK, _ADC_TILE_ELEMS // max(B, 1))
     cols = torch.arange(N, dtype=torch.int64, device=Q.device)
+    if col_offset is not None:
+        cols = cols + int(col_offset)
+
+    def scan(lo: int, hi: int) -> torch.Tensor:
+        s = _adc_sum(lut, codesT[:, lo:hi])
+        if n_valid:
+            s.masked_fill_(cols[lo:hi] >= n_valid, _NEG)
+        return s
+
     if N <= tile or kprime > tile:   # one dense tile
-        s = _adc_sum(lut, codesT)
+        s = scan(0, N)
         pos = _topk_ordered(s, cols, kprime)
-        return s.gather(1, pos), pos.to(torch.int32)
+        return s.gather(1, pos), cols[pos].to(torch.int32)
     vals, idx, keys = [], [], []
     for lo in range(0, N, tile):
-        s = _adc_sum(lut, codesT[:, lo:lo + tile])
+        s = scan(lo, min(lo + tile, N))
         key = _order_keys(s, cols[lo:lo + s.shape[1]])
         kk, pos = torch.topk(key, min(kprime, s.shape[1]), dim=1, sorted=True)
         keys.append(kk)
         vals.append(s.gather(1, pos))
-        idx.append(pos + lo)
+        idx.append(cols[lo + pos])
     loc = torch.topk(torch.cat(keys, 1), kprime, dim=1, sorted=True).indices
     return (torch.cat(vals, 1).gather(1, loc),
             torch.cat(idx, 1).gather(1, loc).to(torch.int32))
+
+
+def merge_shortlists(vals: torch.Tensor, idx: torch.Tensor, kprime: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed top-k′ merge: (S, B, k′) per-shard shortlists, each
+    holding GLOBAL rows, → the global (B, k′) (vals, idx i32).
+
+    A small dense top-k′ over the (k′ · S) gathered candidates under the
+    key order (score descending, row ascending): every global winner won
+    its own shard, so this is the dense top-k′ of the whole corpus, ties
+    included, and with one shard it returns its input unchanged.
+    """
+    S, B, kp = vals.shape
+    v = vals.permute(1, 0, 2).reshape(B, S * kp)
+    i = idx.permute(1, 0, 2).reshape(B, S * kp)
+    pos = _topk_ordered(v, i.to(torch.int64), kprime)
+    return v.gather(1, pos), i.gather(1, pos).to(torch.int32)
+
+
+def rerank_partial(Q: torch.Tensor, V_local: torch.Tensor, idx: torch.Tensor,
+                   col_offset: int) -> torch.Tensor:
+    """This shard's share of the exact re-rank of a GLOBAL candidate
+    list: the scores of the candidates whose row lives in ``V_local``
+    (rows [col_offset, col_offset + local_n)), 0.0 elsewhere, so the sum
+    over the shards assembles the exact scores without gathering V.
+
+    Out-of-shard rows clip to a valid local row and are masked to 0.0,
+    so every shard does the same work. Each owned score is computed as
+    :func:`rerank_topk` computes it.
+    """
+    local_n = V_local.shape[0]
+    idx = idx.to(torch.int64)
+    own = (idx >= col_offset) & (idx < col_offset + local_n)
+    lrow = torch.clamp(idx - col_offset, 0, local_n - 1)
+    Vs = V_local[lrow]                                      # (B, k', d)
+    exact = torch.bmm(Vs, Q[:, :, None])[..., 0]
+    return torch.where(own, exact, torch.zeros_like(exact))
 
 
 def rerank_topk(Q: torch.Tensor, V: torch.Tensor, shortlist_idx: torch.Tensor,

@@ -7,7 +7,7 @@ for an empty config (every available device on ``"data"``) and for a
 config asking for more devices than there are (clamp the largest axis, or
 raise). The axes keep the JAX package's meanings: ``"data"`` splits
 ratings and batches (sharded ALS), ``"model"`` parameters, ``"shards"``
-the rows of a sweep's grid.
+the rows of a sweep's grid and the item rows of sharded ANN serving.
 
 A slot is a ``torch.device``, and one device may fill several slots: the
 CPU tests run eight shards on one CPU, as the JAX tests run them on eight
@@ -21,7 +21,14 @@ process owns each slot; a process computes only on its own slots.
 The JAX package's shard_map helpers (``get_shard_map``, ``has_vma``,
 ``shard_map_unchecked``, ``pvary``, ``replicated``, ``shard_batch``) have
 no counterpart: the port's sharded paths are plain loops over the local
-slots with explicit gathers.
+slots with explicit gathers. Each JAX collective becomes one explicit
+step: ``all_gather`` and ``psum`` a copy onto the gathering slot, then a
+``cat`` or a sum in slot order; ``ppermute`` a copy to the next slot;
+``all_to_all`` per-slot slicing and copies. Sharded ALS exchanges factor
+blocks between processes too; the serving and attention paths (sharded
+ANN, data-parallel training, ring and Ulysses attention) run over the
+slots of one process, as the JAX package's ``device_put`` onto a
+``NamedSharding`` needs every slot addressable (:func:`process_slots`).
 """
 
 from __future__ import annotations
@@ -32,12 +39,6 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-
-#: why a path over a mesh of more than one slot that the port has not
-#: taken yet raises (the serving and attention half of the mesh)
-NOT_PORTED = ("is not ported to predictionio_tpu_torch yet "
-              "(ROADMAP.md queue 1, item 8b)")
-
 
 @dataclass
 class MeshConfig:
@@ -60,16 +61,12 @@ class MeshConfig:
 
 class Mesh:
     """Slots (``torch.device``) in an array of shape ``axis sizes``, the
-    axis names, and the process owning each slot. ``requested`` says
-    whether a config named the axes (False for the default mesh of an
-    empty config)."""
+    axis names, and the process owning each slot."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
-                 processes: Optional[np.ndarray] = None,
-                 requested: bool = True) -> None:
+                 processes: Optional[np.ndarray] = None) -> None:
         self.devices = devices
         self.axis_names = tuple(axis_names)
-        self.requested = requested
         self.processes = (np.zeros(devices.shape, np.int64) if processes is None
                           else np.asarray(processes, np.int64).reshape(devices.shape))
 
@@ -147,8 +144,7 @@ def make_mesh(config: Optional[MeshConfig] = None,
         grid[i] = d
     shape = tuple(axes.values())
     return Mesh(grid.reshape(shape), tuple(axes.keys()),
-                np.asarray(procs[:want], np.int64).reshape(shape),
-                requested=bool(config.axes))
+                np.asarray(procs[:want], np.int64).reshape(shape))
 
 
 def shards_mesh(shards: int, devices: Optional[Sequence[Any]] = None,
@@ -171,11 +167,19 @@ def device_count(platform: Optional[str] = None) -> int:
     return len(distributed.global_devices(platform))
 
 
-def one_slot(mesh: Optional[Mesh], what: str) -> None:
-    """Refuse a meshConf that asks for more than one slot on a path that
-    has no sharded counterpart in the port yet. A clamped one-slot mesh
-    runs it, as the JAX package runs it on one device, and so does the
-    default mesh of an empty meshConf: the path trains on the context's
-    device, the mesh's first slot."""
-    if mesh is not None and mesh.requested and mesh.size > 1:
-        raise ValueError(f"{what} over a mesh of {mesh.size} slots {NOT_PORTED}")
+def process_slots(mesh: Mesh, what: str, axis: Optional[str] = None
+                  ) -> List[torch.device]:
+    """The slots a one-process sharded path runs over, in order: every
+    slot of ``mesh``, or with ``axis`` the slots along that axis (the
+    other axes at their first index). Raises when a slot of the mesh
+    belongs to another process: these paths gather onto this process's
+    slots, as the JAX package needs every device addressable."""
+    owners = sorted(set(int(p) for p in mesh.processes.flat))
+    if len(owners) > 1:
+        raise ValueError(f"{what} runs over the slots of one process; this mesh "
+                         f"spans processes {owners}")
+    if axis is None:
+        return mesh.slots
+    at = [0] * mesh.devices.ndim
+    at[mesh.axis_names.index(axis)] = slice(None)
+    return list(mesh.devices[tuple(at)])

@@ -211,10 +211,9 @@ def record_device_latency(bucket: int, seconds: float, path: str,
 
 
 #: sharded-ANN serving layout, the JAX package's three families: shard
-#: count of the serving mesh, padded item rows resident per device, and
-#: the (k′ · shards) width of the distributed top-k merge. The port
-#: serves ANN unsharded only (``ann/scorer``), so they stay 0; they are
-#: registered so ``/metrics`` has the JAX server's families.
+#: count of the serving mesh, padded item rows resident per slot, and
+#: the (k′ · shards) width of the distributed top-k merge; 0 until a
+#: ``ann/scorer.ShardedANNScorer`` is built (``record_shard_layout``).
 ANN_SHARDS = REGISTRY.gauge(
     "pio_ann_shard_count",
     "Item shards in the sharded ANN serving mesh (0 = unsharded)")
@@ -224,6 +223,15 @@ ANN_SHARD_ITEMS = REGISTRY.gauge(
 ANN_SHARD_MERGE = REGISTRY.gauge(
     "pio_ann_shard_merge_candidates",
     "Distributed shortlist-merge width (k' x shards) per query row")
+
+
+def record_shard_layout(shards: int, items_per_device: int,
+                        shortlist: int) -> None:
+    """Publish the sharded-ANN serving layout (once a scorer construction,
+    not a dispatch: the layout changes only on /reload)."""
+    ANN_SHARDS.set(shards)
+    ANN_SHARD_ITEMS.set(items_per_device)
+    ANN_SHARD_MERGE.set(shortlist * shards)
 
 
 # -- deploy-time warmup orchestration ----------------------------------------

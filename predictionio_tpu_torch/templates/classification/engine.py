@@ -11,9 +11,10 @@ RandomForest). Wire shapes preserved:
 Training runs on the training device (CUDA unless the caller asks for the
 CPU) through :mod:`predictionio_tpu_torch.models.naive_bayes`,
 ``.linear`` and ``.forest``; serving scores one query in host numpy, as
-the JAX package does. A ``meshConf`` clamped to one device trains as
-without one; a mesh of more than one slot raises (the data-parallel
-paths are not ported yet). The model blob pickles :class:`ClassificationModel` under its
+the JAX package does. Over a ``meshConf`` mesh of more than one slot,
+logistic regression trains data-parallel over its slots; naive Bayes and
+the forest take the mesh and train on the training device, as the JAX
+package's do. The model blob pickles :class:`ClassificationModel` under its
 JAX module path, so an instance either package trains deploys in the
 other.
 """
@@ -44,7 +45,6 @@ from predictionio_tpu_torch.models.linear import (
     logreg_train,
 )
 from predictionio_tpu_torch.models.naive_bayes import NaiveBayesParams, nb_predict, nb_train
-from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.utils import jaxpickle
 
 
@@ -227,12 +227,11 @@ class NaiveBayesAlgorithm(BlobAlgorithm):
         return nb_sweep_programs(ctx, pd.X, pd.y, Xe, ye, params_list)
 
     def train(self, ctx: WorkflowContext, pd: LabeledData) -> ClassificationModel:
-        one_slot(ctx.mesh, "data-parallel naive Bayes")
         p: NBAlgoParams = self.params
         lp, lt = nb_train(pd.X, pd.y,
                           NaiveBayesParams(lambda_=p.lambda_,
                                            model_type=p.model_type),
-                          device=self.device)
+                          device=self.device, mesh=ctx.mesh)
         return ClassificationModel("nb", pd.attrs, log_prior=lp, log_theta=lt,
                                    model_type=np.asarray([p.model_type == "bernoulli"]))
 
@@ -255,7 +254,6 @@ class LogisticRegressionAlgorithm(BlobAlgorithm):
     ParamsClass = LRAlgoParams
 
     def train(self, ctx: WorkflowContext, pd: LabeledData) -> ClassificationModel:
-        one_slot(ctx.mesh, "data-parallel logistic regression")
         p: LRAlgoParams = self.params
         num_classes = max(p.num_classes, int(pd.y.max()) + 1)
         W, b = logreg_train(
@@ -263,18 +261,18 @@ class LogisticRegressionAlgorithm(BlobAlgorithm):
             LogisticRegressionParams(num_classes=num_classes,
                                      iterations=p.iterations, reg=p.reg,
                                      optimizer=p.optimizer),
-            device=self.device)
+            device=self.device, mesh=ctx.mesh)
         return ClassificationModel("lr", pd.attrs, W=W, b=b)
 
     @classmethod
     def train_many(cls, ctx: WorkflowContext, pd: LabeledData,
                    params_list) -> List[ClassificationModel]:
         """Grid-search fan-out: one upload of the batch, the candidates
-        one after another on ``ctx.device``. num_classes resolves per
-        candidate exactly as ``train`` does."""
+        one after another on ``ctx.device`` (data-parallel, one after
+        another, over a mesh of more than one slot). num_classes resolves
+        per candidate exactly as ``train`` does."""
         from predictionio_tpu_torch.models.linear import logreg_train_many
 
-        one_slot(ctx.mesh, "data-parallel logistic regression")
         data_classes = int(pd.y.max()) + 1
         wbs = logreg_train_many(
             pd.X, pd.y,
@@ -283,7 +281,7 @@ class LogisticRegressionAlgorithm(BlobAlgorithm):
                 iterations=p.iterations, reg=p.reg,
                 optimizer=p.optimizer)
              for p in params_list],
-            device=ctx.device)
+            device=ctx.device, mesh=ctx.mesh)
         return [ClassificationModel("lr", pd.attrs, W=W, b=b)
                 for W, b in wbs]
 
@@ -326,12 +324,11 @@ class RandomForestAlgorithm(BlobAlgorithm):
     def train(self, ctx: WorkflowContext, pd: LabeledData) -> ClassificationModel:
         from predictionio_tpu_torch.models.forest import ForestParams, forest_train
 
-        one_slot(ctx.mesh, "a data-parallel random forest")
         p: RFAlgoParams = self.params
         m = forest_train(pd.X, pd.y, ForestParams(
             n_trees=p.num_trees, max_depth=p.max_depth,
             n_thresholds=p.n_thresholds, feature_frac=p.feature_frac,
-            seed=p.seed), device=self.device)
+            seed=p.seed), device=self.device, mesh=ctx.mesh)
         return ClassificationModel(
             "rf", pd.attrs, feats=m.feats, thrs=m.thrs,
             leaf_probs=m.leaf_probs,

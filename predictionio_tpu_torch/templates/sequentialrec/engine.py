@@ -6,7 +6,8 @@ The port of the JAX package's template of the same path
 - DataSource: interaction events (default ``view``/``buy``/``rate``)
   grouped per user, ordered by eventTime → item-id sequences.
 - Algorithm: causal-transformer next-item model trained on the training
-  device (CUDA unless the caller asks for the CPU).
+  device (CUDA unless the caller asks for the CPU); a ``meshConf`` mesh
+  runs its attention as ring attention over the mesh's slots.
 - Serving: the user's recent history is read LIVE from the event store
   at query time (``data/store.find_by_entity``), so new events shift
   predictions without retraining; the weights stay resident on the
@@ -52,7 +53,6 @@ from predictionio_tpu_torch.models.seq_rec import (
     seq_rec_scores,
     seq_rec_train,
 )
-from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.utils import jaxpickle
 from predictionio_tpu_torch.utils.bimap import BiMap
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -214,7 +214,6 @@ class SeqRecAlgorithm(Algorithm):
             raise ValueError("no user has a sequence of length ≥ 2")
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> SeqRecModel:
-        one_slot(ctx.mesh, "ring attention")
         p: SeqRecAlgorithmParams = self.params
         item_ids = BiMap.string_int(
             i for seq in pd.sequences.values() for i in seq)
@@ -231,8 +230,10 @@ class SeqRecAlgorithm(Algorithm):
                           epochs=p.epochs, lr=p.lr,
                           batch_size=p.batch_size, seed=p.seed,
                           checkpoint_dir=ckpt_dir)
+        # meshConf routes attention through ring attention over the mesh's
+        # sequence axis (falls back to local if seq_len doesn't divide)
         params, losses = seq_rec_train(sequences, len(item_ids), hp,
-                                       device=self.device)
+                                       mesh=ctx.mesh, device=self.device)
         return SeqRecModel(params, item_ids, pd.app_name, hp, p, losses,
                            device=self.device)
 

@@ -27,8 +27,9 @@ index's ``PIOANN01`` bytes, and a store with a directory also gets
 (what ``pio index status`` reads); load prefers that file, verified. A
 single-item query is one ANN dispatch (``ann.maybe_ann_scorer(Vn,
 Vn)``: ``U[i] · V[j] = cos(v_i, v_j)``); multi-item queries take the
-exact path above. Sharded ANN serving (``annShards`` > 1) is not ported
-and raises at train and at load.
+exact path above. ``annShards`` > 1 records a serving-mesh hint in the
+index, and serving partitions the corpus over that many slots
+(``ann.ShardedANNScorer``; fewer slots than shards serve unsharded).
 """
 
 from __future__ import annotations
@@ -162,7 +163,7 @@ class ALSAlgorithmParams:
     ann_m: int = 5            # subspaces (must divide rank)
     ann_k: int = 256          # centroids per subspace
     ann_shortlist: int = 128  # k′ re-rank candidates
-    ann_shards: int = 0       # serving-mesh width hint (> 1 is not ported)
+    ann_shards: int = 0       # serving-mesh width hint (> 1 = sharded)
 
 
 class SimilarProductModel:
@@ -271,10 +272,6 @@ class ALSAlgorithm(Algorithm):
 
     @staticmethod
     def _als_params(p: ALSAlgorithmParams) -> ALSParams:
-        if p.ann and int(p.ann_shards or 0) > 1:
-            from predictionio_tpu_torch.ann.scorer import SHARDED_NOT_PORTED
-
-            raise ValueError(f"annShards {p.ann_shards}: {SHARDED_NOT_PORTED}")
         return ALSParams(rank=p.rank, iterations=p.num_iterations,
                          reg=p.lambda_, implicit=True, alpha=p.alpha,
                          seed=0 if p.seed is None else p.seed)
@@ -291,7 +288,10 @@ class ALSAlgorithm(Algorithm):
         from predictionio_tpu_torch.models.als import normalized_rows
 
         return build_index(normalized_rows(V), p.ann_m,
-                           min(p.ann_k, max(2, V.shape[0])), device=device)
+                           min(p.ann_k, max(2, V.shape[0])),
+                           shards=(int(p.ann_shards) if p.ann_shards
+                                   and int(p.ann_shards) > 1 else None),
+                           device=device)
 
     @classmethod
     def train_many(cls, ctx: WorkflowContext, pd: TrainingData,
@@ -356,7 +356,7 @@ class ALSAlgorithm(Algorithm):
         arrs = np.load(io.BytesIO(d["npz"]))
         from predictionio_tpu_torch.ann.scorer import load_blob_index
 
-        ann_index = load_blob_index(d, instance_dir, d.get("ann_shards", 0))
+        ann_index = load_blob_index(d, instance_dir)
         return SimilarProductModel(arrs["V"], BiMap(d["item_ids"]), d["cats"],
                                    ann_index=ann_index,
                                    ann_shortlist=d.get("ann_shortlist", 128),

@@ -46,7 +46,6 @@ from predictionio_tpu_torch.models.naive_bayes import (
     nb_predict,
     nb_train,
 )
-from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.templates.classification.engine import (
     Accuracy,
     BlobAlgorithm,
@@ -202,12 +201,11 @@ class TextNaiveBayesAlgorithm(_TextAlgorithm):
     ParamsClass = TextNBParams
 
     def train(self, ctx: WorkflowContext, pd: TextLabeledData) -> TextModel:
-        one_slot(ctx.mesh, "data-parallel text classification")
         p: TextNBParams = self.params
         lp, lt = nb_train(pd.X, pd.y,
                           NaiveBayesParams(lambda_=p.lambda_,
                                            model_type=p.model_type),
-                          device=self.device)
+                          device=self.device, mesh=ctx.mesh)
         return TextModel(
             "nb", pd.cfg, log_prior=lp, log_theta=lt,
             model_type=np.asarray([p.model_type == "bernoulli"]))
@@ -243,7 +241,6 @@ class TextLogisticRegressionAlgorithm(_TextAlgorithm):
     ParamsClass = TextLRParams
 
     def train(self, ctx: WorkflowContext, pd: TextLabeledData) -> TextModel:
-        one_slot(ctx.mesh, "data-parallel text classification")
         p: TextLRParams = self.params
         num_classes = max(p.num_classes, int(pd.y.max()) + 1)
         W, b = logreg_train(
@@ -251,7 +248,7 @@ class TextLogisticRegressionAlgorithm(_TextAlgorithm):
             LogisticRegressionParams(num_classes=num_classes,
                                      iterations=p.iterations, reg=p.reg,
                                      optimizer=p.optimizer),
-            device=self.device)
+            device=self.device, mesh=ctx.mesh)
         return TextModel("lr", pd.cfg, W=W, b=b)
 
     @classmethod

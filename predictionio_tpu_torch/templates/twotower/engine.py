@@ -9,12 +9,15 @@ precomputed item-embedding table.
     → {"itemScores": [{"item": "i2", "score": 0.93}, ...]}
 
 Training runs on the training device (CUDA unless the caller asks for
-the CPU). Serving precomputes both embedding tables and scores on the
+the CPU), data-parallel over the slots of a ``meshConf`` mesh of more
+than one slot. Serving precomputes both embedding tables and scores on the
 device through the ALS family's scorers: the exact ``ResidentScorer``
 (one ``score_topk`` launch a batch) or, with ``ann: true``, the
 ``ANNScorer`` over a PQ index built at train time (ADC shortlist + exact
 re-rank, no ``score_topk``); catalogs under 2,048 items score on the
-host (the ``PIO_ALS_SERVE`` policy). An unknown user gets ``[]``.
+host (the ``PIO_ALS_SERVE`` policy). ``annShards`` above 1 (or
+``PIO_ANN_SHARDS``) serves the index item-sharded over that many slots.
+An unknown user gets ``[]``.
 
 The blob is the JAX package's (a pickled dict with the flax-format
 ``user_vars``, the item table, the id maps, the ``TwoTowerParams``
@@ -50,7 +53,6 @@ from predictionio_tpu_torch.models.two_tower import (
     two_tower_train,
     two_tower_user_embed,
 )
-from predictionio_tpu_torch.parallel.mesh import one_slot
 from predictionio_tpu_torch.utils import jaxpickle
 from predictionio_tpu_torch.utils.bimap import BiMap
 
@@ -148,7 +150,8 @@ class TTAlgorithmParams:
     # OPQ learned rotation before quantization — better recall at the
     # same code bytes; versions the blob to v2
     ann_opq: bool = False
-    # serving-mesh width hint: > 1 is not ported (raises)
+    # serving-mesh width hint: > 1 partitions the corpus item-wise over
+    # a "shards" mesh axis at serving time
     ann_shards: int = 0
 
 
@@ -249,11 +252,6 @@ class TwoTowerAlgorithm(Algorithm):
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> TwoTowerModel:
         p: TTAlgorithmParams = self.params
-        if p.ann and int(p.ann_shards or 0) > 1:
-            from predictionio_tpu_torch.ann.scorer import SHARDED_NOT_PORTED
-
-            raise ValueError(f"annShards {p.ann_shards}: {SHARDED_NOT_PORTED}")
-        one_slot(ctx.mesh, "data-parallel two-tower training")
         user_ids = pd.interactions.user_ids
         item_ids = pd.interactions.item_ids
         if pd.stream:
@@ -275,6 +273,7 @@ class TwoTowerAlgorithm(Algorithm):
             n_pairs=pd.interactions.n_events)
         uv, iv = two_tower_train(
             uidx, iidx, len(user_ids), len(item_ids), tp,
+            mesh=ctx.mesh,
             pair_chunks=(pd.interactions.chunks if pd.stream else None),
             device=self.device)
         item_embeds = two_tower_embed_items(iv, len(item_ids), tp)
@@ -350,7 +349,7 @@ class TwoTowerAlgorithm(Algorithm):
         user_ids = BiMap(d["user_ids"])
         # index integrity is verified on EVERY load; an IntegrityError
         # propagates to prepare_deploy → /reload refuses the candidate
-        ann_index = load_blob_index(d, instance_dir, d.get("ann_shards", 0))
+        ann_index = load_blob_index(d, instance_dir)
         return TwoTowerModel(d["user_vars"], d["item_embeds"],
                              user_ids, BiMap(d["item_ids"]), d["params"],
                              user_embeds=two_tower_embed_users(

@@ -40,7 +40,8 @@ Verbs:
   promotes a follower by hand;
 - ``batchpredict`` answers a JSONL file of queries with the latest
   COMPLETED instance (or ``--engine-instance-id``) into a JSONL file of
-  ``{"query", "prediction"}`` lines, ``--batch-size`` queries a dispatch;
+  ``{"query", "prediction"}`` lines, ``--batch-size`` queries a dispatch,
+  ``--shards N`` serving ANN-indexed engines item-sharded over N slots;
 - ``deploy`` serves the latest COMPLETED instance (one the JAX
   package's ``pio train`` wrote into the same ``PIO_HOME`` included);
 - ``eval`` runs an Evaluation over a generator's grid, serially or
@@ -115,9 +116,6 @@ Every verb runs on whichever backends ``PIO_STORAGE_REPOSITORIES_*`` and
 ``PIO_STORAGE_SOURCES_*`` select (``storage/registry.py``: SQLITE,
 MEMORY, EVENTLOG, PGSQL, MYSQL, ELASTICSEARCH, LOCALFS, S3, HDFS), and
 ``status`` opens and checks each of the three repositories.
-
-Left out for now: ``batchpredict --shards`` above 1 (the ANN retrieval
-mesh, ROADMAP.md queue 1, item 8b).
 """
 
 from __future__ import annotations
@@ -2228,8 +2226,9 @@ def build_parser() -> argparse.ArgumentParser:
     bp.add_argument("--engine-instance-id")
     bp.add_argument("--batch-size", type=int, default=1024)
     bp.add_argument("--shards", type=int, default=0,
-                    help="the JAX package's item-sharded ANN retrieval; not "
-                         "ported: only 0 and 1 run")
+                    help="serve ANN-indexed engines over an N-way "
+                         "item-sharded retrieval mesh (needs >= N slots; "
+                         "fewer serve unsharded)")
     bp.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda; "
                          "'cpu' scores on the CPU)")

@@ -20,7 +20,9 @@ math of ``ops/topk.py``) held against the JAX package's, on the CPU.
   with OPQ;
 - ``ANNScorer`` answers the JAX package's across AOT buckets with pad
   rows, with exclusions and with ``num`` past the shortlist (the k
-  clamp); a shard count above 1 raises;
+  clamp); a shard count above 1 serves unsharded on one slot and sharded,
+  with the same answers, on two (``tests/test_torch_ann_sharded.py``
+  holds the sharded scorer against the JAX package's);
 - ``pio index status`` (text, ``--json`` and ``--shards``) prints the
   JAX verb's bytes on one home, with no torch module loaded.
 
@@ -49,6 +51,7 @@ from predictionio_tpu_torch import ann
 from predictionio_tpu_torch.ann import pq
 from predictionio_tpu_torch.ann.index import PQIndex
 from predictionio_tpu_torch.ops import topk as port_topk
+from predictionio_tpu_torch.parallel import distributed
 from predictionio_tpu_torch.server import aot as port_aot
 from predictionio_tpu_torch.server.aot import BucketLadder
 from predictionio_tpu_torch.utils.faults import FAULTS as PORT_FAULTS
@@ -404,20 +407,31 @@ def test_maybe_ann_scorer_policy_and_shards(monkeypatch):
     monkeypatch.setenv("PIO_ALS_SERVE", "host")
     assert ann.maybe_ann_scorer(U, V, idx, device="cpu") is None
     monkeypatch.setenv("PIO_ALS_SERVE", "device")
+    # a shard count above 1 from the argument, the environment or the
+    # blob's hint, with one CPU slot: unsharded, as the JAX package
+    # degrades with fewer devices than shards; with two slots, sharded
     for how in ("arg", "env", "hint"):
         hinted = PQIndex.from_bytes(idx.to_bytes())
         kw = {}
         if how == "arg":
             kw["shards"] = 2
         elif how == "env":
-            monkeypatch.setenv("PIO_ANN_SHARDS", "4")
+            monkeypatch.setenv("PIO_ANN_SHARDS", "2")
         else:
             hinted.meta["shards"] = 2
-        with pytest.raises(ValueError, match="item 8"):
-            ann.maybe_ann_scorer(U, V, hinted, device="cpu", **kw)
+        assert type(ann.maybe_ann_scorer(U, V, hinted, device="cpu", **kw)) is ann.ANNScorer
+        distributed.initialize(slots=["cpu"] * 2)
+        try:
+            two = ann.maybe_ann_scorer(U, V, hinted, device="cpu", **kw)
+        finally:
+            distributed.shutdown()
+        assert type(two) is ann.ShardedANNScorer and two.shards == 2
+        ids = np.arange(16, dtype=np.int32)
+        for got, want in zip(two._topk(ids, 10), s._topk(ids, 10)):
+            np.testing.assert_array_equal(got, want)
         monkeypatch.delenv("PIO_ANN_SHARDS", raising=False)
-    with pytest.raises(ValueError, match="not ported"):
-        ann.ShardedANNScorer(U, V, idx, shards=2)
+    with pytest.raises(ValueError, match="mesh needs 2 devices, have 1"):
+        ann.ShardedANNScorer(U, V, idx, shards=2, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ann.ANNScorer(U, V, idx)
     with pytest.raises(ValueError, match="index covers"):

@@ -11,8 +11,8 @@ way. On them:
 - on the device path (``PIO_ALS_SERVE=device``; a CPU tensor takes the
   kernel's plain version) each batch is ONE scoring dispatch and every
   line equals the host path's up to near-ties within 1e-5;
-- ``shards > 1`` (the JAX package's item-sharded ANN mesh) is refused
-  with a clear error; 0 and 1 run;
+- ``shards > 1`` (the item-sharded ANN mesh) sets ``PIO_ANN_SHARDS`` for
+  the run alone and writes the JAX function's lines; 0 and 1 run;
 - the CLI verb ``batchpredict`` (``--engine-dir``, ``-e``, ``--input``,
   ``--output``, ``--engine-instance-id``, ``--batch-size``, ``--shards``,
   ``--device cpu``) prints the JAX CLI's line and writes its file.
@@ -118,10 +118,35 @@ def test_shards_zero_and_one_run(homes, shards):
         == len(QUERIES)
 
 
-def test_sharded_retrieval_is_refused(homes):
+def test_sharded_retrieval_is_refused(homes, monkeypatch):
+    """``shards=2``: the JAX function's lines, with ``PIO_ANN_SHARDS`` set
+    for the run's duration only (restored, or unset, after it), in both
+    packages (``tests/test_torch_two_tower.py`` serves an ANN instance
+    sharded through it)."""
+    jhome, jid = homes["jax"]
     phome, pid = homes["port"]
-    with pytest.raises(ValueError, match="not ported"):
-        run_batch_predict(_port_deployed(phome, pid), _src(), io.StringIO(), shards=4)
+    for prev in (None, "3"):
+        if prev is None:
+            monkeypatch.delenv("PIO_ANN_SHARDS", raising=False)
+        else:
+            monkeypatch.setenv("PIO_ANN_SHARDS", prev)
+        want, got = io.StringIO(), io.StringIO()
+        jax_run_batch_predict(
+            jax_prepare_deploy(instance_id=jid, storage=JaxStorage(JaxStorageConfig(home=jhome))),
+            _src(), want, shards=2)
+        seen = []
+        deployed = _port_deployed(phome, pid)
+        real = deployed.batch_query
+
+        def spying(batch):
+            seen.append(os.environ.get("PIO_ANN_SHARDS"))
+            return real(batch)
+
+        deployed.batch_query = spying
+        assert run_batch_predict(deployed, _src(), got, shards=2) == len(QUERIES)
+        assert seen == ["2"]
+        assert os.environ.get("PIO_ANN_SHARDS") == prev
+        assert got.getvalue().splitlines() == want.getvalue().splitlines()
 
 
 def _cli(main, registry, storage, argv, capsys):

@@ -19,9 +19,9 @@ Both packages run in one process on the same numpy-seeded inputs:
   ``forest_predict_proba`` equal;
 - ``hash_features`` bit-equal;
 - the classification and text templates trained, deployed and queried
-  through both packages with equal answers, blobs loaded both ways, a
-  mesh of more than one device refused, no card and no CPU request
-  refused; serial and distributed ``run_evaluation`` with equal scores
+  through both packages with equal answers, blobs loaded both ways,
+  each algorithm trained over a mesh of four CPU slots (logistic
+  regression data-parallel), no card and no CPU request refused; serial and distributed ``run_evaluation`` with equal scores
   and leaderboard digests (the port's forest given the JAX draws);
 - the CLI: twin homes, ``train`` and ``deploy`` of each package, equal
   answers over HTTP.
@@ -207,6 +207,31 @@ def test_lbfgs_100_iterations_with_reg_match_optax(reg):
     assert np.abs(pb - b).max() <= W100_TOL * scale
     ref = _loss64(W, b, X, y, reg)
     assert abs(_loss64(pW, pb, X, y, reg) - ref) <= LOSS_RTOL * abs(ref)
+
+
+@pytest.mark.parametrize("slots", [2, 4, 8])
+@pytest.mark.parametrize("iterations,reg,tol", [(1, 0.0, W_TOL), (5, 1e-3, W_TOL),
+                                                (100, 1e-3, W100_TOL)])
+def test_data_parallel_lbfgs_matches_the_jax_sharded_run(slots, iterations, reg, tol):
+    """243 rows over 2, 4 and 8 slots (zero pad rows, masked, in the last
+    slot) against the JAX package's run over as many devices, and against
+    the port's one-device run, at the single-slot tests' tolerances."""
+    X, y = _blobs(seed=3, n=243)
+    mesh = make_mesh(MeshConfig({"data": slots}), devices=["cpu"] * slots)
+    jmesh = jax_make_mesh(JaxMeshConfig({"data": slots}), devices=jax.devices("cpu")[:slots])
+    kw = dict(num_classes=3, iterations=iterations, reg=reg)
+    W, b = jax_linear.logreg_train(X, y, jax_linear.LogisticRegressionParams(**kw), jmesh)
+    pW, pb = port_linear.logreg_train(X, y, port_linear.LogisticRegressionParams(**kw),
+                                      mesh=mesh)
+    oW, ob = _lr("port", X, y, **kw)
+    scale = np.abs(W).max()
+    for got, want in ((pW, W), (pb, b), (pW, oW), (pb, ob)):
+        assert np.abs(got - want).max() <= tol * scale
+    many = port_linear.logreg_train_many(
+        X, y, [port_linear.LogisticRegressionParams(**kw)] * 2, mesh=mesh)
+    for mW, mb in many:
+        np.testing.assert_array_equal(mW, pW)
+        np.testing.assert_array_equal(mb, pb)
 
 
 def _labels_agree(Wa, ba, Wb, bb, X):
@@ -588,9 +613,12 @@ def test_a_mesh_of_more_than_one_device_is_refused(home):
     """``meshConf {"data": 8}`` clamps to the one CPU and trains as without
     a mesh (the JAX package trains on one device alike); ``allowSmaller:
     false`` raises the JAX package's message; the default mesh of an empty
-    meshConf over two slots trains on its first slot; a meshConf asking
-    for more than one slot is still refused by the classification and
-    text algorithms, naming the remaining item of queue 1."""
+    meshConf over two slots trains naive Bayes as one device does. Over a
+    mesh of four CPU slots every classification and text algorithm trains:
+    naive Bayes and the forest equal to the one-device models (the mesh
+    is ignored, as the JAX package ignores it), logistic regression
+    data-parallel within the single-slot parity tolerance of the
+    one-device weights, and ``train_many`` the candidates alike."""
     home, ids = home
     ps = _port_storage(home)
     v = _variant("nb", CLASSIFICATION_FACTORY)
@@ -625,19 +653,39 @@ def test_a_mesh_of_more_than_one_device_is_refused(home):
     for key in plain.arrays:
         np.testing.assert_array_equal(default.arrays[key], plain.arrays[key])
 
-    ctx = WorkflowContext(storage=ps, device="cpu",
-                          mesh=make_mesh(MeshConfig({"data": 2}), devices=["cpu"] * 2))
-    for algo in (port_cls.NaiveBayesAlgorithm(port_cls.NBAlgoParams()),
-                 port_cls.LogisticRegressionAlgorithm(port_cls.LRAlgoParams()),
-                 port_cls.RandomForestAlgorithm(port_cls.RFAlgoParams())):
-        with pytest.raises(ValueError, match="queue 1, item 8b"):
-            algo.train(ctx, None)
-    with pytest.raises(ValueError, match="queue 1, item 8b"):
-        port_cls.LogisticRegressionAlgorithm.train_many(ctx, None, [])
-    for algo in (port_text.TextNaiveBayesAlgorithm(port_text.TextNBParams()),
-                 port_text.TextLogisticRegressionAlgorithm(port_text.TextLRParams())):
-        with pytest.raises(ValueError, match="queue 1, item 8b"):
-            algo.train(ctx, None)
+    mesh = make_mesh(MeshConfig({"data": 4}), devices=["cpu"] * 4)
+    ctx = WorkflowContext(storage=ps, device="cpu", mesh=mesh)
+    one = WorkflowContext(storage=ps, device="cpu")
+    cls_data = port_cls.ClassificationDataSource(
+        port_cls.DataSourceParams(app_name=CLS_APP)).read_training(one)
+    text_data = port_text.TextDataSource(
+        port_text.TextDataSourceParams(app_name=TEXT_APP, hash_bits=8)).read_training(one)
+    # the pad rows and their mask are exercised
+    assert len(cls_data.y) % 4 and len(text_data.y) % 4
+    for algo, pd in ((port_cls.NaiveBayesAlgorithm(port_cls.NBAlgoParams()), cls_data),
+                     (port_cls.LogisticRegressionAlgorithm(
+                         port_cls.LRAlgoParams(iterations=40, reg=0.01)), cls_data),
+                     (port_cls.RandomForestAlgorithm(
+                         port_cls.RFAlgoParams(num_trees=4, max_depth=3,
+                                               n_thresholds=8)), cls_data),
+                     (port_text.TextNaiveBayesAlgorithm(port_text.TextNBParams()), text_data),
+                     (port_text.TextLogisticRegressionAlgorithm(
+                         port_text.TextLRParams(iterations=30, reg=0.01)), text_data)):
+        algo.device = "cpu"
+        sharded, single = algo.train(ctx, pd), algo.train(one, pd)
+        assert sharded.arrays.keys() == single.arrays.keys()
+        if sharded.kind == "lr":
+            scale = np.abs(single.arrays["W"]).max()
+            for key in ("W", "b"):
+                assert np.abs(sharded.arrays[key] - single.arrays[key]).max() <= W100_TOL * scale
+        else:
+            for key in single.arrays:
+                np.testing.assert_array_equal(sharded.arrays[key], single.arrays[key])
+    cands = [port_cls.LRAlgoParams(iterations=20, reg=r) for r in GRID_REGS]
+    for got, want in zip(port_cls.LogisticRegressionAlgorithm.train_many(ctx, cls_data, cands),
+                         port_cls.LogisticRegressionAlgorithm.train_many(one, cls_data, cands)):
+        scale = np.abs(want.arrays["W"]).max()
+        assert np.abs(got.arrays["W"] - want.arrays["W"]).max() <= W100_TOL * scale
 
 
 def test_training_needs_a_card_or_a_cpu_request(home, monkeypatch):

@@ -20,14 +20,14 @@ from predictionio_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from predictionio_tpu.parallel.mesh import pad_to_multiple as jax_pad
 from predictionio_tpu.parallel.mesh import shards_mesh as jax_shards_mesh
 from predictionio_tpu_torch.parallel import distributed
+from predictionio_tpu.parallel.ring_attention import ring_attention as jax_ring
 from predictionio_tpu_torch.parallel.mesh import (
-    NOT_PORTED,
     Mesh,
     MeshConfig,
     make_mesh,
-    one_slot,
     pad_to_multiple,
     platform_devices,
+    process_slots,
     shards_mesh,
 )
 from predictionio_tpu_torch.parallel.ring_attention import ring_attention
@@ -105,25 +105,33 @@ def test_default_devices_follow_the_platform(monkeypatch):
 
 
 def test_pad_to_multiple_and_one_slot():
+    """``pad_to_multiple`` is the JAX package's; ``process_slots`` gives a
+    one-process path every slot, or those along one axis, and refuses a
+    mesh whose slots span processes."""
     for n, m in ((0, 8), (1, 8), (8, 8), (9, 8), (41, 3)):
         assert pad_to_multiple(n, m) == jax_pad(n, m)
-    one_slot(None, "x")
-    one_slot(make_mesh(devices=["cpu"]), "x")
-    # the default mesh of an empty meshConf runs the path on its first slot
-    one_slot(make_mesh(devices=CPU8[:2]), "x")
-    one_slot(make_mesh(MeshConfig({"data": 2}), devices=CPU8[:1]), "x")
-    with pytest.raises(ValueError, match="item 8b") as e:
-        one_slot(make_mesh(MeshConfig({"data": 2}), devices=CPU8[:2]),
-                 "data-parallel naive Bayes")
-    assert str(e.value) == f"data-parallel naive Bayes over a mesh of 2 slots {NOT_PORTED}"
+    mesh = make_mesh(MeshConfig({"data": 2, "model": 4}), devices=CPU8)
+    assert process_slots(mesh, "x") == mesh.slots and len(mesh.slots) == 8
+    assert len(process_slots(mesh, "x", "data")) == 2
+    assert len(process_slots(mesh, "x", "model")) == 4
+    assert process_slots(make_mesh(devices=["cpu"]), "x") == [torch.device("cpu")]
+    spans = Mesh(mesh.devices, mesh.axis_names, np.arange(8).reshape(2, 4) // 4)
+    with pytest.raises(ValueError) as e:
+        process_slots(spans, "data-parallel naive Bayes")
+    assert str(e.value) == ("data-parallel naive Bayes runs over the slots of one "
+                            "process; this mesh spans processes [0, 1]")
 
 
 def test_ring_attention_takes_a_mesh_and_refuses_more_than_one_slot():
-    q = torch.randn(1, 4, 2, 8)
-    one = ring_attention(q, q, q, mesh=make_mesh(devices=["cpu"]).shape)
+    """A one-slot mesh is the local oracle; eight slots run the ring and
+    give the JAX package's ring over its eight devices."""
+    q = torch.randn(1, 8, 2, 8, generator=torch.Generator().manual_seed(0))
+    one = ring_attention(q, q, q, mesh=make_mesh(devices=["cpu"]))
     torch.testing.assert_close(one, ring_attention(q, q, q))
-    with pytest.raises(ValueError, match="item 8b"):
-        ring_attention(q, q, q, mesh=make_mesh(devices=CPU8).shape)
+    eight = ring_attention(q, q, q, mesh=make_mesh(devices=CPU8), causal=True)
+    jq = jax.numpy.asarray(q.numpy())
+    want = jax_ring(jq, jq, jq, mesh=jax_make_mesh(devices=JAX8), causal=True)
+    np.testing.assert_allclose(eight.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_single_process_shell_degenerates_as_the_jax_packages():

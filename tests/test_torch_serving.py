@@ -444,7 +444,7 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch, home):
 #: modules the walk below must reach (the ANN package, the two-tower model
 #: and template, the integrity helpers, the classification slice, e2, CCO
 #: with the universal template and sequential rec with its attention and
-#: template), so a rename cannot drop them
+#: template, and Ulysses attention), so a rename cannot drop them
 MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq",
              "predictionio_tpu_torch.ann.scorer", "predictionio_tpu_torch.models.two_tower",
              "predictionio_tpu_torch.templates.twotower.engine",
@@ -461,6 +461,7 @@ MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq"
              "predictionio_tpu_torch.models.cco",
              "predictionio_tpu_torch.templates.universal.engine",
              "predictionio_tpu_torch.parallel.ring_attention",
+             "predictionio_tpu_torch.parallel.ulysses",
              "predictionio_tpu_torch.models.seq_rec",
              "predictionio_tpu_torch.templates.sequentialrec.engine",
              "predictionio_tpu_torch.data.replication",

@@ -25,8 +25,8 @@ On it:
 - ``similar_items`` on the device path (a CPU tensor takes the plain
   version) equals the host path, and the host path the JAX package's;
 - with ``ann: true`` both packages train the PQ index and serve each
-  other's instances alike; sharded ANN serving is refused at train and
-  at load.
+  other's instances alike; with ``annShards`` 2 the port serves the
+  index unsharded on one slot and item-sharded on two, alike.
 
 Data crosses between the packages as numpy arrays, SQLite rows and
 pickled blobs.
@@ -398,14 +398,16 @@ def test_the_port_loads_a_jax_ecommerce_blob_without_the_jax_package(home, tmp_p
 
 def test_ann_is_refused_at_train_and_at_load(tmp_path, monkeypatch):
     """ANN on the similar-product template (the name dates from when the
-    port refused it; only sharded serving is refused now, at train and at
-    load): both packages train ``ann: true`` on a home of their own (rank
+    port refused it): both packages train ``ann: true`` on a home of their own (rank
     8, annM 4, the index over the normalised factors, its sidecar beside
     model.bin);
     each package serves each instance, single-item queries through the
     ANN scorer, with the JAX package's answers on its own instance up to
-    near-ties, and the blob's index bytes serve without the sidecar."""
-    from predictionio_tpu_torch.ann import ANNScorer, INDEX_BASENAME
+    near-ties, and the blob's index bytes serve without the sidecar. With
+    ``annShards`` 2 both record the hint in the index; the port serves it
+    unsharded on one CPU slot and item-sharded on two, alike."""
+    from predictionio_tpu_torch.ann import ANNScorer, INDEX_BASENAME, ShardedANNScorer
+    from predictionio_tpu_torch.parallel import distributed
 
     home = str(tmp_path / "ann_home")
     seed_views(_jax_storage(home), APPS["sp"])
@@ -444,11 +446,31 @@ def test_ann_is_refused_at_train_and_at_load(tmp_path, monkeypatch):
     algo.device = "cpu"
     model = algo.load_model(blob, None)          # the blob's own index bytes
     assert model.V.shape == (20, 8) and model.ann_index is not None
-    with pytest.raises(ValueError, match="item 8"):
-        algo.load_model(pickle.dumps(dict(pickle.loads(blob), ann_shards=2)), None)
-    with pytest.raises(ValueError, match="item 8"):
-        run_train(pf, variant=_variant("sp", pf, ann=True, annM=4, annShards=2),
-                  storage=_port_storage(home), device="cpu")
+    # annShards 2: the hint rides in the index, as the JAX package's
+    # does; one CPU slot serves it unsharded, two item-sharded, alike
+    sharded = {"jax": jax_run_train(jf, variant=dict(_variant("sp", jf, annShards=2, **ann),
+                                                     id="ann2"),
+                                    storage=_jax_storage(home), use_mesh=False),
+               "port": run_train(pf, variant=dict(_variant("sp", pf, annShards=2, **ann),
+                                                  id="ann2"),
+                                 storage=_port_storage(home), device="cpu")}
+    for iid in sharded.values():
+        one = _deployed(home, iid, "port")
+        assert one.models[0].ann_index.meta.get("shards") == 2
+        assert type(one.models[0]._ann_device_scorer()) is ANNScorer
+        distributed.initialize(slots=["cpu"] * 2)
+        try:
+            two = _deployed(home, iid, "port")
+            assert type(two.models[0]._ann_device_scorer()) is ShardedANNScorer
+            for q in ref:
+                want = one.query({"items": [q], "num": 5})
+                assert two.query({"items": [q], "num": 5}) == want
+                assert same_answers(want, _deployed(home, iid, "jax").query(
+                    {"items": [q], "num": 5}), TOL)
+        finally:
+            distributed.shutdown()
+    assert algo.load_model(pickle.dumps(dict(pickle.loads(blob), ann_shards=2)),
+                           None).ann_shards == 2
 
 
 def test_similar_items_device_path_equals_host_path(monkeypatch):

@@ -7,6 +7,10 @@ package's, on the CPU.
   max |value| of the JAX training (optax ``adam`` against
   ``torch.optim.Adam``: one formula, other rounding), in memory and
   streaming (the ``(G, B)`` groups with carried remainders);
+- data-parallel training over 2, 4 and 8 CPU slots stays within 1e-4 of
+  the JAX package's run over as many devices and of the one-slot run,
+  and a control with per-slot in-batch negatives does not; too few pairs
+  for a sharded batch train unsharded;
 - a run resumed from its mid-train checkpoint equals the straight run
   bit for bit; the resuming run's learning rate wins; a checkpoint of
   another geometry is wiped with a warning;
@@ -15,6 +19,9 @@ package's, on the CPU.
   with the same answers, up to near-ties within 1e-5, and ``[]`` for an
   unknown user, through ``query`` and ``batch_query``;
 - the blob's params dataclass is named by its JAX module path both ways;
+  a blob asking for two ANN shards serves unsharded on one slot and
+  item-sharded on two, alike; ``batchpredict --shards 2`` answers as the
+  JAX verb;
 - ``pio eval`` Recall@10 with ``DefaultGrid`` and ``ANNGrid`` equals the
   JAX package's when the port starts from the JAX package's initial
   weights (the packages draw them from different generators);
@@ -51,7 +58,9 @@ from predictionio_tpu_torch.core.workflow import (
     run_evaluation,
     run_train,
 )
+from predictionio_tpu_torch.ann.scorer import ANNScorer, ShardedANNScorer
 from predictionio_tpu_torch.models import two_tower as port_tt
+from predictionio_tpu_torch.parallel import distributed
 from predictionio_tpu_torch.storage import registry as port_registry
 from predictionio_tpu_torch.storage.registry import Storage, StorageConfig
 from predictionio_tpu_torch.templates.twotower import engine as port_engine
@@ -194,6 +203,67 @@ def test_resume_is_bitwise_the_straight_run_and_this_runs_lr_wins(tmp_path):
     assert all(_bitwise(a, b) for a, b in zip(wide, fresh))
 
 
+class _SlotNegatives(port_tt.TwoTowerTrainer):
+    """A control: each slot's rows scored against its own rows only (B/S
+    in-batch negatives a slot), a different model from the JAX package's
+    whole-batch loss."""
+
+    def embed(self, tower, ids):
+        out = super().embed(tower, ids)
+        self._shares = len(self.slots)
+        return out
+
+    def contrastive(self, ue, ie):
+        parts = zip(ue.chunk(self._shares), ie.chunk(self._shares))
+        return torch.stack([super(_SlotNegatives, self).contrastive(u, i)
+                            for u, i in parts]).mean()
+
+
+@pytest.mark.parametrize("slots,batch", [(2, 128), (4, 100), (8, 100)])
+def test_data_parallel_training_matches_the_jax_sharded_run(slots, batch, monkeypatch):
+    """3,001 pairs (a batch the slots divide, B rounded down as the JAX
+    package rounds it, the remainder dropped) over 2, 4 and 8 CPU slots
+    against the JAX package's run over as many devices, from its initial
+    weights, and against the port's one-slot run: within TOL. The
+    control that keeps each slot's negatives to its own rows leaves TOL."""
+    from predictionio_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
+    from predictionio_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    u, i = _pairs(3001, seed=slots)
+    jp, pp = _params("jax", batch_size=batch), _params("port", batch_size=batch)
+    init = jax_init(N_USERS, N_ITEMS, jp)
+    mesh = make_mesh(MeshConfig({"data": slots}), devices=["cpu"] * slots)
+    jmesh = jax_make_mesh(JaxMeshConfig({"data": slots}), devices=jax.devices("cpu")[:slots])
+    jv = jax_tt.two_tower_train(u, i, N_USERS, N_ITEMS, jp, mesh=jmesh)
+    stats = {}
+    pv = port_tt.two_tower_train(u, i, N_USERS, N_ITEMS, pp, mesh=mesh, device="cpu",
+                                 initial_variables=init, stats=stats)
+    assert stats["steps"] == 2 * (3001 // (batch // slots * slots))
+    one = port_tt.two_tower_train(u, i, N_USERS, N_ITEMS, _params("port", batch_size=batch
+                                                                  // slots * slots),
+                                  device="cpu", initial_variables=init)
+    for j, p, o in zip(jv, pv, one):
+        assert _rel(j, p) <= TOL and _rel(o, p) <= TOL
+    monkeypatch.setattr(port_tt, "TwoTowerTrainer", _SlotNegatives)
+    control = port_tt.two_tower_train(u, i, N_USERS, N_ITEMS, pp, mesh=mesh, device="cpu",
+                                      initial_variables=init)
+    assert max(_rel(j, c) for j, c in zip(jv, control)) > TOL
+
+
+def test_too_few_pairs_for_a_sharded_batch_train_unsharded():
+    """5 pairs over 8 slots: a sharded batch of 8 would not fill, so the
+    run is the one-slot run, bit for bit (the JAX package's rule)."""
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    u, i = _pairs(5)
+    mesh = make_mesh(MeshConfig({"data": 8}), devices=["cpu"] * 8)
+    sharded = port_tt.two_tower_train(u, i, N_USERS, N_ITEMS, _params("port"), mesh=mesh,
+                                      device="cpu")
+    single = port_tt.two_tower_train(u, i, N_USERS, N_ITEMS, _params("port"), device="cpu")
+    assert all(_bitwise(a, b) for a, b in zip(sharded, single))
+
+
 # -- the template on twin homes ------------------------------------------------
 
 
@@ -307,12 +377,56 @@ def test_blob_params_cross_both_ways_and_sharding_refused(home, tmp_path):
     # the blob's own index bytes serve when there is no sidecar
     model = algo.load_model(port_blob, None)
     assert model.ann_index is not None and model.user_embeds.shape == (20, 16)
-    with pytest.raises(ValueError, match="item 8"):
-        algo.load_model(port_engine.dumps_blob(dict(port_engine.loads_blob(port_blob),
-                                                    ann_shards=2)), None)
-    with pytest.raises(ValueError, match="item 8"):
-        port_engine.TwoTowerAlgorithm(port_engine.TTAlgorithmParams(
-            ann=True, ann_shards=2)).train(None, None)
+    # a blob that asks for two shards loads: one CPU slot serves it
+    # unsharded, two serve it item-sharded with the same answers
+    hinted = port_engine.dumps_blob(dict(port_engine.loads_blob(port_blob), ann_shards=2))
+    os.environ["PIO_ALS_SERVE"] = "device"
+    try:
+        one = algo.load_model(hinted, None)
+        assert one.ann_shards == 2 and type(one._device_scorer()) is ANNScorer
+        distributed.initialize(slots=["cpu"] * 2)
+        try:
+            two = algo.load_model(hinted, None)
+            assert type(two._device_scorer()) is ShardedANNScorer
+            for q in QUERIES:
+                assert two.recommend(q["user"], q["num"]) == one.recommend(q["user"], q["num"])
+        finally:
+            distributed.shutdown()
+    finally:
+        os.environ.pop("PIO_ALS_SERVE")
+
+
+def test_batchpredict_shards_serves_the_ann_instance_sharded(home, monkeypatch):
+    """``run_batch_predict(shards=2)`` on each package's PQ instance: the
+    JAX package over its devices, the port over two CPU slots (a
+    ``ShardedANNScorer`` built inside the run), the same answers up to
+    near-ties, line by line."""
+    import io
+    import json
+
+    from predictionio_tpu.core.batchpredict import run_batch_predict as jax_run_batch_predict
+    from predictionio_tpu_torch.core.batchpredict import run_batch_predict
+
+    home, ids = home
+    monkeypatch.setenv("PIO_ALS_SERVE", "device")
+    monkeypatch.delenv("PIO_ANN_SHARDS", raising=False)
+    src = "".join(json.dumps(q) + "\n" for q in QUERIES)
+    want, got = io.StringIO(), io.StringIO()
+    jax_run_batch_predict(jax_prepare_deploy(instance_id=ids["pq", "jax"],
+                                             storage=JaxStorage(JaxStorageConfig(home=home))),
+                          io.StringIO(src), want, shards=2)
+    distributed.initialize(slots=["cpu"] * 2)
+    try:
+        deployed = prepare_deploy(instance_id=ids["pq", "jax"],
+                                  storage=Storage(StorageConfig(home=home)), device="cpu")
+        run_batch_predict(deployed, io.StringIO(src), got, shards=2)
+    finally:
+        distributed.shutdown()
+    assert type(deployed.models[0]._scorer) is ShardedANNScorer
+    for a, b in zip(got.getvalue().splitlines(), want.getvalue().splitlines(), strict=True):
+        a, b = json.loads(a), json.loads(b)
+        assert a["query"] == b["query"]
+        _agree(a["prediction"], b["prediction"])
 
 
 # -- pio eval -----------------------------------------------------------------
