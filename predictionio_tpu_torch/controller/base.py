@@ -84,11 +84,19 @@ class WorkflowContext:
     checkpoints (``run_train`` points it at a per-(factory, variant)
     directory; None turns checkpointing off). ``mesh`` is the run's
     ``parallel/mesh.Mesh`` (None: one device), which the ALS templates
-    train sharded over when it has more than one slot."""
+    train sharded over when it has more than one slot.
+    ``skip_sanity_check`` skips each algorithm's ``sanity_check`` in
+    train, eval and the sweep; ``stop_after_read`` and
+    ``stop_after_prepare`` end ``Engine.train`` after that stage
+    (``batch`` is the run's label, as in the JAX package)."""
 
     storage: Storage = field(default_factory=get_storage)
     device: Optional[torch.device] = None
+    batch: str = ""
     verbose: int = 0
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
     timings: Dict[str, float] = field(default_factory=dict)
     instance_id: str = ""
     checkpoint_dir: Optional[str] = None

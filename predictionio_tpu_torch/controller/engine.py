@@ -104,16 +104,21 @@ class Engine:
             td = ds.read_training(ctx)
         ctx.timings["read_training"] = time.perf_counter() - t0
         ctx.log("read_training done")
+        if ctx.stop_after_read:
+            return []
         t0 = time.perf_counter()
         with tracing.span("train.prepare"):
             prep = self.preparator_cls(engine_params.preparator_params)
             pd = prep.prepare(ctx, td)
         ctx.timings["prepare"] = time.perf_counter() - t0
         ctx.log("prepare done")
+        if ctx.stop_after_prepare:
+            return []
         models = []
         for name, algo in self.make_algorithms(engine_params):
             algo.device = ctx.device
-            algo.sanity_check(pd)
+            if not ctx.skip_sanity_check:
+                algo.sanity_check(pd)
             ctx.log(f"training algorithm {name!r}")
             t0 = time.perf_counter()
             with tracing.span("train.fit", algorithm=name):
@@ -179,8 +184,9 @@ class Engine:
                              for i in idxs]
                     # every candidate's params get checked: a degenerate
                     # candidate must fail here, not deep inside training
-                    for p in plist:
-                        cls(p).sanity_check(pd)
+                    if not ctx.skip_sanity_check:
+                        for p in plist:
+                            cls(p).sanity_check(pd)
                     models = cls.train_many(ctx, pd, plist)
                     for j, m in enumerate(models):
                         models_by_cand[j].append(m)

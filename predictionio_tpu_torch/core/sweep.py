@@ -321,8 +321,9 @@ def run_sweep(
             for f, (td, _eval_info, qa) in enumerate(folds):
                 pd = cache.prepared(ds_key, pp_key, f,
                                     lambda: prep.prepare(ctx, td))
-                for p in plist:
-                    cls(p).sanity_check(pd)
+                if not ctx.skip_sanity_check:
+                    for p in plist:
+                        cls(p).sanity_check(pd)
                 progs = cls.sweep_programs(ctx, pd, plist, qa, metric)
                 if progs is None:
                     ok = False

@@ -234,6 +234,30 @@ def record_shard_layout(shards: int, items_per_device: int,
     ANN_SHARD_MERGE.set(shortlist * shards)
 
 
+def device_p50_ms_by_bucket(path: str = "aot") -> Dict[str, float]:
+    """Approximate p50 (ms) a bucket from ``DEVICE_LATENCY``'s buckets:
+    the first bucket bound whose cumulative count crosses half the total
+    (an upper-bound estimate). ``path`` selects the dispatch path
+    (``"aot"`` exact warmed serving, ``"ann"`` the ADC-shortlist
+    serving); the JAX package's function over the same series."""
+    out: Dict[str, float] = {}
+    with DEVICE_LATENCY._lock:
+        items = {k: list(c) for k, c in DEVICE_LATENCY._counts.items()}
+    for key, counts in items.items():
+        total = sum(counts)
+        if not total or key[1] != path:
+            continue
+        half, cum = total / 2.0, 0
+        p50 = DEVICE_LATENCY.buckets[-1]
+        for b, c in zip(DEVICE_LATENCY.buckets, counts):
+            cum += c
+            if cum >= half:
+                p50 = b
+                break
+        out[key[0]] = p50 * 1e3
+    return out
+
+
 # -- deploy-time warmup orchestration ----------------------------------------
 
 

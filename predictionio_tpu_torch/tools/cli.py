@@ -92,6 +92,11 @@ Verbs:
   artifact of a home (event-log segments and their sidecars, the
   snapshot cache, model blobs, ANN index blobs, the model registry) and
   exits 0 clean, 1 on an operational error, 2 corrupt, 3 repaired;
+- ``lint [--rule PLxx] [--json] [--no-baseline] [--baseline F]
+  [--root DIR]`` runs the static invariant analysis
+  (``analysis/``) over the port's tree against the reviewed baseline
+  ``conf/lint-baseline-torch.json``, and exits 0 when every finding is
+  baselined or suppressed, 1 otherwise (stdlib ``ast`` only: no torch);
 - ``segments [status|show|roll|compact|ship] [--json] [--verify]``
   shows and operates the EVENTLOG backend's segmented log; ``train
   --no-scan-cache`` bypasses the columnar snapshot cache and
@@ -1581,6 +1586,38 @@ def cmd_fsck(args: argparse.Namespace) -> None:
         raise SystemExit(3)
 
 
+def cmd_lint(args: argparse.Namespace) -> None:
+    """Static invariant analysis over the port's tree (stdlib ``ast``
+    only: runs with no card and no torch). Exits 0 when every finding is
+    baselined or suppressed, 1 otherwise."""
+    from predictionio_tpu_torch.analysis.runner import run_lint
+
+    try:
+        report = run_lint(
+            root=args.root,
+            rules=args.rule or None,
+            baseline=args.baseline,
+            use_baseline=not args.no_baseline,
+        )
+    except ValueError as e:
+        _die(str(e))
+    if args.json:
+        print(json.dumps(report.to_json(), indent=2, sort_keys=True))
+    else:
+        for f in report.findings:
+            print(f.render())
+        print(f"[lint] rules={','.join(report.rules)} "
+              f"files={report.files} findings={len(report.findings)} "
+              f"baselined={len(report.baselined)} "
+              f"suppressed={report.suppressed} "
+              f"({report.duration_s:.2f}s)")
+        for key in report.stale_baseline:
+            print(f"[lint] warning: stale baseline entry (no longer "
+                  f"fires): {key}")
+    if not report.ok:
+        raise SystemExit(1)
+
+
 def cmd_segments(args: argparse.Namespace) -> None:
     """Operate the partitioned event log: show segment layout, force a
     rollover, compact sealed segments into columnar sidecars, or ship
@@ -2561,9 +2598,37 @@ def build_parser() -> argparse.ArgumentParser:
     sh = sub.add_parser("shell", help="interactive framework REPL")
     sh.set_defaults(fn=cmd_shell)
 
+    ln = sub.add_parser(
+        "lint",
+        help="static invariant analysis of the port: trace-safety (PL01), "
+             "jax-free port and torch-free ops-box verbs (PL02), lock "
+             "discipline (PL03), registry/docs closure (PL04), resilience "
+             "hygiene (PL05) — stdlib ast only, torch-free")
+    ln.add_argument("--json", action="store_true",
+                    help="emit the full report as one JSON document")
+    ln.add_argument("--rule", action="append", metavar="RULE",
+                    help="run only this rule family, e.g. PL03 "
+                         "(repeatable; default: all)")
+    ln.add_argument("--baseline", metavar="PATH",
+                    help="baseline file of reviewed, accepted findings "
+                         "(default: conf/lint-baseline-torch.json)")
+    ln.add_argument("--no-baseline", action="store_true",
+                    help="report baselined findings too (review mode)")
+    ln.add_argument("--root", metavar="DIR",
+                    help="repo root to analyze (default: the tree this "
+                         "package was loaded from)")
+    ln.set_defaults(fn=cmd_lint)
+
     vp = sub.add_parser("version")
     vp.set_defaults(fn=lambda a: print(__version__))
     return p
+
+
+#: verbs whose command path may import torch (the JAX CLI's
+#: ``_JAX_VERBS``); every other verb runs on a box without torch, which
+#: ``pio lint``'s PL02 checks through the verbs' import closures
+_TORCH_VERBS = {"train", "deploy", "eval", "batchpredict", "status", "run",
+                "shell", "build"}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

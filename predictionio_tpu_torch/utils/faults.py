@@ -34,6 +34,9 @@ Sites the port wires so far:
 ``tenant.quota.exhausted``  the per-app token bucket reads empty
 ``eventsink.send``      feedback sink delivery (Event Server down)
 ``ingest.commit``       coalescer group commit (event storage down)
+``models.s3``           S3 model-store operations (put, get, delete, list)
+``models.hdfs``         HDFS model-store operations (put, get, delete,
+                        list)
 ``variant.assign.skew``  variant-split assignment — the weighted hash
                         is bypassed and every query lands on the
                         default arm (a skewed split the per-variant
@@ -99,9 +102,8 @@ Sites the port wires so far:
                         rate limit alone bounds the blast radius
 ======================  ===================================================
 
-The S3 and HDFS model stores (``storage/remote.py``) pass their
-``models.s3`` and ``models.hdfs`` sites through ``_ResilientCalls``
-(put, get, delete, list).
+The S3 and HDFS model stores (``storage/remote.py``) build their
+``models.{kind}`` site in ``_ResilientCalls._init_resilience``.
 """
 
 from __future__ import annotations

@@ -42,6 +42,24 @@ def twins(tmp_path, capsys):
     return Twins(tmp_path, capsys)
 
 
+def _subparsers(parser):
+    import argparse
+
+    return next(a for a in parser._actions
+                if isinstance(a, argparse._SubParsersAction)).choices
+
+
+def test_the_ports_parser_has_every_verb_of_the_jax_parser():
+    jax_verbs = _subparsers(jax_cli.build_parser())
+    port_verbs = _subparsers(cli.build_parser())
+    assert "lint" in jax_verbs
+    assert set(jax_verbs) <= set(port_verbs), set(jax_verbs) - set(port_verbs)
+    # lint takes the JAX verb's flags
+    def flags(p):
+        return sorted(s for a in p._actions for s in a.option_strings)
+    assert flags(port_verbs["lint"]) == flags(jax_verbs["lint"])
+
+
 def test_version_and_the_version_flag(twins):
     assert __version__ == jax_version
     assert twins.run("version") == (0, [__version__], [])

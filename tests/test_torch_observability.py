@@ -1006,11 +1006,16 @@ def test_every_port_fault_site_is_documented_and_exercised():
         wired |= {a or b for a, b in re.findall(
             r'(?:faults\.inject|FAULTS\.a?hit|corrupt_bytes)\(\s*"([a-z_.]+)"'
             r'|fault_site="([a-z_.]+)"', path.read_text())}
-    table = set(re.findall(r"^``([a-z_.]+)``", port_faults.__doc__, re.M))
+    # the model stores build their site as models.{kind}
+    wired |= {f"models.{kind}" for kind in re.findall(
+        r'_init_resilience\("([a-z0-9_]+)"\)',
+        (root / "predictionio_tpu_torch/storage/remote.py").read_text())}
+    table = set(re.findall(r"^``([a-z0-9_.]+)``", port_faults.__doc__, re.M))
     tests = "".join(p.read_text() for p in (root / "tests").glob("test_torch_*.py"))
     assert wired == table == {"serving.query", "serving.reload", "trace.export",
                               "tsdb.scrape.stall", "tenant.quota.exhausted",
                               "eventsink.send", "ingest.commit",
+                              "models.s3", "models.hdfs",
                               "variant.assign.skew", "variant.reload.partial",
                               "incident.capture.stall", "ann.index.corrupt",
                               "segments.cold", "segments.shard.hot",
@@ -1024,4 +1029,4 @@ def test_every_port_fault_site_is_documented_and_exercised():
                               "remediate.wrong_target", "remediate.storm"}
     assert all(f'"{site}"' in tests for site in wired)
     # every port site is one of the JAX package's documented sites
-    assert wired <= set(re.findall(r"^``([a-z_.]+)``", jax_faults.__doc__, re.M))
+    assert wired <= set(re.findall(r"^``([a-z0-9_.]+)``", jax_faults.__doc__, re.M))

@@ -353,6 +353,32 @@ def test_predict_ratings_and_pad_helpers_match_jax():
     assert aot.is_pad(PAD) and not aot.is_pad(JAX_PAD)
 
 
+@pytest.mark.parametrize("path", ("aot", "ann"))
+def test_device_p50_by_bucket_matches_the_jax_helper(monkeypatch, path):
+    """The same seeded latencies observed into both packages'
+    ``pio_predict_device_seconds`` give the same per-bucket p50, on the
+    exact and the ANN path alike; other paths' samples stay out."""
+    from predictionio_tpu.server import aot as jax_aot
+
+    for hist in (aot.DEVICE_LATENCY, jax_aot.DEVICE_LATENCY):
+        monkeypatch.setattr(hist, "_counts", {})
+        monkeypatch.setattr(hist, "_sums", {})
+        monkeypatch.setattr(hist, "_exemplars", {})
+    rng = np.random.default_rng(26)
+    for bucket, scale in ((1, 2e-4), (8, 3e-3), (64, 4e-2), (256, 20.0)):
+        for s in rng.exponential(scale, 101):
+            for mod in (aot, jax_aot):
+                mod.DEVICE_LATENCY.observe(float(s), (str(bucket), path))
+    for s in rng.exponential(1e-3, 50):  # the other path
+        for mod in (aot, jax_aot):
+            mod.DEVICE_LATENCY.observe(float(s), ("8", "jit"))
+    mine = aot.device_p50_ms_by_bucket(path=path)
+    assert mine == jax_aot.device_p50_ms_by_bucket(path=path)
+    assert sorted(mine, key=int) == ["1", "8", "64", "256"]
+    assert mine["256"] == 10.0 * 1e3  # past the last bound: the last bound
+    assert aot.device_p50_ms_by_bucket(path="none") == {}
+
+
 def test_serving_dispatch_is_traced_when_tracing_is_on():
     from predictionio_tpu_torch.utils import tracing
 
@@ -471,7 +497,11 @@ MUST_WALK = ("predictionio_tpu_torch.ann.index", "predictionio_tpu_torch.ann.pq"
              "predictionio_tpu_torch.server.slo", "predictionio_tpu_torch.server.router",
              "predictionio_tpu_torch.server.remediate",
              "predictionio_tpu_torch.server.autoscale",
-             "predictionio_tpu_torch.tools.dashboard", "predictionio_tpu_torch.tools.admin")
+             "predictionio_tpu_torch.tools.dashboard", "predictionio_tpu_torch.tools.admin",
+             "predictionio_tpu_torch.analysis",
+             *(f"predictionio_tpu_torch.analysis.{m}" for m in (
+                 "core", "imports", "rules_jaxfree", "rules_locks", "rules_registry",
+                 "rules_resilience", "rules_trace", "runner")))
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
